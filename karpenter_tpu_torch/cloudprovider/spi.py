@@ -1,0 +1,85 @@
+"""The instance-type catalog types the solver reads.
+
+A trimmed copy of the JAX package's provider SPI value types
+(pkg/cloudprovider/types.go:55-76) plus the fake provider's
+``make_instance_type`` constructor (fake.NewInstanceType defaults).
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from typing import List, Optional
+
+from karpenter_tpu_torch.utils.resources import Quantity, ResourceList, parse_resource_list
+
+
+@dataclass(frozen=True)
+class Offering:
+    """A (capacity type, zone) pair an instance type is available in
+    (types.go:73-76). ``interruption_rate`` is advisory pricing input;
+    feasibility never consults it."""
+
+    capacity_type: str  # "spot" | "on-demand"
+    zone: str
+    interruption_rate: float = 0.0
+
+
+@dataclass
+class InstanceType:
+    """Concrete instance type description (types.go:55-69). ``price`` is the
+    on-demand $/h the cost model orders options by."""
+
+    name: str
+    offerings: List[Offering] = field(default_factory=list)
+    architecture: str = "amd64"
+    operating_systems: frozenset = frozenset({"linux"})
+    cpu: Quantity = field(default_factory=lambda: Quantity(0))
+    memory: Quantity = field(default_factory=lambda: Quantity(0))
+    pods: Quantity = field(default_factory=lambda: Quantity(0))
+    nvidia_gpus: Quantity = field(default_factory=lambda: Quantity(0))
+    amd_gpus: Quantity = field(default_factory=lambda: Quantity(0))
+    aws_neurons: Quantity = field(default_factory=lambda: Quantity(0))
+    aws_pod_eni: Quantity = field(default_factory=lambda: Quantity(0))
+    overhead: ResourceList = field(default_factory=dict)
+    price: float = 0.0
+
+
+_DEFAULT_OFFERINGS = [
+    Offering("spot", "test-zone-1"),
+    Offering("spot", "test-zone-2"),
+    Offering("on-demand", "test-zone-1"),
+    Offering("on-demand", "test-zone-2"),
+    Offering("on-demand", "test-zone-3"),
+]
+
+
+def make_instance_type(
+    name: str,
+    offerings: Optional[List[Offering]] = None,
+    architecture: str = "amd64",
+    operating_systems: frozenset = frozenset({"linux", "windows", "darwin"}),
+    cpu: str = "4",
+    memory: str = "4Gi",
+    pods: str = "5",
+    nvidia_gpus: str = "0",
+    amd_gpus: str = "0",
+    aws_neurons: str = "0",
+    aws_pod_eni: str = "0",
+    price: float = 0.0,
+) -> InstanceType:
+    """fake.NewInstanceType defaults (instancetype.go:27-52)."""
+    return InstanceType(
+        name=name,
+        offerings=list(offerings) if offerings else list(_DEFAULT_OFFERINGS),
+        architecture=architecture,
+        operating_systems=operating_systems,
+        cpu=Quantity.parse(cpu),
+        memory=Quantity.parse(memory),
+        pods=Quantity.parse(pods),
+        nvidia_gpus=Quantity.parse(nvidia_gpus),
+        amd_gpus=Quantity.parse(amd_gpus),
+        aws_neurons=Quantity.parse(aws_neurons),
+        aws_pod_eni=Quantity.parse(aws_pod_eni),
+        overhead=parse_resource_list({"cpu": "100m", "memory": "10Mi"}),
+        price=price,
+    )

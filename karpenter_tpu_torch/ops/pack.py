@@ -1,0 +1,62 @@
+"""Shared pieces of the FFD pack: the fast-forward bound and the flat layout.
+
+``compute_maxfit`` is the per-shape upper bound on any valid type's capacity
+fit from the initial reservation — the bound that makes the fast-forward
+exact (docs/solver.md §4). It depends only on (shapes, totals, reserved0,
+valid), so a solve computes it once, on the device, and passes it to every
+chunk. It is plain torch ops, unrolled over R so peak memory is (S, T),
+never (S, T, R).
+
+The flat buffer is the one layout every pack implementation returns:
+``[counts S | dropped S | done 1 | chosen L | q L | packed L·S]``, int32,
+so a chunk costs one device→host copy.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+INT32_MAX = 2**31 - 1
+
+
+def compute_maxfit(shapes: torch.Tensor, totals: torch.Tensor,
+                   reserved0: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+    """(S,) int32: max over valid types of min over resources r with
+    shape[r] > 0 of floor((total - reserved0) / shape), INT32_MAX where a
+    shape requests nothing, -1 where no type is valid."""
+    S, R = shapes.shape
+    T = totals.shape[0]
+    avail0 = totals - reserved0  # (T, R)
+    kfit0 = torch.full((S, T), INT32_MAX, dtype=torch.int32, device=shapes.device)
+    for r in range(R):
+        col = shapes[:, r:r + 1]  # (S, 1)
+        kr = torch.div(avail0[None, :, r], col.clamp(min=1), rounding_mode="floor")
+        kfit0 = torch.minimum(kfit0, torch.where(col > 0, kr, INT32_MAX))
+    neg = torch.full_like(kfit0, -1)
+    return torch.where(valid[None, :], kfit0, neg).amax(dim=1).to(torch.int32)
+
+
+def flat_size(S: int, L: int) -> int:
+    return 2 * S + 1 + 2 * L + L * S
+
+
+def flatten_chunk_outputs(counts, dropped, done, chosen, q, packed) -> torch.Tensor:
+    """THE flat buffer layout (decoded by :func:`unpack_flat`)."""
+    done_t = torch.as_tensor([int(bool(done))], dtype=torch.int32, device=counts.device)
+    return torch.cat([
+        counts.to(torch.int32), dropped.to(torch.int32), done_t,
+        chosen.to(torch.int32), q.to(torch.int32), packed.reshape(-1).to(torch.int32),
+    ])
+
+
+def unpack_flat(buf: np.ndarray, S: int, L: int):
+    """Split a flat buffer (host numpy) back into its components."""
+    counts_f = buf[:S]
+    dropped_f = buf[S:2 * S]
+    done = bool(buf[2 * S])
+    o = 2 * S + 1
+    chosen = buf[o:o + L]
+    q = buf[o + L:o + 2 * L]
+    packed = buf[o + 2 * L:o + 2 * L + L * S].reshape(L, S)
+    return counts_f, dropped_f, done, chosen, q, packed

@@ -1,0 +1,195 @@
+"""Public solver entry: constraints + pods + catalog → node packings.
+
+The device path (models/ffd.py, the CUDA pack kernel) answers every problem
+the encoder can represent; a problem it cannot (exotic quantities, more
+distinct shapes than the largest bucket) goes to the host oracle
+(host_ffd.py). An exception from the device propagates to the caller.
+"""
+
+from __future__ import annotations
+
+import threading
+from dataclasses import dataclass, field
+from typing import Dict, List, Optional, Sequence
+
+from karpenter_tpu_torch.api import wellknown
+from karpenter_tpu_torch.api.constraints import Constraints
+from karpenter_tpu_torch.api.core import NodeSelectorRequirement, Pod
+from karpenter_tpu_torch.api.requirements import Requirements
+from karpenter_tpu_torch.backend import DeviceLike, resolve_device
+from karpenter_tpu_torch.cloudprovider.spi import InstanceType
+from karpenter_tpu_torch.models.cost import CostConfig
+from karpenter_tpu_torch.models.ffd import solve_ffd_device
+from karpenter_tpu_torch.ops.encode import encode
+from karpenter_tpu_torch.solver import host_ffd
+from karpenter_tpu_torch.solver.adapter import build_packables, marshal_pods
+from karpenter_tpu_torch.solver.policy import DEFAULT_POLICY
+
+# -- solver health: which executor answered, and how often -------------------
+_HEALTH_LOCK = threading.Lock()
+_LAST_EXECUTOR: Optional[str] = None   # "device" | "host"
+_EXECUTOR_COUNTS: Dict[str, int] = {}
+
+
+def record_executor(executor: str) -> None:
+    """Note which executor answered a solve."""
+    global _LAST_EXECUTOR
+    with _HEALTH_LOCK:
+        _LAST_EXECUTOR = executor
+        _EXECUTOR_COUNTS[executor] = _EXECUTOR_COUNTS.get(executor, 0) + 1
+
+
+def solver_health() -> dict:
+    """Snapshot: the last executor and the per-executor counts."""
+    with _HEALTH_LOCK:
+        return {"last_executor": _LAST_EXECUTOR,
+                "executor_counts": dict(_EXECUTOR_COUNTS)}
+
+
+def reset_executor_counts() -> None:
+    with _HEALTH_LOCK:
+        _EXECUTOR_COUNTS.clear()
+
+
+@dataclass
+class SolverConfig:
+    # node decisions per kernel launch (one device→host copy per chunk)
+    chunk_iters: int = 64
+    # prices each node's options cheapest-first when the catalog carries
+    # prices (models/cost.py); capacity order otherwise
+    cost_config: CostConfig = field(default_factory=CostConfig)
+    # in-kernel cost tie-break: among types achieving max pods for a node,
+    # pick the cheapest instead of Go's first-smallest. Changes which node
+    # set is produced, so it is off by default (parity mode).
+    cost_tiebreak: bool = False
+
+
+@dataclass
+class Packing:
+    """Mirror of binpacking.Packing (packer.go:73-77), with resolved objects."""
+
+    pods: List[List[Pod]]
+    instance_type_options: List[InstanceType]
+    node_quantity: int = 1
+
+
+@dataclass
+class SolveResult:
+    packings: List[Packing] = field(default_factory=list)
+    unschedulable: List[Pod] = field(default_factory=list)
+
+    @property
+    def node_count(self) -> int:
+        return sum(p.node_quantity for p in self.packings)
+
+
+def global_requirements(instance_types: Sequence[InstanceType]) -> Requirements:
+    """Supported zones/types/arch/OS/capacity-types as requirements
+    (controller.go:141-162): the 'universe' that makes unconstrained keys
+    concrete before they reach the solver."""
+    zones, names, archs, oss, cts = set(), set(), set(), set(), set()
+    for it in instance_types:
+        names.add(it.name)
+        archs.add(it.architecture)
+        oss |= set(it.operating_systems)
+        for o in it.offerings:
+            zones.add(o.zone)
+            cts.add(o.capacity_type)
+    req = NodeSelectorRequirement
+    return Requirements().add(
+        req(key=wellknown.LABEL_TOPOLOGY_ZONE, operator="In", values=sorted(zones)),
+        req(key=wellknown.LABEL_INSTANCE_TYPE, operator="In", values=sorted(names)),
+        req(key=wellknown.LABEL_ARCH, operator="In", values=sorted(archs)),
+        req(key=wellknown.LABEL_OS, operator="In", values=sorted(oss)),
+        req(key=wellknown.LABEL_CAPACITY_TYPE, operator="In", values=sorted(cts)),
+    )
+
+
+def universe_constraints(catalog: Sequence[InstanceType]) -> Constraints:
+    """Constraints admitting everything the catalog offers — the universe
+    injection the provisioning controller performs before solving."""
+    return Constraints(requirements=global_requirements(catalog))
+
+
+def solve(
+    constraints: Constraints,
+    pods: Sequence[Pod],
+    instance_types: Sequence[InstanceType],
+    daemons: Sequence[Pod] = (),
+    config: Optional[SolverConfig] = None,
+    device: DeviceLike = None,
+) -> SolveResult:
+    """Pods + catalog → node set, on ``device`` (default: the CUDA device;
+    raises ``RuntimeError`` without one; ``"cpu"`` runs the plain
+    versions)."""
+    config = config or SolverConfig()
+    dev = resolve_device(device)
+    pod_vecs, required = marshal_pods(pods)
+    packables, sorted_types = build_packables(
+        instance_types, constraints, pods, daemons, required=required)
+    return solve_with_packables(constraints, pods, packables, sorted_types,
+                                pod_vecs, config, device=dev)
+
+
+def solve_with_packables(
+    constraints: Constraints,
+    pods: Sequence[Pod],
+    packables,
+    sorted_types,
+    pod_vecs,
+    config: SolverConfig,
+    device: DeviceLike = None,
+) -> SolveResult:
+    """solve() after problem preparation."""
+    if not packables:
+        # same contract as host_ffd.pack: no viable types → every pod is
+        # reported unschedulable
+        return SolveResult(packings=[], unschedulable=list(pods))
+
+    pod_ids = list(range(len(pods)))
+    prices = None
+    if config.cost_tiebreak and any(it.price for it in sorted_types):
+        prices = [
+            DEFAULT_POLICY.score(sorted_types[p.index], constraints.requirements,
+                                 config.cost_config)[0]
+            for p in packables
+        ]
+
+    # one exact encoding; None (not representable) → host oracle
+    enc = encode(pod_vecs, pod_ids, packables, pad=False)
+    result = None
+    if enc is not None:
+        result = solve_ffd_device(
+            pod_vecs, pod_ids, packables, chunk_iters=config.chunk_iters,
+            prices=prices, cost_tiebreak=prices is not None, enc=enc,
+            device=device)
+    executor = "device"
+    if result is None:
+        result = host_ffd.pack(pod_vecs, pod_ids, packables, prices=prices,
+                               cost_tiebreak=prices is not None)
+        executor = "host"
+    record_executor(executor)
+    return materialize(result, pods, sorted_types, constraints, config)
+
+
+def materialize(result, pods, sorted_types, constraints: Constraints,
+                config: SolverConfig) -> SolveResult:
+    """HostSolveResult (ids/indices) → SolveResult (objects), with the
+    cost-aware option ordering applied."""
+    packings = [
+        Packing(
+            pods=[[pods[i] for i in node] for node in hp.pod_ids],
+            instance_type_options=[sorted_types[j] for j in hp.instance_type_indices],
+            node_quantity=hp.node_quantity,
+        )
+        for hp in result.packings
+    ]
+    if any(it.price for it in sorted_types):
+        for p in packings:
+            p.instance_type_options = DEFAULT_POLICY.order_options(
+                p.instance_type_options, constraints.requirements,
+                config.cost_config)
+    return SolveResult(
+        packings=packings,
+        unschedulable=[pods[i] for i in result.unschedulable],
+    )

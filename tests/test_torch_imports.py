@@ -1,0 +1,55 @@
+"""The port imports neither JAX nor anything of the JAX package.
+
+Checked in a subprocess, because tests/conftest.py imports jax into the
+whole pytest process: there ``sys.modules["jax"] = None`` makes any
+``import jax`` raise, every port module (and chip_smoke.py) is imported,
+and no ``karpenter_tpu.`` module may have been loaded.
+"""
+
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+REPO = Path(__file__).resolve().parent.parent
+
+_PROBE = r"""
+import importlib, json, pkgutil, sys
+sys.modules["jax"] = None
+sys.modules["jaxlib"] = None
+import karpenter_tpu_torch
+names = ["karpenter_tpu_torch"] + [
+    m.name for m in pkgutil.walk_packages(karpenter_tpu_torch.__path__,
+                                          "karpenter_tpu_torch.")]
+for name in names:
+    importlib.import_module(name)
+import chip_smoke
+leaked = sorted(m for m in sys.modules
+                if m == "karpenter_tpu" or m.startswith("karpenter_tpu."))
+print(json.dumps({"imported": names, "leaked": leaked}))
+"""
+
+
+def test_port_imports_without_jax_or_the_jax_package():
+    proc = subprocess.run([sys.executable, "-c", _PROBE], cwd=REPO,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    report = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert report["leaked"] == []
+    expected = {"karpenter_tpu_torch.ops.pack_cuda",
+                "karpenter_tpu_torch.models.ffd",
+                "karpenter_tpu_torch.solver.solve",
+                "karpenter_tpu_torch.solver.adapter"}
+    assert expected <= set(report["imported"])
+
+
+def test_port_sources_name_no_jax():
+    offenders = []
+    for path in [*sorted((REPO / "karpenter_tpu_torch").rglob("*.py")),
+                 REPO / "chip_smoke.py"]:
+        for line in path.read_text().splitlines():
+            words = line.split()
+            if words[:1] in (["import"], ["from"]) and len(words) > 1 and (
+                    words[1].split(".")[0] in ("jax", "jaxlib", "karpenter_tpu")):
+                offenders.append(f"{path.relative_to(REPO)}: {line.strip()}")
+    assert offenders == []
