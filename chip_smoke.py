@@ -42,12 +42,16 @@ HIGHCARD_PODS, HIGHCARD_SHAPES = 50_000, 8_000
 ORACLE_DEADLINE_S = 780.0      # from script start; the run's limit is 1200 s
 WARM_RUNS = 25
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3 (NVIDIA data sheet)
-INT32_OPS_PER_S = 67e12        # 32-bit non-tensor peak used as the op rate
+# H100 SXM INT32 issue rate: 64 INT32 lanes per SM per clock (NVIDIA
+# Hopper architecture whitepaper, SM throughput table) x 132 SMs x the
+# 1.98 GHz maximum boost clock
+INT32_OPS_PER_S = 64 * 132 * 1.98e9
 # 32-bit operations of one (type, shape) greedy step, as transcribed in
 # karpenter_tpu_torch/csrc/pack.cu greedy_step: per resource a subtract,
 # a division, a compare and a min (kfit), a multiply-add (reserve), an add,
 # two compares and an or (full); then clamp, failure test, npacked add and
-# the stop test
+# the stop test. A division counts as one operation though it compiles to
+# several instructions, so the bound is a lower bound.
 OPS_PER_TYPE_STEP = 8 * 9 + 6
 
 MIXED_SHAPES = [

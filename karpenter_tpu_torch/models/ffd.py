@@ -61,9 +61,11 @@ def solve_ffd_device(
     device: DeviceLike = None,
 ) -> Optional[HostSolveResult]:
     """Solve on ``device`` (default: the CUDA device; raises without one);
-    None when the problem is not encodable (the caller falls back to the
-    host oracle). Pods may arrive unsorted; the same descending order as
-    the host oracle is applied here.
+    None only when the problem is not encodable, before anything reaches
+    the device (the caller falls back to the host oracle). A chunk loop
+    that does not finish within ``MAX_CHUNKS`` raises. Pods may arrive
+    unsorted; the same descending order as the host oracle is applied
+    here.
 
     The fast-forward bound ``maxfit`` is computed once per solve on the
     device. Each chunk runs ``chunk_iters`` node decisions in one kernel
@@ -129,7 +131,11 @@ def solve_ffd_device(
             counts_d = torch.as_tensor(np.ascontiguousarray(counts_h)).to(dev)
         dropped_d = torch.zeros(S_cur, dtype=torch.int32, device=dev)
     else:
-        return None  # did not converge — impossible by construction
+        # impossible by construction (every decision commits or drops);
+        # reached only with a chunk_iters too small for the problem
+        raise RuntimeError(
+            f"solve_ffd_device did not converge in {MAX_CHUNKS} chunks of "
+            f"{L} node decisions")
 
     return _decode(enc, records, dropped_full, packables)
 

@@ -143,13 +143,15 @@ def pack_chunk(shapes: torch.Tensor, counts: torch.Tensor,
         raise ValueError(f"pack_chunk: last_valid {last_valid} outside [0, {T})")
     out = torch.empty(flat_size(S, L), dtype=torch.int32, device=dev)
     lib = _library()
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = lib.kt_pack_chunk(
-        shapes.data_ptr(), counts.data_ptr(), dropped.data_ptr(),
-        totals.data_ptr(), reserved0.data_ptr(), valid.data_ptr(),
-        prices.data_ptr() if use_cost else None, maxfit.data_ptr(),
-        S, T, L, int(last_valid), int(pods_unit), int(use_cost),
-        out.data_ptr(), stream)
+    # the runtime launches on its current device: make it the tensors' one
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.kt_pack_chunk(
+            shapes.data_ptr(), counts.data_ptr(), dropped.data_ptr(),
+            totals.data_ptr(), reserved0.data_ptr(), valid.data_ptr(),
+            prices.data_ptr() if use_cost else None, maxfit.data_ptr(),
+            S, T, L, int(last_valid), int(pods_unit), int(use_cost),
+            out.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError(
             f"pack kernel launch failed (S={S}, T={T}, L={L}): "

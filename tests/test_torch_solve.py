@@ -154,6 +154,25 @@ def test_unencodable_problem_goes_to_host_oracle():
     assert canonical(got, ppods)[2] == canonical(want, jpods)[2]
 
 
+def test_chunk_loop_that_does_not_finish_raises(monkeypatch):
+    """A device solve cut off by MAX_CHUNKS raises out of solve(); it is
+    not handed to the host oracle."""
+    from karpenter_tpu_torch.models import ffd as port_ffd
+
+    monkeypatch.setattr(port_ffd, "MAX_CHUNKS", 2)
+    pc, ppods, pcat = build("port", 5, 200, 8, 40)
+    port_solve_mod.reset_executor_counts()
+    with pytest.raises(RuntimeError, match="did not converge in 2 chunks"):
+        port_solve_mod.solve(pc, ppods, pcat, device="cpu",
+                             config=port_solve_mod.SolverConfig(chunk_iters=1))
+    assert port_solve_mod.solver_health()["executor_counts"] == {}
+    # the same problem with room to finish is answered by the device
+    got = port_solve_mod.solve(pc, ppods, pcat, device="cpu",
+                               config=port_solve_mod.SolverConfig(chunk_iters=64))
+    assert port_solve_mod.solver_health()["executor_counts"] == {"device": 1}
+    assert got.node_count > 2
+
+
 def test_default_device_raises_without_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     pc, ppods, pcat = build("port", 1, 20, 4, 4)
