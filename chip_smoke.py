@@ -8,30 +8,44 @@ Needs one CUDA device (exits non-zero without one, printing no result) and
 nvcc (the pack kernel is built from karpenter_tpu_torch/csrc/pack.cu at
 first use). Phases, each printing one JSON record:
 
-1. the card (nvidia-smi name and power limit) and the kernel build;
+1. the card (nvidia-smi name and power limit) and the kernel build, with
+   ptxas's registers and spills and the cluster size and threads the
+   kernel launches with at type buckets 8, 512 and 4096;
 2. kernel vs plain: a seeded fuzz over shape buckets 32/512/8192, type
-   buckets 8/512/4096, cost tie-break off and on, drops, and chunk resume
-   at num_iters=2; the CUDA flat buffer must equal the plain version's bit
-   for bit;
+   buckets 8/512/4096, cost tie-break off and on, drops, chunk resume at
+   num_iters=2, and the edges of the cluster design (fewer types than
+   CTAs, half the types valid, ties across CTAs, numerators near
+   INT32_MAX, counts past 2**18); each case is launched at every cluster
+   size the kernel takes at its T, and every flat buffer must equal the
+   plain version's bit for bit;
 3. the main path at full size (config_4): solve() on 50k pods × 400
    instance types; node count equal to solve_ffd_numpy's (774), zero
    unschedulable, every solve answered by the "device" executor, the
    kernel launched; p50/p99 of solve() over warm runs, the kernel's time
-   from CUDA events, the plain version's time;
+   from CUDA events, the plain version's time, and the kernel's time at
+   each cluster size;
 4. high cardinality: 50k pods with 8000 distinct shapes (the 8192 bucket
-   and compaction); the first chunk equals the plain version's, every pod
-   appears exactly once, and the node count equals solve_ffd_numpy's when
-   that finishes in time (it runs in a child process from the end of
-   phase 3 on);
+   and compaction); 1070 nodes, the first chunk equals the plain
+   version's, every pod appears exactly once; the same cluster-size table;
+   one solve under torch.profiler for the kernel's device time and the
+   device's idle share;
 5. the kernels line, the card line, and the final ok line.
 
 Any failed check exits non-zero.
+
+    python3 chip_smoke.py --kernel-times
+
+times the kernel alone on the first chunks of config_4, of the
+high-cardinality problem and of two four-resource variants of it (GPU
+types, every fourth shape asking for a GPU), each with a digest of its
+output.
+Copied into another tree (a git archive of an earlier commit), it times
+that tree's kernel on the same inputs: the A/B of PERF.md.
 """
 
 from __future__ import annotations
 
 import json
-import os
 import random
 import subprocess
 import sys
@@ -39,20 +53,21 @@ import time
 
 SEED = 11
 HIGHCARD_PODS, HIGHCARD_SHAPES = 50_000, 8_000
-ORACLE_DEADLINE_S = 780.0      # from script start; the run's limit is 1200 s
+# solve_ffd_numpy's node count on this generator (seed 11, 8000 shapes, 400
+# types): 1070 in every H100 run that held the device solve against it
+# (PERF.md sections 2 and 6); the oracle takes minutes on the host
+HIGHCARD_NODES = 1070
 WARM_RUNS = 25
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3 (NVIDIA data sheet)
-# H100 SXM INT32 issue rate: 64 INT32 lanes per SM per clock (NVIDIA
-# Hopper architecture whitepaper, SM throughput table) x 132 SMs x the
-# 1.98 GHz maximum boost clock
-INT32_OPS_PER_S = 64 * 132 * 1.98e9
-# 32-bit operations of one (type, shape) greedy step, as transcribed in
-# karpenter_tpu_torch/csrc/pack.cu greedy_step: per resource a subtract,
-# a division, a compare and a min (kfit), a multiply-add (reserve), an add,
-# two compares and an or (full); then clamp, failure test, npacked add and
-# the stop test. A division counts as one operation though it compiles to
-# several instructions, so the bound is a lower bound.
-OPS_PER_TYPE_STEP = 8 * 9 + 6
+# H100 SXM peak rate of 32-bit operations of any mix of integer pipes (the
+# INT32 ALUs and IMAD on the FMA pipe): each of an SM's 4 schedulers issues
+# one warp instruction, 32 lanes, a clock, so 128 lanes x 132 SMs x the
+# 1.98 GHz boost clock = 33.45 T ops/s. It is the data sheet's float32 peak
+# (67 TFLOP/s, on-chip-measurement table) with an FMA counted as one
+# operation.
+OPS_PER_S = 128 * 132 * 1.98e9
+# every cluster size the kernel can be launched at
+CLUSTER_SIZES = (1, 2, 4, 8)
 
 MIXED_SHAPES = [
     (c, m)
@@ -72,7 +87,9 @@ def check(cond: bool, what: str) -> None:
 
 # -- workload generators (bench.py:121-164 and :724-735) ---------------------
 
-def make_catalog(n_types, zones=3, price_base=0.05):
+def make_catalog(n_types, zones=3, price_base=0.05, cpus_per_gpu=0):
+    """The synthetic catalog; with ``cpus_per_gpu`` every type carries
+    NVIDIA GPUs, one per that many cpus and at least one."""
     from karpenter_tpu_torch.cloudprovider.spi import Offering, make_instance_type
 
     catalog = []
@@ -88,6 +105,7 @@ def make_catalog(n_types, zones=3, price_base=0.05):
             name=f"syn-{cpu}x{ratio}-{i}",
             cpu=str(cpu), memory=f"{cpu * ratio}Gi",
             pods=str(min(110, cpu * 15)),
+            nvidia_gpus=str(max(1, cpu // cpus_per_gpu)) if cpus_per_gpu else "0",
             offerings=offerings,
             price=price_base * cpu * (1 + 0.1 * (ratio // 4)),
         ))
@@ -95,23 +113,30 @@ def make_catalog(n_types, zones=3, price_base=0.05):
     return catalog
 
 
-def _pod(c, m):
+def _pod(c, m, gpus=0):
     from karpenter_tpu_torch.api.core import Container, Pod, PodSpec, ResourceRequirements
 
+    requests = {"cpu": f"{c}m", "memory": f"{m}Mi"}
+    if gpus:
+        requests["nvidia.com/gpu"] = str(gpus)
     return Pod(spec=PodSpec(containers=[Container(resources=ResourceRequirements.make(
-        requests={"cpu": f"{c}m", "memory": f"{m}Mi"}))]))
+        requests=requests))]))
 
 
 def make_pods(n, shapes):
     return [_pod(*shapes[i % len(shapes)]) for i in range(n)]
 
 
-def highcard_pods(n, distinct, seed):
+def highcard_pods(n, distinct, seed, gpus=False):
+    """``n`` pods over ``distinct`` random (cpu, memory) shapes; with
+    ``gpus`` every fourth shape also asks for one NVIDIA GPU, so the shapes
+    request four resources."""
     rng = random.Random(seed)
     shapes = set()
     while len(shapes) < distinct:
         shapes.add((rng.randint(50, 4000), rng.randint(64, 4096)))
-    return make_pods(n, sorted(shapes))
+    return make_pods(n, [(c, m, int(gpus and i % 4 == 0))
+                         for i, (c, m) in enumerate(sorted(shapes))])
 
 
 # -- timing and bounds -------------------------------------------------------
@@ -130,10 +155,23 @@ def cuda_ms(fn, iters):
     return start.elapsed_time(end) / iters
 
 
-def bound(args, L, cost, type_steps):
+def ops_per_type_step(resources):
+    """32-bit operations of one (type, shape) greedy step of the algorithm
+    (packable.go:111-130, for a whole shape at once): for each resource
+    some shape of the input requests, a subtract, a division, a compare and
+    a min (kfit), a multiply-add (reserve), an add, two compares and an or
+    (full); then clamp, failure test, npacked add and the stop test. A
+    division counts as one operation. A resource no shape requests does no
+    work: its reservation never moves, so its part of the full test is
+    fixed per type."""
+    return 9 * resources + 6
+
+
+def work_bound(args, L, cost, type_steps):
     """Least time for one chunk: the larger of its bytes (inputs read once,
     the flat buffer written once) over HBM bandwidth and its integer
-    operations (the type-steps this input needs) over the op rate."""
+    operations (the type-steps this input needs, at the resources its
+    shapes request) over the op rate."""
     from karpenter_tpu_torch.ops.pack import flat_size
 
     shapes, counts, dropped, totals, reserved0, valid = args[:6]
@@ -141,25 +179,26 @@ def bound(args, L, cost, type_steps):
     nbytes = sum(t.numel() * t.element_size()
                  for t in (shapes, counts, dropped, totals, reserved0, valid))
     nbytes += S * 4 + (T * 4 if cost else 0) + flat_size(S, L) * 4  # maxfit, prices, out
-    ops = OPS_PER_TYPE_STEP * type_steps
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / INT32_OPS_PER_S
-    return {"bytes": nbytes, "ops": ops,
+    resources = int((shapes > 0).any(dim=0).sum())
+    ops = ops_per_type_step(resources) * type_steps
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / OPS_PER_S
+    return {"bytes": nbytes, "ops": ops, "resources": resources,
             "bound_ms": max(t_bytes, t_ops) * 1e3,
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
 # -- phase 2: kernel vs plain fuzz ------------------------------------------
 
-def fuzz_problem(rng, S, T, drops, device):
+def fuzz_problem(rng, S, T, drops, device, n_types=None):
     """A random problem in the kernel ABI: live shapes descending, placed at
     sorted random rows of the bucket (count-0 rows between them),
     0 <= reserved0 <= totals, a prefix of valid types."""
     import numpy as np
-    import torch
 
     R = 8
     n_live = int(rng.integers(1, min(S, 300) + 1))
-    n_types = int(rng.integers(max(1, T // 2), T + 1))
+    if n_types is None:
+        n_types = int(rng.integers(max(1, T // 2), T + 1))
     pods_unit = int(rng.integers(1, 3))
     live = np.zeros((n_live, R), np.int64)
     live[:, 0] = rng.integers(1, 24, n_live)
@@ -170,9 +209,9 @@ def fuzz_problem(rng, S, T, drops, device):
         live[0, 0] = 10_000
     live = live[np.lexsort(live.T[::-1])[::-1]]
     rows = np.sort(rng.choice(S, n_live, replace=False))
-    shapes = np.zeros((S, R), np.int32)
+    shapes = np.zeros((S, R), np.int64)
     shapes[rows] = live
-    counts = np.zeros(S, np.int32)
+    counts = np.zeros(S, np.int64)
     counts[rows] = rng.integers(1, 40, n_live)
     totals = np.zeros((T, R), np.int64)
     totals[:n_types, 0] = np.sort(rng.integers(8, 96, n_types))
@@ -184,20 +223,119 @@ def fuzz_problem(rng, S, T, drops, device):
                                * rng.random((n_types, 2)) * 0.2).astype(np.int64)
     valid = np.zeros(T, bool)
     valid[:n_types] = True
-    prices = np.full(T, 2**31 - 1, np.int32)
+    prices = np.full(T, 2**31 - 1, np.int64)
     prices[:n_types] = rng.integers(1, 6, n_types) * 1000
+    return as_args(shapes, counts, totals, reserved0, valid, n_types - 1,
+                   pods_unit, prices, device)
+
+
+def as_args(shapes, counts, totals, reserved0, valid, last_valid, pods_unit,
+            prices, device):
+    """numpy problem → (kernel argument tuple, prices) on ``device``."""
+    import torch
+
     t = lambda a, dt: torch.as_tensor(a, dtype=dt).to(device)  # noqa: E731
     args = (t(shapes, torch.int32), t(counts, torch.int32),
-            torch.zeros(S, dtype=torch.int32, device=device),
+            torch.zeros(shapes.shape[0], dtype=torch.int32, device=device),
             t(totals, torch.int32), t(reserved0, torch.int32), t(valid, torch.bool),
-            n_types - 1, pods_unit)
+            int(last_valid), int(pods_unit))
     return args, t(prices, torch.int32)
 
 
-def compare(args, L, prices, cost, maxfit):
-    """One kernel launch and one plain run on the same inputs: returns
-    (equal, max_abs_err, kernel flat, plain stats with the plain run's
-    milliseconds under "ms")."""
+def edge_problems(rng, device):
+    """The edges of the cluster design, each (name, args, prices, cost)."""
+    import numpy as np
+
+    out = []
+    # T=8 with 3 valid types: at 8 CTAs most CTAs own no valid type
+    args, prices = fuzz_problem(rng, 32, 8, False, device, n_types=3)
+    out.append(("few_types_t8", args, prices, True))
+    # 520 valid of 1024: the valid prefix ends inside a CTA
+    args, prices = fuzz_problem(rng, 512, 1024, True, device, n_types=520)
+    out.append(("half_valid_t1024", args, prices, False))
+    # T=4096 with cost tie-break (prices in five levels: many ties)
+    args, prices = fuzz_problem(rng, 512, 4096, False, device)
+    out.append(("t4096_cost", args, prices, True))
+    # ties across CTAs: identical types, the cheapest price from type 300 on
+    R, S, T = 8, 64, 512
+    shapes = np.zeros((S, R), np.int64)
+    shapes[:40, 0] = np.sort(rng.integers(1, 24, 40))[::-1]
+    shapes[:40, 1] = 7
+    shapes[:40, 2] = 1
+    counts = np.zeros(S, np.int64)
+    counts[:40] = rng.integers(1, 40, 40)
+    totals = np.tile(np.array([64, 256, 30, 0, 0, 0, 0, 0], np.int64), (T, 1))
+    reserved0 = np.zeros((T, R), np.int64)
+    prices = np.where(np.arange(T) < 300, 5000, 3000)
+    for cost in (False, True):
+        args, p = as_args(shapes, counts, totals, reserved0, np.ones(T, bool),
+                          T - 1, 1, prices, device)
+        out.append((f"ties_across_ctas_cost{int(cost)}", args, p, cost))
+    # numerators near INT32_MAX: cpu totals of 2**31-1, cpu shapes of 2**30
+    # and of 1 (reserve + smallest_fits wraps in the early-exit test)
+    S, T, n = 64, 512, 48
+    shapes = np.zeros((S, R), np.int64)
+    shapes[:n, 0] = np.where(np.arange(n) < n // 2, 2**30, 1)
+    shapes[:n, 1] = rng.integers(1, 4, n)
+    shapes[:n, 2] = 1
+    shapes[:n] = shapes[:n][np.lexsort(shapes[:n].T[::-1])[::-1]]
+    counts = np.zeros(S, np.int64)
+    counts[:n] = rng.integers(1, 6, n)
+    totals = np.zeros((T, R), np.int64)
+    totals[:, 0] = 2**31 - 1
+    totals[:, 1] = np.sort(rng.integers(8, 200, T))
+    totals[:, 2] = rng.integers(5, 60, T)
+    reserved0 = np.zeros((T, R), np.int64)
+    reserved0[:, 0] = rng.integers(0, 2**20, T)
+    args, p = as_args(shapes, counts, totals, reserved0, np.ones(T, bool),
+                      T - 1, 1, np.full(T, 1000), device)
+    out.append(("int32_max_numerators", args, p, False))
+    # per-shape counts of 2**18 and more (past the TPU kernel's DIV_CAP)
+    args, prices = fuzz_problem(rng, 512, 512, False, device)
+    big = args[1].clone()
+    big[big > 0] = torch_randint_like(big[big > 0], 2**18, 2**20, rng)
+    out.append(("counts_past_2pow18", (args[0], big, *args[2:]), prices, False))
+    # the largest shape bucket: the live list fills most of shared memory
+    for T, cost in ((4096, True), (512, False)):
+        args, prices = fuzz_problem(rng, 32768, T, True, device)
+        out.append((f"s32768_t{T}", args, prices, cost))
+    return out
+
+
+def torch_randint_like(t, lo, hi, rng):
+    import torch
+
+    return torch.as_tensor(rng.integers(lo, hi, t.numel()), dtype=t.dtype).to(t.device)
+
+
+def kernel_clusters(T):
+    """Every cluster size the kernel takes at T."""
+    from karpenter_tpu_torch.ops.pack_cuda import MAX_TYPE_THREADS, launch_threads
+
+    return [c for c in CLUSTER_SIZES if launch_threads(T, c) <= MAX_TYPE_THREADS + 32]
+
+
+def host_facts(args):
+    """(log bound, requested-resource mask) of a problem, as solve() passes
+    them."""
+    from karpenter_tpu_torch.ops.pack_cuda import compute_log_bound, requested_mask
+
+    return (compute_log_bound(args[3].cpu().numpy(), args[4].cpu().numpy(),
+                              args[5].cpu().numpy(), args[7]),
+            requested_mask(args[0].cpu().numpy()))
+
+
+def launch_at(args, L, prices, cost, maxfit, facts, cluster):
+    from karpenter_tpu_torch.ops.pack_cuda import launch_pack
+
+    return launch_pack(*args, L, prices, cost, maxfit, *facts, cluster)
+
+
+def compare(args, L, prices, cost, maxfit, all_clusters=False):
+    """One pack_chunk launch and one plain run on the same inputs, and with
+    ``all_clusters`` one launch at every cluster size the kernel takes:
+    returns (equal, max_abs_err, kernel flat, plain stats with the plain
+    run's milliseconds under "ms")."""
     import torch
 
     from karpenter_tpu_torch.ops.pack_cuda import pack_chunk, pack_chunk_plain
@@ -210,8 +348,13 @@ def compare(args, L, prices, cost, maxfit):
                             maxfit=maxfit, stats=stats)
     torch.cuda.synchronize()
     stats["ms"] = (time.perf_counter() - t0) * 1000.0
-    err = int((got.long() - want.long()).abs().max())
-    return torch.equal(got, want), err, got, stats
+    outs = [got]
+    if all_clusters:
+        facts = host_facts(args)
+        outs += [launch_at(args, L, prices, cost, maxfit, facts, c)
+                 for c in kernel_clusters(args[3].shape[0])]
+    err = max(int((o.long() - want.long()).abs().max()) for o in outs)
+    return all(torch.equal(o, want) for o in outs), err, got, stats
 
 
 def phase_fuzz(device):
@@ -220,32 +363,65 @@ def phase_fuzz(device):
     from karpenter_tpu_torch.ops.pack import compute_maxfit
 
     rng = np.random.default_rng(SEED)
-    cases, worst, t0 = 0, 0, time.perf_counter()
+    cases, launches, worst, t0 = 0, 0, 0, time.perf_counter()
+
+    def run(args, L, prices, cost, what):
+        nonlocal cases, launches, worst
+        maxfit = compute_maxfit(args[0], args[3], args[4], args[5])
+        ok, err, got, _ = compare(args, L, prices, cost, maxfit, all_clusters=True)
+        worst = max(worst, err)
+        cases += 1
+        launches += 1 + len(kernel_clusters(args[3].shape[0]))
+        check(ok, f"kernel != plain: {what}")
+        return got
+
     for S in (32, 512, 8192):
         for T in (8, 512, 4096):
             for cost in (False, True):
                 drops = bool(rng.random() < 0.5)
                 args, prices = fuzz_problem(rng, S, T, drops, device)
-                maxfit = compute_maxfit(args[0], args[3], args[4], args[5])
-                ok, err, _, _ = compare(args, 64, prices, cost, maxfit)
-                worst = max(worst, err)
-                cases += 1
-                check(ok, f"kernel != plain at S={S} T={T} cost={cost} drops={drops}")
+                run(args, 64, prices, cost, f"S={S} T={T} cost={cost} drops={drops}")
         # chunk resume: num_iters=2, carrying counts/dropped three chunks on
         args, prices = fuzz_problem(rng, S, 512, True, device)
-        maxfit = compute_maxfit(args[0], args[3], args[4], args[5])
         for _ in range(3):
-            ok, err, got, _ = compare(args, 2, prices, True, maxfit)
-            worst = max(worst, err)
-            cases += 1
-            check(ok, f"kernel != plain on chunk resume at S={S}")
+            got = run(args, 2, prices, True, f"chunk resume at S={S}")
             counts, dropped, done = got[:S], got[S:2 * S], bool(got[2 * S])
             if done:
                 break
             args = (args[0], counts.clone(), dropped.clone(), *args[3:])
-    emit({"phase": "fuzz", "cases": cases, "bit_identical": True,
-          "max_abs_err": worst, "seconds": time.perf_counter() - t0})
+    edges = []
+    for name, args, prices, cost in edge_problems(rng, device):
+        run(args, 64, prices, cost, name)
+        edges.append(name)
+    errors = phase_error_word(rng, device)
+    emit({"phase": "fuzz", "cases": cases, "edge_cases": edges,
+          "launches_compared": launches, "bit_identical": True,
+          "max_abs_err": worst, "error_word_cases": errors,
+          "seconds": time.perf_counter() - t0})
     return worst
+
+
+def phase_error_word(rng, device):
+    """A log bound below what the chosen type logs ends the chunk with the
+    done word -1, on which unpack_flat raises: never a silent wrong row."""
+    from karpenter_tpu_torch.ops.pack import compute_maxfit, unpack_flat
+    from karpenter_tpu_torch.ops.pack_cuda import launch_shape, pack_chunk_plain
+
+    args, prices = fuzz_problem(rng, 512, 512, False, device)
+    maxfit = compute_maxfit(args[0], args[3], args[4], args[5])
+    stats = {}
+    pack_chunk_plain(*args, num_iters=64, maxfit=maxfit, stats=stats)
+    check(stats["log_steps"] >= 2, "error-word case: no type logs two steps")
+    mask = host_facts(args)[1]
+    got = launch_at(args, 64, None, False, maxfit, (1, mask), launch_shape(args[3].shape[0]))
+    buf = got.cpu().numpy()
+    S = args[0].shape[0]
+    check(int(buf[2 * S]) == -1, f"log_bound_1: done word {int(buf[2 * S])}, expected -1")
+    try:
+        unpack_flat(buf, S, 64)
+    except RuntimeError:
+        return ["log_bound_1"]
+    check(False, "log_bound_1: unpack_flat accepted the error word")
 
 
 # -- phase 3/4: the main path -----------------------------------------------
@@ -265,15 +441,28 @@ def chunk_inputs(pods, catalog, constraints, device):
     return args, maxfit, packables, vecs, ids
 
 
-def time_kernel(args, maxfit, L):
-    from karpenter_tpu_torch.ops.pack_cuda import pack_chunk
+def time_kernel(args, maxfit, L, iters):
+    """The kernel against its plain version at the rule's cluster size, its
+    time, its bound, and its time at every cluster size it takes (each
+    launch bit-identical to the plain version)."""
+    from karpenter_tpu_torch.ops.pack_cuda import launch_shape, pack_chunk
 
-    ok, err, _, stats = compare(args, L, None, False, maxfit)
+    ok, err, want, stats = compare(args, L, None, False, maxfit)
     check(ok, "first chunk: kernel != plain")
-    ms = cuda_ms(lambda: pack_chunk(*args, num_iters=L, maxfit=maxfit), 20)
-    return {"ms": ms, "plain_ms": stats["ms"], "max_abs_err": err,
-            "shape_steps": stats["shape_steps"], "type_steps": stats["type_steps"],
-            **bound(args, L, False, stats["type_steps"])}
+    facts = host_facts(args)
+    ms = cuda_ms(lambda: pack_chunk(*args, num_iters=L, maxfit=maxfit, log_bound=facts[0],
+                                    resource_mask=facts[1]), iters)
+    T = args[3].shape[0]
+    table = []
+    for c in kernel_clusters(T):
+        got = launch_at(args, L, None, False, maxfit, facts, c)
+        check(bool((got == want).all()), f"cluster {c}: kernel != plain")
+        table.append({"cluster": c, "ms": cuda_ms(
+            lambda: launch_at(args, L, None, False, maxfit, facts, c), iters)})
+    return {"ms": ms, "cluster": launch_shape(T), "plain_ms": stats["ms"],
+            "max_abs_err": err, "shape_steps": stats["shape_steps"],
+            "type_steps": stats["type_steps"], "log_steps": stats["log_steps"],
+            **work_bound(args, L, False, stats["type_steps"]), "by_cluster": table}
 
 
 def phase_config4(device):
@@ -315,7 +504,7 @@ def phase_config4(device):
     check(solver_health()["executor_counts"] == {"device": WARM_RUNS},
           f"warm solves answered by {solver_health()['executor_counts']}")
     times.sort()
-    kern = time_kernel(args, maxfit, 64)
+    kern = time_kernel(args, maxfit, 64, 20)
     rec = {"phase": "config_4", "pods": len(pods), "types": len(catalog),
            "shape_bucket": int(args[0].shape[0]), "type_bucket": int(args[3].shape[0]),
            "node_count": result.node_count, "numpy_node_count": ref.node_count,
@@ -327,22 +516,40 @@ def phase_config4(device):
     return rec
 
 
-def oracle_main() -> int:
-    """Child-process mode: solve_ffd_numpy's node count for phase 4."""
-    from karpenter_tpu_torch.models.ffd import solve_ffd_numpy
-    from karpenter_tpu_torch.solver.adapter import build_packables, pod_vectors
-    from karpenter_tpu_torch.solver.solve import universe_constraints
+def profile_solve(fn):
+    """Run ``fn`` once under torch.profiler: the pack kernel's device time
+    summed over its launches, the device's busy time (the union of its
+    kernel, copy and set intervals) and its idle share of the wall time;
+    None where the profiler saw no device activity."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
 
-    catalog = make_catalog(400)
-    pods = highcard_pods(HIGHCARD_PODS, HIGHCARD_SHAPES, SEED)
-    packables, _ = build_packables(catalog, universe_constraints(catalog), pods, [])
-    r = solve_ffd_numpy(pod_vectors(pods), list(range(len(pods))), packables)
-    print(json.dumps({"node_count": r.node_count,
-                      "unschedulable": len(r.unschedulable)}), flush=True)
-    return 0
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    spans = sorted((e.time_range.start, e.time_range.end, e.name)
+                   for e in prof.events() if e.device_type == DeviceType.CUDA)
+    if not spans:
+        return {"wall_ms": wall_us / 1e3, "pack_kernel_ms": None, "device_busy_ms": None,
+                "idle_share": None, "note": "not measured: no device activity traced"}
+    busy, cur_start, cur_end = 0.0, None, None
+    for start, end, _ in spans:
+        if cur_end is None or start > cur_end:
+            busy += 0.0 if cur_end is None else cur_end - cur_start
+            cur_start, cur_end = start, end
+        else:
+            cur_end = max(cur_end, end)
+    busy += cur_end - cur_start
+    kernel_us = sum(end - start for start, end, name in spans if "pack_kernel" in name)
+    return {"wall_ms": wall_us / 1e3, "pack_kernel_ms": kernel_us / 1e3,
+            "pack_kernel_launches": sum(1 for *_, name in spans if "pack_kernel" in name),
+            "device_busy_ms": busy / 1e3, "idle_share": 1.0 - busy / wall_us}
 
 
-def phase_highcard(device, oracle, t_start):
+def phase_highcard(device):
     import torch
 
     from karpenter_tpu_torch.ops import pack_cuda
@@ -363,6 +570,8 @@ def phase_highcard(device, oracle, t_start):
     check(launches > 0, "high-cardinality: the pack kernel was never launched")
     check(solver_health()["executor_counts"] == {"device": 1},
           f"high-cardinality answered by {solver_health()['executor_counts']}")
+    check(result.node_count == HIGHCARD_NODES,
+          f"high-cardinality nodes {result.node_count}, expected {HIGHCARD_NODES}")
     seen = [id(p) for pk in result.packings for node in pk.pods for p in node]
     seen += [id(p) for p in result.unschedulable]
     check(len(seen) == len(pods) and set(seen) == {id(p) for p in pods},
@@ -370,31 +579,70 @@ def phase_highcard(device, oracle, t_start):
 
     args, maxfit, *_ = chunk_inputs(pods, catalog, constraints, device)
     check(int(args[0].shape[0]) == 8192, "high-cardinality did not reach the 8192 bucket")
-    kern = time_kernel(args, maxfit, 64)
-
-    remaining = ORACLE_DEADLINE_S - (time.perf_counter() - t_start)
-    oracle_nodes = None
-    try:
-        out, _ = oracle.communicate(timeout=max(1.0, remaining))
-        check(oracle.returncode == 0, f"numpy oracle failed ({oracle.returncode})")
-        oracle_nodes = json.loads(out.strip().splitlines()[-1])["node_count"]
-    except subprocess.TimeoutExpired:
-        oracle.kill()
-        oracle.communicate()
-    if oracle_nodes is None:
-        oracle_check = "skipped: solve_ffd_numpy did not finish within the run's time"
-    else:
-        check(result.node_count == oracle_nodes,
-              f"high-cardinality nodes {result.node_count} != numpy {oracle_nodes}")
-        oracle_check = "equal"
+    kern = time_kernel(args, maxfit, 64, 3)
+    prof = profile_solve(lambda: solve(constraints, pods, catalog, device=device))
     rec = {"phase": "high_cardinality", "pods": len(pods),
            "distinct_shapes": HIGHCARD_SHAPES, "node_count": result.node_count,
+           "expected_node_count": HIGHCARD_NODES,
            "unschedulable": len(result.unschedulable),
-           "numpy_node_count": oracle_nodes, "numpy_check": oracle_check,
            "executor": "device", "launches_per_solve": launches,
-           "solve_ms": solve_ms, "first_chunk_bit_identical": True, "kernel": kern}
+           "solve_ms": solve_ms, "first_chunk_bit_identical": True, "kernel": kern,
+           "profiled_solve": prof}
     emit(rec)
     return rec
+
+
+def phase_kernel_times(device):
+    """``--kernel-times``: the pack kernel alone, through pack_chunk's
+    public signature, on the first chunk of config_4, of the
+    high-cardinality problem, and of that problem on GPU types with every
+    fourth shape asking for a GPU (four requested resources): with a GPU
+    per 8 cpus, where the first chunk walks as long as without GPUs, and
+    with one per 32, where GPUs run out and the walks are short. Each record
+    holds the CUDA-event time and a digest of the flat buffer, so a run of
+    another tree's kernel (this script copied into it) compares launch for
+    launch. Where the tree's kernel takes a resource mask, an input of at
+    most 3 resources is also timed through the kernel's 8-resource body (a
+    mask of all 8 bits, the same buffer)."""
+    import hashlib
+    import inspect
+
+    from karpenter_tpu_torch.ops import pack_cuda
+    from karpenter_tpu_torch.solver.solve import universe_constraints
+
+    has_hints = "resource_mask" in inspect.signature(pack_cuda.pack_chunk).parameters
+    for name, catalog, pods, iters in (
+            ("config_4", make_catalog(400), make_pods(50_000, MIXED_SHAPES), 20),
+            ("high_cardinality", make_catalog(400),
+             highcard_pods(HIGHCARD_PODS, HIGHCARD_SHAPES, SEED), 3),
+            ("high_cardinality_gpu", make_catalog(400, cpus_per_gpu=8),
+             highcard_pods(HIGHCARD_PODS, HIGHCARD_SHAPES, SEED, gpus=True), 3),
+            ("high_cardinality_gpu_scarce", make_catalog(400, cpus_per_gpu=32),
+             highcard_pods(HIGHCARD_PODS, HIGHCARD_SHAPES, SEED, gpus=True), 20)):
+        args, maxfit, *_ = chunk_inputs(pods, catalog, universe_constraints(catalog), device)
+        rec = {"phase": "kernel_times", "input": name, "shape_bucket": int(args[0].shape[0]),
+               "type_bucket": int(args[3].shape[0]),
+               "resources": int((args[0] > 0).any(dim=0).sum())}
+        hints = host_facts(args) if has_hints else ()
+        kw = dict(zip(("log_bound", "resource_mask"), hints))
+
+        def run(**extra):
+            return pack_cuda.pack_chunk(*args, num_iters=64, maxfit=maxfit, **{**kw, **extra})
+
+        out = run()
+        rec["digest"] = hashlib.sha256(out.cpu().numpy().tobytes()).hexdigest()[:16]
+        rec["ms"] = cuda_ms(run, iters)
+        if has_hints and rec["resources"] <= 3:
+            got = run(resource_mask=0xFF)
+            check(torch_equal(got, out), f"{name}: the 8-resource body differs")
+            rec["body_8_ms"] = cuda_ms(lambda: run(resource_mask=0xFF), iters)
+        emit(rec)
+
+
+def torch_equal(a, b) -> bool:
+    import torch
+
+    return bool(torch.equal(a, b))
 
 
 def card_line() -> str:
@@ -405,8 +653,11 @@ def card_line() -> str:
     return proc.stdout.strip().splitlines()[0]
 
 
-def main() -> int:
+def main(argv) -> int:
     t_start = time.perf_counter()
+    if argv not in ([], ["--kernel-times"]):
+        print("usage: chip_smoke.py [--kernel-times]", file=sys.stderr)
+        return 2
     import torch
 
     if not torch.cuda.is_available():
@@ -417,29 +668,26 @@ def main() -> int:
 
     device = torch.device("cuda")
     card = card_line()
-    oracle = None
-    try:
-        emit({"phase": "card", "nvidia_smi": card,
-              "name": torch.cuda.get_device_name(0),
-              "count": torch.cuda.device_count(), "torch": torch.__version__,
-              "cuda": torch.version.cuda})
-        pack_cuda.build()
-        pack_cuda._library()
-        emit({"phase": "build", "seconds": pack_cuda.BUILD_SECONDS,
-              "ptxas": [ln for ln in pack_cuda.BUILD_LOG.splitlines()
-                        if "registers" in ln or "spill" in ln]})
-        fuzz_err = phase_fuzz(device)
-        c4 = phase_config4(device)
-        # the numpy oracle of phase 4 runs on the host from here on, after
-        # the timed config_4 solves, so that it does not contend with them
-        oracle = subprocess.Popen(
-            [sys.executable, os.path.abspath(__file__), "--oracle"],
-            stdout=subprocess.PIPE, text=True)
-        hc = phase_highcard(device, oracle, t_start)
-    finally:
-        if oracle is not None and oracle.poll() is None:
-            oracle.kill()
-            oracle.communicate()
+    if argv:
+        emit({"phase": "card", "nvidia_smi": card})
+        phase_kernel_times(device)
+        return 0
+    emit({"phase": "card", "nvidia_smi": card,
+          "name": torch.cuda.get_device_name(0),
+          "count": torch.cuda.device_count(), "torch": torch.__version__,
+          "cuda": torch.version.cuda})
+    pack_cuda.build()
+    pack_cuda._library()
+    emit({"phase": "build", "seconds": pack_cuda.BUILD_SECONDS,
+          "ptxas": [ln.strip() for ln in pack_cuda.BUILD_LOG.splitlines()
+                    if "registers" in ln or "spill" in ln or "Compiling entry" in ln],
+          "launch": {f"T={T}": {"cluster": c, "types_per_thread": 1,
+                                "threads": pack_cuda.launch_threads(T, c)}
+                     for T in (8, 512, 4096) for c in [pack_cuda.launch_shape(T)]}})
+    fuzz_err = phase_fuzz(device)
+    c4 = phase_config4(device)
+    hc = phase_highcard(device)
+    emit({"phase": "total", "seconds": time.perf_counter() - t_start})
     k4 = c4["kernel"]
     emit({"kernels": [{
         "name": "pack_chunk",
@@ -460,4 +708,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(oracle_main() if sys.argv[1:] == ["--oracle"] else main())
+    sys.exit(main(sys.argv[1:]))

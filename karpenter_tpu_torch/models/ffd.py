@@ -68,8 +68,9 @@ def solve_ffd_device(
     here.
 
     The fast-forward bound ``maxfit`` is computed once per solve on the
-    device. Each chunk runs ``chunk_iters`` node decisions in one kernel
-    launch and one device→host copy; between chunks, compaction gathers
+    device, the kernel's fill-log bound and walked-resource mask once from
+    the host encoding. Each chunk runs ``chunk_iters`` node decisions in one
+    kernel launch and one device→host copy; between chunks, compaction gathers
     the alive shapes into the next smaller shape bucket (ops/compact.py),
     with ``dropped`` passed as zeros and its delta scattered on the host.
     An exception from the kernel propagates."""
@@ -77,7 +78,9 @@ def solve_ffd_device(
         compact_alive, scatter_dropped, sparse_record,
     )
     from karpenter_tpu_torch.ops.pack import compute_maxfit, unpack_flat
-    from karpenter_tpu_torch.ops.pack_cuda import pack_chunk
+    from karpenter_tpu_torch.ops.pack_cuda import (
+        compute_log_bound, pack_chunk, requested_mask,
+    )
 
     dev = resolve_device(device)
     if not packables:
@@ -100,6 +103,9 @@ def solve_ffd_device(
      pods_unit) = device_args(enc, dev)
     maxfit_d = compute_maxfit(shapes_d, totals, reserved0, valid)
     maxfit_full = maxfit_d.cpu().numpy()
+    log_bound = compute_log_bound(enc.totals, enc.reserved0, enc.valid,
+                                  enc.pods_unit)
+    used = requested_mask(enc.shapes)
 
     shapes_full = enc.shapes
     dropped_full = np.zeros(S, np.int64)
@@ -110,7 +116,8 @@ def solve_ffd_device(
         buf = pack_chunk(shapes_d, counts_d, dropped_d, totals, reserved0,
                          valid, last_valid, pods_unit, num_iters=L,
                          prices=prices_d, cost_tiebreak=use_cost,
-                         maxfit=maxfit_d).cpu().numpy()
+                         maxfit=maxfit_d, log_bound=log_bound,
+                         resource_mask=used).cpu().numpy()
         counts_h, dropped_h, done, chosen_h, q_h, packed_h = unpack_flat(
             buf, S_cur, L)
         for i in range(L):

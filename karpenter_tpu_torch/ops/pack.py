@@ -51,9 +51,15 @@ def flatten_chunk_outputs(counts, dropped, done, chosen, q, packed) -> torch.Ten
 
 
 def unpack_flat(buf: np.ndarray, S: int, L: int):
-    """Split a flat buffer (host numpy) back into its components."""
+    """Split a flat buffer (host numpy) back into its components. Raises on
+    the CUDA kernel's error word (done == -1: a fill log outgrew its bound,
+    or no valid type tied at last_valid)."""
     counts_f = buf[:S]
     dropped_f = buf[S:2 * S]
+    if buf[2 * S] not in (0, 1):
+        raise RuntimeError(
+            f"pack chunk failed (done word {int(buf[2 * S])}): a type's fill "
+            "log outgrew its bound, or no valid type tied at last_valid")
     done = bool(buf[2 * S])
     o = 2 * S + 1
     chosen = buf[o:o + L]

@@ -8,6 +8,13 @@ library at first use, bound with ctypes) or raises; on a CPU tensor it runs
 Both follow the TPU kernel's row contract (karpenter_tpu/ops/pack_pallas.py):
 rows past ``done`` or with q == 0 hold chosen = -1, q = 0 and packed = 0,
 so the two give bit-identical buffers.
+
+The kernel runs one problem on a thread-block cluster whose size
+:func:`launch_shape` fixes from the type bucket, one type per thread, and
+walks the resources of :func:`requested_mask` (its body for 3 of them when
+the mask has at most 3 bits, else its body for all 8). Its divisions by per-shape constants are emulated by
+:func:`divisor_constants` and :func:`floor_div_by_constant`, and its
+per-type fill logs are sized by :func:`compute_log_bound`.
 """
 
 from __future__ import annotations
@@ -35,6 +42,12 @@ SOURCE = _PKG / "csrc" / "pack.cu"
 BUILD_DIR = _PKG / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+# the kernel's launch limits (csrc/pack.cu): portable cluster size, threads
+# holding types in one CTA (one more warp walks last_valid)
+MAX_CLUSTER = 8
+MAX_TYPE_THREADS = 512
+_DIVISOR_TABLE_WORDS = 32  # int32 words per shape in each CTA's divisor table
 
 # launches of the CUDA kernel since the count was last set to 0
 LAUNCHES = 0
@@ -83,7 +96,7 @@ def _library():
         if _LIB is None:
             lib = ctypes.CDLL(str(build()))
             ptr, i32 = ctypes.c_void_p, ctypes.c_int
-            lib.kt_pack_chunk.argtypes = [ptr] * 8 + [i32] * 6 + [ptr, ptr]
+            lib.kt_pack_chunk.argtypes = [ptr] * 8 + [i32] * 9 + [ptr] * 4
             lib.kt_pack_chunk.restype = i32
             lib.kt_error_string.argtypes = [i32]
             lib.kt_error_string.restype = ctypes.c_char_p
@@ -101,13 +114,76 @@ def _check(name: str, t: torch.Tensor, dtype: torch.dtype, shape: tuple,
             f"{t.device} (contiguous={t.is_contiguous()})")
 
 
+def launch_shape(T: int) -> int:
+    """The kernel's cluster size for a type bucket of T: a CTA per 64
+    types, up to 8, one type per thread. Measured (PERF.md, the cluster-size
+    table of ``chip_smoke.py``) at T = 512; T = 4096 gives 8 CTAs of 512
+    type threads."""
+    return max(1, min(MAX_CLUSTER, T // 64))
+
+
+def launch_threads(T: int, cluster: int) -> int:
+    """Threads per CTA for T types over ``cluster`` CTAs, as csrc/pack.cu
+    launches them: whole warps of types, and one warp that walks
+    last_valid."""
+    per_cta = -(-T // cluster)
+    return -(-per_cta // 32) * 32 + 32
+
+
+def requested_mask(shapes) -> int:
+    """A bit for each resource dimension some shape requests (numpy or CPU
+    tensor): the kernel walks only those. Compaction only drops shapes, so
+    a solve's mask holds for all its chunks."""
+    used = (np.asarray(shapes) > 0).any(axis=0)
+    return int(sum(1 << r for r in np.flatnonzero(used)))
+
+
+def compute_log_bound(totals, reserved0, valid, pods_unit: int) -> int:
+    """The most steps with k > 0 one type's fill can take in a decision.
+
+    Each shape carries at least ``pods_unit`` on R_PODS (the implicit pod
+    that ``ops.encode`` adds), so every step with k > 0 reserves at least
+    that much of the type's pods, and type t takes at most
+    ``(totals[t, R_PODS] - reserved0[t, R_PODS]) // pods_unit`` of them.
+    The maximum over valid types (numpy or CPU tensors); INT32_MAX when
+    ``pods_unit`` < 1 gives no bound. The kernel sizes its per-type logs
+    with it and ends the chunk with an error if a chosen type's log would
+    overflow."""
+    if pods_unit < 1:
+        return INT32_MAX
+    valid = np.asarray(valid, bool)
+    free = (np.asarray(totals, np.int64)[valid, R_PODS]
+            - np.asarray(reserved0, np.int64)[valid, R_PODS])
+    return int(max(0, (free // pods_unit).max(initial=0)))
+
+
+def divisor_constants(d: torch.Tensor) -> torch.Tensor:
+    """The kernel's per-(shape, resource) reciprocal, in int64:
+    ``(2**32 - 1) // d`` for ``d`` > 0 and 0 for ``d`` == 0."""
+    d = d.to(torch.int64)
+    return torch.where(d > 0, (2**32 - 1) // d.clamp(min=1), 0)
+
+
+def floor_div_by_constant(n: torch.Tensor, d: torch.Tensor,
+                          m: torch.Tensor) -> torch.Tensor:
+    """``n // d`` as the kernel computes it, in int64, for 0 <= n < 2**31
+    and 1 <= d < 2**31 with ``m = divisor_constants(d)``: the high word of
+    n·m is the quotient or one less (n < 2**31 bounds the error of m below
+    one), and one exact correction fixes it."""
+    n, d = n.to(torch.int64), d.to(torch.int64)
+    q = (n * m) >> 32
+    return q + (n - q * d >= d).to(torch.int64)
+
+
 def pack_chunk(shapes: torch.Tensor, counts: torch.Tensor,
                dropped: torch.Tensor, totals: torch.Tensor,
                reserved0: torch.Tensor, valid: torch.Tensor,
                last_valid: int, pods_unit: int, num_iters: int,
                prices: Optional[torch.Tensor] = None,
                cost_tiebreak: bool = False,
-               maxfit: Optional[torch.Tensor] = None) -> torch.Tensor:
+               maxfit: Optional[torch.Tensor] = None,
+               log_bound: Optional[int] = None,
+               resource_mask: Optional[int] = None) -> torch.Tensor:
     """Up to ``num_iters`` node decisions → the flat int32 buffer
     ``[counts S | dropped S | done 1 | chosen L | q L | packed L·S]``.
 
@@ -115,10 +191,15 @@ def pack_chunk(shapes: torch.Tensor, counts: torch.Tensor,
     (T, 8) are int32, ``valid`` (T,) bool, ``prices`` (T,) int32 micro-$
     (read only with ``cost_tiebreak``: the cheapest max-pods type wins,
     the lowest index breaks price ties), ``maxfit`` (S,) int32 from
-    :func:`compute_maxfit` (computed here when omitted). Preconditions, as
-    :func:`karpenter_tpu_torch.ops.encode.encode` guarantees them: shapes
-    descending, 0 <= reserved0 <= totals, valid[last_valid]."""
-    global LAUNCHES
+    :func:`compute_maxfit`, ``log_bound`` from :func:`compute_log_bound`
+    and ``resource_mask`` from :func:`requested_mask` (each computed here
+    when omitted; the last two with a device→host copy). A mask with more
+    bits than the shapes request gives the same buffer, walked slower.
+    Preconditions, as :func:`karpenter_tpu_torch.ops.encode.encode`
+    guarantees them: shapes descending, each carrying at least
+    ``pods_unit`` pods, 0 <= reserved0 <= totals, valid[last_valid].
+    A kernel that cannot keep them sets the done word to -1, on which
+    :func:`karpenter_tpu_torch.ops.pack.unpack_flat` raises."""
     if shapes.device.type == "cpu":
         return pack_chunk_plain(shapes, counts, dropped, totals, reserved0,
                                 valid, last_valid, pods_unit, num_iters,
@@ -126,10 +207,32 @@ def pack_chunk(shapes: torch.Tensor, counts: torch.Tensor,
                                 maxfit=maxfit)
     if shapes.device.type != "cuda":
         raise ValueError(f"pack_chunk: unsupported device {shapes.device}")
-    dev = shapes.device
-    S, T, L = shapes.shape[0], totals.shape[0], int(num_iters)
     if maxfit is None:
         maxfit = compute_maxfit(shapes, totals, reserved0, valid)
+    if log_bound is None:
+        log_bound = compute_log_bound(totals.cpu().numpy(), reserved0.cpu().numpy(),
+                                      valid.cpu().numpy(), int(pods_unit))
+    if resource_mask is None:
+        resource_mask = requested_mask(shapes.cpu().numpy())
+    return launch_pack(shapes, counts, dropped, totals, reserved0, valid,
+                       last_valid, pods_unit, num_iters, prices, cost_tiebreak,
+                       maxfit, log_bound, resource_mask, launch_shape(totals.shape[0]))
+
+
+def launch_pack(shapes: torch.Tensor, counts: torch.Tensor,
+                dropped: torch.Tensor, totals: torch.Tensor,
+                reserved0: torch.Tensor, valid: torch.Tensor,
+                last_valid: int, pods_unit: int, num_iters: int,
+                prices: Optional[torch.Tensor], cost_tiebreak: bool,
+                maxfit: torch.Tensor, log_bound: int, resource_mask: int,
+                cluster: int) -> torch.Tensor:
+    """One launch of csrc/pack.cu on CUDA tensors at a given cluster size:
+    what :func:`pack_chunk` runs at the size :func:`launch_shape` picks (the
+    other sizes are for measuring that rule). Checks every argument and
+    raises on a refused launch."""
+    global LAUNCHES
+    dev = shapes.device
+    S, T, L = shapes.shape[0], totals.shape[0], int(num_iters)
     use_cost = bool(cost_tiebreak and prices is not None)
     _check("shapes", shapes, torch.int32, (S, 8), dev)
     for name, t in (("counts", counts), ("dropped", dropped), ("maxfit", maxfit)):
@@ -141,7 +244,16 @@ def pack_chunk(shapes: torch.Tensor, counts: torch.Tensor,
         _check("prices", prices, torch.int32, (T,), dev)
     if not 0 <= int(last_valid) < T:
         raise ValueError(f"pack_chunk: last_valid {last_valid} outside [0, {T})")
+    if not (1 <= cluster <= MAX_CLUSTER
+            and launch_threads(T, cluster) <= MAX_TYPE_THREADS + 32):
+        raise ValueError(f"pack_chunk: no launch of {cluster} CTAs for T={T}")
+    if not 0 <= int(resource_mask) < 1 << 8:
+        raise ValueError(f"pack_chunk: resource mask {resource_mask} outside [0, 256)")
+    # a type logs at most one entry per live shape, so S caps any bound
+    log_cap = max(1, min(int(log_bound), S))
     out = torch.empty(flat_size(S, L), dtype=torch.int32, device=dev)
+    consts = torch.empty(cluster * S * _DIVISOR_TABLE_WORDS, dtype=torch.int32, device=dev)
+    log = torch.empty(2 * T * log_cap * 2, dtype=torch.int32, device=dev)
     lib = _library()
     # the runtime launches on its current device: make it the tensors' one
     with torch.cuda.device(dev):
@@ -151,10 +263,11 @@ def pack_chunk(shapes: torch.Tensor, counts: torch.Tensor,
             totals.data_ptr(), reserved0.data_ptr(), valid.data_ptr(),
             prices.data_ptr() if use_cost else None, maxfit.data_ptr(),
             S, T, L, int(last_valid), int(pods_unit), int(use_cost),
-            out.data_ptr(), stream)
+            int(resource_mask), int(cluster), log_cap,
+            consts.data_ptr(), log.data_ptr(), out.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError(
-            f"pack kernel launch failed (S={S}, T={T}, L={L}): "
+            f"pack kernel launch failed (S={S}, T={T}, L={L}, cluster={cluster}): "
             f"{lib.kt_error_string(rc).decode()} ({rc})")
     LAUNCHES += 1
     return out
@@ -175,7 +288,8 @@ def pack_chunk_plain(shapes: torch.Tensor, counts: torch.Tensor,
 
     ``stats``, when given, accumulates ``shape_steps`` (shape steps walked)
     and ``type_steps`` (active type columns summed over those steps) — the
-    work this input needs."""
+    work this input needs — and keeps in ``log_steps`` the most steps with
+    k > 0 that one type took in one decision (the kernel logs those)."""
     dev = shapes.device
     S, R = shapes.shape
     T, L = totals.shape[0], int(num_iters)
@@ -196,7 +310,7 @@ def pack_chunk_plain(shapes: torch.Tensor, counts: torch.Tensor,
     chosen_out = torch.full((L,), -1, dtype=i32, device=dev)
     q_out = torch.zeros(L, dtype=i32, device=dev)
     packed_out = torch.zeros((L, S), dtype=i32, device=dev)
-    shape_steps = 0
+    shape_steps, log_steps = 0, 0
     type_steps = torch.zeros((), dtype=i64, device=dev)
     cols = {}  # shape row → (its positive resources, their sizes, the row)
 
@@ -240,6 +354,8 @@ def pack_chunk_plain(shapes: torch.Tensor, counts: torch.Tensor,
             steps.append(int(s))
             ks.append(k)
         shape_steps += len(steps)
+        if stats is not None and ks:
+            log_steps = max(log_steps, int((torch.stack(ks) > 0).sum(0).max()))
 
         max_pods = int(npacked[last_valid])
         tie = valid & (npacked == max_pods)
@@ -275,5 +391,6 @@ def pack_chunk_plain(shapes: torch.Tensor, counts: torch.Tensor,
     if stats is not None:
         stats["shape_steps"] = stats.get("shape_steps", 0) + shape_steps
         stats["type_steps"] = stats.get("type_steps", 0) + int(type_steps)
+        stats["log_steps"] = max(stats.get("log_steps", 0), log_steps)
     return flatten_chunk_outputs(counts_d, dropped_d, done, chosen_out,
                                  q_out, packed_out)
