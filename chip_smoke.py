@@ -29,7 +29,26 @@ first use). Phases, each printing one JSON record:
    version's, every pod appears exactly once; the same cluster-size table;
    one solve under torch.profiler for the kernel's device time and the
    device's idle share;
-5. the kernels line, the card line, and the final ok line.
+5. batch fuzz (before phase 3): the batched launch (a cluster per problem)
+   against pack_batch_plain bit for bit at B = 1, 2, 5 and 24, S <= 512,
+   random valid subsets, an all-zero row and a row with no valid type,
+   cost tie-break off and on, at every cluster size; B = 1 also against
+   pack_chunk;
+6. mask: config_12's 192 constraint variants in 8 windows of 24 over 400
+   types, the device mask against the scalar _validate type for type (0
+   divergence), and the mask program's time per window;
+7. window: config_12's window through solve_batch, 24 schedules over 400
+   types, at 416 pods a schedule (9,984) and at 2,084 (50,016): every
+   problem equal to solo solve() and to solve_ffd_numpy, every one by
+   "device-batch", 0 mask mismatches, the launches per window, p50/p99
+   over warm runs; the batched launch against its plain version, against
+   the 24 solo launches on the same encodings, its bound, and its time at
+   every cluster size;
+8. mixed window: 23 of those schedules and one of 25,000 high-cardinality
+   pods (the 8192 bucket, compaction across problems), every problem equal
+   to solo solve(), the buckets walked and the launches;
+9. the kernels line (pack_chunk and pack_batch), the card line, and the
+   final ok line.
 
 Any failed check exits non-zero.
 
@@ -41,6 +60,12 @@ types, every fourth shape asking for a GPU), each with a digest of its
 output.
 Copied into another tree (a git archive of an earlier commit), it times
 that tree's kernel on the same inputs: the A/B of PERF.md.
+
+    python3 chip_smoke.py --solve-times
+
+times the public solve() on config_4 (one cold run, then the warm runs
+of phase 3), the same way in any tree it is copied into: the parent/change
+A/B of solve()'s host path.
 """
 
 from __future__ import annotations
@@ -168,18 +193,22 @@ def ops_per_type_step(resources):
 
 
 def work_bound(args, L, cost, type_steps):
-    """Least time for one chunk: the larger of its bytes (inputs read once,
-    the flat buffer written once) over HBM bandwidth and its integer
+    """Least time for one chunk, of one problem or of a batch (every
+    tensor with a leading axis of B): the larger of its bytes (inputs read
+    once, the flat buffers written once) over HBM bandwidth and its integer
     operations (the type-steps this input needs, at the resources its
     shapes request) over the op rate."""
+    import torch
+
     from karpenter_tpu_torch.ops.pack import flat_size
 
-    shapes, counts, dropped, totals, reserved0, valid = args[:6]
-    S, T = shapes.shape[0], totals.shape[0]
-    nbytes = sum(t.numel() * t.element_size()
-                 for t in (shapes, counts, dropped, totals, reserved0, valid))
-    nbytes += S * 4 + (T * 4 if cost else 0) + flat_size(S, L) * 4  # maxfit, prices, out
-    resources = int((shapes > 0).any(dim=0).sum())
+    shapes, totals = args[0], args[3]
+    S, T = shapes.shape[-2], totals.shape[-2]
+    B = shapes.numel() // (S * shapes.shape[-1])
+    nbytes = sum(t.numel() * t.element_size() for t in args[:8] if isinstance(t, torch.Tensor))
+    # maxfit, prices, out
+    nbytes += B * (S * 4 + (T * 4 if cost else 0) + flat_size(S, L) * 4)
+    resources = int((shapes.reshape(-1, shapes.shape[-1]) > 0).any(dim=0).sum())
     ops = ops_per_type_step(resources) * type_steps
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / OPS_PER_S
     return {"bytes": nbytes, "ops": ops, "resources": resources,
@@ -325,6 +354,17 @@ def host_facts(args):
             requested_mask(args[0].cpu().numpy()))
 
 
+def on_device_scalars(args):
+    """``args`` with last_valid and pods_unit as (1,) int32 tensors on the
+    card, as a solve passes them: no host→device copy before each timed
+    launch."""
+    import torch
+
+    dev = args[0].device
+    return (*args[:6], *(torch.tensor([int(v)], dtype=torch.int32, device=dev)
+                         for v in args[6:8]))
+
+
 def launch_at(args, L, prices, cost, maxfit, facts, cluster):
     from karpenter_tpu_torch.ops.pack_cuda import launch_pack
 
@@ -450,15 +490,16 @@ def time_kernel(args, maxfit, L, iters):
     ok, err, want, stats = compare(args, L, None, False, maxfit)
     check(ok, "first chunk: kernel != plain")
     facts = host_facts(args)
-    ms = cuda_ms(lambda: pack_chunk(*args, num_iters=L, maxfit=maxfit, log_bound=facts[0],
+    dargs = on_device_scalars(args)
+    ms = cuda_ms(lambda: pack_chunk(*dargs, num_iters=L, maxfit=maxfit, log_bound=facts[0],
                                     resource_mask=facts[1]), iters)
     T = args[3].shape[0]
     table = []
     for c in kernel_clusters(T):
-        got = launch_at(args, L, None, False, maxfit, facts, c)
+        got = launch_at(dargs, L, None, False, maxfit, facts, c)
         check(bool((got == want).all()), f"cluster {c}: kernel != plain")
         table.append({"cluster": c, "ms": cuda_ms(
-            lambda: launch_at(args, L, None, False, maxfit, facts, c), iters)})
+            lambda: launch_at(dargs, L, None, False, maxfit, facts, c), iters)})
     return {"ms": ms, "cluster": launch_shape(T), "plain_ms": stats["ms"],
             "max_abs_err": err, "shape_steps": stats["shape_steps"],
             "type_steps": stats["type_steps"], "log_steps": stats["log_steps"],
@@ -610,7 +651,11 @@ def phase_kernel_times(device):
     from karpenter_tpu_torch.ops import pack_cuda
     from karpenter_tpu_torch.solver.solve import universe_constraints
 
-    has_hints = "resource_mask" in inspect.signature(pack_cuda.pack_chunk).parameters
+    params = inspect.signature(pack_cuda.pack_chunk).parameters
+    has_hints = "resource_mask" in params
+    # a tree whose pack_chunk takes last_valid/pods_unit as device tensors
+    # gets them so, as its solve passes them
+    tensor_scalars = "Tensor" in str(params["last_valid"].annotation)
     for name, catalog, pods, iters in (
             ("config_4", make_catalog(400), make_pods(50_000, MIXED_SHAPES), 20),
             ("high_cardinality", make_catalog(400),
@@ -625,6 +670,8 @@ def phase_kernel_times(device):
                "resources": int((args[0] > 0).any(dim=0).sum())}
         hints = host_facts(args) if has_hints else ()
         kw = dict(zip(("log_bound", "resource_mask"), hints))
+        if tensor_scalars:
+            args = on_device_scalars(args)
 
         def run(**extra):
             return pack_cuda.pack_chunk(*args, num_iters=64, maxfit=maxfit, **{**kw, **extra})
@@ -639,10 +686,396 @@ def phase_kernel_times(device):
         emit(rec)
 
 
+def phase_solve_times(device):
+    """``--solve-times``: solve() on config_4, one cold run and WARM_RUNS
+    warm runs; the node count, p50, p99 and the extremes."""
+    import torch
+
+    from karpenter_tpu_torch.solver.solve import solve, universe_constraints
+
+    catalog = make_catalog(400)
+    pods = make_pods(50_000, MIXED_SHAPES)
+    constraints = universe_constraints(catalog)
+    times = []
+    for _ in range(1 + WARM_RUNS):
+        t0 = time.perf_counter()
+        result = solve(constraints, pods, catalog, device=device)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1000.0)
+        check(result.node_count == 774, f"config_4 nodes {result.node_count}, expected 774")
+    cold, warm = times[0], sorted(times[1:])
+    emit({"phase": "solve_times", "input": "config_4", "node_count": 774, "cold_ms": cold,
+          "warm_runs": len(warm), "p50_ms": warm[len(warm) // 2],
+          "p99_ms": warm[min(len(warm) - 1, int(0.99 * len(warm)))],
+          "min_ms": warm[0], "max_ms": warm[-1]})
+
+
 def torch_equal(a, b) -> bool:
     import torch
 
     return bool(torch.equal(a, b))
+
+
+# -- the batched window: kernel vs plain over a batch -----------------------
+
+def fuzz_batch(rng, B, S, T, device, n_live_max=40):
+    """B random problems of one (S, T) bucket as the batched kernel takes
+    them: each row's live shapes at sorted random rows of the bucket, a
+    random (not prefix) subset of valid types with last_valid its largest,
+    as a device mask gives them; row 1 all zero (a finished problem), row 3
+    with no valid type (last_valid 0), rows in between with drops."""
+    import numpy as np
+    import torch
+
+    rows = []
+    for b in range(B):
+        args, prices = fuzz_problem(rng, S, T, drops=b % 4 == 2, device="cpu")
+        shapes, counts = args[0].clone(), args[1].clone()
+        live = counts > 0
+        if int(live.sum()) > n_live_max:  # keep the plain version cheap
+            counts[torch.nonzero(live).flatten()[n_live_max:]] = 0
+        valid = torch.as_tensor(rng.random(T) < 0.7) & args[5]
+        if b == 1:
+            counts[:] = 0
+        if b == 3 or not bool(valid.any()):
+            valid[:] = False
+        lv = int(torch.nonzero(valid).flatten().max()) if bool(valid.any()) else 0
+        rows.append((shapes, counts, args[3], args[4], valid, lv, args[7], prices))
+    t = lambda i, dt=torch.int32: torch.stack([r[i] for r in rows]).to(dt).to(device)  # noqa: E731
+    args = (t(0), t(1), torch.zeros((B, S), dtype=torch.int32, device=device), t(2), t(3),
+            t(4, torch.bool), torch.tensor([r[5] for r in rows], dtype=torch.int32, device=device),
+            torch.tensor([r[6] for r in rows], dtype=torch.int32, device=device))
+    return args, t(7)
+
+
+def compare_batch(args, L, prices, cost, maxfit, clusters):
+    """pack_batch and each cluster size's launch against pack_batch_plain
+    on the same inputs: (equal, max_abs_err, kernel flat, plain stats with
+    the plain run's milliseconds under "ms")."""
+    import torch
+
+    from karpenter_tpu_torch.ops.pack_cuda import (
+        batch_log_bound, launch_pack_batch, pack_batch, pack_batch_plain, requested_mask,
+    )
+
+    stats = {}
+    facts = (batch_log_bound(args[3].cpu().numpy(), args[4].cpu().numpy(), args[7].cpu().numpy()),
+             requested_mask(args[0].cpu().numpy().reshape(-1, 8)))
+    got = pack_batch(*args, L, prices=prices, cost_tiebreak=cost, maxfit=maxfit)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want = pack_batch_plain(*args, L, prices=prices, cost_tiebreak=cost, maxfit=maxfit,
+                            stats=stats)
+    torch.cuda.synchronize()
+    stats["ms"] = (time.perf_counter() - t0) * 1000.0
+    outs = [got] + [launch_pack_batch(*args, L, prices, cost, maxfit, *facts, c)
+                    for c in clusters]
+    err = max(int((o.long() - want.long()).abs().max()) for o in outs)
+    return all(torch.equal(o, want) for o in outs), err, got, stats
+
+
+def phase_batch_fuzz(device):
+    """pack_batch against pack_batch_plain bit for bit at B = 1, 2, 5 and
+    24, S <= 512, cost tie-break off and on, every cluster size; each batch
+    row of B = 1 also against pack_chunk."""
+    import numpy as np
+    import torch
+
+    from karpenter_tpu_torch.ops.pack import compute_maxfit
+    from karpenter_tpu_torch.ops.pack_cuda import pack_chunk
+
+    rng = np.random.default_rng(SEED + 1)
+    cases, launches, worst, t0 = [], 0, 0, time.perf_counter()
+    for B, S, T, L in ((1, 32, 512, 64), (1, 512, 8, 16), (2, 64, 512, 32),
+                       (5, 128, 1024, 16), (5, 512, 4096, 8), (24, 32, 512, 16),
+                       (24, 256, 64, 16)):
+        for cost in (False, True):
+            args, prices = fuzz_batch(rng, B, S, T, device)
+            maxfit = compute_maxfit(args[0], args[3], args[4], args[5])
+            clusters = kernel_clusters(T)
+            ok, err, got, _ = compare_batch(args, L, prices, cost, maxfit, clusters)
+            check(ok, f"pack_batch != plain: B={B} S={S} T={T} cost={cost}")
+            if B == 1:
+                one = pack_chunk(args[0][0], args[1][0], args[2][0], args[3][0], args[4][0],
+                                 args[5][0], int(args[6][0]), int(args[7][0]), num_iters=L,
+                                 prices=prices[0], cost_tiebreak=cost, maxfit=maxfit[0])
+                check(torch.equal(one, got[0]), f"B=1 pack_batch != pack_chunk: S={S} T={T}")
+            worst = max(worst, err)
+            launches += 1 + len(clusters)
+            cases.append(f"B={B} S={S} T={T} cost={int(cost)}")
+    emit({"phase": "batch_fuzz", "cases": cases, "launches_compared": launches,
+          "bit_identical": True, "b1_equals_pack_chunk": True, "max_abs_err": worst,
+          "seconds": time.perf_counter() - t0})
+    return worst
+
+
+# -- the provisioning window (bench.py:1190-1263, config_12) -----------------
+
+WINDOW_SCHEDULES, WINDOW_TYPES, MASK_VARIANTS = 24, 400, 192
+
+
+def config12_variants(catalog):
+    """bench.py:1210-1233: 192 distinct (allowed, required) keys over the
+    universe of ``catalog``: capacity type rotated, one zone dropped, a
+    rotating prefix of type names dropped, an ENI requirement on every
+    16th."""
+    from karpenter_tpu_torch.solver import adapter
+    from karpenter_tpu_torch.solver.solve import universe_constraints
+    from karpenter_tpu_torch.utils import resources as res
+
+    base = adapter._allowed_sets(universe_constraints(catalog))
+    cts, zones, names = sorted(base[0]), sorted(base[1]), sorted(base[2])
+    pairs = []
+    for v in range(MASK_VARIANTS):
+        allowed = (frozenset(cts if v % 4 else cts[:1]),
+                   frozenset(z for j, z in enumerate(zones) if j != v % len(zones)),
+                   frozenset(names[(v * 7) % 50:]), base[3], base[4])
+        required = frozenset([res.AWS_POD_ENI]) if v % 16 == 15 else frozenset()
+        pairs.append((allowed, required))
+    return pairs
+
+
+def window_problems(catalog, per):
+    """bench.py:1246-1263: 24 schedules, schedule b the universe
+    constraints narrowed to zone bench-zone-{1 + b % 3}, with ``per`` pods
+    cycling MIXED_SHAPES rotated by b."""
+    from karpenter_tpu_torch.api import wellknown
+    from karpenter_tpu_torch.api.constraints import Constraints
+    from karpenter_tpu_torch.api.core import NodeSelectorRequirement
+    from karpenter_tpu_torch.solver.batch_solve import Problem
+    from karpenter_tpu_torch.solver.solve import universe_constraints
+
+    universe = universe_constraints(catalog)
+    problems = []
+    for b in range(WINDOW_SCHEDULES):
+        constraints = Constraints(requirements=universe.requirements.add(NodeSelectorRequirement(
+            key=wellknown.LABEL_TOPOLOGY_ZONE, operator="In", values=[f"bench-zone-{1 + b % 3}"])))
+        r = b % len(MIXED_SHAPES)
+        problems.append(Problem(constraints=constraints, instance_types=catalog,
+                                pods=make_pods(per, MIXED_SHAPES[r:] + MIXED_SHAPES[:r])))
+    return problems
+
+
+def canonical(result, pods):
+    """A SolveResult as pod indices: node count, every packing's option
+    names, quantity and pod lists, and the unschedulable pods."""
+    index = {id(p): i for i, p in enumerate(pods)}
+    return (result.node_count,
+            [(tuple(it.name for it in p.instance_type_options), p.node_quantity,
+              [[index[id(x)] for x in node] for node in p.pods]) for p in result.packings],
+            [index[id(p)] for p in result.unschedulable])
+
+
+def numpy_result(prob):
+    """solve_ffd_numpy on one problem, materialized like solve()."""
+    from karpenter_tpu_torch.models.ffd import solve_ffd_numpy
+    from karpenter_tpu_torch.solver.adapter import build_packables, pod_vectors
+    from karpenter_tpu_torch.solver.solve import SolverConfig, materialize
+
+    packables, sorted_types = build_packables(prob.instance_types, prob.constraints,
+                                              prob.pods, prob.daemons)
+    host = solve_ffd_numpy(pod_vectors(prob.pods), list(range(len(prob.pods))), packables)
+    return materialize(host, prob.pods, sorted_types, prob.constraints, SolverConfig())
+
+
+def reset_counts():
+    from karpenter_tpu_torch.ops import device_filter, pack_cuda
+    from karpenter_tpu_torch.solver.solve import reset_executor_counts
+
+    pack_cuda.LAUNCHES = 0
+    pack_cuda.BATCH_LAUNCHES = 0
+    reset_executor_counts()
+    device_filter.reset_fallback_counts()
+
+
+def executor_counts():
+    from karpenter_tpu_torch.solver.solve import solver_health
+
+    return solver_health()["executor_counts"]
+
+
+def phase_mask(device):
+    """config_12's 192 variants in 8 windows of 24 over make_catalog(400):
+    the device mask against the port's scalar _validate, type for type, and
+    the mask program's time per window."""
+    from karpenter_tpu_torch.backend import to_device_int32
+    from karpenter_tpu_torch.ops import device_filter
+    from karpenter_tpu_torch.solver.adapter import _validate
+
+    catalog = make_catalog(WINDOW_TYPES)
+    pairs = config12_variants(catalog)
+    divergence, feasible, t0 = 0, 0, time.perf_counter()
+    for w in range(0, MASK_VARIANTS, WINDOW_SCHEDULES):
+        window = pairs[w:w + WINDOW_SCHEDULES]
+        mask = device_filter.compute_mask(catalog, window, device=device)
+        check(mask is not None and mask.shape == (len(window), len(catalog)),
+              "mask: the catalog was refused")
+        for s, (allowed, required) in enumerate(window):
+            ref = [_validate(it, allowed, required) is None for it in catalog]
+            divergence += sum(int(m) != int(r) for m, r in zip(mask[s], ref))
+            feasible += sum(ref)
+    check_s = time.perf_counter() - t0
+    check(divergence == 0, f"mask: {divergence} verdicts differ from _validate")
+    planes = device_filter.planes_for(catalog)
+    rows = [device_filter.schedule_row(planes, a, r) for a, r in pairs[:WINDOW_SCHEDULES]]
+    stacked = device_filter._stack_rows(planes, rows, WINDOW_SCHEDULES)
+    probe = device_filter._probe_indices(planes.n)
+    *rows_d, probe_d = to_device_int32([*stacked, probe], device)
+    planes_d = device_filter.resident_planes(planes, device)
+    probe_d = probe_d.long()
+    ms = cuda_ms(lambda: device_filter.window_mask(planes_d, tuple(rows_d), probe_d), 50)
+    t0 = time.perf_counter()
+    for _ in range(10):
+        device_filter.compute_mask(catalog, pairs[:WINDOW_SCHEDULES], device=device)
+    wall = (time.perf_counter() - t0) * 100.0
+    emit({"phase": "mask", "variants": MASK_VARIANTS, "windows": MASK_VARIANTS // WINDOW_SCHEDULES,
+          "types": len(catalog), "type_bucket": planes.TB, "verdicts": MASK_VARIANTS * len(catalog),
+          "feasible": feasible, "divergence": 0, "mask_program_ms_per_window": ms,
+          "compute_mask_wall_ms_per_window": wall, "scalar_check_s": check_s})
+
+
+def time_batch_kernel(run, iters):
+    """The batched launch of a window's first chunk (the inputs
+    dispatch_batch built) against pack_batch_plain, its CUDA-event time,
+    its bound, the 24 solo pack_chunk launches on the same encodings (each
+    row bit-identical to the batch's), and its time at every cluster size."""
+    import torch
+
+    from karpenter_tpu_torch.ops.pack_cuda import (
+        launch_pack_batch, launch_shape, pack_batch, pack_chunk,
+    )
+
+    args = (run.shapes_d, run.counts_d, run.dropped_d, run.totals_d, run.reserved0_d,
+            run.valid_d, run.last_valid_d, run.pods_unit_d)
+    L, B, T = run.L, run.shapes_d.shape[0], run.totals_d.shape[1]
+    hints = dict(maxfit=run.maxfit_d, log_bound=run.log_bound, resource_mask=run.resource_mask)
+    clusters = kernel_clusters(T)
+    ok, err, got, stats = compare_batch(args, L, None, False, run.maxfit_d, clusters)
+    check(ok, "window: batched kernel != plain")
+    ms = cuda_ms(lambda: pack_batch(*args, L, **hints), iters)
+    def solo(b):
+        return pack_chunk(*(a[b] for a in args[:6]), *(a[b:b + 1] for a in args[6:]),
+                          num_iters=L, **{k: (v[b] if k == "maxfit" else v)
+                                          for k, v in hints.items()})
+
+    for b in range(B):
+        check(torch.equal(solo(b), got[b]), f"window: solo launch of row {b} != batch row")
+    solo_ms = cuda_ms(lambda: [solo(b) for b in range(B)], iters)
+    table = [{"cluster": c, "ms": cuda_ms(lambda: launch_pack_batch(
+        *args, L, None, False, run.maxfit_d, run.log_bound, run.resource_mask, c), iters)}
+        for c in clusters]
+    return {"ms": ms, "cluster": launch_shape(T), "plain_ms": stats["ms"], "max_abs_err": err,
+            "solo_launches": B, "solo_ms": solo_ms, "shape_steps": stats["shape_steps"],
+            "type_steps": stats["type_steps"], **work_bound(args, L, False, stats["type_steps"]),
+            "by_cluster": table}
+
+
+def phase_window(device, per, warm_runs):
+    """config_12's window through solve_batch (the main path): 24
+    schedules of ``per`` pods over 400 types, every problem equal to solo
+    solve() and to solve_ffd_numpy, every one by "device-batch", no mask
+    mismatch; p50/p99 over warm runs; the batched kernel timed."""
+    import torch
+
+    from karpenter_tpu_torch.ops import device_filter, pack_cuda
+    from karpenter_tpu_torch.solver.batch_solve import dispatch_batch
+    from karpenter_tpu_torch.solver.solve import solve
+
+    catalog = make_catalog(WINDOW_TYPES)
+    problems = window_problems(catalog, per)
+    n = len(problems)
+    reset_counts()
+    handle = dispatch_batch(problems, device=device)  # the main path
+    results = handle.fetch()
+    torch.cuda.synchronize()
+    launches = {"pack_batch": pack_cuda.BATCH_LAUNCHES, "pack_chunk": pack_cuda.LAUNCHES}
+    check(launches["pack_batch"] > 0, "window: the batched kernel was never launched")
+    check(executor_counts() == {"device-batch": n},
+          f"window answered by {executor_counts()}")
+    check(device_filter.fallback_counts() == {},
+          f"window: mask fallbacks {device_filter.fallback_counts()}")
+    check(handle.fused is not None, "window: the mask was not fused")
+    run = handle.device_run
+    for b, (prob, got) in enumerate(zip(problems, results)):
+        want = canonical(got, prob.pods)
+        check(want == canonical(solve(prob.constraints, prob.pods, catalog, device=device),
+                                prob.pods), f"window: problem {b} != solo solve()")
+        check(want == canonical(numpy_result(prob), prob.pods),
+              f"window: problem {b} != solve_ffd_numpy")
+    nodes = [r.node_count for r in results]
+    reset_counts()
+    times, dispatch_ms = [], []
+    for _ in range(warm_runs):
+        # solve_batch is dispatch_batch(...).fetch(): its two halves timed
+        t0 = time.perf_counter()
+        h = dispatch_batch(problems, device=device)
+        t1 = time.perf_counter()
+        rs = h.fetch()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1000.0)
+        dispatch_ms.append((t1 - t0) * 1000.0)
+        check([r.node_count for r in rs] == nodes, "warm window changed its node counts")
+    check(executor_counts() == {"device-batch": n * warm_runs},
+          f"warm windows answered by {executor_counts()}")
+    check(device_filter.fallback_counts() == {}, "warm windows: mask fallbacks")
+    times.sort()
+    dispatch_ms.sort()
+    fresh = dispatch_batch(problems, device=device)
+    kern = time_batch_kernel(fresh.device_run, 20)
+    fresh.fetch()
+    rec = {"phase": "window", "schedules": n, "pods": sum(len(p.pods) for p in problems),
+           "types": len(catalog), "shape_bucket": run.S0, "type_bucket": int(run.totals_d.shape[1]),
+           "nodes": sum(nodes), "nodes_per_problem": nodes,
+           "unschedulable": sum(len(r.unschedulable) for r in results),
+           "executor": "device-batch", "mask_mismatches": 0, "launches_per_window": launches,
+           "chunk_buckets": run.buckets, "equal_to_solo_and_numpy": True,
+           "warm_runs": len(times), "p50_ms": times[len(times) // 2],
+           "p99_ms": times[min(len(times) - 1, int(0.99 * len(times)))],
+           "dispatch_p50_ms": dispatch_ms[len(dispatch_ms) // 2], "kernel": kern}
+    emit(rec)
+    return rec
+
+
+def phase_mixed_window(device):
+    """23 of config_12's schedules and one of the high-cardinality pods
+    (seed 11, 8000 shapes, 25,000 pods): the batch pads to S = 8192 and
+    compacts across problems; every problem equal to solo solve()."""
+    import torch
+
+    from karpenter_tpu_torch.ops import device_filter, pack_cuda
+    from karpenter_tpu_torch.solver.batch_solve import Problem, dispatch_batch
+    from karpenter_tpu_torch.solver.solve import solve
+
+    catalog = make_catalog(WINDOW_TYPES)
+    problems = window_problems(catalog, 416)
+    problems[-1] = Problem(constraints=problems[-1].constraints, instance_types=catalog,
+                           pods=highcard_pods(25_000, HIGHCARD_SHAPES, SEED))
+    reset_counts()
+    t0 = time.perf_counter()
+    handle = dispatch_batch(problems, device=device)  # the main path
+    results = handle.fetch()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1000.0
+    launches = pack_cuda.BATCH_LAUNCHES
+    run = handle.device_run
+    check(launches == run.launches > 0, "mixed window: launches")
+    check(executor_counts() == {"device-batch": len(problems)},
+          f"mixed window answered by {executor_counts()}")
+    check(device_filter.fallback_counts() == {}, "mixed window: mask fallbacks")
+    check(run.buckets[0] == 8192 and len(run.buckets) > 1,
+          f"mixed window walked the buckets {run.buckets}")
+    for b, (prob, got) in enumerate(zip(problems, results)):
+        check(canonical(got, prob.pods) ==
+              canonical(solve(prob.constraints, prob.pods, catalog, device=device), prob.pods),
+              f"mixed window: problem {b} != solo solve()")
+    rec = {"phase": "mixed_window", "schedules": len(problems),
+           "pods": sum(len(p.pods) for p in problems),
+           "nodes_per_problem": [r.node_count for r in results],
+           "unschedulable": sum(len(r.unschedulable) for r in results),
+           "executor": "device-batch", "mask_mismatches": 0, "launches": launches,
+           "chunk_buckets": run.buckets, "equal_to_solo": True, "solve_batch_ms": wall_ms}
+    emit(rec)
+    return rec
 
 
 def card_line() -> str:
@@ -655,8 +1088,8 @@ def card_line() -> str:
 
 def main(argv) -> int:
     t_start = time.perf_counter()
-    if argv not in ([], ["--kernel-times"]):
-        print("usage: chip_smoke.py [--kernel-times]", file=sys.stderr)
+    if argv not in ([], ["--kernel-times"], ["--solve-times"]):
+        print("usage: chip_smoke.py [--kernel-times | --solve-times]", file=sys.stderr)
         return 2
     import torch
 
@@ -670,7 +1103,7 @@ def main(argv) -> int:
     card = card_line()
     if argv:
         emit({"phase": "card", "nvidia_smi": card})
-        phase_kernel_times(device)
+        (phase_kernel_times if argv == ["--kernel-times"] else phase_solve_times)(device)
         return 0
     emit({"phase": "card", "nvidia_smi": card,
           "name": torch.cuda.get_device_name(0),
@@ -685,10 +1118,15 @@ def main(argv) -> int:
                                 "threads": pack_cuda.launch_threads(T, c)}
                      for T in (8, 512, 4096) for c in [pack_cuda.launch_shape(T)]}})
     fuzz_err = phase_fuzz(device)
+    batch_err = phase_batch_fuzz(device)
     c4 = phase_config4(device)
     hc = phase_highcard(device)
+    phase_mask(device)
+    win = phase_window(device, 416, WARM_RUNS)          # 9,984 pods
+    phase_window(device, 2084, WARM_RUNS)               # 50,016 pods
+    phase_mixed_window(device)
     emit({"phase": "total", "seconds": time.perf_counter() - t_start})
-    k4 = c4["kernel"]
+    k4, kw = c4["kernel"], win["kernel"]
     emit({"kernels": [{
         "name": "pack_chunk",
         "route": "cuda",
@@ -698,6 +1136,16 @@ def main(argv) -> int:
         "max_abs_err": max(fuzz_err, k4["max_abs_err"], hc["kernel"]["max_abs_err"]),
         "ms": k4["ms"], "plain_ms": k4["plain_ms"],
         "bound_ms": k4["bound_ms"], "bound_by": k4["bound_by"],
+        "library_ms": None,
+    }, {
+        "name": "pack_batch",
+        "route": "cuda",
+        "source": "karpenter_tpu_torch/csrc/pack.cu",
+        "replaces": "karpenter_tpu/parallel/sharded_pack.py:90",
+        "launches": win["launches_per_window"]["pack_batch"],
+        "max_abs_err": max(batch_err, kw["max_abs_err"]),
+        "ms": kw["ms"], "plain_ms": kw["plain_ms"],
+        "bound_ms": kw["bound_ms"], "bound_by": kw["bound_by"],
         "library_ms": None,
     }]})
     print(card, flush=True)

@@ -8,11 +8,29 @@ card, never a quiet CPU run.
 
 from __future__ import annotations
 
-from typing import Union
+from typing import List, Sequence, Union
 
+import numpy as np
 import torch
 
 DeviceLike = Union[None, str, torch.device]
+
+
+def to_device_int32(arrays: Sequence[np.ndarray],
+                    device: torch.device) -> List[torch.Tensor]:
+    """Host arrays → int32 tensors of the same shapes on ``device`` in ONE
+    host→device copy: the arrays are laid end to end in one buffer, copied,
+    and handed back as contiguous views of it. Values must fit int32 (bool
+    arrays arrive as 0/1; uint32 bit patterns are reinterpreted)."""
+    parts = [np.ascontiguousarray(a) for a in arrays]
+    parts = [a.view(np.int32) if a.dtype == np.uint32 else a.astype(np.int32, copy=False)
+             for a in parts]
+    flat = torch.from_numpy(np.concatenate([a.ravel() for a in parts])).to(device)
+    out, o = [], 0
+    for a in parts:
+        out.append(flat[o:o + a.size].view(a.shape))
+        o += a.size
+    return out
 
 
 def resolve_device(device: DeviceLike = None) -> torch.device:

@@ -64,10 +64,22 @@
 // or a decision without a tying type ends the chunk with the done word set
 // to -1; ops/pack.unpack_flat raises on it. No row is written from a cut log.
 //
+// A batch of B independent problems (the Pallas kernel under jax.vmap,
+// karpenter_tpu/parallel/sharded_pack.py:90) is one launch of the same
+// kernel over a grid of B clusters: problem b is the cluster at
+// blockIdx.y, every pointer is offset to its rows, and the walk, the
+// reductions and the DSMEM exchange use the rank inside the cluster as
+// before. last_valid and pods_unit are per-problem device arrays
+// (last_valid comes from the device feasibility mask and is never read on
+// the host); a last_valid outside [0, T) sets the done word to -1, and a
+// problem whose last_valid type is not valid (a mask row with no feasible
+// type) drops its shapes like the reference, whose max_pods is then 0.
+// With B = 1 it is the one-problem launch.
+//
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC -o libkt_pack.so pack.cu
 // (karpenter_tpu_torch/ops/pack_cuda.py builds it at first use and binds
-// kt_pack_chunk with ctypes.)
+// kt_pack with ctypes.)
 
 #include <climits>
 #include <cstdint>
@@ -94,19 +106,22 @@ constexpr unsigned FULL_MASK = 0xffffffffu;
 constexpr unsigned long long NO_KEY = ~0ull;
 constexpr unsigned UNBOUNDED = 0x7ffffffeu;  // + the correction's 1 = INT_MAX
 
+// Every array carries a leading problem axis of B (1 for one problem).
 struct Params {
-  const int* shapes;         // (S, R)
-  const int* counts_in;      // (S,)
-  const int* dropped_in;     // (S,)
-  const int* totals;         // (T, R)
-  const int* reserved0;      // (T, R)
-  const unsigned char* valid;  // (T,) bool
-  const int* prices;         // (T,) or null
-  const int* maxfit;         // (S,)
-  unsigned* consts;          // (cluster, S, MAX_STRIDE) scratch: divisor records
-  int2* log;                 // (2, T, log_cap) scratch: (live position, k)
-  int* out;                  // flat buffer
-  int S, T, L, last_valid, pods_unit, cost_tiebreak;
+  const int* shapes;         // (B, S, R)
+  const int* counts_in;      // (B, S)
+  const int* dropped_in;     // (B, S)
+  const int* totals;         // (B, T, R)
+  const int* reserved0;      // (B, T, R)
+  const unsigned char* valid;  // (B, T) bool
+  const int* prices;         // (B, T) or null
+  const int* maxfit;         // (B, S)
+  const int* last_valid;     // (B,)
+  const int* pods_unit;      // (B,)
+  unsigned* consts;          // (B, cluster, S, MAX_STRIDE) scratch: divisor records
+  int2* log;                 // (B, 2, T, log_cap) scratch: (live position, k)
+  int* out;                  // (B, flat) buffers
+  int S, T, L, cost_tiebreak;
   int log_cap;               // entries per type log
   unsigned used;             // the resources some shape requests, a bit each
   int types_per_cta;
@@ -127,12 +142,25 @@ struct Shared {
   int dead;
   int n_live;
   int warp_total[MAX_THREADS / 32];
+  // this problem's rows that the decisions use: set once by thread 0 and
+  // read from here, so they take no registers through the walk
+  const int* prices;
+  const int* maxfit;
+  int2* log;
+  int* out;
+  int pods_unit;
 };
 
 // a divisor record: d, -d, m, bias, NRK words each, padded to 16 bytes
 __host__ __device__ constexpr int stride_of(int nrk) { return (4 * nrk + 3) / 4 * 4; }
 
 __host__ __device__ constexpr size_t align16(size_t n) { return (n + 15) & ~size_t(15); }
+
+// int32 words of one problem's flat buffer (ops/pack.flat_size)
+__host__ __device__ constexpr size_t flat_size(int S, int L) {
+  return 2 * static_cast<size_t>(S) + 1 + 2 * static_cast<size_t>(L) +
+         static_cast<size_t>(L) * S;
+}
 
 // shared bytes of the live list: counts (S + UNROLL) then shape indices (S)
 __host__ __device__ constexpr size_t list_bytes(int S) {
@@ -245,6 +273,25 @@ __device__ __forceinline__ void solve(const Params& p, Shared& sh, int* cnt,
   const int S = p.S, T = p.T, L = p.L, cap = p.log_cap;
   const int nu = __popc(used);
 
+  // this cluster's problem: its rows of every array
+  const size_t b = blockIdx.y;
+  const int* shapes = p.shapes + b * S * R;
+  const int* counts_in = p.counts_in + b * S;
+  const int* dropped_in = p.dropped_in + b * S;
+  const int* totals = p.totals + b * T * R;
+  const int* reserved0 = p.reserved0 + b * T * R;
+  const unsigned char* valid = p.valid + b * T;
+  const int last_valid = __ldg(&p.last_valid[b]);
+  const bool lv_ok = last_valid >= 0 && last_valid < T;
+  int* const out_row = p.out + b * flat_size(S, L);
+  if (tid == 0) {
+    sh.prices = p.prices ? p.prices + b * T : nullptr;
+    sh.maxfit = p.maxfit + b * S;
+    sh.log = p.log + b * 2 * T * cap;
+    sh.out = out_row;
+    sh.pods_unit = __ldg(&p.pods_unit[b]);
+  }
+
   int rmap[NRK];  // slot -> resource
   {
     unsigned rest = used;
@@ -256,14 +303,14 @@ __device__ __forceinline__ void solve(const Params& p, Shared& sh, int* cnt,
   }
 
   // prologue: this CTA's copy of the divisor table, outputs, live list
-  unsigned* consts = p.consts + static_cast<size_t>(rank) * S * MAX_STRIDE;
+  unsigned* consts = p.consts + (b * C + rank) * S * MAX_STRIDE;
   for (int s = tid; s < S; s += nt) {
     unsigned rec[STRIDE];
 #pragma unroll
     for (int i = 0; i < STRIDE; ++i) rec[i] = 0;
 #pragma unroll
     for (int i = 0; i < NRK; ++i) {
-      const int v = i < nu ? __ldg(&p.shapes[s * R + rmap[i]]) : 0;
+      const int v = i < nu ? __ldg(&shapes[s * R + rmap[i]]) : 0;
       const unsigned d = v > 0 ? static_cast<unsigned>(v) : 0u;
       rec[i] = d;
       rec[NRK + i] = 0u - d;
@@ -276,46 +323,42 @@ __device__ __forceinline__ void solve(const Params& p, Shared& sh, int* cnt,
       dst[c] = make_uint4(rec[4 * c], rec[4 * c + 1], rec[4 * c + 2], rec[4 * c + 3]);
     }
   }
-  int* counts_out = p.out;
-  int* dropped_out = p.out + S;
-  int* done_out = p.out + 2 * S;
-  int* chosen_out = done_out + 1;
-  int* q_out = chosen_out + L;
-  int* packed_out = q_out + L;
+  // the flat row: counts S | dropped S | done 1 | chosen L | q L | packed L*S
   if (rank == 0) {
     for (int i = tid; i < S; i += nt) {
-      counts_out[i] = p.counts_in[i];
-      dropped_out[i] = p.dropped_in[i];
+      out_row[i] = counts_in[i];
+      out_row[S + i] = dropped_in[i];
     }
     for (int i = tid; i < L; i += nt) {
-      chosen_out[i] = -1;
-      q_out[i] = 0;
+      out_row[2 * S + 1 + i] = -1;
+      out_row[2 * S + 1 + L + i] = 0;
     }
   }
   const long long n_packed = static_cast<long long>(L) * S;
   for (long long i = rank * nt + tid; i < n_packed; i += static_cast<long long>(C) * nt) {
-    packed_out[i] = 0;
+    out_row[2 * S + 1 + 2 * L + i] = 0;
   }
   for (int i = tid; i < S; i += nt) {
-    cnt[i] = p.counts_in[i];
+    cnt[i] = counts_in[i];
     live[i] = static_cast<unsigned short>(i);
   }
   __syncthreads();
   compact(cnt, live, S, sh);
 
   // the type this thread walks, its constants in registers for the launch;
-  // the lanes of the last warp walk nothing but its first, last_valid
+  // the lanes of the last warp walk nothing but its first, last_valid, and
+  // it only if that type is valid (else max_pods is 0, as in the reference)
   const bool shadow = tid >= p.type_threads;
-  const int t = shadow ? p.last_valid : rank * p.types_per_cta + tid;
-  const bool exists = shadow ? lane == 0 : tid < p.types_per_cta && t < T;
-  const bool vld = !shadow && exists && p.valid[t] != 0;  // takes part in the tie
-  const bool walks = shadow ? exists : vld;
+  const int t = shadow ? (lv_ok ? last_valid : 0) : rank * p.types_per_cta + tid;
+  const bool exists = shadow ? lane == 0 && lv_ok : tid < p.types_per_cta && t < T;
+  const bool walks = exists && valid[t] != 0;
+  const bool ties = !shadow && walks;                     // takes part in the tie
   const int my_cap = shadow ? 0 : cap;                    // the shadow logs nothing
   int tot[NRK], avl0[NRK];
 #pragma unroll
   for (int i = 0; i < NRK; ++i) {
-    tot[i] = exists && i < nu ? __ldg(&p.totals[t * R + rmap[i]]) : 0;
-    avl0[i] = exists && i < nu ? tot[i] - __ldg(&p.reserved0[t * R + rmap[i]]) : 0;
+    tot[i] = exists && i < nu ? __ldg(&totals[t * R + rmap[i]]) : 0;
+    avl0[i] = exists && i < nu ? tot[i] - __ldg(&reserved0[t * R + rmap[i]]) : 0;
   }
   // the early-exit test on a resource no shape requests: smallest_fits is 0
   // there and the reservation stays reserved0
@@ -324,16 +367,16 @@ __device__ __forceinline__ void solve(const Params& p, Shared& sh, int* cnt,
 #pragma unroll
     for (int r = 0; r < R; ++r) {
       if (!((used >> r) & 1u)) {
-        const int tr = __ldg(&p.totals[t * R + r]);
-        fixed_full |= tr > 0 && __ldg(&p.reserved0[t * R + r]) >= tr;
+        const int tr = __ldg(&totals[t * R + r]);
+        fixed_full |= tr > 0 && __ldg(&reserved0[t * R + r]) >= tr;
       }
     }
   }
 
   cluster.sync();  // zeroed rows visible cluster-wide, every CTA started
 
-  bool error = false;
-  for (int it = 0; it < L; ++it) {
+  bool error = !lv_ok;  // uniform over the cluster, like every exit below
+  for (int it = 0; lv_ok && it < L; ++it) {
     const int n = sh.n_live;
     if (n == 0) break;
     const int par = it & 1;
@@ -348,7 +391,7 @@ __device__ __forceinline__ void solve(const Params& p, Shared& sh, int* cnt,
 #pragma unroll
     for (int i = 0; i < NRK; ++i) {
       const int sf = max(static_cast<int>(consts[hi_s * MAX_STRIDE + i]) -
-                             (rmap[i] == R_PODS ? p.pods_unit : 0), 0);
+                             (rmap[i] == R_PODS ? sh.pods_unit : 0), 0);
       avl[i] = avl0[i];
       thr[i] = tot[i] > 0 ? static_cast<int>(static_cast<unsigned>(tot[i]) +
                                              static_cast<unsigned>(sf))
@@ -356,7 +399,7 @@ __device__ __forceinline__ void solve(const Params& p, Shared& sh, int* cnt,
     }
     int np = 0, nl = 0;
     bool act = walks;
-    int2* logs = p.log + static_cast<size_t>(par) * T * cap;
+    int2* logs = sh.log + static_cast<size_t>(par) * T * cap;
     int2* my_log = logs + static_cast<size_t>(shadow ? 0 : t) * cap;
 
     // the fill: greedy over the live shapes (packable.go:111-130 for a whole
@@ -439,9 +482,9 @@ __device__ __forceinline__ void solve(const Params& p, Shared& sh, int* cnt,
     // the first (or cheapest, then first) type tying it: min over
     // (price, index) across the cluster, never the first CTA to arrive
     unsigned long long key = NO_KEY;
-    if (vld && np == max_pods) {
+    if (ties && np == max_pods) {
       const unsigned long long price =
-          p.cost_tiebreak ? (static_cast<unsigned>(__ldg(&p.prices[t])) ^ 0x80000000u) : 0u;
+          p.cost_tiebreak ? (static_cast<unsigned>(__ldg(&sh.prices[t])) ^ 0x80000000u) : 0u;
       key = (price << 32) | static_cast<unsigned>(t);
     }
 #pragma unroll
@@ -449,7 +492,7 @@ __device__ __forceinline__ void solve(const Params& p, Shared& sh, int* cnt,
     if (lane == 0 && key != NO_KEY) atomicMin(&sh.key, key);
     __syncthreads();
     const unsigned long long cta_best = sh.key;
-    if (vld && cta_best != NO_KEY && t == static_cast<int>(cta_best & 0xffffffffu)) {
+    if (ties && cta_best != NO_KEY && t == static_cast<int>(cta_best & 0xffffffffu)) {
       sh.key_nlog = nl;
     }
     __syncthreads();
@@ -471,12 +514,14 @@ __device__ __forceinline__ void solve(const Params& p, Shared& sh, int* cnt,
     const bool nothing = max_pods == 0;
 
     int q = 0;
+    int* const out = sh.out;  // counts S | dropped S | done 1 | chosen L | q L | packed
     if (!nothing) {
       if (chosen < 0 || nlc > cap) {
         error = true;  // uniform over the cluster: every CTA read the same
         break;
       }
       const int2* lg = logs + static_cast<size_t>(chosen) * cap;
+      const int* maxfit = sh.maxfit;
       int2 en[FF_REGS];
       int term = INT_MAX;
 #pragma unroll
@@ -484,19 +529,19 @@ __device__ __forceinline__ void solve(const Params& p, Shared& sh, int* cnt,
         const int i = tid + r * nt;
         en[r] = i < nlc ? __ldcg(&lg[i]) : make_int2(0, 0);
         if (i < nlc) {
-          term = min(term, ff_term(cnt[en[r].x], __ldg(&p.maxfit[live[en[r].x]]), en[r].y));
+          term = min(term, ff_term(cnt[en[r].x], __ldg(&maxfit[live[en[r].x]]), en[r].y));
         }
       }
       for (int i = tid + FF_REGS * nt; i < nlc; i += nt) {
         const int2 e = __ldcg(&lg[i]);
-        term = min(term, ff_term(cnt[e.x], __ldg(&p.maxfit[live[e.x]]), e.y));
+        term = min(term, ff_term(cnt[e.x], __ldg(&maxfit[live[e.x]]), e.y));
       }
 #pragma unroll
       for (int o = 16; o > 0; o >>= 1) term = min(term, __shfl_xor_sync(FULL_MASK, term, o));
       if (lane == 0) atomicMin(&sh.term, term);
       __syncthreads();
       q = static_cast<int>(max(1LL, min(1LL + sh.term, static_cast<long long>(INT_MAX))));
-      int* row = packed_out + static_cast<long long>(it) * S;
+      int* row = out + 2 * S + 1 + 2 * L + static_cast<long long>(it) * S;
       auto apply = [&](int2 e) {
         const int s = live[e.x];
         const int c = cnt[e.x] - q * e.y;
@@ -504,7 +549,7 @@ __device__ __forceinline__ void solve(const Params& p, Shared& sh, int* cnt,
         if (c <= 0) sh.dead = 1;
         if (rank == 0) {
           row[s] = e.y;
-          counts_out[s] = c;
+          out[s] = c;
         }
       };
 #pragma unroll
@@ -516,20 +561,20 @@ __device__ __forceinline__ void solve(const Params& p, Shared& sh, int* cnt,
       // drop path: the largest remaining shape fits nowhere
       // (packer.go:124-128); every pod of it fails identically
       if (rank == 0) {
-        dropped_out[lo_s] += cnt[0];
-        counts_out[lo_s] = 0;
+        out[S + lo_s] += cnt[0];
+        out[lo_s] = 0;
       }
       cnt[0] = 0;
       sh.dead = 1;
     }
     if (rank == 0 && tid == 0 && !nothing) {
-      chosen_out[it] = chosen;
-      q_out[it] = q;
+      out[2 * S + 1 + it] = chosen;
+      out[2 * S + 1 + L + it] = q;
     }
     __syncthreads();
     if (sh.dead) compact(cnt, live, n, sh);
   }
-  if (rank == 0 && tid == 0) *done_out = error ? DONE_ERROR : (sh.n_live == 0 ? 1 : 0);
+  if (rank == 0 && tid == 0) sh.out[2 * S] = error ? DONE_ERROR : (sh.n_live == 0 ? 1 : 0);
   cluster.sync();  // no CTA leaves while another may still address its shared memory
 }
 
@@ -545,28 +590,31 @@ __global__ void __launch_bounds__(MAX_THREADS, 1) pack_kernel(const __grid_const
 
 }  // namespace
 
-// Scratch (device, int32 words): consts cluster*S*32, log 2*T*log_cap*2.
-// used: a bit for each resource some shape requests (more bits are allowed:
-// a resource no shape requests walks as a no-op).
-extern "C" int kt_pack_chunk(const int* shapes, const int* counts,
-                             const int* dropped, const int* totals,
-                             const int* reserved0, const unsigned char* valid,
-                             const int* prices, const int* maxfit, int S,
-                             int T, int L, int last_valid, int pods_unit,
-                             int cost_tiebreak, int used, int cluster,
-                             int log_cap, void* consts, void* log, int* out,
-                             void* stream) {
-  if (S <= 0 || S > 65536 || T <= 0 || L < 0 || last_valid < 0 ||
-      last_valid >= T || (cost_tiebreak && prices == nullptr) ||
-      used < 0 || used >= (1 << R) || cluster < 1 || cluster > MAX_CLUSTER ||
-      log_cap < 1) {
+// B problems of one (S, T) bucket in one launch, a cluster per problem,
+// every array with a leading axis of B (1 for one problem); last_valid and
+// pods_unit are (B,) int32 on the device. Scratch
+// (device, int32 words): consts B*cluster*S*32, log B*2*T*log_cap*2; out B
+// rows of the flat buffer. used: a bit for each resource some shape
+// requests (more bits are allowed: a resource no shape requests walks as a
+// no-op).
+extern "C" int kt_pack(const int* shapes, const int* counts, const int* dropped,
+                       const int* totals, const int* reserved0,
+                       const unsigned char* valid, const int* prices,
+                       const int* maxfit, const int* last_valid,
+                       const int* pods_unit, int B, int S, int T, int L,
+                       int cost_tiebreak,
+                       int used, int cluster, int log_cap, void* consts,
+                       void* log, int* out, void* stream) {
+  if (last_valid == nullptr || pods_unit == nullptr || used < 0 || B < 1 ||
+      B > 65535 || S <= 0 || S > 65536 || T <= 0 || L < 0 ||
+      (cost_tiebreak && prices == nullptr) || used >= (1 << R) || cluster < 1 ||
+      cluster > MAX_CLUSTER || log_cap < 1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const int tpc = (T + cluster - 1) / cluster;
   const int type_threads = (tpc + 31) / 32 * 32;
   if (type_threads > MAX_TYPE_THREADS) return static_cast<int>(cudaErrorInvalidConfiguration);
-  const size_t smem = list_bytes(S) + 2 * TILE * MAX_STRIDE * sizeof(unsigned);
-  Params p;
+  Params p = {};
   p.shapes = shapes;
   p.counts_in = counts;
   p.dropped_in = dropped;
@@ -575,26 +623,27 @@ extern "C" int kt_pack_chunk(const int* shapes, const int* counts,
   p.valid = valid;
   p.prices = prices;
   p.maxfit = maxfit;
+  p.last_valid = last_valid;
+  p.pods_unit = pods_unit;
   p.consts = static_cast<unsigned*>(consts);
   p.log = static_cast<int2*>(log);
   p.out = out;
   p.S = S;
   p.T = T;
   p.L = L;
-  p.last_valid = last_valid;
-  p.pods_unit = pods_unit;
   p.cost_tiebreak = cost_tiebreak;
   p.log_cap = log_cap;
   p.used = static_cast<unsigned>(used);
   p.types_per_cta = tpc;
   p.type_threads = type_threads;
+  const size_t smem = list_bytes(S) + 2 * TILE * MAX_STRIDE * sizeof(unsigned);
   // 3 walked resources when the shapes request at most 3, else all 8
   void (*kernel)(Params) = __builtin_popcount(p.used) <= 3 ? pack_kernel<3> : pack_kernel<8>;
   const cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (e != cudaSuccess) return static_cast<int>(e);
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(cluster, 1, 1);  // one problem: grid = cluster
+  cfg.gridDim = dim3(cluster, B, 1);  // a cluster per problem: blockIdx.y is the problem
   cfg.blockDim = dim3(type_threads + 32, 1, 1);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = static_cast<cudaStream_t>(stream);

@@ -1,4 +1,5 @@
-"""Device FFD: encode → pack_chunk loop → decode.
+"""Device FFD: encode → chunk loop (:class:`DeviceRun`, one problem or a
+window's batch) → decode.
 
 Exact parity with the reference Go packer. Produces the same
 HostSolveResult structure as the host oracle, so callers and tests are
@@ -12,10 +13,11 @@ from typing import List, Optional, Sequence
 import numpy as np
 import torch
 
-from karpenter_tpu_torch.backend import DeviceLike, resolve_device
+from karpenter_tpu_torch.backend import DeviceLike, resolve_device, to_device_int32
 from karpenter_tpu_torch.ops.encode import EncodedProblem, encode, pad_encoding
 from karpenter_tpu_torch.solver.host_ffd import (
-    HostPacking, HostSolveResult, Packable, R_PODS, Vec, instance_options,
+    MAX_INSTANCE_TYPES, HostPacking, HostSolveResult, Packable, R_PODS, Vec,
+    instance_options,
 )
 
 DEFAULT_CHUNK_ITERS = 64
@@ -62,26 +64,11 @@ def solve_ffd_device(
 ) -> Optional[HostSolveResult]:
     """Solve on ``device`` (default: the CUDA device; raises without one);
     None only when the problem is not encodable, before anything reaches
-    the device (the caller falls back to the host oracle). A chunk loop
-    that does not finish within ``MAX_CHUNKS`` raises. Pods may arrive
+    the device (the caller falls back to the host oracle). Pods may arrive
     unsorted; the same descending order as the host oracle is applied
-    here.
-
-    The fast-forward bound ``maxfit`` is computed once per solve on the
-    device, the kernel's fill-log bound and walked-resource mask once from
-    the host encoding. Each chunk runs ``chunk_iters`` node decisions in one
-    kernel launch and one device→host copy; between chunks, compaction gathers
-    the alive shapes into the next smaller shape bucket (ops/compact.py),
-    with ``dropped`` passed as zeros and its delta scattered on the host.
-    An exception from the kernel propagates."""
-    from karpenter_tpu_torch.ops.compact import (
-        compact_alive, scatter_dropped, sparse_record,
-    )
-    from karpenter_tpu_torch.ops.pack import compute_maxfit, unpack_flat
-    from karpenter_tpu_torch.ops.pack_cuda import (
-        compute_log_bound, pack_chunk, requested_mask,
-    )
-
+    here. The device side is a :class:`DeviceRun` of one problem, the
+    batched window's run with B = 1; an exception from the kernel, or a
+    chunk loop that does not finish within ``MAX_CHUNKS``, propagates."""
     dev = resolve_device(device)
     if not packables:
         return HostSolveResult(packings=[], unschedulable=list(pod_ids))
@@ -92,59 +79,142 @@ def solve_ffd_device(
     enc = pad_encoding(enc)
     if enc is None:
         return None
+    run = DeviceRun([enc], [prices if cost_tiebreak else None], chunk_iters, dev)
+    records, dropped = run.finish()
+    return _decode(enc, records[0], dropped[0], packables)
 
-    S, L = enc.shapes.shape[0], chunk_iters
-    use_cost = cost_tiebreak and prices is not None
-    prices_d = None
-    if use_cost:
-        prices_d = torch.as_tensor(
-            encode_prices(prices, enc.totals.shape[0])).to(dev)
-    (shapes_d, counts_d, dropped_d, totals, reserved0, valid, last_valid,
-     pods_unit) = device_args(enc, dev)
-    maxfit_d = compute_maxfit(shapes_d, totals, reserved0, valid)
-    maxfit_full = maxfit_d.cpu().numpy()
-    log_bound = compute_log_bound(enc.totals, enc.reserved0, enc.valid,
-                                  enc.pods_unit)
-    used = requested_mask(enc.shapes)
 
-    shapes_full = enc.shapes
-    dropped_full = np.zeros(S, np.int64)
-    records = []  # (chosen, qty, packed-vec | sparse [(shape, n), ...])
-    perm = None
-    S_cur = S
-    for _ in range(MAX_CHUNKS):
-        buf = pack_chunk(shapes_d, counts_d, dropped_d, totals, reserved0,
-                         valid, last_valid, pods_unit, num_iters=L,
-                         prices=prices_d, cost_tiebreak=use_cost,
-                         maxfit=maxfit_d, log_bound=log_bound,
-                         resource_mask=used).cpu().numpy()
-        counts_h, dropped_h, done, chosen_h, q_h, packed_h = unpack_flat(
-            buf, S_cur, L)
-        for i in range(L):
-            if q_h[i] > 0:
-                rec = (packed_h[i] if perm is None
-                       else sparse_record(packed_h[i], perm))
-                records.append((int(chosen_h[i]), int(q_h[i]), rec))
-        scatter_dropped(dropped_full, dropped_h, perm)
-        if done:
-            break
-        c = compact_alive(counts_h, perm, shapes_full, maxfit_full)
-        if c is not None:
-            perm, S_cur = c.perm, c.num_shapes
-            shapes_d = torch.as_tensor(c.shapes).to(dev)
-            counts_d = torch.as_tensor(c.counts).to(dev)
-            maxfit_d = torch.as_tensor(c.maxfit).to(dev)
+class DeviceRun:
+    """The device side of one solve of B >= 1 encoded problems: the batch
+    tensors, copied to the device in one copy, and the chunk loop.
+
+    Every problem is padded to the largest (S, T) bucket of the batch
+    (parallel/batched_pack.pad_problems). ``maxfit`` is computed once on the
+    device; the kernel's log bound and walked-resource mask once on the
+    host from the encodings (neither reads the feasibility mask). Each
+    chunk is one launch (parallel/batched_pack.pack_batch_ring: a batch of
+    one through ``pack_chunk``, more through ``pack_batch``) and one
+    device→host copy. ``mask``, when given, is the device feasibility
+    mask's ``(valid, last_valid)`` tensors (ops/device_filter.py), used in
+    place of the encodings' without touching the host. ``prices_list``
+    holds each problem's per-packable $/h or None; a row without prices
+    gets INT32_MAX, which leaves the tie-break to the lowest index, as for
+    an unpriced catalog."""
+
+    def __init__(self, encs, prices_list, chunk_iters: int, device: torch.device,
+                 mask=None):
+        from karpenter_tpu_torch.ops.pack import compute_maxfit
+        from karpenter_tpu_torch.ops.pack_cuda import batch_log_bound, requested_mask
+        from karpenter_tpu_torch.parallel.batched_pack import pad_problems
+
+        self.encs = encs
+        self.device = device
+        self.L = chunk_iters
+        (shapes, counts, _dropped, totals, reserved0, valid, last_valid, pods_unit,
+         B) = pad_problems(encs)
+        if mask is not None and tuple(mask[0].shape) != valid.shape:
+            raise ValueError(f"mask shape {tuple(mask[0].shape)} != batch valid shape "
+                             f"{valid.shape}")
+        self.use_cost = any(p is not None for p in prices_list)
+        host = [shapes, counts, totals, reserved0, pods_unit]
+        if mask is None:
+            host += [valid, last_valid]
+        if self.use_cost:
+            prices = np.full((B, totals.shape[1]), _INT32_MAX, np.int32)
+            for b, pr in enumerate(prices_list):
+                if pr is not None:
+                    prices[b] = encode_prices(pr, totals.shape[1])
+            host.append(prices)
+        # the invariants and the first counts in one host→device copy
+        (self.shapes_d, self.counts_d, self.totals_d, self.reserved0_d, self.pods_unit_d,
+         *rest) = to_device_int32(host, device)
+        if mask is None:
+            valid_i, self.last_valid_d, *rest = rest
+            self.valid_d = valid_i != 0
         else:
-            counts_d = torch.as_tensor(np.ascontiguousarray(counts_h)).to(dev)
-        dropped_d = torch.zeros(S_cur, dtype=torch.int32, device=dev)
-    else:
-        # impossible by construction (every decision commits or drops);
-        # reached only with a chunk_iters too small for the problem
-        raise RuntimeError(
-            f"solve_ffd_device did not converge in {MAX_CHUNKS} chunks of "
-            f"{L} node decisions")
+            self.valid_d, self.last_valid_d = mask
+        self.prices_d = rest[0] if self.use_cost else None
+        self.dropped_d = torch.zeros_like(self.counts_d)
+        self.shapes_host = shapes
+        self.maxfit_full_d = compute_maxfit(self.shapes_d, self.totals_d, self.reserved0_d,
+                                            self.valid_d)
+        self.maxfit_d = self.maxfit_full_d
+        self._maxfit_host: Optional[np.ndarray] = None
+        self.log_bound = batch_log_bound(totals, reserved0, pods_unit)
+        self.resource_mask = requested_mask(shapes.reshape(-1, shapes.shape[2]))
+        self.S0 = shapes.shape[1]
+        self.buckets = [self.S0]   # the shape bucket of each chunk
+        self.launches = 0
+        self._pending = None
 
-    return _decode(enc, records, dropped_full, packables)
+    def launch(self) -> None:
+        """Enqueue the next chunk; a no-op while one is pending."""
+        from karpenter_tpu_torch.parallel.batched_pack import pack_batch_ring
+
+        if self._pending is not None:
+            return
+        self._pending = pack_batch_ring(
+            self.shapes_d, self.counts_d, self.dropped_d, self.totals_d,
+            self.reserved0_d, self.valid_d, self.last_valid_d, self.pods_unit_d,
+            self.L, prices=self.prices_d, cost_tiebreak=self.use_cost,
+            maxfit=self.maxfit_d, log_bound=self.log_bound,
+            resource_mask=self.resource_mask)
+        self.launches += 1
+
+    def finish(self):
+        """Copy each chunk to the host, resume until every problem is done,
+        and return per problem its records ``(chosen, q, packed row or
+        sparse [(shape, n), ...])`` and its dropped counts, in the original
+        shape index space. Between chunks the batch keeps ONE S: when the
+        largest alive set of any problem fits a smaller bucket, every row is
+        compacted to it (ops/compact.compact_rows); otherwise the kernel's
+        own ``counts_next`` and zeroed ``dropped_next`` feed the next chunk
+        and nothing is copied to the device. Each problem's dropped deltas
+        accumulate on the host through its permutation."""
+        from karpenter_tpu_torch.ops.compact import (
+            compact_rows, scatter_dropped, sparse_record,
+        )
+        from karpenter_tpu_torch.ops.encode import SHAPE_BUCKETS, bucket
+        from karpenter_tpu_torch.parallel.batched_pack import unpack_batch_flat
+
+        B, L = len(self.encs), self.L
+        records: List[list] = [[] for _ in range(B)]
+        dropped_full = [np.zeros(self.S0, np.int64) for _ in range(B)]
+        perms: List[Optional[np.ndarray]] = [None] * B
+        S_cur = self.S0
+        for _ in range(MAX_CHUNKS):
+            self.launch()  # a no-op for a chunk already enqueued
+            (flat, counts_next, dropped_next), self._pending = self._pending, None
+            buf = flat.cpu().numpy()  # the chunk's one device→host copy
+            counts_f, dropped_f, done, chosen, q, packed = unpack_batch_flat(buf, S_cur, L)
+            for b in range(B):
+                perm = perms[b]
+                for i in np.flatnonzero(q[b] > 0):
+                    rec = packed[b, i] if perm is None else sparse_record(packed[b, i], perm)
+                    records[b].append((int(chosen[b, i]), int(q[b, i]), rec))
+                scatter_dropped(dropped_full[b], dropped_f[b], perm)
+            if done.all():
+                break
+            alive_max = int((counts_f > 0).sum(axis=1).max(initial=0))
+            S_new = bucket(max(alive_max, 1), SHAPE_BUCKETS)
+            if S_new is not None and S_new < S_cur:
+                if self._maxfit_host is None:
+                    self._maxfit_host = self.maxfit_full_d.cpu().numpy()
+                perms, shapes_c, counts_c, maxfit_c = compact_rows(
+                    counts_f, perms, self.shapes_host, self._maxfit_host, S_new)
+                S_cur = S_new
+                self.shapes_d, self.counts_d, self.maxfit_d = to_device_int32(
+                    [shapes_c, counts_c, maxfit_c], self.device)
+                self.dropped_d = torch.zeros_like(self.counts_d)
+                self.buckets.append(S_new)
+            else:
+                self.counts_d, self.dropped_d = counts_next, dropped_next
+        else:
+            # impossible by construction (every decision commits or drops);
+            # reached only with a chunk_iters too small for the problem
+            raise RuntimeError(f"device solve did not converge in {MAX_CHUNKS} chunks "
+                               f"of {L} node decisions")
+        return records, dropped_full
 
 
 def solve_ffd_numpy(
@@ -242,15 +312,23 @@ def _decode(
     records,
     dropped: np.ndarray,
     packables: Sequence[Packable],
+    max_instance_types: int = MAX_INSTANCE_TYPES,
+    options_fn=None,
 ) -> HostSolveResult:
     """Materialize packings: map per-shape counts back to pod ids and dedupe
-    by instance-option set (the hash dedupe in packer.go:130-139)."""
+    by instance-option set (the hash dedupe in packer.go:130-139).
+
+    ``options_fn`` (the signature of :func:`instance_options`) lets the
+    fused device-filter path substitute its feasibility-aware option walk
+    over the universe type axis (ops/device_filter.py); it may raise to
+    reject the decode, and the caller then solves the problem on the host
+    path."""
     queues = [list(p) for p in enc.shape_pods]
     heads = [0] * len(queues)
     packings: List[HostPacking] = []
     by_options = {}
     for chosen, qty, packedv in records:
-        options = instance_options(packables, chosen)
+        options = (options_fn or instance_options)(packables, chosen, max_instance_types)
         key = tuple(options)
         # iterate only the shapes this record touches; records carry either
         # a dense per-shape vector or a sparse [(shape, count), ...] list

@@ -18,45 +18,9 @@ index; the chunk loop uses it to decode ``packed`` record rows and
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from typing import Optional
 
 import numpy as np
-
-from karpenter_tpu_torch.ops.encode import SHAPE_BUCKETS, bucket
-
-
-class Compaction(NamedTuple):
-    perm: np.ndarray      # (n_alive,) int64: compacted row → original index
-    shapes: np.ndarray    # (S_new, R) int32, alive prefix + zero padding
-    counts: np.ndarray    # (S_new,) int32
-    maxfit: np.ndarray    # (S_new,) int32 (padding rows irrelevant: k==0)
-    num_shapes: int       # S_new (the new, smaller bucket)
-
-
-def compact_alive(
-    counts_now: np.ndarray,        # (S_cur,) current chunk-boundary counts
-    perm: Optional[np.ndarray],    # current compaction, None = identity
-    shapes_full: np.ndarray,       # (S_orig, R) the ORIGINAL padded shapes
-    maxfit_full: np.ndarray,       # (S_orig,) the once-per-solve bound
-) -> Optional[Compaction]:
-    """Decide whether re-bucketing the alive shapes pays off; None when the
-    alive set still needs the current bucket (or no shapes remain alive)."""
-    S_cur = counts_now.shape[0]
-    alive = np.flatnonzero(counts_now > 0)  # ascending: stable, order-safe
-    if alive.size == 0:
-        return None
-    S_new = bucket(int(alive.size), SHAPE_BUCKETS)
-    if S_new is None or S_new >= S_cur:
-        return None
-    new_perm = alive if perm is None else perm[alive]
-    R = shapes_full.shape[1]
-    shapes_c = np.zeros((S_new, R), np.int32)
-    shapes_c[:alive.size] = shapes_full[new_perm]
-    counts_c = np.zeros((S_new,), np.int32)
-    counts_c[:alive.size] = counts_now[alive]
-    maxfit_c = np.zeros((S_new,), np.int32)
-    maxfit_c[:alive.size] = maxfit_full[new_perm]
-    return Compaction(new_perm, shapes_c, counts_c, maxfit_c, S_new)
 
 
 def sparse_record(packed_row: np.ndarray, perm: np.ndarray):
@@ -65,6 +29,32 @@ def sparse_record(packed_row: np.ndarray, perm: np.ndarray):
     len(perm) are structurally zero, so the slice is exact."""
     row = np.asarray(packed_row[:perm.size])
     return [(int(perm[s]), int(row[s])) for s in np.flatnonzero(row)]
+
+
+def compact_rows(counts_rows: np.ndarray, perms: list,
+                 shapes_full_rows: np.ndarray, maxfit_full_rows: np.ndarray,
+                 S_new: int):
+    """Compact every problem row of a device run (models/ffd.DeviceRun) to
+    the SAME target bucket ``S_new`` (the batch tensors stay uniform; the
+    caller picks the bucket of the LARGEST alive set). ``perms`` holds one
+    permutation per problem (None = identity); ``shapes_full_rows`` (B,
+    S_orig, R) and ``maxfit_full_rows`` (B, S_orig) are the ORIGINAL host
+    rows. Returns ``(perms, shapes, counts,
+    maxfit)``: the updated permutations and the (B, S_new, ·) rows; a row
+    with nothing alive compacts to zeros."""
+    B, R = counts_rows.shape[0], shapes_full_rows.shape[2]
+    shapes_c = np.zeros((B, S_new, R), np.int32)
+    counts_c = np.zeros((B, S_new), np.int32)
+    maxfit_c = np.zeros((B, S_new), np.int32)
+    new_perms = list(perms)
+    for b in range(len(perms)):
+        alive = np.flatnonzero(counts_rows[b] > 0)
+        perm_b = alive if perms[b] is None else perms[b][alive]
+        new_perms[b] = perm_b
+        shapes_c[b, :alive.size] = shapes_full_rows[b][perm_b]
+        counts_c[b, :alive.size] = counts_rows[b][alive]
+        maxfit_c[b, :alive.size] = maxfit_full_rows[b][perm_b]
+    return new_perms, shapes_c, counts_c, maxfit_c
 
 
 def scatter_dropped(dropped_full: np.ndarray, dropped_delta: np.ndarray,

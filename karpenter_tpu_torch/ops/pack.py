@@ -18,13 +18,33 @@ import numpy as np
 import torch
 
 INT32_MAX = 2**31 - 1
+# the largest (B, S, T) intermediate compute_maxfit builds in one pass (64 MB)
+_BATCHED_ELEMENTS = 1 << 24
 
 
 def compute_maxfit(shapes: torch.Tensor, totals: torch.Tensor,
                    reserved0: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
     """(S,) int32: max over valid types of min over resources r with
     shape[r] > 0 of floor((total - reserved0) / shape), INT32_MAX where a
-    shape requests nothing, -1 where no type is valid."""
+    shape requests nothing, -1 where no type is valid.
+
+    With a leading batch axis ((B, S, R) shapes, (B, T, R) totals and
+    reserved0, (B, T) valid) it returns (B, S): one (B, S, T) pass while
+    that holds at most ``_BATCHED_ELEMENTS`` int32, else problem by
+    problem, so peak memory stays bounded at the large shape buckets."""
+    if shapes.dim() == 3:
+        B, S, _ = shapes.shape
+        if B * S * totals.shape[1] > _BATCHED_ELEMENTS:
+            return torch.stack([compute_maxfit(shapes[b], totals[b], reserved0[b], valid[b])
+                                for b in range(B)])
+        avail0 = totals - reserved0  # (B, T, R)
+        kfit0 = torch.full((B, S, totals.shape[1]), INT32_MAX, dtype=torch.int32,
+                           device=shapes.device)
+        for r in range(shapes.shape[2]):
+            col = shapes[:, :, r:r + 1]  # (B, S, 1)
+            kr = torch.div(avail0[:, None, :, r], col.clamp(min=1), rounding_mode="floor")
+            kfit0 = torch.minimum(kfit0, torch.where(col > 0, kr, INT32_MAX))
+        return torch.where(valid[:, None, :], kfit0, -1).amax(dim=2).to(torch.int32)
     S, R = shapes.shape
     T = totals.shape[0]
     avail0 = totals - reserved0  # (T, R)

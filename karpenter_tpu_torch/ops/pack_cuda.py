@@ -9,6 +9,9 @@ Both follow the TPU kernel's row contract (karpenter_tpu/ops/pack_pallas.py):
 rows past ``done`` or with q == 0 hold chosen = -1, q = 0 and packed = 0,
 so the two give bit-identical buffers.
 
+``pack_batch`` runs B problems of one bucket in one launch of the same
+kernel, a cluster per problem, and ``pack_batch_plain`` is its twin.
+
 The kernel runs one problem on a thread-block cluster whose size
 :func:`launch_shape` fixes from the type bucket, one type per thread, and
 walks the resources of :func:`requested_mask` (its body for 3 of them when
@@ -27,7 +30,7 @@ import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import Optional
+from typing import Optional, Union
 
 import numpy as np
 import torch
@@ -49,14 +52,18 @@ MAX_CLUSTER = 8
 MAX_TYPE_THREADS = 512
 _DIVISOR_TABLE_WORDS = 32  # int32 words per shape in each CTA's divisor table
 
-# launches of the CUDA kernel since the count was last set to 0
+# launches of the CUDA kernel since the counts were last set to 0: one
+# problem (pack_chunk) and a batch of problems (pack_batch)
 LAUNCHES = 0
+BATCH_LAUNCHES = 0
 # seconds the last nvcc build took and what ptxas said (registers, spills)
 BUILD_SECONDS: Optional[float] = None
 BUILD_LOG = ""
 
 _LIB = None
 _LIB_LOCK = threading.Lock()
+
+IntOrTensor = Union[int, torch.Tensor]
 
 
 def _find_nvcc() -> str:
@@ -96,8 +103,8 @@ def _library():
         if _LIB is None:
             lib = ctypes.CDLL(str(build()))
             ptr, i32 = ctypes.c_void_p, ctypes.c_int
-            lib.kt_pack_chunk.argtypes = [ptr] * 8 + [i32] * 9 + [ptr] * 4
-            lib.kt_pack_chunk.restype = i32
+            lib.kt_pack.argtypes = [ptr] * 10 + [i32] * 8 + [ptr] * 4
+            lib.kt_pack.restype = i32
             lib.kt_error_string.argtypes = [i32]
             lib.kt_error_string.restype = ctypes.c_char_p
             _LIB = lib
@@ -105,11 +112,11 @@ def _library():
 
 
 def _check(name: str, t: torch.Tensor, dtype: torch.dtype, shape: tuple,
-           device: torch.device) -> None:
+           device: torch.device, fn: str = "pack_chunk") -> None:
     if t.dtype != dtype or tuple(t.shape) != shape or t.device != device \
             or not t.is_contiguous():
         raise ValueError(
-            f"pack_chunk: {name} must be a contiguous {dtype} tensor of shape "
+            f"{fn}: {name} must be a contiguous {dtype} tensor of shape "
             f"{shape} on {device}, got {t.dtype} {tuple(t.shape)} on "
             f"{t.device} (contiguous={t.is_contiguous()})")
 
@@ -178,7 +185,7 @@ def floor_div_by_constant(n: torch.Tensor, d: torch.Tensor,
 def pack_chunk(shapes: torch.Tensor, counts: torch.Tensor,
                dropped: torch.Tensor, totals: torch.Tensor,
                reserved0: torch.Tensor, valid: torch.Tensor,
-               last_valid: int, pods_unit: int, num_iters: int,
+               last_valid: IntOrTensor, pods_unit: IntOrTensor, num_iters: int,
                prices: Optional[torch.Tensor] = None,
                cost_tiebreak: bool = False,
                maxfit: Optional[torch.Tensor] = None,
@@ -187,10 +194,12 @@ def pack_chunk(shapes: torch.Tensor, counts: torch.Tensor,
     """Up to ``num_iters`` node decisions → the flat int32 buffer
     ``[counts S | dropped S | done 1 | chosen L | q L | packed L·S]``.
 
-    ``shapes`` (S, 8), ``counts``/``dropped`` (S,), ``totals``/``reserved0``
-    (T, 8) are int32, ``valid`` (T,) bool, ``prices`` (T,) int32 micro-$
-    (read only with ``cost_tiebreak``: the cheapest max-pods type wins,
-    the lowest index breaks price ties), ``maxfit`` (S,) int32 from
+    ``last_valid`` and ``pods_unit`` are ints or one-element int32 tensors
+    on the tensors' device (a solve passes its device copies, so nothing is
+    read back); ``shapes`` (S, 8), ``counts``/``dropped`` (S,),
+    ``totals``/``reserved0`` (T, 8) are int32, ``valid`` (T,) bool,
+    ``prices`` (T,) int32 micro-$ (read only with ``cost_tiebreak``: the
+    cheapest max-pods type wins, the lowest index breaks price ties), ``maxfit`` (S,) int32 from
     :func:`compute_maxfit`, ``log_bound`` from :func:`compute_log_bound`
     and ``resource_mask`` from :func:`requested_mask` (each computed here
     when omitted; the last two with a device→host copy). A mask with more
@@ -222,55 +231,194 @@ def pack_chunk(shapes: torch.Tensor, counts: torch.Tensor,
 def launch_pack(shapes: torch.Tensor, counts: torch.Tensor,
                 dropped: torch.Tensor, totals: torch.Tensor,
                 reserved0: torch.Tensor, valid: torch.Tensor,
-                last_valid: int, pods_unit: int, num_iters: int,
+                last_valid: IntOrTensor, pods_unit: IntOrTensor, num_iters: int,
                 prices: Optional[torch.Tensor], cost_tiebreak: bool,
                 maxfit: torch.Tensor, log_bound: int, resource_mask: int,
                 cluster: int) -> torch.Tensor:
     """One launch of csrc/pack.cu on CUDA tensors at a given cluster size:
     what :func:`pack_chunk` runs at the size :func:`launch_shape` picks (the
-    other sizes are for measuring that rule). Checks every argument and
-    raises on a refused launch."""
+    other sizes are for measuring that rule). It is the batched launch of
+    :func:`launch_pack_batch` with B = 1. Checks every argument and raises
+    on a refused launch."""
     global LAUNCHES
+    if shapes.dim() != 2 or totals.dim() != 2:
+        raise ValueError(f"pack_chunk: shapes and totals must be (·, 8), got "
+                         f"{tuple(shapes.shape)} and {tuple(totals.shape)}")
+    one = [_one_problem(v, shapes.device) for v in (last_valid, pods_unit)]
+    row = [None if t is None else t[None] for t in (
+        shapes, counts, dropped, totals, reserved0, valid, prices, maxfit)]
+    out = _launch("pack_chunk", *row[:6], *one, num_iters, row[6], cost_tiebreak,
+                  row[7], log_bound, resource_mask, cluster)
+    LAUNCHES += 1
+    return out[0]
+
+
+def _one_problem(v, device: torch.device) -> torch.Tensor:
+    """An int or a one-element tensor → a (1,) tensor on ``device``."""
+    if isinstance(v, torch.Tensor):
+        return v.reshape(1)
+    return torch.tensor([int(v)], dtype=torch.int32, device=device)
+
+
+def _launch(fn: str, shapes, counts, dropped, totals, reserved0, valid,
+            last_valid, pods_unit, num_iters, prices, cost_tiebreak, maxfit,
+            log_bound, resource_mask, cluster) -> torch.Tensor:
+    """The launch behind :func:`launch_pack` (B = 1) and
+    :func:`launch_pack_batch`, every tensor with a leading axis of B and
+    ``last_valid``/``pods_unit`` (B,) int32 tensors: checks every argument,
+    allocates the output and the scratch, launches on the current stream
+    and raises on a refused launch."""
     dev = shapes.device
-    S, T, L = shapes.shape[0], totals.shape[0], int(num_iters)
+    if shapes.dim() != 3 or totals.dim() != 3:
+        raise ValueError(f"{fn}: shapes and totals must be (B, ·, 8), got "
+                         f"{tuple(shapes.shape)} and {tuple(totals.shape)}")
+    B = shapes.shape[0]
+    lead = (B,)
+    S, T, L = shapes.shape[-2], totals.shape[-2], int(num_iters)
     use_cost = bool(cost_tiebreak and prices is not None)
-    _check("shapes", shapes, torch.int32, (S, 8), dev)
+    _check("shapes", shapes, torch.int32, lead + (S, 8), dev, fn)
     for name, t in (("counts", counts), ("dropped", dropped), ("maxfit", maxfit)):
-        _check(name, t, torch.int32, (S,), dev)
-    _check("totals", totals, torch.int32, (T, 8), dev)
-    _check("reserved0", reserved0, torch.int32, (T, 8), dev)
-    _check("valid", valid, torch.bool, (T,), dev)
+        _check(name, t, torch.int32, lead + (S,), dev, fn)
+    _check("totals", totals, torch.int32, lead + (T, 8), dev, fn)
+    _check("reserved0", reserved0, torch.int32, lead + (T, 8), dev, fn)
+    _check("valid", valid, torch.bool, lead + (T,), dev, fn)
     if use_cost:
-        _check("prices", prices, torch.int32, (T,), dev)
-    if not 0 <= int(last_valid) < T:
-        raise ValueError(f"pack_chunk: last_valid {last_valid} outside [0, {T})")
+        _check("prices", prices, torch.int32, lead + (T,), dev, fn)
+    # per-problem device values; the kernel ends a problem whose last_valid
+    # lies outside [0, T) with its error word
+    _check("last_valid", last_valid, torch.int32, lead, dev, fn)
+    _check("pods_unit", pods_unit, torch.int32, lead, dev, fn)
     if not (1 <= cluster <= MAX_CLUSTER
             and launch_threads(T, cluster) <= MAX_TYPE_THREADS + 32):
-        raise ValueError(f"pack_chunk: no launch of {cluster} CTAs for T={T}")
+        raise ValueError(f"{fn}: no launch of {cluster} CTAs for T={T}")
     if not 0 <= int(resource_mask) < 1 << 8:
-        raise ValueError(f"pack_chunk: resource mask {resource_mask} outside [0, 256)")
+        raise ValueError(f"{fn}: resource mask {resource_mask} outside [0, 256)")
     # a type logs at most one entry per live shape, so S caps any bound
     log_cap = max(1, min(int(log_bound), S))
-    out = torch.empty(flat_size(S, L), dtype=torch.int32, device=dev)
-    consts = torch.empty(cluster * S * _DIVISOR_TABLE_WORDS, dtype=torch.int32, device=dev)
-    log = torch.empty(2 * T * log_cap * 2, dtype=torch.int32, device=dev)
+    out = torch.empty((B, flat_size(S, L)), dtype=torch.int32, device=dev)
+    consts = torch.empty(B * cluster * S * _DIVISOR_TABLE_WORDS, dtype=torch.int32, device=dev)
+    log = torch.empty(B * 2 * T * log_cap * 2, dtype=torch.int32, device=dev)
     lib = _library()
     # the runtime launches on its current device: make it the tensors' one
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.kt_pack_chunk(
+        rc = lib.kt_pack(
             shapes.data_ptr(), counts.data_ptr(), dropped.data_ptr(),
             totals.data_ptr(), reserved0.data_ptr(), valid.data_ptr(),
             prices.data_ptr() if use_cost else None, maxfit.data_ptr(),
-            S, T, L, int(last_valid), int(pods_unit), int(use_cost),
-            int(resource_mask), int(cluster), log_cap,
+            last_valid.data_ptr(), pods_unit.data_ptr(), B, S, T, L,
+            int(use_cost), int(resource_mask), int(cluster), log_cap,
             consts.data_ptr(), log.data_ptr(), out.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError(
-            f"pack kernel launch failed (S={S}, T={T}, L={L}, cluster={cluster}): "
+            f"pack kernel launch failed (B={B}, S={S}, T={T}, L={L}, cluster={cluster}): "
             f"{lib.kt_error_string(rc).decode()} ({rc})")
-    LAUNCHES += 1
     return out
+
+
+def batch_log_bound(totals, reserved0, pods_unit) -> int:
+    """:func:`compute_log_bound` of a batch ((B, T, 8) totals and reserved0,
+    (B,) pods_unit; numpy or CPU tensors): the maximum over problems, each
+    over EVERY type of its axis. The valid mask is ignored: a bound over a
+    superset of the types is still a bound, and so the host never needs
+    the device's feasibility mask to size the logs."""
+    pods_unit = np.asarray(pods_unit, np.int64)
+    if pods_unit.size == 0:
+        return 0
+    if (pods_unit < 1).any():
+        return INT32_MAX
+    free = (np.asarray(totals, np.int64)[:, :, R_PODS]
+            - np.asarray(reserved0, np.int64)[:, :, R_PODS])
+    return int(max(0, (free // pods_unit[:, None]).max(initial=0)))
+
+
+def pack_batch(shapes: torch.Tensor, counts: torch.Tensor,
+               dropped: torch.Tensor, totals: torch.Tensor,
+               reserved0: torch.Tensor, valid: torch.Tensor,
+               last_valid: torch.Tensor, pods_unit: torch.Tensor,
+               num_iters: int, prices: Optional[torch.Tensor] = None,
+               cost_tiebreak: bool = False,
+               maxfit: Optional[torch.Tensor] = None,
+               log_bound: Optional[int] = None,
+               resource_mask: Optional[int] = None) -> torch.Tensor:
+    """:func:`pack_chunk` over B independent problems of one (S, T) bucket
+    in ONE launch → (B, 2S+1+2L+L·S) int32, row b the flat buffer of
+    problem b (the Pallas kernel under ``jax.vmap``).
+
+    Every argument of :func:`pack_chunk` gains a leading axis of B;
+    ``last_valid`` and ``pods_unit`` are (B,) int32 tensors, so a device
+    feasibility mask and its ``last_valid`` reach the kernel without
+    touching the host. ``maxfit`` (B, S) comes from
+    :func:`karpenter_tpu_torch.ops.pack.compute_maxfit`, ``log_bound``
+    from :func:`batch_log_bound` and ``resource_mask`` from
+    :func:`requested_mask` over every problem's shapes (each computed here
+    when omitted, the last two from host copies of the shapes, totals,
+    reserved0 and pods_unit). On a CPU tensor it runs
+    :func:`pack_batch_plain`. With B = 1 a row equals :func:`pack_chunk`'s
+    buffer bit for bit: it is the same kernel."""
+    if shapes.device.type == "cpu":
+        return pack_batch_plain(shapes, counts, dropped, totals, reserved0,
+                                valid, last_valid, pods_unit, num_iters,
+                                prices=prices, cost_tiebreak=cost_tiebreak,
+                                maxfit=maxfit)
+    if shapes.device.type != "cuda":
+        raise ValueError(f"pack_batch: unsupported device {shapes.device}")
+    if maxfit is None:
+        maxfit = compute_maxfit(shapes, totals, reserved0, valid)
+    if log_bound is None:
+        log_bound = batch_log_bound(totals.cpu().numpy(), reserved0.cpu().numpy(),
+                                    pods_unit.cpu().numpy())
+    if resource_mask is None:
+        resource_mask = requested_mask(shapes.cpu().numpy().reshape(-1, shapes.shape[-1]))
+    return launch_pack_batch(shapes, counts, dropped, totals, reserved0, valid,
+                             last_valid, pods_unit, num_iters, prices,
+                             cost_tiebreak, maxfit, log_bound, resource_mask,
+                             launch_shape(totals.shape[1]))
+
+
+def launch_pack_batch(shapes: torch.Tensor, counts: torch.Tensor,
+                      dropped: torch.Tensor, totals: torch.Tensor,
+                      reserved0: torch.Tensor, valid: torch.Tensor,
+                      last_valid: torch.Tensor, pods_unit: torch.Tensor,
+                      num_iters: int, prices: Optional[torch.Tensor],
+                      cost_tiebreak: bool, maxfit: torch.Tensor,
+                      log_bound: int, resource_mask: int,
+                      cluster: int) -> torch.Tensor:
+    """One batched launch of csrc/pack.cu, a cluster of ``cluster`` CTAs
+    per problem: what :func:`pack_batch` runs at the size
+    :func:`launch_shape` picks. Checks every argument as
+    :func:`launch_pack` does and raises on a refused launch. The scratch is
+    sized from this launch's S: the divisor tables alone take
+    B·cluster·S·128 bytes (~200 MB at B = 24, 8 CTAs, S = 8192)."""
+    global BATCH_LAUNCHES
+    out = _launch("pack_batch", shapes, counts, dropped, totals, reserved0, valid,
+                  last_valid, pods_unit, num_iters, prices, cost_tiebreak, maxfit,
+                  log_bound, resource_mask, cluster)
+    BATCH_LAUNCHES += 1
+    return out
+
+
+def pack_batch_plain(shapes: torch.Tensor, counts: torch.Tensor,
+                     dropped: torch.Tensor, totals: torch.Tensor,
+                     reserved0: torch.Tensor, valid: torch.Tensor,
+                     last_valid: torch.Tensor, pods_unit: torch.Tensor,
+                     num_iters: int, prices: Optional[torch.Tensor] = None,
+                     cost_tiebreak: bool = False,
+                     maxfit: Optional[torch.Tensor] = None,
+                     stats: Optional[dict] = None) -> torch.Tensor:
+    """The plain PyTorch version of :func:`pack_batch`, on any device:
+    :func:`pack_chunk_plain` problem by problem, the rows stacked.
+    ``stats`` accumulates over the problems."""
+    lv = [int(v) for v in last_valid.cpu().tolist()]
+    pu = [int(v) for v in pods_unit.cpu().tolist()]
+    rows = [pack_chunk_plain(
+        shapes[b], counts[b], dropped[b], totals[b], reserved0[b], valid[b],
+        lv[b], pu[b], num_iters,
+        prices=None if prices is None else prices[b],
+        cost_tiebreak=cost_tiebreak,
+        maxfit=None if maxfit is None else maxfit[b], stats=stats)
+        for b in range(shapes.shape[0])]
+    return torch.stack(rows)
 
 
 def pack_chunk_plain(shapes: torch.Tensor, counts: torch.Tensor,

@@ -13,6 +13,8 @@ per-type validators (:func:`_validate`).
 from __future__ import annotations
 
 import functools
+import itertools
+import threading
 from typing import List, Optional, Sequence, Tuple
 
 from karpenter_tpu_torch.api.constraints import Constraints
@@ -188,6 +190,26 @@ def _allowed_sets(constraints: Constraints) -> tuple:
             reqs.architectures(), reqs.operating_systems())
 
 
+def _fingerprint(c: Constraints) -> tuple:
+    # identity + length: an in-place append to a live requirement or taint
+    # list changes a length, a replacement changes an id
+    return (id(c.requirements), len(c.requirements.items),
+            id(c.taints), len(c.taints))
+
+
+def allowed_sets_cached(constraints: Constraints) -> tuple:
+    """:func:`_allowed_sets` memoized on the constraints object itself,
+    guarded by its fingerprint: a window that hands back the same
+    constraints object skips the five requirement-list walks."""
+    fp = _fingerprint(constraints)
+    hit = constraints.__dict__.get("_allowed_sets_memo")
+    if hit is not None and hit[0] == fp:
+        return hit[1]
+    allowed = _allowed_sets(constraints)
+    constraints.__dict__["_allowed_sets_memo"] = (fp, allowed)
+    return allowed
+
+
 def build_packables(
     instance_types: Sequence[InstanceType],
     constraints: Constraints,
@@ -198,7 +220,7 @@ def build_packables(
     """PackablesFor (packable.go:44-91): validate → reserve overhead → pack
     daemons → sort ascending. Callers that already marshaled the batch
     (:func:`marshal_pods`) pass ``required`` to skip the O(pods) re-scan."""
-    allowed = _allowed_sets(constraints)
+    allowed = allowed_sets_cached(constraints)
     if required is None:
         required = _required_resources(pods)
     daemon_vecs = [pod_vector(d) for d in daemons]
@@ -227,3 +249,80 @@ def build_packables(
         packables.append(p)
         sorted_types.append(it)
     return packables, sorted_types
+
+
+# -- universe packables (ops/device_filter.py) ---------------------------------
+#
+# The fused device filter masks the WHOLE catalog on the device, so its type
+# axis must not depend on the constraints: every type that survives overhead
+# reservation and daemon packing, in an order that agrees with the host
+# comparator on any feasible subset a fused problem can see. The stable
+# (cpu, memory) key is that order: _gpu_sort_cmp's GPU-equality gate holds
+# uniformly inside any feasible subset with at least one GPU class uniformly
+# zero (classes outside ``required`` must be zero per _validate), where the
+# comparator IS lexicographic (cpu, memory), and restricting a stable key
+# sort to a subset gives the subset's stable key sort. A problem requiring
+# all three GPU classes at once has no such class and stays off the fused
+# path.
+
+_token_counter = itertools.count(1)
+_packables_version_counter = itertools.count(1)
+_packables_lock = threading.Lock()
+_UNIVERSE_CACHE: dict = {}
+_UNIVERSE_CACHE_CAP = 8
+
+
+def _instance_token(it: InstanceType) -> int:
+    """A monotonic token attached to the InstanceType object: a catalog
+    refresh (new objects) gets new tokens, so a cache keyed by them cannot
+    serve a stale catalog."""
+    tok = it.__dict__.get("_marshal_token")
+    if tok is None:
+        tok = it.__dict__["_marshal_token"] = next(_token_counter)
+    return tok
+
+
+def build_universe_packables(
+    instance_types: Sequence[InstanceType],
+    daemons: Sequence[Pod] = (),
+    daemon_vecs: Optional[tuple] = None,
+) -> Tuple[List[Packable], List[InstanceType], int]:
+    """Packables over the whole catalog, independent of any constraints:
+    overhead reserved and daemons packed (no validators: feasibility comes
+    later as the device mask), sorted by the stable ``(cpu, memory)`` key.
+    Returns ``(packables, sorted_types, version)``: fresh ``Packable``
+    copies on every call (callers may mutate them) over a shared type
+    order, and a version that changes exactly when the catalog (its
+    objects' tokens) or the daemon set does."""
+    if daemon_vecs is None:
+        daemon_vecs = tuple(pod_vector(d) for d in daemons)
+    key = (tuple(_instance_token(it) for it in instance_types), daemon_vecs)
+    with _packables_lock:
+        hit = _UNIVERSE_CACHE.get(key)
+    if hit is None:
+        viable: List[Tuple[Vec, InstanceType, Packable]] = []
+        for it in instance_types:
+            totals = instance_totals(it)
+            p = Packable(index=-1, total=list(totals), reserved=[0] * NUM_RESOURCES)
+            if not p.reserve(resource_list_vector(it.overhead)):
+                continue
+            if daemon_vecs:
+                r = pack_one(p, list(daemon_vecs), list(range(len(daemon_vecs))))
+                if r.unpacked:
+                    continue
+            viable.append((totals, it, p))
+        viable.sort(key=lambda v: (v[0][R_CPU], v[0][R_MEMORY]))
+        packables: List[Packable] = []
+        sorted_types: List[InstanceType] = []
+        for i, (_, it, p) in enumerate(viable):
+            p.index = i
+            packables.append(p)
+            sorted_types.append(it)
+        version = next(_packables_version_counter)
+        with _packables_lock:
+            if len(_UNIVERSE_CACHE) >= _UNIVERSE_CACHE_CAP:
+                _UNIVERSE_CACHE.pop(next(iter(_UNIVERSE_CACHE)))
+            _UNIVERSE_CACHE[key] = (packables, sorted_types, version)
+    else:
+        packables, sorted_types, version = hit
+    return [p.copy() for p in packables], list(sorted_types), version

@@ -2,8 +2,10 @@
 
 The device path (models/ffd.py, the CUDA pack kernel) answers every problem
 the encoder can represent; a problem it cannot (exotic quantities, more
-distinct shapes than the largest bucket) goes to the host oracle
-(host_ffd.py). An exception from the device propagates to the caller.
+distinct shapes than the largest shape bucket) goes to the host oracle
+(host_ffd.py): the port has no native C++ pass to hand it to. An exception
+from the device propagates to the caller. A window of many problems goes
+through solver/batch_solve.py.
 """
 
 from __future__ import annotations
@@ -27,16 +29,17 @@ from karpenter_tpu_torch.solver.policy import DEFAULT_POLICY
 
 # -- solver health: which executor answered, and how often -------------------
 _HEALTH_LOCK = threading.Lock()
-_LAST_EXECUTOR: Optional[str] = None   # "device" | "host"
+_LAST_EXECUTOR: Optional[str] = None   # "device" | "device-batch" | "host"
 _EXECUTOR_COUNTS: Dict[str, int] = {}
 
 
-def record_executor(executor: str) -> None:
-    """Note which executor answered a solve."""
+def record_executor(executor: str, count: int = 1) -> None:
+    """Note which executor answered ``count`` problems: a batched launch
+    answers many at once and counts each."""
     global _LAST_EXECUTOR
     with _HEALTH_LOCK:
         _LAST_EXECUTOR = executor
-        _EXECUTOR_COUNTS[executor] = _EXECUTOR_COUNTS.get(executor, 0) + 1
+        _EXECUTOR_COUNTS[executor] = _EXECUTOR_COUNTS.get(executor, 0) + count
 
 
 def solver_health() -> dict:
@@ -53,6 +56,10 @@ def reset_executor_counts() -> None:
 
 @dataclass
 class SolverConfig:
+    # a batched window computes its feasibility mask on the device and feeds
+    # it to the pack kernel (ops/device_filter.py); False, or the
+    # KARPENTER_DEVICE_FILTER=0 kill switch, filters each problem on the host
+    device_filter: bool = True
     # node decisions per kernel launch (one device→host copy per chunk)
     chunk_iters: int = 64
     # prices each node's options cheapest-first when the catalog carries
@@ -139,8 +146,10 @@ def solve_with_packables(
     pod_vecs,
     config: SolverConfig,
     device: DeviceLike = None,
+    enc=None,
 ) -> SolveResult:
-    """solve() after problem preparation."""
+    """solve() after problem preparation; ``enc`` is the exact-size
+    encoding when the caller (solver/batch_solve.py) already made it."""
     if not packables:
         # same contract as host_ffd.pack: no viable types → every pod is
         # reported unschedulable
@@ -156,7 +165,8 @@ def solve_with_packables(
         ]
 
     # one exact encoding; None (not representable) → host oracle
-    enc = encode(pod_vecs, pod_ids, packables, pad=False)
+    if enc is None:
+        enc = encode(pod_vecs, pod_ids, packables, pad=False)
     result = None
     if enc is not None:
         result = solve_ffd_device(

@@ -39,7 +39,10 @@ def test_port_imports_without_jax_or_the_jax_package():
     expected = {"karpenter_tpu_torch.ops.pack_cuda",
                 "karpenter_tpu_torch.models.ffd",
                 "karpenter_tpu_torch.solver.solve",
-                "karpenter_tpu_torch.solver.adapter"}
+                "karpenter_tpu_torch.solver.adapter",
+                "karpenter_tpu_torch.solver.batch_solve",
+                "karpenter_tpu_torch.ops.device_filter",
+                "karpenter_tpu_torch.parallel.batched_pack"}
     assert expected <= set(report["imported"])
 
 
