@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Chip smoke for the PyTorch/CUDA port: build the kernel, hold it against
-its plain version, and drive the public solve() at full size on one card.
+its plain version, and drive the public solve(), the batched window and the
+global window backend at full size on one card.
 
     python3 chip_smoke.py
 
@@ -47,8 +48,30 @@ first use). Phases, each printing one JSON record:
 8. mixed window: 23 of those schedules and one of 25,000 high-cardinality
    pods (the 8192 bucket, compaction across problems), every problem equal
    to solo solve(), the buckets walked and the launches;
-9. the kernels line (pack_chunk and pack_batch), the card line, and the
-   final ok line.
+9. global_program: the relaxation program of the global window backend
+   (solver/global_solve.relax_node_counts) on the encoding of the
+   9,984-pod window (B = 32, SB = 32, TB = 512) on the card and on the CPU:
+   node counts within the stated tolerance, the supports equal row for row
+   (flips counted and printed), with TF32 turned on for the card's run
+   (the program uses no matmul, so it must not matter); the card's time
+   from CUDA events, its kernel launches per call, device-busy time and
+   idle share (torch.profiler), its bound, the CPU's time and the TF32
+   flags;
+10. global_window: config_14's window (12 schedules, 270 pods, 6 priced
+   types) as the controller runs it, dispatch_batch beside
+   dispatch_global_window, every accepted plan in place of its FFD result:
+   each accepted plan passes verify_plan, holds each pod once and is
+   strictly cheaper in int micro-$, each decline leaves its FFD result
+   untouched, the verdicts equal the port's CPU run, the executor is
+   "device-global"; fleet $/h and nodes of FFD and
+   of the composed window, p50/p99 of solve_window_global; relax_pack
+   (B8) on one schedule on the card and on the CPU, with its program's
+   time, launches, device-busy time and bound;
+11. global_window_400: the 9,984-pod window through the global backend
+   twice, the time split (encode, program on the card, host rounding,
+   total) and the verdicts by reason;
+12. the device-programs line (B7 and B8), the kernels line (pack_chunk and
+   pack_batch), the card line, and the final ok line.
 
 Any failed check exits non-zero.
 
@@ -557,6 +580,18 @@ def phase_config4(device):
     return rec
 
 
+def busy_us(spans):
+    """The union of the (start, end, name) device intervals, in µs."""
+    busy, cur_start, cur_end = 0.0, None, None
+    for start, end, _ in sorted(spans):
+        if cur_end is None or start > cur_end:
+            busy += 0.0 if cur_end is None else cur_end - cur_start
+            cur_start, cur_end = start, end
+        else:
+            cur_end = max(cur_end, end)
+    return busy + (cur_end - cur_start if cur_end is not None else 0.0)
+
+
 def profile_solve(fn):
     """Run ``fn`` once under torch.profiler: the pack kernel's device time
     summed over its launches, the device's busy time (the union of its
@@ -576,14 +611,7 @@ def profile_solve(fn):
     if not spans:
         return {"wall_ms": wall_us / 1e3, "pack_kernel_ms": None, "device_busy_ms": None,
                 "idle_share": None, "note": "not measured: no device activity traced"}
-    busy, cur_start, cur_end = 0.0, None, None
-    for start, end, _ in spans:
-        if cur_end is None or start > cur_end:
-            busy += 0.0 if cur_end is None else cur_end - cur_start
-            cur_start, cur_end = start, end
-        else:
-            cur_end = max(cur_end, end)
-    busy += cur_end - cur_start
+    busy = busy_us(spans)
     kernel_us = sum(end - start for start, end, name in spans if "pack_kernel" in name)
     return {"wall_ms": wall_us / 1e3, "pack_kernel_ms": kernel_us / 1e3,
             "pack_kernel_launches": sum(1 for *_, name in spans if "pack_kernel" in name),
@@ -880,10 +908,12 @@ def numpy_result(prob):
 
 def reset_counts():
     from karpenter_tpu_torch.ops import device_filter, pack_cuda
+    from karpenter_tpu_torch.solver import global_solve
     from karpenter_tpu_torch.solver.solve import reset_executor_counts
 
     pack_cuda.LAUNCHES = 0
     pack_cuda.BATCH_LAUNCHES = 0
+    global_solve.RUNS = 0
     reset_executor_counts()
     device_filter.reset_fallback_counts()
 
@@ -1078,6 +1108,408 @@ def phase_mixed_window(device):
     return rec
 
 
+# -- the global window backend (B7) and the repack relaxation (B8) -----------
+
+# card against CPU on the program's node counts: float32 sums in another order
+# (the card's reduction trees, FMA contraction) over 300 steps;
+# the JAX package's own XLA program and numpy mirror differ by up to 1.5e-4
+# at a node count of 5.13 (tests/test_torch_global_solve.py)
+PROGRAM_ATOL = PROGRAM_RTOL = 1e-4
+# H100 SXM float32 outside the tensor cores, an FMA as two operations
+# (the card's published peak)
+FLOAT32_FLOPS = 67e12
+GLOBAL_WARM_RUNS = 25
+
+
+def config14_problems():
+    """bench.py:1554-1616 (config_14): 12 schedules of one shape each, 10 to
+    35 pods (270), over six types offered in three zones whose price per cpu
+    spreads 4x, so the node-count-minimal and cost-minimal fleets differ."""
+    from karpenter_tpu_torch.cloudprovider.spi import Offering, make_instance_type
+    from karpenter_tpu_torch.solver.batch_solve import Problem
+    from karpenter_tpu_torch.solver.solve import universe_constraints
+
+    def t(name, cpu, ratio, price):
+        return make_instance_type(
+            name=name, cpu=str(cpu), memory=f"{cpu * ratio}Gi", pods=str(min(110, cpu * 15)),
+            offerings=[Offering("on-demand", f"bench-zone-{z + 1}") for z in range(3)],
+            price=price)
+
+    catalog = [t("gw-small-8", 8, 4, 0.40), t("gw-small-12", 12, 4, 0.66),
+               t("gw-mid-16", 16, 4, 1.92), t("gw-mid-24", 24, 4, 3.36),
+               t("gw-big-32", 32, 4, 6.40), t("gw-big-48", 48, 4, 10.56)]
+    shapes = [(1000, 2048), (2000, 4096), (500, 1024), (4000, 8192)]
+    problems = []
+    for b in range(12):
+        pods = make_pods(10 + (b * 7) % 26, [shapes[b % len(shapes)]])
+        for j, p in enumerate(pods):
+            p.metadata.name = f"gw{b}-{j}"
+        problems.append(Problem(constraints=universe_constraints(catalog), pods=pods,
+                                instance_types=catalog))
+    return problems
+
+
+def program_bound(win):
+    """Least time of the program on this window: the larger of its bytes
+    (every input, x0 included, read once, n written once) over HBM bandwidth
+    and its float32 operations over the float32 peak. Operations per step,
+    over the live cells C = sum of S*T per row, the live types TT and shapes
+    SS, and the R resources some shape uses: the two products 2*C*R each,
+    the over term 3*TT*R, short C + SS, the gradient's combine 3*C and its
+    n part 2*TT*R + 2*TT, the two projected updates 4*C and 4*TT. Also the
+    bound of an eager program that keeps x in HBM (x read and written once
+    a step)."""
+    from karpenter_tpu_torch.solver.global_solve import ITERS, used_resources
+
+    iters = ITERS
+    B, SB, TB = win.b, win.sb, win.tb
+    shapes_per_row = (win.d_counts > 0).sum(axis=1)
+    C = int((shapes_per_row * win.d_types).sum())
+    TT, SS = int(win.d_types.sum()), int(shapes_per_row.sum())
+    R = len(used_resources(win))
+    flops = iters * (C * (4 * R + 8) + TT * (5 * R + 6) + SS)
+    nbytes = 4 * (win.d_shapes.size + win.d_counts.size + win.d_caps.size + win.d_prices.size
+                  + win.d_tmask.size + win.d_n0.size + win.d_types.size + B * SB * TB + B * TB)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / FLOAT32_FLOPS
+    return {"bytes": nbytes, "flops": flops, "live_cells": C, "resources": R,
+            "bound_ms": max(t_bytes, t_ops) * 1e3,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "eager_state_bound_ms": iters * 8 * B * SB * TB / HBM_BYTES_PER_S * 1e3}
+
+
+def device_launches(fn):
+    """One call of ``fn`` under torch.profiler: the kernels the card ran and
+    the copies and sets apart, the device's busy time (the union of their
+    intervals), the call's time from CUDA events under the profiler, and
+    the device's idle share of that time; None where the profiler saw
+    nothing."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+    spans = [(e.time_range.start, e.time_range.end, e.name)
+             for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not spans:
+        return None
+    copies = sum(1 for *_, n in spans if n.startswith(("Memcpy", "Memset")))
+    call_ms = start.elapsed_time(end)
+    busy_ms = busy_us(spans) / 1e3
+    return {"kernels": len(spans) - copies, "copies_and_sets": copies,
+            "kernel_ms": sum(e - b for b, e, _ in spans) / 1e3,
+            "device_busy_ms": busy_ms, "profiled_call_ms": call_ms,
+            "idle_share": 1.0 - busy_ms / call_ms}
+
+
+def program_record(inputs_d, inputs_c, tb, timed_runs):
+    """One program on the card and on the CPU from the same inputs: the
+    program runs of the card's compared call (the run counter set to 0
+    just before it), the card's time (CUDA events over warm runs), its
+    launches and device-busy time, the CPU's time, and both node-count
+    arrays."""
+    import torch
+
+    from karpenter_tpu_torch.solver import global_solve as gs
+
+    gs.RUNS = 0
+    n_card = gs.run_program(inputs_d, tb).cpu().numpy()
+    runs = gs.RUNS
+    t0 = time.perf_counter()
+    n_cpu = gs.run_program(inputs_c, tb).numpy()
+    cpu_ms = (time.perf_counter() - t0) * 1000.0
+    ms = cuda_ms(lambda: gs.run_program(inputs_d, tb), timed_runs)
+    launches = device_launches(lambda: gs.run_program(inputs_d, tb))
+    torch.cuda.synchronize()
+    return n_card, n_cpu, {"runs": runs, "ms": ms, "cpu_ms": cpu_ms,
+                           "launches_per_call": launches}
+
+
+def support_flips(win, n_card, n_cpu):
+    """Rows whose strict or widened support differs between two node-count
+    arrays, each with both supports' sizes and the flipped types' n."""
+    from karpenter_tpu_torch.ops.global_solve import (
+        support_positions, widened_support_positions,
+    )
+
+    flips = []
+    for s in win.live:
+        for rule in (support_positions, widened_support_positions):
+            a = rule(n_card[s.row], s.num_types)
+            b = rule(n_cpu[s.row], s.num_types)
+            if a != b:
+                flipped = sorted(set(a) ^ set(b))
+                flips.append({"schedule": s.pos, "rule": rule.__name__,
+                              "card": len(a), "cpu": len(b),
+                              "n_card": [float(n_card[s.row][t]) for t in flipped[:8]],
+                              "n_cpu": [float(n_cpu[s.row][t]) for t in flipped[:8]]})
+    return flips
+
+
+def phase_global_program(device):
+    """The relaxation program (B7) on the encoding of config_12's 9,984-pod
+    window (B = 32, SB = 32, TB = 512) on the card and on the CPU: node
+    counts within the stated tolerance, equal supports row for row, the
+    card's time, launches, device-busy time and bound, and the TF32 flags.
+    The card's runs have TF32 turned on: the program uses no matmul, so
+    the flag must change nothing (the CPU ignores it)."""
+    import numpy as np
+    import torch
+
+    from karpenter_tpu_torch.models.cost import CostConfig
+    from karpenter_tpu_torch.ops.global_solve import encode_window, support_positions
+    from karpenter_tpu_torch.solver.global_solve import ITERS, program_inputs
+
+    catalog = make_catalog(WINDOW_TYPES)
+    problems = window_problems(catalog, 416)
+    t0 = time.perf_counter()
+    win = encode_window(problems, CostConfig())
+    encode_s = time.perf_counter() - t0
+    check((win.b, win.sb, win.tb) == (32, 32, 512),
+          f"global_program: buckets {(win.b, win.sb, win.tb)}, expected (32, 32, 512)")
+    cpu = torch.device("cpu")
+    prev = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = True
+        tf32 = {"cuda.matmul.allow_tf32": torch.backends.cuda.matmul.allow_tf32,
+                "cudnn.allow_tf32": torch.backends.cudnn.allow_tf32,
+                "float32_matmul_precision": torch.get_float32_matmul_precision()}
+        n_card, n_cpu, timing = program_record(program_inputs(win, device),
+                                               program_inputs(win, cpu), win.tb, 5)
+        check(torch.backends.cuda.matmul.allow_tf32 is True,
+              "global_program: the program changed the TF32 flag")
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = prev
+    check(timing["runs"] == 1, f"global_program: {timing['runs']} program runs, expected 1")
+    check(bool(np.all(np.isfinite(n_card))), "global_program: the card's n is not finite")
+    check(bool(np.all(np.isfinite(n_cpu))), "global_program: the CPU's n is not finite")
+    err = float(np.abs(n_card - n_cpu).max())
+    rel = float((np.abs(n_card - n_cpu) / np.maximum(np.abs(n_cpu), 1e-6)).max())
+    check(bool(np.allclose(n_card, n_cpu, atol=PROGRAM_ATOL, rtol=PROGRAM_RTOL)),
+          f"global_program: card and CPU node counts differ by {err}")
+    flips = support_flips(win, n_card, n_cpu)
+    rec = {"phase": "global_program", "schedules": len(problems),
+           "pods": sum(len(p.pods) for p in problems), "types": len(catalog),
+           "b": win.b, "sb": win.sb, "tb": win.tb, "cells": win.cells, "iters": ITERS,
+           "encode_s": encode_s, "max_abs_err": err, "max_rel_err": rel,
+           "tolerance": {"atol": PROGRAM_ATOL, "rtol": PROGRAM_RTOL},
+           "n_max": float(n_cpu.max()), "support_flips": len(flips), "flips": flips,
+           "supports": [len(support_positions(n_card[s.row], s.num_types))
+                        for s in win.live],
+           "tf32_on_card_runs": tf32,
+           **timing, **program_bound(win)}
+    emit(rec)
+    check(not flips, f"global_program: {len(flips)} support flips between card and CPU")
+    return rec
+
+
+def host_plan(result, s):
+    """An accepted SolveResult back in the schedule's host ids (pod ids,
+    sorted-type indices ascending, so the first option is the type the
+    rounding packed), for verify_plan and plan_cost_micro."""
+    from karpenter_tpu_torch.solver.host_ffd import HostPacking, HostSolveResult
+
+    pod_index = {id(p): i for i, p in enumerate(s.pods)}
+    type_index = {id(it): j for j, it in enumerate(s.sorted_types)}
+    return HostSolveResult(
+        packings=[HostPacking(pod_ids=[[pod_index[id(p)] for p in node] for node in pk.pods],
+                              instance_type_indices=sorted(type_index[id(it)]
+                                                           for it in pk.instance_type_options),
+                              node_quantity=pk.node_quantity) for pk in result.packings],
+        unschedulable=[pod_index[id(p)] for p in result.unschedulable])
+
+
+def check_plan(plan, win, what):
+    """Every accepted plan passes verify_plan, holds each pod of its
+    schedule exactly once, costs what its info says and is strictly cheaper
+    in int micro-$; every decline has no result; no schedule that reached
+    the program declines with an error."""
+    from karpenter_tpu_torch.ops.global_solve import plan_cost_micro, verify_plan
+
+    for s, info, result in zip(win.scheds, plan.infos, plan.results):
+        check(info.reason != "fallback-error", f"{what}: schedule {s.pos} fallback-error")
+        if result is None:
+            check(not info.used, f"{what}: schedule {s.pos} used without a plan")
+            continue
+        hp = host_plan(result, s)
+        check(verify_plan(dict(zip(s.pod_ids, s.pod_vecs)),
+                          {p.index: p for p in s.packables}, hp),
+              f"{what}: schedule {s.pos}'s plan fails verify_plan")
+        check(sorted(i for pk in hp.packings for node in pk.pod_ids for i in node)
+              == list(range(len(s.pods))) and not hp.unschedulable,
+              f"{what}: schedule {s.pos} does not hold each pod once")
+        check(plan_cost_micro(hp, s.prices_micro) == info.relax_cost_micro
+              < info.ffd_cost_micro, f"{what}: schedule {s.pos} is not strictly cheaper")
+
+
+def verdicts(plan):
+    return [(i.used, i.reason, i.support, i.widened, i.relax_cost_micro, i.ffd_cost_micro)
+            for i in plan.infos]
+
+
+def phase_global_window(device):
+    """config_14's window as the controller runs it: dispatch_batch and
+    dispatch_global_window, both fetches, every accepted plan in place of
+    its FFD result. Checks the plans, the untouched declines, the verdicts
+    against the port's CPU run of the same window and the executor; times
+    solve_window_global over warm runs; and holds relax_pack (B8) on one
+    schedule to its CPU run."""
+    import torch
+
+    from karpenter_tpu_torch.ops import global_solve as gops
+    from karpenter_tpu_torch.ops import pack_cuda
+    from karpenter_tpu_torch.ops.global_solve import encode_window, plan_cost_micro
+    from karpenter_tpu_torch.solver import global_solve as gs
+    from karpenter_tpu_torch.solver import relax
+    from karpenter_tpu_torch.solver.batch_solve import dispatch_batch
+    from karpenter_tpu_torch.solver.solve import SolverConfig
+
+    problems = config14_problems()
+    config = SolverConfig()
+    win = encode_window(problems, config.cost_config)
+    gops.SUPPORT.reset()
+    reset_counts()
+    t0 = time.perf_counter()
+    batch = dispatch_batch(problems, config, device=device)         # the main path
+    glob = gs.dispatch_global_window(problems, config, device=device)
+    ffd = batch.fetch()
+    plan = glob.fetch()
+    torch.cuda.synchronize()
+    window_ms = (time.perf_counter() - t0) * 1000.0
+    runs, batch_launches = gs.RUNS, pack_cuda.BATCH_LAUNCHES
+    check(runs == 1 and batch_launches > 0,
+          f"global_window: program runs {runs}, pack_batch launches {batch_launches}")
+    check(plan.executor == "device-global", f"global_window: executor {plan.executor}")
+    check(executor_counts() == {"device-batch": 12, "device-global": 12},
+          f"global_window answered by {executor_counts()}")
+    before = [canonical(r, p.pods) for r, p in zip(ffd, problems)]
+    composed = [g if g is not None else f for g, f in zip(plan.results, ffd)]
+    for i, (g, f, c) in enumerate(zip(plan.results, ffd, composed)):
+        if g is None:
+            check(c is f and canonical(c, problems[i].pods) == before[i],
+                  f"global_window: the decline of schedule {i} touched its FFD result")
+    check_plan(plan, win, "global_window")
+    # the batch's FFD plan costs what the rounding's baseline costs
+    for s, f, info in zip(win.scheds, ffd, plan.infos):
+        check(plan_cost_micro(host_plan(f, s), s.prices_micro) == info.ffd_cost_micro,
+              f"global_window: schedule {s.pos}'s FFD cost differs from the baseline")
+    gops.SUPPORT.reset()
+    cpu_plan = gs.solve_window_global(problems, config, device="cpu")
+    check(verdicts(cpu_plan) == verdicts(plan), "global_window: card and CPU verdicts differ")
+    ffd_micro = sum(i.ffd_cost_micro for i in plan.infos)
+    composed_micro = sum(i.relax_cost_micro if r is not None else i.ffd_cost_micro
+                         for i, r in zip(plan.infos, plan.results))
+
+    times = []
+    gops.SUPPORT.reset()
+    for _ in range(GLOBAL_WARM_RUNS):
+        t0 = time.perf_counter()
+        p = gs.solve_window_global(problems, config, device=device)
+        times.append((time.perf_counter() - t0) * 1000.0)
+        check(p.executor == "device-global", "warm global windows: executor")
+    times.sort()
+
+    # B8: relax_pack on the card and on the CPU, on the largest schedule
+    # whose repack the CPU accepts (else the largest)
+    on_cpu = {s.pos: relax.relax_pack(s.pod_vecs, s.pod_ids, s.packables, s.prices,
+                                      device="cpu") for s in win.live}
+    s = max(win.live, key=lambda x: (on_cpu[x.pos][1].used, len(x.pods)))
+    rp_cpu, info_cpu = on_cpu[s.pos]
+    gs.RUNS = 0
+    rp_card, info_card = relax.relax_pack(s.pod_vecs, s.pod_ids, s.packables, s.prices,
+                                          device=device)
+    check(gs.RUNS == 1, "relax_pack: the program did not run")
+    key = lambda i: (i.used, i.reason, i.support, i.relax_cost, i.ffd_cost)  # noqa: E731
+    check(key(info_card) == key(info_cpu), f"relax_pack: {key(info_card)} != {key(info_cpu)}")
+    check([(p.instance_type_indices, p.pod_ids) for p in rp_card.packings]
+          == [(p.instance_type_indices, p.pod_ids) for p in rp_cpu.packings],
+          "relax_pack: card and CPU plans differ")
+    b8 = relax_program_record(s, device)
+    rec = {"phase": "global_window", "schedules": len(problems),
+           "pods": sum(len(p.pods) for p in problems), "types": len(problems[0].instance_types),
+           "executor": plan.executor, "accepted": plan.accepted,
+           "reasons": [i.reason for i in plan.infos], "supports": [i.support for i in plan.infos],
+           "ffd_cost_per_hour": ffd_micro / 1e6, "composed_cost_per_hour": composed_micro / 1e6,
+           "saving_pct": 100.0 * (ffd_micro - composed_micro) / ffd_micro,
+           "ffd_nodes": sum(r.node_count for r in ffd),
+           "composed_nodes": sum(r.node_count for r in composed),
+           "program_runs": runs, "pack_batch_launches": batch_launches,
+           "card_equals_cpu": True,
+           "controller_window_ms": window_ms, "program_ms": glob.program_ms,
+           "warm_runs": len(times), "p50_ms": times[len(times) // 2],
+           "p99_ms": times[min(len(times) - 1, int(0.99 * len(times)))],
+           "relax_pack": {"schedule": s.pos, "pods": len(s.pods), "used": info_card.used,
+                          "reason": info_card.reason, "support": info_card.support,
+                          "relax_cost": info_card.relax_cost, "ffd_cost": info_card.ffd_cost,
+                          "card_equals_cpu": True, **b8}}
+    emit(rec)
+    return rec
+
+
+def relax_program_record(s, device):
+    """B8's program alone on schedule ``s`` (B = 1, unpadded), as relax_pack
+    runs it, on the card and on the CPU: time, launches, bound."""
+    import numpy as np
+    import torch
+
+    from karpenter_tpu_torch.ops.encode import encode
+    from karpenter_tpu_torch.ops.global_solve import objective_prices, one_problem_window
+    from karpenter_tpu_torch.solver.global_solve import ITERS, program_inputs
+
+    enc = encode(s.pod_vecs, s.pod_ids, s.packables, pad=False)
+    one = one_problem_window(enc, objective_prices([s.prices_micro[p.index]
+                                                    for p in s.packables]))
+    n_card, n_cpu, rec = program_record(program_inputs(one, device),
+                                        program_inputs(one, torch.device("cpu")), one.tb, 20)
+    check(bool(np.allclose(n_card, n_cpu, atol=PROGRAM_ATOL, rtol=PROGRAM_RTOL)),
+          "relax program: card and CPU node counts differ")
+    return {"b": 1, "sb": one.sb, "tb": one.tb, "max_abs_err": float(np.abs(n_card - n_cpu).max()),
+            **rec, **program_bound(one)}
+
+
+def phase_global_window_400(device, runs=2):
+    """config_12's 9,984-pod window (24 schedules over 400 types) through
+    the global backend: the time split (encode, program on the card, wait
+    and copy back, host rounding, total) and the verdicts by reason. The
+    supports were held against the CPU's on this encoding by
+    global_program; the rounding is not repeated on the CPU."""
+    import collections
+
+    from karpenter_tpu_torch.ops import global_solve as gops
+    from karpenter_tpu_torch.solver import global_solve as gs
+
+    catalog = make_catalog(WINDOW_TYPES)
+    problems = window_problems(catalog, 416)
+    out = []
+    for _ in range(runs):
+        gops.SUPPORT.reset()
+        reset_counts()
+        handle = gs.dispatch_global_window(problems, device=device)
+        plan = handle.fetch()
+        check(gs.RUNS == 1 and plan.executor == "device-global",
+              f"global_window_400: runs {gs.RUNS}, executor {plan.executor}")
+        check(executor_counts() == {"device-global": len(problems)},
+              f"global_window_400 answered by {executor_counts()}")
+        check_plan(plan, handle.win, "global_window_400")
+        out.append({"encode_s": handle.encode_seconds,
+                    "dispatch_s": handle.dispatch_seconds,
+                    "program_ms": handle.program_ms, "fetch_wait_s": handle.fetch_seconds,
+                    "round_s": handle.round_seconds, "total_s": plan.seconds,
+                    "accepted": plan.accepted,
+                    "reasons": dict(collections.Counter(i.reason for i in plan.infos)),
+                    "supports": sorted(collections.Counter(
+                        i.support for i in plan.infos).items())})
+    rec = {"phase": "global_window_400", "schedules": len(problems),
+           "pods": sum(len(p.pods) for p in problems), "types": len(catalog),
+           "executor": "device-global", "runs": out}
+    emit(rec)
+    return rec
+
+
 def card_line() -> str:
     proc = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -1125,7 +1557,30 @@ def main(argv) -> int:
     win = phase_window(device, 416, WARM_RUNS)          # 9,984 pods
     phase_window(device, 2084, WARM_RUNS)               # 50,016 pods
     phase_mixed_window(device)
+    gp = phase_global_program(device)
+    gw = phase_global_window(device)
+    phase_global_window_400(device)
     emit({"phase": "total", "seconds": time.perf_counter() - t_start})
+    b8 = gw["relax_pack"]
+    emit({"device_programs": [{
+        "name": "relax_node_counts (window)",
+        "source": "karpenter_tpu_torch/solver/global_solve.py",
+        "replaces": "karpenter_tpu/solver/global_solve.py:77",
+        "runs": gp["runs"], "launches_per_call": gp["launches_per_call"],
+        "max_abs_err": gp["max_abs_err"], "ms": gp["ms"], "cpu_ms": gp["cpu_ms"],
+        "bound_ms": gp["bound_ms"], "bound_by": gp["bound_by"],
+        "eager_state_bound_ms": gp["eager_state_bound_ms"],
+        "shape": [gp["b"], gp["sb"], gp["tb"]],
+    }, {
+        "name": "relax_node_counts (repack, B = 1)",
+        "source": "karpenter_tpu_torch/solver/relax.py",
+        "replaces": "karpenter_tpu/solver/relax.py:87",
+        "runs": b8["runs"], "launches_per_call": b8["launches_per_call"],
+        "max_abs_err": b8["max_abs_err"], "ms": b8["ms"], "cpu_ms": b8["cpu_ms"],
+        "bound_ms": b8["bound_ms"], "bound_by": b8["bound_by"],
+        "eager_state_bound_ms": b8["eager_state_bound_ms"],
+        "shape": [b8["b"], b8["sb"], b8["tb"]],
+    }]})
     k4, kw = c4["kernel"], win["kernel"]
     emit({"kernels": [{
         "name": "pack_chunk",

@@ -23,8 +23,17 @@ def to_device_int32(arrays: Sequence[np.ndarray],
     and handed back as contiguous views of it. Values must fit int32 (bool
     arrays arrive as 0/1; uint32 bit patterns are reinterpreted)."""
     parts = [np.ascontiguousarray(a) for a in arrays]
-    parts = [a.view(np.int32) if a.dtype == np.uint32 else a.astype(np.int32, copy=False)
-             for a in parts]
+    return _one_copy([a.view(np.int32) if a.dtype == np.uint32
+                      else a.astype(np.int32, copy=False) for a in parts], device)
+
+
+def to_device_float32(arrays: Sequence[np.ndarray],
+                      device: torch.device) -> List[torch.Tensor]:
+    """:func:`to_device_int32` for float32 tensors: one host→device copy."""
+    return _one_copy([np.ascontiguousarray(a, dtype=np.float32) for a in arrays], device)
+
+
+def _one_copy(parts: Sequence[np.ndarray], device: torch.device) -> List[torch.Tensor]:
     flat = torch.from_numpy(np.concatenate([a.ravel() for a in parts])).to(device)
     out, o = [], 0
     for a in parts:

@@ -42,7 +42,10 @@ def test_port_imports_without_jax_or_the_jax_package():
                 "karpenter_tpu_torch.solver.adapter",
                 "karpenter_tpu_torch.solver.batch_solve",
                 "karpenter_tpu_torch.ops.device_filter",
-                "karpenter_tpu_torch.parallel.batched_pack"}
+                "karpenter_tpu_torch.parallel.batched_pack",
+                "karpenter_tpu_torch.ops.global_solve",
+                "karpenter_tpu_torch.solver.global_solve",
+                "karpenter_tpu_torch.solver.relax"}
     assert expected <= set(report["imported"])
 
 
