@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Chip smoke for the PyTorch/CUDA port: build the kernel, hold it against
-its plain version, and drive the public solve(), the batched window and the
-global window backend at full size on one card.
+its plain version, and drive the public solve(), the batched window, the
+provisioning controller and the global window backend at full size on one
+card.
 
     python3 chip_smoke.py
 
@@ -48,6 +49,16 @@ first use). Phases, each printing one JSON record:
 8. mixed window: 23 of those schedules and one of 25,000 high-cardinality
    pods (the 8192 bucket, compaction across problems), every problem equal
    to solo solve(), the buckets walked and the launches;
+8b. controller: pending pods created in the port's in-memory API server,
+   enqueued by SelectionController.reconcile, batched, scheduled, solved,
+   launched and bound by the ProvisioningController's worker thread
+   (phase_controller has the five runs and their checks: config_12's
+   window through the controller as deployed, with every default, in a
+   process of its own, at pressure level 0 with the global leg run;
+   config_12's window in one chunk, with the default pipeline, at 50,016
+   pods, and config_14's window on the global backend with its kill
+   switch), the kernel rebuilt and launched on the worker thread, one
+   record a run;
 9. global_program: the relaxation program of the global window backend
    (solver/global_solve.relax_node_counts) on the encoding of the
    9,984-pod window (B = 32, SB = 32, TB = 512) on the card and on the CPU:
@@ -81,8 +92,15 @@ times the kernel alone on the first chunks of config_4, of the
 high-cardinality problem and of two four-resource variants of it (GPU
 types, every fourth shape asking for a GPU), each with a digest of its
 output.
-Copied into another tree (a git archive of an earlier commit), it times
-that tree's kernel on the same inputs: the A/B of PERF.md.
+Copied into another tree (a git archive of an earlier commit, unpacked
+into a fresh directory outside this package's directory, e.g. one made
+by mktemp -d, where the import test does not scan it), it times that
+tree's kernel on the same inputs: the A/B of PERF.md.
+
+    python3 chip_smoke.py --controller-deployed
+
+runs the controller phase's run 0 alone (phase_controller_deployed): the
+controller with every default, in a process that holds nothing else.
 
     python3 chip_smoke.py --solve-times
 
@@ -94,9 +112,11 @@ A/B of solve()'s host path.
 from __future__ import annotations
 
 import json
+import os
 import random
 import subprocess
 import sys
+import tempfile
 import time
 
 SEED = 11
@@ -1108,6 +1128,556 @@ def phase_mixed_window(device):
     return rec
 
 
+# -- the provisioning controller: pods in, nodes and binds out ---------------
+
+CONTROLLER_GROUPS = 24
+CONTROLLER_WINDOWS = 3
+
+
+def pending_pod(name, cpu_m, mem_mi, exprs, eni=False):
+    """A pending pod the scheduler marked Unschedulable, asking for
+    ``cpu_m`` millicores and ``mem_mi`` MiB (and one pod ENI with ``eni``),
+    whose required node affinity is ``exprs``: (key, values) pairs, all In."""
+    from karpenter_tpu_torch.api import core as c
+
+    requests = {"cpu": f"{cpu_m}m", "memory": f"{mem_mi}Mi"}
+    if eni:
+        requests["vpc.amazonaws.com/pod-eni"] = "1"
+    term = c.NodeSelectorTerm(match_expressions=[
+        c.NodeSelectorRequirement(key=k, operator="In", values=v) for k, v in exprs])
+    return c.Pod(
+        metadata=c.ObjectMeta(name=name, uid=name),
+        spec=c.PodSpec(containers=[c.Container(resources=c.ResourceRequirements.make(
+            requests=requests))], affinity=c.Affinity(node_affinity=c.NodeAffinity(
+                required=[term]))),
+        status=c.PodStatus(conditions=[c.PodCondition(
+            type="PodScheduled", status="False", reason="Unschedulable")]))
+
+
+def config12_controller_pods(catalog, per, prefix):
+    """config_12's window as pending pods: group g's required node affinity
+    is the g-th of config12_variants' first 24 (allowed, required) keys
+    (capacity types, zones, type names; the arch and OS sets are the
+    universe's), with an ENI request where the key requires one; ``per``
+    pods a group cycling MIXED_SHAPES rotated by g."""
+    from karpenter_tpu_torch.api import wellknown as wk
+
+    pods = []
+    for g, (allowed, required) in enumerate(config12_variants(catalog)[:CONTROLLER_GROUPS]):
+        cts, zones, names = (sorted(s) for s in allowed[:3])
+        exprs = [(wk.LABEL_CAPACITY_TYPE, cts), (wk.LABEL_TOPOLOGY_ZONE, zones),
+                 (wk.LABEL_INSTANCE_TYPE, names)]
+        r = g % len(MIXED_SHAPES)
+        shapes = MIXED_SHAPES[r:] + MIXED_SHAPES[:r]
+        pods += [pending_pod(f"{prefix}-g{g:02d}-{j:04d}", *shapes[j % len(shapes)], exprs,
+                             eni=bool(required)) for j in range(per)]
+    return pods
+
+
+def config14_controller_pods(prefix):
+    """config_14's window (12 schedules of one shape each, 10 + 7b mod 26
+    pods, 270 in all) through node affinity, so the scheduler makes its 12
+    schedules: group b requires zone bench-zone-{1 + b mod 3} and either all
+    six types (b < 3) or all but the (b // 3)-th of the three dearest
+    (gw-mid-24, gw-big-32, gw-big-48). Every group keeps the cheap types.
+    On the port's CPU controller (the support controller reset first) the
+    relaxation accepts groups 1, 4, 5, 6, 8 and 9: $135.06 → $118.24/h."""
+    from karpenter_tpu_torch.api import wellknown as wk
+
+    names = [it.name for it in config14_catalog()]
+    type_lists = [names] + [[n for n in names if n != drop] for drop in names[3:]]
+    shapes = [(1000, 2048), (2000, 4096), (500, 1024), (4000, 8192)]
+    pods = []
+    for b in range(12):
+        exprs = [(wk.LABEL_TOPOLOGY_ZONE, [f"bench-zone-{1 + b % 3}"]),
+                 (wk.LABEL_INSTANCE_TYPE, type_lists[b // 3])]
+        pods += [pending_pod(f"{prefix}-gw{b:02d}-{j:02d}", *shapes[b % len(shapes)], exprs)
+                 for j in range(10 + (b * 7) % 26)]
+    return pods
+
+
+def strip_prefix(binds):
+    """Binds with each pod name's window prefix cut, so two windows of the
+    same pods compare."""
+    return [(t, tuple(n.split("-", 1)[1] for n in names)) for t, names in binds]
+
+
+class ControllerRun:
+    """The port's entry points over a fresh in-memory API server: a
+    Provisioner reconciled by ProvisioningController over
+    FakeCloudProvider(catalog), pods created in the API server and enqueued
+    by SelectionController.reconcile, one call per pod, and the worker
+    thread's passes. Every bind (instance type, sorted pod names) and every
+    chunk's problems (through a wrapper of _prepare_chunk) are recorded.
+
+    ``deployed`` keeps the controller exactly as a user gets it: the
+    default Batcher (1 s idle, 10 s maximum) and the process-wide pressure
+    monitor with its default config, and the collector left on. Otherwise
+    the run holds the window's shape fixed for the comparisons of runs
+    1-4: the batcher's maximum is 120 s, the monitor keeps only its depth
+    signal (which run 3 reads; the window-assembly signal starts at a
+    minute and the RSS signal is off), and the collector is frozen over
+    the reconcile loop (a full collection over the pods just stored can
+    pause it past the 1 s idle window and split the window)."""
+
+    def __init__(self, catalog, device, solver_config=None, pipeline_config=None,
+                 deployed=False):
+        from karpenter_tpu_torch.api.core import ObjectMeta
+        from karpenter_tpu_torch.api.provisioner import Provisioner
+        from karpenter_tpu_torch.api.wellknown import LABEL_INSTANCE_TYPE
+        from karpenter_tpu_torch.cloudprovider.fake.provider import FakeCloudProvider
+        from karpenter_tpu_torch.controllers.provisioning import ProvisioningController
+        from karpenter_tpu_torch.controllers.selection import SelectionController
+        from karpenter_tpu_torch.pressure import (
+            PressureConfig, PressureMonitor, get_monitor, set_monitor)
+        from karpenter_tpu_torch.runtime.kubecore import KubeCore
+        from karpenter_tpu_torch.scheduling.batcher import Batcher
+
+        self.kube, self.deployed = KubeCore(), deployed
+        if deployed:
+            self.monitor = get_monitor()
+        else:
+            self.monitor = PressureMonitor(PressureConfig(
+                rss_watermark_bytes=0, window_l1_seconds=60.0, window_l2_seconds=120.0))
+        self.reset_records()
+
+        def recording_batcher():
+            # wrapped before the worker thread's first wait() begins
+            batcher = Batcher() if deployed else Batcher(max_seconds=120.0, monitor=self.monitor)
+            wait = batcher.wait
+
+            def recording_wait():
+                items, seconds = wait()
+                if items:
+                    self.batch_windows.append((len(items), seconds))
+                return items, seconds
+
+            batcher.wait = recording_wait
+            return batcher
+
+        self.provisioning = ProvisioningController(
+            self.kube, FakeCloudProvider(catalog=catalog), solver_config=solver_config,
+            pipeline_config=pipeline_config, device=device, batcher_factory=recording_batcher)
+        self.selection = SelectionController(self.kube, self.provisioning)
+        if not deployed:
+            # selection's requeue backoff reads the process-wide monitor
+            set_monitor(self.monitor)
+        self.kube.create(Provisioner(metadata=ObjectMeta(name="default")))
+        self.provisioning.reconcile("default")
+        self.worker = self.provisioning.workers["default"]
+        worker = self.worker
+        bind, prepare, observe = worker._bind, worker._prepare_chunk, worker._observe_chunk
+
+        def recording_bind(node, pods):
+            err = bind(node, pods)
+            self.binds.append((node.metadata.labels[LABEL_INSTANCE_TYPE],
+                               tuple(sorted(p.metadata.name for p in pods))))
+            self.t_last_bind = time.perf_counter()
+            return err
+
+        def recording_prepare(pods):
+            prep = prepare(pods)
+            self.problems.append(prep.problems)
+            self.levels.append(int(self.monitor.level()))
+            return prep
+
+        def recording_observe(prep, stats):
+            observe(prep, stats)
+            self.chunks.append(worker._chunks[-1])
+
+        worker._bind, worker._prepare_chunk = recording_bind, recording_prepare
+        worker._observe_chunk = recording_observe
+
+    def reset_records(self):
+        self.binds, self.problems, self.levels, self.t_last_bind = [], [], [], None
+        self.chunks, self.batch_windows = [], []
+
+    def window(self, pods, timeout=600.0):
+        """Create ``pods``, reconcile each, and wait until the worker has
+        flushed every pod it took in. Returns the window's record: wall time
+        (first reconcile → last bind) and its split, chunks, nodes, pods
+        bound, launches and executor counts."""
+        import gc
+
+        import torch
+
+        from karpenter_tpu_torch.ops import pack_cuda
+
+        self.reset_records()
+        for pod in pods:
+            self.kube.create(pod)
+        reset_counts()
+        batcher = self.worker.batcher
+        if not self.deployed:
+            gc.freeze()
+        try:
+            t0 = time.perf_counter()
+            for pod in pods:
+                self.selection.reconcile(pod.metadata.name)
+            t_enqueued = time.perf_counter()
+            target, deadline = batcher.added_total, t0 + timeout
+            check(target > 0, "controller: selection enqueued nothing")
+            while batcher.processed_total < target:
+                check(time.perf_counter() < deadline, "controller: the window never finished")
+                with batcher._lock:
+                    gate = batcher._gate
+                    if batcher.processed_total >= target:
+                        break
+                gate.wait(timeout=0.05)
+            torch.cuda.synchronize()
+        finally:
+            if not self.deployed:
+                gc.unfreeze()
+        lw, chunks = self.worker.last_window, self.chunks
+        split = {k: sum(c[k] for c in chunks) for k in
+                 ("schedule_s", "dispatch_s", "inflight_s", "fetch_s", "launch_bind_s")}
+        bound = [n for _, names in self.binds for n in names]
+        return {
+            "pods": len(pods), "pods_bound": len(bound), "nodes": len(self.binds),
+            "wall_s": (self.t_last_bind or time.perf_counter()) - t0,
+            "reconcile_s": t_enqueued - t0,
+            "batch_windows": [n for n, _ in self.batch_windows],
+            "batch_window_s": sum(w for _, w in self.batch_windows),
+            **split, "chunks": len(chunks), "chunk_pods": [c["pods"] for c in chunks],
+            "pipeline": lw["pipeline"],
+            "pressure_level": max([lw["pressure_level"], *self.levels]),
+            "pack_batch_launches": pack_cuda.BATCH_LAUNCHES,
+            "pack_chunk_launches": pack_cuda.LAUNCHES,
+            "launches_per_chunk": (pack_cuda.BATCH_LAUNCHES + pack_cuda.LAUNCHES) / max(1, len(chunks)),
+            "executor_counts": executor_counts(), "global_errors": self.worker.global_errors,
+            "held_out": dict(self.worker.scheduler.held_out)}
+
+    def stop(self):
+        from karpenter_tpu_torch.pressure import set_monitor
+
+        thread = self.worker._thread
+        self.provisioning.stop_all(timeout=30.0)
+        if not self.deployed:
+            set_monitor(None)
+        check(not thread.is_alive(), "controller: the worker thread did not stop")
+
+
+def p50(values):
+    return sorted(values)[len(values) // 2]
+
+
+def once_each(bound, pods, what):
+    """Every pod bound exactly once, and nothing else bound."""
+    from collections import Counter
+
+    counts = Counter(bound)
+    twice = [n for n, k in counts.items() if k > 1]
+    check(not twice, f"{what}: pods bound twice: {twice[:3]}")
+    check(set(counts) == set(pods), f"{what}: {len(set(pods) ^ set(counts))} pods "
+          "bound that should not be, or not bound that should")
+
+
+def node_multiset(results):
+    """SolveResults as the nodes the fake provider launches for them: a
+    Counter of (first instance type option, sorted pod names)."""
+    from collections import Counter
+
+    return Counter((p.instance_type_options[0].name, tuple(sorted(x.metadata.name for x in node)))
+                   for r in results for p in r.packings for node in p.pods)
+
+
+def phase_controller_deployed(device):
+    """config_12's 9,984-pod window through the controller as a user
+    deploys it, in a process of its own that holds nothing but the port
+    (``chip_smoke.py --controller-deployed``): ProvisioningController's
+    defaults (backend "global", the default pipeline, the default Batcher
+    and pressure monitor, the collector on). Checks: every chunk at
+    pressure level 0, one batcher window, every pod bound once (group 15's
+    ENI pods stay Pending), the global leg run for every schedule on the
+    card with no error, every problem answered by "device-batch" or
+    "device". The process's resident set size is read at start, after the
+    controller's construction and after the window, beside the monitor's
+    watermark."""
+    from karpenter_tpu_torch.pressure import get_monitor, read_rss_bytes
+
+    rss = {"start": read_rss_bytes()}
+    catalog = make_catalog(WINDOW_TYPES)
+    run = ControllerRun(catalog, None, deployed=True)
+    rss["constructed"] = read_rss_bytes()
+    try:
+        pods = config12_controller_pods(catalog, 416, "d")
+        rec = run.window(pods)
+        rss["after_window"] = read_rss_bytes()
+        eni = {p.metadata.name for p in pods if "vpc.amazonaws.com/pod-eni"
+               in p.spec.containers[0].resources.requests}
+        once_each([n for _, g in run.binds for n in g],
+                  [p.metadata.name for p in pods if p.metadata.name not in eni],
+                  "deployed controller")
+        counts = rec["executor_counts"]
+        check(rec["pressure_level"] == 0 and set(run.levels) == {0},
+              f"deployed controller: pressure level {rec['pressure_level']}, chunks at "
+              f"{run.levels}, RSS {rss}, batcher windows {rec['batch_windows']}")
+        check(rec["batch_windows"] == [len(pods)],
+              f"deployed controller: batcher windows {rec['batch_windows']}")
+        check(all(c["global"] for c in run.chunks) and counts.get("device-global", 0) >= 1
+              and rec["global_errors"] == 0,
+              f"deployed controller: the global leg ran for chunks "
+              f"{[c['global'] for c in run.chunks]}, answered {counts}, "
+              f"{rec['global_errors']} errors")
+        check(set(counts) <= {"device-global", "device-batch", "device"},
+              f"deployed controller answered by {counts}")
+    finally:
+        run.stop()
+    emit({"phase": "controller_deployed", **rec, "unschedulable": len(eni),
+          "levels": run.levels, "rss_bytes": rss,
+          "rss_watermark_bytes": get_monitor().config.rss_watermark_bytes})
+
+
+def phase_controller(device):
+    """The port's provisioning controller on the card, through its entry
+    points (see ControllerRun), in five runs:
+
+    0. the deployed controller (phase_controller_deployed), in a process
+       of its own started first and run beside runs 1-4 (its device work
+       is milliseconds, each process's host work holds one core); its
+       record is checked and printed after run 4.
+    1. config_12's window, 24 groups × 416 pods (9,984), backend "ffd",
+       PipelineConfig(chunk_items=0) so one chunk holds the window; three
+       windows. The first: every pod bound once (group 15's pods ask for a
+       pod ENI no type offers: the solve leaves them unschedulable and they
+       stay Pending), the nodes' (type, pods) multiset equal to solve_batch
+       on the chunk's problems, each problem equal to solve_ffd_numpy, one
+       pack_batch launch per chunk, every answered problem "device-batch";
+       the kernel is rebuilt and launched on the worker thread.
+    2. the same window with the default PipelineConfig (chunk 4096, depth 2,
+       adaptive), one window; its binds equal, in order, those of a depth-1
+       run with the same chunking; the realized overlap.
+    3. 2,084 pods a group (50,016), the default config, once: every pod
+       bound once.
+    4. config_14's priced window (config14_controller_pods), backend
+       "global", three windows: the accepted count and the composed fleet
+       $/h equal the port's CPU controller on the same window, at least one
+       schedule accepted, no global error, "device-global" counted; then
+       KARPENTER_GLOBAL_SOLVE=0 gives the "ffd" backend's binds.
+
+    One record a run: the window wall time (first reconcile → last bind;
+    p50 over the windows) and its split, nodes, pods bound, chunks,
+    launches per chunk, executor counts and the pressure level seen."""
+    from karpenter_tpu_torch.pressure import read_rss_bytes
+
+    t_phase = time.perf_counter()
+    # files, not pipes: nothing reads the child's output until runs 1-4 end
+    with tempfile.TemporaryFile("w+") as out_f, tempfile.TemporaryFile("w+") as err_f:
+        deployed = subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                                     "--controller-deployed"], stdout=out_f, stderr=err_f)
+        try:
+            phase_controller_runs(device, t_phase)
+            deployed.wait(timeout=600)
+        finally:
+            if deployed.poll() is None:
+                deployed.kill()
+                deployed.wait()
+        out_f.seek(0)
+        err_f.seek(0)
+        out, err = out_f.read(), err_f.read()
+    records = [json.loads(ln) for ln in out.splitlines() if ln.startswith("{")]
+    check(deployed.returncode == 0 and records
+          and records[-1].get("phase") == "controller_deployed",
+          f"deployed controller: exit {deployed.returncode}: {err.strip()[-2000:]}")
+    emit(records[-1])
+    emit({"phase": "controller_total", "seconds": time.perf_counter() - t_phase,
+          "rss_bytes": read_rss_bytes()})
+
+
+def phase_controller_runs(device, t_phase):
+    """Runs 1-4 of phase_controller, in this process."""
+    import threading
+    from collections import Counter
+
+    import torch
+
+    from karpenter_tpu_torch.ops import global_solve as gops
+    from karpenter_tpu_torch.ops import pack_cuda
+    from karpenter_tpu_torch.solver import global_solve as gs
+    from karpenter_tpu_torch.solver.batch_solve import solve_batch
+    from karpenter_tpu_torch.solver.pipeline import PipelineConfig
+    from karpenter_tpu_torch.solver.solve import SolverConfig
+
+    catalog = make_catalog(WINDOW_TYPES)
+    ffd = SolverConfig(window_backend="ffd")
+
+    def emit_run(rec):
+        emit({"phase": "controller", **rec})
+
+    # run 1, with the kernel rebuilt and every launch traced to its thread
+    threads, builds = [], []
+    library, build, build_dir = pack_cuda._library, pack_cuda.build, pack_cuda.BUILD_DIR
+
+    def traced_library():
+        threads.append(threading.current_thread().name)
+        return library()
+
+    def traced_build():
+        builds.append(threading.current_thread().name)
+        return build()
+
+    pack_cuda._library, pack_cuda.build = traced_library, traced_build
+    pack_cuda.BUILD_DIR, pack_cuda._LIB = build_dir / "worker-thread", None
+    run = ControllerRun(catalog, device, ffd, PipelineConfig(chunk_items=0))
+    try:
+        windows = []
+        for w in range(CONTROLLER_WINDOWS):
+            pods = config12_controller_pods(catalog, 416, f"w{w}")
+            rec = run.window(pods)
+            check(rec["chunks"] == 1 and len(run.problems) == 1,
+                  f"controller run 1: {len(run.problems)} chunks, not one")
+            check(rec["pack_batch_launches"] == 1 and rec["pack_chunk_launches"] == 0,
+                  f"controller run 1: launches {rec['pack_batch_launches']}, "
+                  f"{rec['pack_chunk_launches']} for one chunk")
+            check(set(rec["executor_counts"]) == {"device-batch"},
+                  f"controller run 1 answered by {rec['executor_counts']}")
+            if w == 0:
+                check(builds == [run.worker._thread.name] and pack_cuda.BUILD_SECONDS,
+                      f"controller: the kernel was built on {builds}")
+                launch_threads = sorted(set(threads))
+                check(launch_threads == [run.worker._thread.name],
+                      f"controller: the kernel was launched on {launch_threads}")
+                problems = run.problems[0]
+                counts = rec["executor_counts"]
+                reset_counts()
+                replay = solve_batch(problems, device=device)
+                check(executor_counts() == counts, "controller: replay answered otherwise")
+                check(node_multiset(replay) == Counter(run.binds),
+                      "controller: nodes differ from solve_batch on the same problems")
+                for b, (prob, got) in enumerate(zip(problems, replay)):
+                    # the unschedulable pods as a set: with no viable type the
+                    # oracle lists them in input order, the device path in
+                    # shape order
+                    want = canonical(numpy_result(prob), prob.pods)
+                    have = canonical(got, prob.pods)
+                    check(have[:2] == want[:2] and sorted(have[2]) == sorted(want[2]),
+                          f"controller: problem {b} != solve_ffd_numpy")
+                unschedulable = {p.metadata.name for r in replay for p in r.unschedulable}
+                once_each([n for _, g in run.binds for n in g],
+                          [p.metadata.name for p in pods
+                           if p.metadata.name not in unschedulable], "controller run 1")
+                first = dict(rec, problems=len(problems), unschedulable=len(unschedulable),
+                             launch_threads=launch_threads, build_threads=builds,
+                             build_s=pack_cuda.BUILD_SECONDS)
+            windows.append(rec)
+    finally:
+        pack_cuda._library, pack_cuda.build = library, build
+        pack_cuda.BUILD_DIR = build_dir
+        run.stop()
+    emit_run({"run": "config12_one_chunk", "backend": "ffd", "windows": len(windows),
+                    "wall_p50_s": p50([r["wall_s"] for r in windows]),
+                    "walls_s": [r["wall_s"] for r in windows], "first": first,
+                    "split_p50_s": {k: p50([r[k] for r in windows]) for k in
+                                    ("reconcile_s", "batch_window_s", "schedule_s", "dispatch_s",
+                                     "fetch_s", "launch_bind_s")},
+                    "equal_to_solve_batch_and_numpy": True})
+
+    # run 2: the default pipeline, and a depth-1 run of the same first window
+    run = ControllerRun(catalog, device, ffd)
+    try:
+        rec = run.window(config12_controller_pods(catalog, 416, "w0"))
+        check(set(rec["executor_counts"]) <= {"device-batch", "device"},
+              f"controller run 2 answered by {rec['executor_counts']}")
+        first_binds, windows = list(run.binds), [rec]
+    finally:
+        run.stop()
+    serial = ControllerRun(catalog, device, ffd, PipelineConfig(depth=1, adaptive=False))
+    try:
+        serial_rec = serial.window(config12_controller_pods(catalog, 416, "w0"))
+        check(serial.binds == first_binds,
+              "controller run 2: depth 2 binds != depth 1 binds: "
+              f"{len(first_binds)} against {len(serial.binds)} binds, chunks "
+              f"{windows[0]['chunk_pods']} against {serial_rec['chunk_pods']}, first "
+              f"difference at {next((i for i, (a, b) in enumerate(zip(first_binds, serial.binds)) if a != b), None)}")
+    finally:
+        serial.stop()
+    emit_run({"run": "config12_default_pipeline", "backend": "ffd",
+                    "windows": len(windows), "wall_s": windows[0]["wall_s"],
+                    "overlap": windows[0]["pipeline"], "first": windows[0],
+                    "depth1": {k: serial_rec[k] for k in ("wall_s", "pipeline", "chunks")},
+                    "equal_to_depth1": True})
+
+    # run 3: 50,016 pods once
+    run = ControllerRun(catalog, device, ffd)
+    try:
+        pods = config12_controller_pods(catalog, 2084, "big")
+        rec = run.window(pods)
+        eni = {p.metadata.name for p in pods if "vpc.amazonaws.com/pod-eni"
+               in p.spec.containers[0].resources.requests}
+        once_each([n for _, g in run.binds for n in g],
+                  [p.metadata.name for p in pods if p.metadata.name not in eni],
+                  "controller run 3")
+        check(set(rec["executor_counts"]) <= {"device-batch", "device"},
+              f"controller run 3 answered by {rec['executor_counts']}")
+    finally:
+        run.stop()
+    emit_run({"run": "config12_50k", "backend": "ffd", **rec, "unschedulable": len(eni)})
+
+    # run 4: the global backend on config_14's window
+    plans, dispatch = [], gs.dispatch_global_window
+
+    def recording_dispatch(*args, **kwargs):
+        handle = dispatch(*args, **kwargs)
+        plans.append(handle)
+        return handle
+
+    gs.dispatch_global_window = recording_dispatch
+    catalog14 = config14_catalog()
+    try:
+        def global_window(dev, prefix, config=SolverConfig()):
+            gops.SUPPORT.reset()
+            plans.clear()
+            r = ControllerRun(catalog14, dev, config)
+            try:
+                rec = r.window(config14_controller_pods(prefix))
+                once_each([n for _, g in r.binds for n in g],
+                          [p.metadata.name for p in config14_controller_pods(prefix)],
+                          f"controller run 4 ({prefix})")
+                plan = plans[0].fetch() if plans else None
+                return rec, plan, strip_prefix(r.binds)
+            finally:
+                r.stop()
+
+        def fleet(plan):
+            return (plan.accepted, [i.reason for i in plan.infos],
+                    sum(i.relax_cost_micro if res is not None else i.ffd_cost_micro
+                        for i, res in zip(plan.infos, plan.results)),
+                    sum(i.ffd_cost_micro for i in plan.infos))
+
+        _, cpu_plan, _ = global_window(torch.device("cpu"), "cpu")
+        check(cpu_plan is not None and cpu_plan.accepted >= 1,
+              "controller run 4: the CPU run accepted no schedule")
+        windows = []
+        for w in range(CONTROLLER_WINDOWS):
+            rec, plan, _ = global_window(device, f"g{w}")
+            check(plan is not None and plan.executor == "device-global",
+                  "controller run 4: the global leg did not run on the card")
+            check(fleet(plan) == fleet(cpu_plan),
+                  f"controller run 4: card {fleet(plan)[:1]} != CPU {fleet(cpu_plan)[:1]}")
+            check(rec["global_errors"] == 0 and rec["executor_counts"].get("device-global") == 12,
+                  f"controller run 4: {rec['global_errors']} errors, {rec['executor_counts']}")
+            windows.append(rec)
+        os.environ["KARPENTER_GLOBAL_SOLVE"] = "0"
+        try:
+            killed, killed_plan, killed_binds = global_window(device, "k")
+        finally:
+            del os.environ["KARPENTER_GLOBAL_SOLVE"]
+        _, _, ffd_binds = global_window(device, "f", ffd)
+        check(killed_plan is None and "device-global" not in killed["executor_counts"],
+              "controller run 4: the kill switch did not stop the global leg")
+        check(killed_binds == ffd_binds, "controller run 4: kill-switch binds != ffd binds")
+    finally:
+        gs.dispatch_global_window = dispatch
+    accepted, _, composed, ffd_micro = fleet(cpu_plan)
+    emit_run({"run": "config14_global", "backend": "global", "windows": len(windows),
+                    "wall_p50_s": p50([r["wall_s"] for r in windows]),
+                    "walls_s": [r["wall_s"] for r in windows], "first": windows[0],
+                    "accepted": accepted, "reasons": [i.reason for i in cpu_plan.infos],
+                    "ffd_cost_per_hour": ffd_micro / 1e6, "composed_cost_per_hour": composed / 1e6,
+                    "card_equals_cpu": True, "kill_switch_equals_ffd": True})
+    emit({"phase": "controller_runs", "seconds": time.perf_counter() - t_phase})
+
+
 # -- the global window backend (B7) and the repack relaxation (B8) -----------
 
 # card against CPU on the program's node counts: float32 sums in another order
@@ -1121,13 +1691,10 @@ FLOAT32_FLOPS = 67e12
 GLOBAL_WARM_RUNS = 25
 
 
-def config14_problems():
-    """bench.py:1554-1616 (config_14): 12 schedules of one shape each, 10 to
-    35 pods (270), over six types offered in three zones whose price per cpu
-    spreads 4x, so the node-count-minimal and cost-minimal fleets differ."""
+def config14_catalog():
+    """config_14's six types (bench.py:1554-1616), offered on demand in three
+    zones, whose price per cpu spreads 4x."""
     from karpenter_tpu_torch.cloudprovider.spi import Offering, make_instance_type
-    from karpenter_tpu_torch.solver.batch_solve import Problem
-    from karpenter_tpu_torch.solver.solve import universe_constraints
 
     def t(name, cpu, ratio, price):
         return make_instance_type(
@@ -1135,9 +1702,19 @@ def config14_problems():
             offerings=[Offering("on-demand", f"bench-zone-{z + 1}") for z in range(3)],
             price=price)
 
-    catalog = [t("gw-small-8", 8, 4, 0.40), t("gw-small-12", 12, 4, 0.66),
-               t("gw-mid-16", 16, 4, 1.92), t("gw-mid-24", 24, 4, 3.36),
-               t("gw-big-32", 32, 4, 6.40), t("gw-big-48", 48, 4, 10.56)]
+    return [t("gw-small-8", 8, 4, 0.40), t("gw-small-12", 12, 4, 0.66),
+            t("gw-mid-16", 16, 4, 1.92), t("gw-mid-24", 24, 4, 3.36),
+            t("gw-big-32", 32, 4, 6.40), t("gw-big-48", 48, 4, 10.56)]
+
+
+def config14_problems():
+    """bench.py:1554-1616 (config_14): 12 schedules of one shape each, 10 to
+    35 pods (270), over config14_catalog, so the node-count-minimal and
+    cost-minimal fleets differ."""
+    from karpenter_tpu_torch.solver.batch_solve import Problem
+    from karpenter_tpu_torch.solver.solve import universe_constraints
+
+    catalog = config14_catalog()
     shapes = [(1000, 2048), (2000, 4096), (500, 1024), (4000, 8192)]
     problems = []
     for b in range(12):
@@ -1520,8 +2097,9 @@ def card_line() -> str:
 
 def main(argv) -> int:
     t_start = time.perf_counter()
-    if argv not in ([], ["--kernel-times"], ["--solve-times"]):
-        print("usage: chip_smoke.py [--kernel-times | --solve-times]", file=sys.stderr)
+    if argv not in ([], ["--kernel-times"], ["--solve-times"], ["--controller-deployed"]):
+        print("usage: chip_smoke.py [--kernel-times | --solve-times | --controller-deployed]",
+              file=sys.stderr)
         return 2
     import torch
 
@@ -1535,7 +2113,8 @@ def main(argv) -> int:
     card = card_line()
     if argv:
         emit({"phase": "card", "nvidia_smi": card})
-        (phase_kernel_times if argv == ["--kernel-times"] else phase_solve_times)(device)
+        {"--kernel-times": phase_kernel_times, "--solve-times": phase_solve_times,
+         "--controller-deployed": phase_controller_deployed}[argv[0]](device)
         return 0
     emit({"phase": "card", "nvidia_smi": card,
           "name": torch.cuda.get_device_name(0),
@@ -1557,6 +2136,7 @@ def main(argv) -> int:
     win = phase_window(device, 416, WARM_RUNS)          # 9,984 pods
     phase_window(device, 2084, WARM_RUNS)               # 50,016 pods
     phase_mixed_window(device)
+    phase_controller(device)
     gp = phase_global_program(device)
     gw = phase_global_window(device)
     phase_global_window_400(device)

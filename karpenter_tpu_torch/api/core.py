@@ -1,14 +1,18 @@
-"""The Kubernetes object types that ``solve()`` reads.
+"""The Kubernetes object types the port's solver and controllers read.
 
-A trimmed copy of the JAX package's object model: pod metadata, the PodSpec
-scheduling fields (node selector, tolerations), containers with their
-resource requirements, and taints. Everything is a plain dataclass.
+A trimmed copy of the JAX package's object model: metadata (labels,
+annotations, finalizers, owner references, deletion timestamp), the PodSpec
+scheduling fields (node selector, tolerations, node and pod affinity,
+topology spread, priority), containers with their resource requirements,
+pod and node status, taints, and the DaemonSet template. Everything is a
+plain dataclass; the in-memory API server (runtime/kubecore.py) gives them
+create/patch/delete/watch and finalizer semantics.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Dict, List
+from typing import Dict, List, Optional
 
 from karpenter_tpu_torch.utils.resources import ResourceList, parse_resource_list
 
@@ -19,6 +23,20 @@ class ObjectMeta:
     namespace: str = "default"
     labels: Dict[str, str] = field(default_factory=dict)
     annotations: Dict[str, str] = field(default_factory=dict)
+    finalizers: List[str] = field(default_factory=list)
+    owner_references: List["OwnerReference"] = field(default_factory=list)
+    deletion_timestamp: Optional[float] = None
+    creation_timestamp: Optional[float] = None
+    resource_version: int = 0
+    uid: str = ""
+
+
+@dataclass
+class OwnerReference:
+    kind: str = ""
+    name: str = ""
+    controller: bool = False
+    api_version: str = ""
     uid: str = ""
 
 
@@ -28,6 +46,19 @@ class Toleration:
     operator: str = "Equal"  # Equal | Exists
     value: str = ""
     effect: str = ""  # "" matches all effects
+
+    def tolerates_taint(self, taint: "Taint") -> bool:
+        """k8s core/v1 Toleration.ToleratesTaint semantics."""
+        if self.effect and self.effect != taint.effect:
+            return False
+        if self.key and self.key != taint.key:
+            return False
+        if self.operator == "Exists":
+            # k8s: Exists tolerations must not carry a value
+            return self.value == ""
+        if self.operator in ("", "Equal"):
+            return self.value == taint.value
+        return False
 
 
 @dataclass
@@ -42,6 +73,86 @@ class NodeSelectorRequirement:
     key: str = ""
     operator: str = "In"  # In | NotIn | Exists | DoesNotExist | Gt | Lt
     values: List[str] = field(default_factory=list)
+
+
+@dataclass
+class NodeSelectorTerm:
+    match_expressions: List[NodeSelectorRequirement] = field(default_factory=list)
+    match_fields: List[NodeSelectorRequirement] = field(default_factory=list)
+
+
+@dataclass
+class PreferredSchedulingTerm:
+    weight: int = 1
+    preference: NodeSelectorTerm = field(default_factory=NodeSelectorTerm)
+
+
+@dataclass
+class NodeAffinity:
+    required: Optional[List[NodeSelectorTerm]] = None  # RequiredDuringScheduling terms
+    preferred: List[PreferredSchedulingTerm] = field(default_factory=list)
+
+
+@dataclass
+class PodAffinityTerm:
+    topology_key: str = ""
+    label_selector: Optional["LabelSelector"] = None
+
+
+@dataclass
+class WeightedPodAffinityTerm:
+    """PreferredDuringSchedulingIgnoredDuringExecution entry: a soft
+    (anti-)affinity term scored with ``weight`` (kube range 1-100)."""
+
+    weight: int = 1
+    term: PodAffinityTerm = field(default_factory=PodAffinityTerm)
+
+
+@dataclass
+class PodAffinity:
+    required: List[PodAffinityTerm] = field(default_factory=list)
+    preferred: List[WeightedPodAffinityTerm] = field(default_factory=list)
+
+
+@dataclass
+class Affinity:
+    node_affinity: Optional[NodeAffinity] = None
+    pod_affinity: Optional[PodAffinity] = None
+    pod_anti_affinity: Optional[PodAffinity] = None
+
+
+@dataclass
+class LabelSelector:
+    match_labels: Dict[str, str] = field(default_factory=dict)
+    match_expressions: List[NodeSelectorRequirement] = field(default_factory=list)
+
+    def matches(self, labels: Dict[str, str]) -> bool:
+        for k, v in self.match_labels.items():
+            if labels.get(k) != v:
+                return False
+        for expr in self.match_expressions:
+            val = labels.get(expr.key)
+            if expr.operator == "In":
+                if val not in expr.values:
+                    return False
+            elif expr.operator == "NotIn":
+                if val in expr.values:
+                    return False
+            elif expr.operator == "Exists":
+                if expr.key not in labels:
+                    return False
+            elif expr.operator == "DoesNotExist":
+                if expr.key in labels:
+                    return False
+        return True
+
+
+@dataclass
+class TopologySpreadConstraint:
+    max_skew: int = 1
+    topology_key: str = ""
+    when_unsatisfiable: str = "DoNotSchedule"
+    label_selector: Optional[LabelSelector] = None
 
 
 @dataclass
@@ -69,10 +180,78 @@ class PodSpec:
     node_selector: Dict[str, str] = field(default_factory=dict)
     containers: List[Container] = field(default_factory=list)
     tolerations: List[Toleration] = field(default_factory=list)
+    affinity: Optional[Affinity] = None
+    topology_spread_constraints: List[TopologySpreadConstraint] = field(default_factory=list)
+    priority_class_name: str = ""
+    priority: int = 0  # resolved priority value (admission stamps it from the class)
+    termination_grace_period_seconds: int = 30
+
+
+@dataclass
+class PodCondition:
+    type: str = ""
+    status: str = ""  # True | False | Unknown
+    reason: str = ""
+
+
+@dataclass
+class PodStatus:
+    phase: str = "Pending"
+    conditions: List[PodCondition] = field(default_factory=list)
+    nominated_node_name: str = ""
 
 
 @dataclass
 class Pod:
     metadata: ObjectMeta = field(default_factory=ObjectMeta)
     spec: PodSpec = field(default_factory=PodSpec)
+    status: PodStatus = field(default_factory=PodStatus)
     kind: str = "Pod"
+
+
+@dataclass
+class NodeSpec:
+    taints: List[Taint] = field(default_factory=list)
+    unschedulable: bool = False
+    provider_id: str = ""
+
+
+@dataclass
+class NodeCondition:
+    type: str = ""
+    status: str = "Unknown"
+    reason: str = ""
+    last_heartbeat_time: Optional[float] = None
+
+
+@dataclass
+class NodeStatus:
+    capacity: ResourceList = field(default_factory=dict)
+    allocatable: ResourceList = field(default_factory=dict)
+    conditions: List[NodeCondition] = field(default_factory=list)
+
+
+@dataclass
+class Node:
+    metadata: ObjectMeta = field(default_factory=ObjectMeta)
+    spec: NodeSpec = field(default_factory=NodeSpec)
+    status: NodeStatus = field(default_factory=NodeStatus)
+    kind: str = "Node"
+
+
+@dataclass
+class PodTemplateSpec:
+    metadata: ObjectMeta = field(default_factory=ObjectMeta)
+    spec: PodSpec = field(default_factory=PodSpec)
+
+
+@dataclass
+class DaemonSetSpec:
+    template: PodTemplateSpec = field(default_factory=PodTemplateSpec)
+
+
+@dataclass
+class DaemonSet:
+    metadata: ObjectMeta = field(default_factory=ObjectMeta)
+    spec: DaemonSetSpec = field(default_factory=DaemonSetSpec)
+    kind: str = "DaemonSet"

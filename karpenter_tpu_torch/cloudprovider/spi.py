@@ -1,15 +1,20 @@
-"""The instance-type catalog types the solver reads.
+"""The cloud provider SPI: the catalog types the solver reads and the
+provider contract the provisioning controller launches nodes through.
 
-A trimmed copy of the JAX package's provider SPI value types
-(pkg/cloudprovider/types.go:55-76) plus the fake provider's
-``make_instance_type`` constructor (fake.NewInstanceType defaults).
+A trimmed copy of the JAX package's provider SPI
+(pkg/cloudprovider/types.go:29-76) plus the fake provider's
+``make_instance_type`` constructor (fake.NewInstanceType defaults). Create
+is callback-based, so a provider may batch node launches.
 """
 
 from __future__ import annotations
 
+import abc
 from dataclasses import dataclass, field
-from typing import List, Optional
+from typing import Callable, List, Optional, Sequence
 
+from karpenter_tpu_torch.api.constraints import Constraints
+from karpenter_tpu_torch.api.core import Node
 from karpenter_tpu_torch.utils.resources import Quantity, ResourceList, parse_resource_list
 
 
@@ -83,3 +88,28 @@ def make_instance_type(
         overhead=parse_resource_list({"cpu": "100m", "memory": "10Mi"}),
         price=price,
     )
+
+
+BindCallback = Callable[[Node], Optional[str]]
+
+
+class CloudProvider(abc.ABC):
+    """Provider contract (types.go:29-46)."""
+
+    @abc.abstractmethod
+    def create(self, constraints: Constraints, instance_types: Sequence[InstanceType],
+               quantity: int, bind: BindCallback) -> List[Optional[str]]:
+        """Launch ``quantity`` nodes drawn from ``instance_types`` and invoke
+        ``bind`` for each created node. Returns per-node errors (None=ok)."""
+
+    @abc.abstractmethod
+    def delete(self, node: Node) -> Optional[str]:
+        """Terminate the capacity backing ``node``."""
+
+    @abc.abstractmethod
+    def get_instance_types(self, constraints: Constraints) -> List[InstanceType]:
+        """The catalog viable for these constraints."""
+
+    @abc.abstractmethod
+    def name(self) -> str:
+        ...

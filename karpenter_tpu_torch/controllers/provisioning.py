@@ -1,0 +1,632 @@
+"""Provisioning controller + Provisioner workers: the window path on the card.
+
+Reference: pkg/controllers/provisioning/{controller.go,provisioner.go}, and
+the JAX package's ``controllers/provisioning.py``, trimmed to its window
+path:
+
+- the controller reconciles Provisioner CRs into in-memory workers (one
+  thread each), refreshes the universe requirements from the live catalog
+  and restarts a worker on a spec change;
+- the worker owns the hot loop: batch → schedule → solve (the batched pack
+  kernel, beside it the global window backend) → launch → bind, through a
+  bounded-depth pipeline (solver/pipeline.py) that overlaps one chunk's
+  device solve with the previous chunk's launch and bind.
+
+Both deployment shapes of the reference come with it: ``shards=0`` (one
+worker per Provisioner) and ``shards=N`` (N long-lived shard workers, each
+Provisioner's engine on shard ``crc32(name) % N``). They share the code.
+
+The device is resolved once, when the controller or a worker is made, so a
+missing card raises there and not halfway through a window. Every window
+runs on it: ``dispatch_batch`` answers each schedule (``"device-batch"``,
+or ``"device"`` for a lone problem) and the global backend its relaxation
+(``"device-global"``). The window never drops to a host oracle: an error
+of ``dispatch_batch`` or of its fetch propagates through the pipeline's
+drain. The one error that is caught is the global leg's, as the reference
+catches it: the chunk keeps its FFD plans, which came from the same device
+path, and the worker counts it in ``global_errors``.
+
+Left out (ROADMAP): the gang, carve and preemption paths and pod-affinity
+injection (the scheduler holds such pods out), the interruption-priced
+chunk policy and soft-affinity zone steering, the intent journal, SLO
+stamps, trace spans and histograms.
+"""
+
+from __future__ import annotations
+
+import logging
+import threading
+import time
+import uuid
+import zlib
+from dataclasses import dataclass, field
+from typing import Callable, Dict, List, Optional, Tuple
+
+from karpenter_tpu_torch.api import wellknown
+from karpenter_tpu_torch.api.constraints import Constraints
+from karpenter_tpu_torch.api.core import Node, Pod, Taint
+from karpenter_tpu_torch.api.gang import gang_of
+from karpenter_tpu_torch.api.provisioner import Provisioner, set_condition
+from karpenter_tpu_torch.backend import DeviceLike, resolve_device
+from karpenter_tpu_torch.cloudprovider.spi import CloudProvider
+from karpenter_tpu_torch import pressure
+from karpenter_tpu_torch.runtime.kubecore import AlreadyExists, ApiError, KubeCore, NotFound
+from karpenter_tpu_torch.scheduling.batcher import Batcher
+from karpenter_tpu_torch.scheduling.scheduler import Scheduler
+from karpenter_tpu_torch.solver import global_solve
+from karpenter_tpu_torch.solver.batch_solve import Problem, dispatch_batch
+from karpenter_tpu_torch.solver.pipeline import PipelineConfig, SolvePipeline
+from karpenter_tpu_torch.solver.solve import (
+    SolveResult, SolverConfig, global_requirements, solver_health,
+)
+from karpenter_tpu_torch.utils import pod as podutil
+
+log = logging.getLogger("karpenter.provisioning")
+
+
+class _NoChange(Exception):
+    """Raised inside a patch fn to abort a no-op status write (kubecore.patch
+    applies fn under the store lock; an exception leaves the store untouched,
+    so no MODIFIED event fires and condition refreshes cannot self-loop)."""
+
+
+def shard_of(name: str, shards: int) -> int:
+    """Stable provisioner→shard assignment: crc32 of the CR name, stable
+    across processes and restarts."""
+    return zlib.crc32(name.encode()) % shards
+
+
+@dataclass
+class _ChunkPrep:
+    """Host state of one window chunk, handed stage to stage through the
+    pipeline (schedule → dispatch → launch/bind)."""
+
+    schedules: list
+    problems: List[Problem]
+    pods: list = field(default_factory=list)
+    schedule_s: float = 0.0
+    dispatch_s: float = 0.0
+    # the global backend's in-flight handle when this chunk dispatched one;
+    # its fetch substitutes only strictly cheaper host-verified plans, so
+    # None (or a declined schedule) keeps the FFD result
+    global_handle: Optional[object] = None
+
+
+class ProvisionerEngine:
+    """Per-Provisioner solve machinery, independent of intake: the
+    scheduler and ONE long-lived SolvePipeline (its adaptive depth learns
+    across windows). A shard worker hosts one engine per Provisioner; in
+    the one-worker-per-Provisioner shape it hosts exactly one."""
+
+    def __init__(self, provisioner: Provisioner, kube: KubeCore,
+                 pipeline_config: Optional[PipelineConfig] = None):
+        self.provisioner = provisioner
+        self.pipeline_config = pipeline_config or PipelineConfig()
+        self.pipeline = SolvePipeline(self.pipeline_config)
+        self.scheduler = Scheduler(kube)
+
+
+class ProvisionerWorker:
+    """One intake shard: a thread + bounded priority batcher hosting the
+    engine(s) of the Provisioner(s) assigned to it (provisioner.go:41-76).
+
+    ``device`` (default: the CUDA device; ``"cpu"`` runs the plain
+    versions) is resolved here, once. After each window ``last_window``
+    holds its readings: the intake wait, and per chunk the schedule,
+    dispatch, in-flight, fetch and launch/bind seconds."""
+
+    def __init__(
+        self,
+        provisioner: Optional[Provisioner],
+        kube: KubeCore,
+        cloud_provider: CloudProvider,
+        solver_config: Optional[SolverConfig] = None,
+        batcher: Optional[Batcher] = None,
+        pipeline_config: Optional[PipelineConfig] = None,
+        shard: str = "",
+        device: DeviceLike = None,
+    ):
+        self.device = resolve_device(device)
+        self.kube = kube
+        self.cloud_provider = cloud_provider
+        self.solver_config = solver_config or SolverConfig()
+        self.batcher = batcher or Batcher()
+        self.pipeline_config = pipeline_config or PipelineConfig()
+        self.shard = shard
+        # global-leg failures caught since this worker was made: each chunk
+        # kept its FFD plans
+        self.global_errors = 0
+        self.last_window: dict = {}
+        self._chunks: List[dict] = []
+        # engine map is copy-on-write (REPLACED under _engines_lock, never
+        # mutated) so the hot loop and selection's targets() iterate a
+        # snapshot without taking the lock
+        self._engines: Dict[str, ProvisionerEngine] = {}
+        self._engines_lock = threading.Lock()
+        # the engine a provision pass is serving; the chunk-stage callbacks
+        # resolve through it. Only the worker thread writes it during a
+        # pass; direct test calls see the default engine.
+        self._current: Optional[ProvisionerEngine] = None
+        # the id of the window this worker is serving, on every
+        # window-scoped log line
+        self._window_id: str = "-"
+        self._stop = threading.Event()
+        self._thread: Optional[threading.Thread] = None
+        if provisioner is not None:
+            self.attach(provisioner)
+
+    # -- engine management ----------------------------------------------------
+    def attach(self, provisioner: Provisioner) -> None:
+        """Add (or replace, on spec change) the engine for a Provisioner."""
+        eng = ProvisionerEngine(provisioner, self.kube, pipeline_config=self.pipeline_config)
+        with self._engines_lock:
+            engines = dict(self._engines)
+            engines[provisioner.metadata.name] = eng
+            self._engines = engines
+
+    def detach(self, name: str) -> None:
+        with self._engines_lock:
+            if name in self._engines:
+                engines = dict(self._engines)
+                del engines[name]
+                self._engines = engines
+
+    def engines(self) -> List[ProvisionerEngine]:
+        """Snapshot of hosted engines in attach order."""
+        return list(self._engines.values())
+
+    def _default_engine(self) -> Optional[ProvisionerEngine]:
+        for eng in self._engines.values():
+            return eng
+        return None
+
+    def _engine(self) -> ProvisionerEngine:
+        eng = self._current or self._default_engine()
+        if eng is None:
+            raise RuntimeError("worker has no attached provisioner engine")
+        return eng
+
+    @property
+    def provisioner(self) -> Provisioner:
+        """The engine currently being served, else the first attached one."""
+        return self._engine().provisioner
+
+    @property
+    def pipeline(self) -> SolvePipeline:
+        return self._engine().pipeline
+
+    @property
+    def scheduler(self) -> Scheduler:
+        return self._engine().scheduler
+
+    # -- lifecycle ----------------------------------------------------------
+    def start(self) -> None:
+        name = (f"provisioner-shard-{self.shard}" if self.shard
+                else f"provisioner-{self.provisioner.metadata.name}")
+        self._thread = threading.Thread(target=self._run, name=name, daemon=True)
+        self._thread.start()
+
+    def stop(self, timeout: Optional[float] = None) -> None:
+        """Stop the loop; with ``timeout``, also wait up to that long for
+        the thread to end."""
+        self._stop.set()
+        self.batcher.stop()
+        if timeout is not None and self._thread is not None:
+            self._thread.join(timeout)
+
+    def _run(self) -> None:
+        while not self._stop.is_set():
+            try:
+                self.provision()
+            except Exception:
+                # the loop must outlive one window's failure: its pods stay
+                # Pending and the selection requeue re-offers them
+                log.exception("provisioning failed window_id=%s", self._window_id)
+
+    # -- API for the selection controller -----------------------------------
+    def add(self, pod: Pod, key=None,
+            provisioner: Optional[str] = None) -> Optional[threading.Event]:
+        """Enqueue a pod; returns the gate to block on (provisioner.go:80-82)
+        or None when brownout admission shed the pod. ``key`` (namespace,
+        name) enables :meth:`pending` de-duplication. ``provisioner`` routes
+        the pod to that engine's group within the shard window; None means
+        the default (first attached) engine."""
+        band, priority = pressure.classify(pod)
+        gspec = gang_of(pod)
+        gang = (gspec.key, gspec.size) if gspec is not None and not gspec.error else None
+        return self.batcher.add((provisioner, pod), key=key, band=band,
+                                priority=priority, gang=gang)
+
+    def pending(self, key) -> bool:
+        """True while a pod with this (namespace, name) key awaits a batch
+        window — the selection requeue loop skips re-adding it."""
+        return self.batcher.contains(key)
+
+    # -- the hot loop (provisioner.go:84-120) --------------------------------
+    def provision(self) -> Optional[SolveResult]:
+        t_wait0 = time.perf_counter()
+        items, window = self.batcher.wait()
+        t_wait1 = time.perf_counter()
+        try:
+            if not items or self._stop.is_set():
+                return None
+            wid = self._window_id = uuid.uuid4().hex[:12]
+            shard = self.shard or "0"
+            level = int(self.batcher._monitor().level())
+            self._chunks = []
+            log.info("batched %d pods in %.2fs window_id=%s shard=%s",
+                     len(items), window, wid, shard)
+            # dedupe within the batch: the non-blocking selection path can
+            # requeue a still-pending pod into the same window. Then group
+            # by engine, PRESERVING the window's priority order within each
+            # group (dict insertion order).
+            seen = set()
+            groups: Dict[Optional[str], List[Pod]] = {}
+            for pname, p in items:
+                key = (p.metadata.namespace, p.metadata.name)
+                if key in seen:
+                    continue
+                seen.add(key)
+                groups.setdefault(pname, []).append(p)
+            last_result = None
+            for pname, pods in groups.items():
+                eng = self._engines.get(pname) if pname is not None else self._default_engine()
+                if eng is None:
+                    # provisioner deleted while its pods sat in the window:
+                    # the pods stay Pending and the selection requeue
+                    # re-routes them to a surviving provisioner
+                    log.info("dropping %d pod(s) for detached provisioner %s "
+                             "window_id=%s shard=%s", len(pods), pname, wid, shard)
+                    continue
+                result = self._provision_group(eng, pods)
+                if result is not None:
+                    last_result = result
+            self.last_window = {
+                "window_id": wid, "pods": len(items), "pressure_level": level,
+                "intake_wait_s": t_wait1 - t_wait0, "batch_window_s": window,
+                "chunks": self._chunks, "pipeline": dict(self.pipeline.last_window),
+            }
+            return last_result
+        finally:
+            self.batcher.flush()
+
+    def _provision_group(self, eng: ProvisionerEngine,
+                         pods: List[Pod]) -> Optional[SolveResult]:
+        """Run one engine's share of the window through its pipeline."""
+        pods = [p for p in pods if self._is_provisionable(p)]
+        # L1+ batch split: the batcher returns windows in priority order,
+        # so chunking preserves it — critical pods solve and bind in the
+        # FIRST chunk, and each chunk bounds the solve's p99 under pressure
+        monitor = self.batcher._monitor()
+        split = monitor.config.split_items
+        if int(monitor.level()) >= 1 and 0 < split < len(pods):
+            chunks = [pods[i:i + split] for i in range(0, len(pods), split)]
+            log.info("pressure L%d: split %d-pod window into %d chunks of <=%d "
+                     "window_id=%s shard=%s", int(monitor.level()), len(pods),
+                     len(chunks), split, self._window_id, self.shard or "0")
+        else:
+            # L0: bound chunks to the pipeline's unit size so depth > 1 has
+            # work to overlap. The SAME boundaries apply at depth 1, so
+            # serial and pipelined runs stay node for node identical
+            ci = eng.pipeline_config.chunk_items
+            if 0 < ci < len(pods):
+                chunks = [pods[i:i + ci] for i in range(0, len(pods), ci)]
+            else:
+                chunks = [pods]
+        # the pipeline consumes FIFO, so the first chunk still launches and
+        # binds as soon as its solve lands while the next chunk's solve is
+        # in flight; at L1+ the depth collapses to 1 (the serial loop)
+        eng.pipeline.set_monitor(monitor)
+        self._current = eng
+        try:
+            results = eng.pipeline.run(
+                chunks, prepare=self._prepare_chunk, dispatch=self._dispatch_chunk,
+                consume=self._complete_chunk, on_chunk=self._observe_chunk)
+        finally:
+            self._current = None
+        last_result = None
+        for result in results:
+            if result is not None:
+                last_result = result
+        return last_result
+
+    # -- pipeline stages (one schedule → solve → launch pass per chunk) ------
+    def _prepare_chunk(self, pods: List[Pod]) -> _ChunkPrep:
+        """Host stage: schedule the chunk and build its packing problems."""
+        t0 = time.perf_counter()
+        eng = self._engine()
+        schedules = eng.scheduler.solve(eng.provisioner, pods)
+        problems = [
+            Problem(constraints=s.constraints, pods=s.pods,
+                    instance_types=self.cloud_provider.get_instance_types(s.constraints),
+                    daemons=self._get_daemons(s.constraints))
+            for s in schedules
+        ]
+        return _ChunkPrep(schedules=schedules, problems=problems, pods=pods,
+                          schedule_s=time.perf_counter() - t0)
+
+    def _dispatch_chunk(self, prep: _ChunkPrep):
+        """ALL the chunk's schedules pack in one batched device launch
+        instead of the reference's sequential per-schedule loop
+        (provisioner.go:109-120); the global backend's relaxation of the
+        same problems rides the same stage. Asynchronous: returns the
+        in-flight BatchHandle for the pipeline to fetch."""
+        t0 = time.perf_counter()
+        cfg = self.solver_config
+        handle = dispatch_batch(prep.problems, config=cfg, device=self.device)
+        if (cfg.window_backend == "global" and prep.problems and global_solve.enabled()
+                and int(self.batcher._monitor().level()) < 1):
+            # at pressure L1+ the window collapses to the FFD backend
+            # (chunked solves must stay p99-bounded)
+            try:
+                prep.global_handle = global_solve.dispatch_global_window(
+                    prep.problems, cfg, device=self.device)
+            except Exception:
+                self._global_failed("dispatch")
+        prep.dispatch_s = time.perf_counter() - t0
+        return handle
+
+    def _global_failed(self, stage: str) -> None:
+        """The global leg is a filter over FFD's plans: whatever failed, the
+        chunk binds the plans dispatch_batch answered on the same device."""
+        self.global_errors += 1
+        log.exception("global window %s failed; keeping FFD plans window_id=%s shard=%s",
+                      stage, self._window_id, self.shard or "0")
+
+    def _complete_chunk(self, prep: _ChunkPrep,
+                        results: List[SolveResult]) -> Optional[SolveResult]:
+        """Launch/bind stage: runs while the NEXT chunk's solve is in
+        flight (depth permitting)."""
+        global_results: Optional[list] = None
+        if prep.global_handle is not None:
+            try:
+                plan = prep.global_handle.fetch()
+            except Exception:
+                self._global_failed("fetch")
+            else:
+                global_results = plan.results
+                if plan.accepted:
+                    log.info("global window solve: %d/%d schedule(s) strictly cheaper "
+                             "(executor=%s) window_id=%s shard=%s", plan.accepted,
+                             len(plan.results), plan.executor, self._window_id,
+                             self.shard or "0")
+        last_result = None
+        for idx, (schedule, result) in enumerate(zip(prep.schedules, results)):
+            if global_results is not None and global_results[idx] is not None:
+                result = global_results[idx]
+            last_result = result
+            for packing in result.packings:
+                err = self._launch(schedule.constraints, packing)
+                if err is not None:
+                    log.error("could not launch node: %s window_id=%s", err, self._window_id)
+        return last_result
+
+    def _observe_chunk(self, prep: _ChunkPrep, stats: dict) -> None:
+        self._chunks.append({
+            "pods": len(prep.pods), "problems": len(prep.problems),
+            "global": prep.global_handle is not None,
+            "schedule_s": prep.schedule_s, "dispatch_s": prep.dispatch_s,
+            "inflight_s": stats["inflight_s"], "fetch_s": stats["device_s"],
+            "launch_bind_s": stats["launch_bind_s"], "t_dispatch": stats["t_dispatch"],
+            "t_fetch": stats["t_fetch"], "t_done": stats["t_done"]})
+
+    def _is_provisionable(self, candidate: Pod) -> bool:
+        """Fresh read per pod to avoid duplicate binds (provisioner.go:
+        126-135), without a copy: a one-field check."""
+        try:
+            return not self.kube.read("Pod", candidate.metadata.name,
+                                      candidate.metadata.namespace, podutil.is_scheduled)
+        except NotFound:
+            return False
+
+    def _get_daemons(self, constraints: Constraints) -> List[Pod]:
+        """Daemonset pods that would schedule on these nodes (packer.go:148-162)."""
+        daemons = []
+        for ds in self.kube.list("DaemonSet"):
+            pod = Pod(spec=ds.spec.template.spec)
+            if constraints.validate_pod(pod) is None:
+                daemons.append(pod)
+        return daemons
+
+    def _launch(self, constraints: Constraints, packing) -> Optional[str]:
+        """Limits check + CloudProvider.create with the bind callback
+        (provisioner.go:137-157)."""
+        provisioner = self._engine().provisioner
+        try:
+            latest = self.kube.get("Provisioner", provisioner.metadata.name)
+        except NotFound:
+            return "provisioner deleted"
+        err = provisioner.spec.limits.exceeded_by(latest.status.resources)
+        if err is not None:
+            return err
+        pods_per_node = list(packing.pods)
+
+        def bind(node: Node) -> Optional[str]:
+            node.metadata.labels.update(constraints.labels)
+            node.spec.taints.extend(constraints.taints)
+            return self._bind(node, pods_per_node.pop(0) if pods_per_node else [])
+
+        errs = self.cloud_provider.create(constraints, packing.instance_type_options,
+                                          packing.node_quantity, bind)
+        errs = [e for e in errs if e]
+        return "; ".join(errs) if errs else None
+
+    def _bind(self, node: Node, pods: List[Pod]) -> Optional[str]:
+        """Create the node object (finalizer + not-ready taint) and bind
+        pods (provisioner.go:159-198); the JAX package's ``_bind`` and
+        ``_bind_traced`` in one, without the span and the histogram."""
+        provisioner = self._engine().provisioner
+        node.metadata.namespace = ""
+        node.metadata.finalizers.append(wellknown.TERMINATION_FINALIZER)
+        node.metadata.labels.setdefault(wellknown.PROVISIONER_NAME_LABEL,
+                                        provisioner.metadata.name)
+        # prevent the kube scheduler racing our binds (provisioner.go:164-176)
+        node.spec.taints.append(Taint(key=wellknown.NOT_READY_TAINT_KEY, effect="NoSchedule"))
+        try:
+            self.kube.create(node)
+        except AlreadyExists:
+            pass  # self-registered first — idempotent (provisioner.go:177-186)
+        except ApiError as e:
+            # no Node object: the pods stay pending and re-enter the next
+            # batch
+            return f"creating node object {node.metadata.name}: {e}"
+        # one locked pass for the node's whole pod set
+        try:
+            errs = self.kube.bind_pods(pods, node.metadata.name)
+        except ApiError as e:
+            errs = [str(e)] * len(pods)
+        # an already-bound pod is success, not failure: a stale
+        # provisionable read can re-batch a pod whose earlier bind landed,
+        # and an error would relaunch capacity for it every window
+        errs = [e for e in errs if "already bound" not in e and "already exists" not in e]
+        for e in errs:
+            log.error("failed to bind to %s: %s", node.metadata.name, e)
+        log.info("bound %d pod(s) to node %s window_id=%s shard=%s",
+                 len(pods) - len(errs), node.metadata.name, self._window_id,
+                 self.shard or "0")
+        # propagate instead of swallowing: the joined error surfaces through
+        # CloudProvider.create → _launch → the provision loop's error log,
+        # and the unbound pods remain provisionable for the next batch
+        if errs:
+            return f"binding {len(errs)} pod(s) to {node.metadata.name}: " + "; ".join(errs)
+        return None
+
+
+class ProvisioningController:
+    """Reconciles Provisioner CRs into workers (controller.go:44-128).
+
+    ``shards=0`` (default): one worker per Provisioner, the reference's
+    shape. ``shards=N``: N long-lived shard workers; each Provisioner's
+    engine attaches to shard ``crc32(name) % N``. ``device`` (default: the
+    CUDA device; ``"cpu"`` runs the plain versions) is resolved here, once,
+    and every worker runs on it."""
+
+    REQUEUE_SECONDS = 5 * 60  # catch zone/type drift (controller.go:82-83)
+
+    def __init__(self, kube: KubeCore, cloud_provider: CloudProvider,
+                 solver_config: Optional[SolverConfig] = None,
+                 batcher_factory: Optional[Callable[[], Batcher]] = None,
+                 pipeline_config: Optional[PipelineConfig] = None,
+                 shards: int = 0, device: DeviceLike = None):
+        self.device = resolve_device(device)
+        self.kube = kube
+        self.cloud_provider = cloud_provider
+        self.solver_config = solver_config
+        self.pipeline_config = pipeline_config
+        self.batcher_factory = batcher_factory or Batcher
+        self.shards = int(shards or 0)
+        # one worker per provisioner name, or "shard-i" → worker
+        self.workers: Dict[str, ProvisionerWorker] = {}
+        self._hashes: Dict[str, tuple] = {}
+        self._lock = threading.Lock()
+
+    def targets(self) -> List[Tuple[Provisioner, ProvisionerWorker]]:
+        """Routing snapshot for the selection controller: every hosted
+        (provisioner, worker) pair, in worker-creation then engine-attach
+        order (selection's first-match semantics depend on a stable
+        order)."""
+        with self._lock:
+            workers = list(self.workers.values())
+        return [(eng.provisioner, w) for w in workers for eng in w.engines()]
+
+    def _new_worker(self, provisioner: Optional[Provisioner], shard: str = "") -> ProvisionerWorker:
+        worker = ProvisionerWorker(
+            provisioner, self.kube, self.cloud_provider, solver_config=self.solver_config,
+            batcher=self.batcher_factory(), pipeline_config=self.pipeline_config,
+            shard=shard, device=self.device)
+        worker.start()
+        return worker
+
+    def reconcile(self, name: str, namespace: str = "default") -> Optional[float]:
+        try:
+            provisioner = self.kube.get("Provisioner", name, namespace)
+        except NotFound:
+            with self._lock:
+                self._hashes.pop(name, None)
+                if self.shards > 0:
+                    # the shard worker outlives any one tenant: detach the
+                    # engine, keep the shard serving its other provisioners
+                    w = self.workers.get(f"shard-{shard_of(name, self.shards)}")
+                    if w is not None:
+                        w.detach(name)
+                    return None
+                worker = self.workers.pop(name, None)
+            if worker:
+                worker.stop()
+            return None
+        if provisioner.metadata.deletion_timestamp is not None:
+            return None
+
+        # refresh the universe requirements from the live catalog
+        catalog = self.cloud_provider.get_instance_types(provisioner.spec.constraints)
+        provisioner.spec.constraints.requirements = (
+            provisioner.spec.constraints.requirements.add(*global_requirements(catalog).items))
+
+        key = _spec_hash(provisioner)
+        with self._lock:
+            if self._hashes.get(name) != key:
+                if self.shards > 0:
+                    # attach replaces the engine in place; the shard worker,
+                    # its thread and its batcher survive the spec change
+                    wname = f"shard-{shard_of(name, self.shards)}"
+                    if wname not in self.workers:
+                        self.workers[wname] = self._new_worker(
+                            None, shard=str(shard_of(name, self.shards)))
+                    self.workers[wname].attach(provisioner)
+                else:
+                    old = self.workers.get(name)
+                    if old:
+                        old.stop()
+                    self.workers[name] = self._new_worker(provisioner)
+                self._hashes[name] = key
+        # conditions refresh on every reconcile, including the unchanged
+        # steady state: the last executor moves between spec changes
+        self._update_conditions(name, namespace)
+        return float(self.REQUEUE_SECONDS)
+
+    def _update_conditions(self, name: str, namespace: str) -> None:
+        """Maintain the living status conditions (provisioner_status.go:38-49):
+        ``Active`` and ``SolverHealthy``, the executor that answered last.
+        The port has no device breaker (a device error raises), so
+        ``SolverHealthy`` has no False state. The status write is skipped
+        when nothing changed, so the refresh cannot loop on its own watch
+        event."""
+        executor = solver_health()["last_executor"]
+        # executor name only, no volatile fields: the condition must compare
+        # EQUAL between real state changes, or every reconcile writes status
+        solver = ("True", "ExecutorRingsNominal",
+                  f"last solve: executor={executor}" if executor else "no solves yet")
+
+        def apply(p):
+            now = time.time()
+            changed = set_condition(p.status.conditions, "Active", "True", "WorkerRunning",
+                                    "provisioner worker running", now=now)
+            changed |= set_condition(p.status.conditions, "SolverHealthy", *solver, now=now)
+            if not changed:
+                raise _NoChange
+
+        try:
+            self.kube.patch("Provisioner", name, namespace, apply)
+        except (_NoChange, NotFound):
+            pass
+
+    def stop_all(self, timeout: Optional[float] = None) -> None:
+        """Stop every worker thread; with ``timeout``, wait up to that long
+        for each to end."""
+        with self._lock:
+            workers = list(self.workers.values())
+            self.workers.clear()
+            self._hashes.clear()
+        for w in workers:
+            w.stop(timeout)
+
+
+def _spec_hash(p: Provisioner) -> tuple:
+    c = p.spec.constraints
+    return (
+        tuple(sorted((r.key, r.operator, tuple(sorted(r.values))) for r in c.requirements.items)),
+        tuple(sorted((t.key, t.value, t.effect) for t in c.taints)),
+        tuple(sorted(c.labels.items())),
+        p.spec.ttl_seconds_after_empty,
+        p.spec.ttl_seconds_until_expired,
+    )

@@ -1,0 +1,334 @@
+"""In-memory Kubernetes API server for the port's controllers.
+
+A trimmed copy of the JAX package's store (``runtime/kubecore.py``): the
+API-server semantics the provisioning path reads and writes, in process.
+
+- create, get, read (no copy), list, patch (read-modify-write under the
+  store lock) and delete, with a monotonically increasing resourceVersion.
+- Delete sets deletionTimestamp when finalizers are present; the object is
+  only removed once its finalizer list empties.
+- Watch: per-subscriber event queues with ADDED/MODIFIED/DELETED.
+- Field index on pod spec.nodeName for O(1) pods-on-node lookups.
+- Binding subresource for pods, a node's worth under one lock.
+
+Objects live in per-kind stripes, each with its own RLock; a stripe's dict
+IS the by-kind index. The stripe-creation guard is never acquired while a
+stripe lock is held. ``_watchers`` is copy-on-write: ``watch``/``unwatch``
+replace it under ``_watch_lock`` and ``_notify`` iterates a snapshot.
+resourceVersion is one shared ``itertools.count``. Left out, since no port
+controller calls them yet: full updates with their stale-version conflict,
+no-copy scans, delete preconditions, the one-pod binding, the eviction
+subresource with its PodDisruptionBudget indexes, meta-only watches and the
+single-lock reference layout.
+"""
+
+from __future__ import annotations
+
+import itertools
+import queue
+import threading
+from contextlib import contextmanager
+from dataclasses import dataclass
+from typing import Callable, Dict, List, Optional, Tuple
+
+from karpenter_tpu_torch.api.core import LabelSelector, Pod
+from karpenter_tpu_torch.utils import clock
+from karpenter_tpu_torch.utils.fastcopy import deep_copy
+
+
+class ApiError(Exception):
+    pass
+
+
+class NotFound(ApiError):
+    pass
+
+
+class AlreadyExists(ApiError):
+    pass
+
+
+@dataclass
+class Event:
+    type: str  # ADDED | MODIFIED | DELETED
+    obj: object
+
+
+Key = Tuple[str, str, str]  # (kind, namespace, name)
+
+
+def _key(obj) -> Key:
+    return (obj.kind, obj.metadata.namespace, obj.metadata.name)
+
+
+class _Stripe:
+    """One kind's slice of the store: its lock and its objects. The dict
+    doubles as the by-kind index, so list-by-kind never filters."""
+
+    __slots__ = ("key", "lock", "objects")
+
+    def __init__(self, key: str):
+        self.key = key
+        self.lock = threading.RLock()
+        self.objects: Dict[Key, object] = {}
+
+
+class KubeCore:
+    """Threadsafe in-memory object store with API-server semantics, striped
+    by kind (see the module docstring)."""
+
+    def __init__(self):
+        # stripe map: created on first touch of a kind, never removed.
+        # _stripes_guard orders stripe creation against the watch(None)
+        # world-snapshot; plain dict reads are the lock-free fast path
+        # (stripes are add-only, and dict get is atomic under the GIL).
+        self._stripes: Dict[str, _Stripe] = {}
+        self._stripes_guard = threading.Lock()
+        self._rv = itertools.count(1)
+        self._uid = itertools.count(1)
+        self._watch_lock = threading.Lock()
+        self._watchers: List[Tuple[Optional[str], "queue.Queue[Event]"]] = []
+        # the spec.nodeName field index: node name → pod keys, maintained on
+        # every pod mutation so pods_on_node is O(pods on that node). Inner
+        # dicts are ordered sets, so iteration keeps insertion order. Only
+        # ever touched under the Pod stripe's lock.
+        self._pods_by_node: Dict[str, Dict[Key, None]] = {}
+
+    # -- stripes -------------------------------------------------------------
+    def _stripe(self, kind: str) -> _Stripe:
+        s = self._stripes.get(kind)
+        if s is None:
+            with self._stripes_guard:
+                s = self._stripes.setdefault(kind, _Stripe(kind))
+        return s
+
+    @contextmanager
+    def _world(self):
+        """Every existing stripe, locked in sorted order, with stripe
+        creation blocked (guard held) — the watch(kind=None) initial-replay
+        snapshot. A create of a brand-new kind waits on the guard until
+        the watcher is registered, so its ADDED cannot be lost between the
+        replay and the registration."""
+        with self._stripes_guard:
+            ordered = [self._stripes[k] for k in sorted(self._stripes)]
+            for s in ordered:
+                s.lock.acquire()
+            try:
+                yield ordered
+            finally:
+                for s in reversed(ordered):
+                    s.lock.release()
+
+    # -- helpers ------------------------------------------------------------
+    def _next_rv(self) -> int:
+        return next(self._rv)
+
+    def _reindex(self, key: Key, old, new) -> None:
+        """Maintain the nodeName index across any mutation. Caller holds
+        the subject kind's stripe lock."""
+        if key[0] != "Pod":
+            return
+        old_node = old.spec.node_name if old is not None else None
+        new_node = new.spec.node_name if new is not None else None
+        if old_node == new_node:
+            return
+        if old_node:
+            bucket = self._pods_by_node.get(old_node)
+            if bucket is not None:
+                bucket.pop(key, None)
+                if not bucket:
+                    del self._pods_by_node[old_node]
+        if new_node:
+            self._pods_by_node.setdefault(new_node, {})[key] = None
+
+    def _notify(self, event_type: str, obj) -> None:
+        # safe with or without any stripe lock held: _watchers is
+        # copy-on-write, so iterating a snapshot reference cannot see a
+        # resize
+        for kind, q in self._watchers:
+            if kind is None or kind == obj.kind:
+                q.put(Event(event_type, deep_copy(obj)))
+
+    # -- watch --------------------------------------------------------------
+    def watch(self, kind: Optional[str] = None) -> "queue.Queue[Event]":
+        """Subscribe to events for a kind (None = all). Existing objects are
+        replayed as ADDED, matching informer initial-list semantics.
+        Registration is atomic with the replay against the subject
+        stripe(s), so a concurrent write lands either in the replay OR as a
+        later event — never lost, never torn."""
+        q: "queue.Queue[Event]" = queue.Queue()
+
+        def _replay(objects) -> None:
+            for obj in objects:
+                if kind is None or obj.kind == kind:
+                    q.put(Event("ADDED", deep_copy(obj)))
+
+        if kind is None:
+            with self._world() as stripes:
+                for s in stripes:
+                    _replay(s.objects.values())
+                with self._watch_lock:
+                    self._watchers = self._watchers + [(kind, q)]
+        else:
+            s = self._stripe(kind)
+            with s.lock:
+                _replay(s.objects.values())
+                with self._watch_lock:
+                    self._watchers = self._watchers + [(kind, q)]
+        return q
+
+    def unwatch(self, q) -> None:
+        with self._watch_lock:
+            self._watchers = [w for w in self._watchers if w[1] is not q]
+
+    # -- CRUD ---------------------------------------------------------------
+    def create(self, obj):
+        s = self._stripe(obj.kind)
+        with s.lock:
+            k = _key(obj)
+            if k in s.objects:
+                raise AlreadyExists(f"{k} already exists")
+            obj = deep_copy(obj)
+            obj.metadata.resource_version = self._next_rv()
+            obj.metadata.uid = obj.metadata.uid or f"uid-{next(self._uid)}"
+            if obj.metadata.creation_timestamp is None:
+                obj.metadata.creation_timestamp = clock.now()
+            s.objects[k] = obj
+            self._reindex(k, None, obj)
+            self._notify("ADDED", obj)
+            return deep_copy(obj)
+
+    def get(self, kind: str, name: str, namespace: str = "default"):
+        s = self._stripe(kind)
+        with s.lock:
+            obj = s.objects.get((kind, namespace, name))
+            if obj is None:
+                raise NotFound(f"{kind} {namespace}/{name} not found")
+            return deep_copy(obj)
+
+    def read(self, kind: str, name: str, namespace: str, fn):
+        """Apply ``fn`` to one live object under the stripe lock (no copy);
+        raises NotFound. Same read-only contract as :meth:`scan`."""
+        s = self._stripe(kind)
+        with s.lock:
+            obj = s.objects.get((kind, namespace, name))
+            if obj is None:
+                raise NotFound(f"{kind} {namespace}/{name} not found")
+            return fn(obj)
+
+    def list(
+        self,
+        kind: str,
+        namespace: Optional[str] = None,
+        label_selector: Optional[LabelSelector] = None,
+        field: Optional[Tuple[str, str]] = None,
+    ) -> List:
+        """List objects. ``field`` supports the spec.nodeName pod index."""
+        s = self._stripe(kind)
+        with s.lock:
+            if field is not None:
+                fname, fval = field
+                if fname != "spec.nodeName":
+                    raise ApiError(f"unsupported field selector {fname}")
+                if kind == "Pod":
+                    # indexed path: only this node's pods are touched (the
+                    # index holds Pod keys, which live in this stripe)
+                    candidates = [s.objects[key] for key in
+                                  self._pods_by_node.get(fval, ())]
+                else:
+                    candidates = [o for o in s.objects.values()
+                                  if getattr(o.spec, "node_name", None) == fval]
+            else:
+                candidates = list(s.objects.values())
+            out = []
+            for obj in candidates:
+                if namespace is not None and obj.metadata.namespace != namespace:
+                    continue
+                if label_selector is not None and not label_selector.matches(obj.metadata.labels):
+                    continue
+                out.append(deep_copy(obj))
+            return out
+
+    def patch(self, kind: str, name: str, namespace: str, fn: Callable[[object], None]):
+        """Read-modify-write with retry-free server-side apply semantics:
+        fn mutates the live copy under the stripe lock."""
+        s = self._stripe(kind)
+        with s.lock:
+            stored = s.objects.get((kind, namespace, name))
+            if stored is None:
+                raise NotFound(f"{kind} {namespace}/{name} not found")
+            obj = deep_copy(stored)
+            fn(obj)
+            obj.metadata.deletion_timestamp = stored.metadata.deletion_timestamp
+            obj.metadata.resource_version = self._next_rv()
+            if obj.metadata.deletion_timestamp is not None and not obj.metadata.finalizers:
+                del s.objects[(kind, namespace, name)]
+                self._reindex((kind, namespace, name), stored, None)
+                self._notify("DELETED", obj)
+                return deep_copy(obj)
+            s.objects[(kind, namespace, name)] = obj
+            self._reindex((kind, namespace, name), stored, obj)
+            self._notify("MODIFIED", obj)
+            return deep_copy(obj)
+
+    def delete(self, kind: str, name: str, namespace: str = "default"):
+        """Delete; with finalizers present, only stamps deletionTimestamp."""
+        s = self._stripe(kind)
+        with s.lock:
+            k = (kind, namespace, name)
+            stored = s.objects.get(k)
+            if stored is None:
+                raise NotFound(f"{kind} {namespace}/{name} not found")
+            if stored.metadata.finalizers:
+                if stored.metadata.deletion_timestamp is None:
+                    # k8s semantics: deletionTimestamp = request time + the
+                    # pod's grace period (a FUTURE time)
+                    grace = getattr(getattr(stored, "spec", None),
+                                    "termination_grace_period_seconds", 0) or 0
+                    stored.metadata.deletion_timestamp = clock.now() + grace
+                    stored.metadata.resource_version = self._next_rv()
+                    self._notify("MODIFIED", stored)
+                return deep_copy(stored)
+            del s.objects[k]
+            self._reindex(k, stored, None)
+            self._notify("DELETED", stored)
+            return deep_copy(stored)
+
+    # -- subresources -------------------------------------------------------
+    def bind_pods(self, pods: List[Pod], node_name: str) -> List[str]:
+        """Bulk binding: bind every pod to ``node_name`` under ONE lock
+        acquisition (a node's worth of binds — the provisioning hot loop
+        previously paid a lock round-trip and watcher fan-out per pod).
+        Returns per-pod error strings for the pods that failed; successful
+        pods are bound (spec.nodeName set once) and notified."""
+        errs: List[str] = []
+        bound: List[object] = []
+        s = self._stripe("Pod")
+        with s.lock:
+            for pod in pods:
+                k = ("Pod", pod.metadata.namespace, pod.metadata.name)
+                stored = s.objects.get(k)
+                if stored is None:
+                    errs.append(f"pod {k} not found")
+                    continue
+                if stored.spec.node_name:
+                    errs.append(f"pod {pod.metadata.name} already bound "
+                                f"to {stored.spec.node_name}")
+                    continue
+                stored.spec.node_name = node_name
+                stored.metadata.resource_version = self._next_rv()
+                self._reindex(k, None, stored)  # was unbound
+                bound.append(stored)
+        # notify OUTSIDE the lock: full-copy watchers pay a deep copy per
+        # event, and a node's worth of copies inside the critical section
+        # would stall every concurrent read behind the bind (review r5).
+        # An event may therefore carry object state slightly NEWER than the
+        # bind it announces (same coalescing a real informer's watch cache
+        # performs); controllers here are level-triggered by design.
+        for stored in bound:
+            self._notify("MODIFIED", stored)
+        return errs
+
+    # -- convenience indexes -------------------------------------------------
+    def pods_on_node(self, node_name: str) -> List[Pod]:
+        return self.list("Pod", namespace=None, field=("spec.nodeName", node_name))

@@ -1,0 +1,160 @@
+"""Scheduler: constraint solve — group pods into isomorphic schedules.
+
+Reference: pkg/controllers/provisioning/scheduling/scheduler.go. Topology is
+injected first (as JIT node selectors), then pods group by
+hash(tightened constraints + GPU requests); each group bin-packs
+independently, which is what makes the batch axis of the window's device
+solve embarrassingly parallel.
+
+A copy of the JAX package's scheduler on the scalar path it falls back to
+when ``feasibility.compile_constraints`` gives None: ``validate_pod`` and
+``tighten`` per pod (the columnar engine is not ported yet). Pod-affinity
+injection and gang co-pack are not ported yet either, so two kinds of pod
+are **held out** with an explicit reason: a pod with pod-(anti-)affinity
+terms (``_affinity_unsat``) and the members of a complete gang schedule
+(``_gang_unsat``). They stay Pending, are counted in ``held_out`` and are
+named in the window's log line; they are never solved without their
+constraint.
+"""
+
+from __future__ import annotations
+
+import logging
+from dataclasses import dataclass, field
+from typing import Dict, List, Optional
+
+from karpenter_tpu_torch.api.constraints import Constraints
+from karpenter_tpu_torch.api.core import Pod
+from karpenter_tpu_torch.api.gang import GangSpec, gang_of
+from karpenter_tpu_torch.api.provisioner import Provisioner
+from karpenter_tpu_torch.runtime.kubecore import KubeCore
+from karpenter_tpu_torch.scheduling.topology import Topology
+from karpenter_tpu_torch.solver import adapter
+from karpenter_tpu_torch.utils import resources as res
+
+log = logging.getLogger("karpenter.scheduler")
+
+HELD_AFFINITY = "pod affinity is not ported: held out, left Pending"
+HELD_GANG = "gang co-pack is not ported: held out, left Pending"
+
+
+@dataclass
+class Schedule:
+    """Equivalently-schedulable pods + their tightened constraints
+    (scheduler.go:53-57). ``gang`` is the gang spec when the group is an
+    all-or-nothing pod group (such a schedule is held out, see the module
+    docstring)."""
+
+    constraints: Constraints
+    pods: List[Pod] = field(default_factory=list)
+    gang: Optional[GangSpec] = None
+
+
+def has_pod_affinity(pod: Pod) -> bool:
+    """True when the pod carries any pod-(anti-)affinity term, required or
+    preferred."""
+    a = pod.spec.affinity
+    return a is not None and any(
+        side is not None and (side.required or side.preferred)
+        for side in (a.pod_affinity, a.pod_anti_affinity))
+
+
+def _constraints_key(c: Constraints, gpu_requests) -> tuple:
+    """Structural hash of tightened constraints + GPU requests
+    (scheduler.go:100-110). SlicesAsSets semantics: order-insensitive."""
+    reqs = tuple(sorted((r.key, r.operator, tuple(sorted(r.values)))
+                        for r in c.requirements.items))
+    taints = tuple(sorted((t.key, t.value, t.effect) for t in c.taints))
+    labels = tuple(sorted(c.labels.items()))
+    gpus = tuple(sorted((k, q.nano) for k, q in gpu_requests.items()))
+    return (reqs, taints, labels, gpus)
+
+
+class Scheduler:
+    def __init__(self, kube: KubeCore):
+        self.kube = kube
+        self.topology = Topology(kube)
+        # pods held out since this scheduler was made, by reason
+        self.held_out: Dict[str, int] = {"affinity": 0, "gang": 0}
+
+    def solve(self, provisioner: Provisioner, pods: List[Pod]) -> List[Schedule]:
+        """scheduler.go:66-82; gang schedules are held out of the result."""
+        constraints = provisioner.spec.constraints.deepcopy()
+        self.topology.inject(constraints, pods)
+        return self._get_schedules(constraints, pods)
+
+    def _get_schedules(self, constraints: Constraints, pods: List[Pod]) -> List[Schedule]:
+        """scheduler.go:87-125 on the scalar path. Unschedulable and
+        held-out pods aggregate to one summary log line per window (counts
+        by reason + up to 5 sample reasons)."""
+        schedules: Dict[tuple, Schedule] = {}
+        skipped = topo_skipped = aff_held = gang_skipped = gang_held = 0
+        samples: List[str] = []
+
+        def note(pod: Pod, why: str) -> None:
+            if len(samples) < 5:
+                samples.append(f"{pod.metadata.namespace}/{pod.metadata.name}: {why}")
+
+        for pod in pods:
+            gspec = gang_of(pod)
+            if gspec is not None and gspec.error:
+                # malformed gang labels never enter a solve window
+                skipped += 1
+                gang_skipped += 1
+                pod.__dict__["_gang_unsat"] = gspec.error
+                note(pod, gspec.error)
+                continue
+            if has_pod_affinity(pod):
+                skipped += 1
+                aff_held += 1
+                pod.__dict__["_affinity_unsat"] = HELD_AFFINITY
+                note(pod, HELD_AFFINITY)
+                continue
+            err = constraints.validate_pod(pod)
+            if err is not None:
+                skipped += 1
+                if pod.__dict__.get("_topology_unsat"):
+                    # topology.inject found no satisfiable spread domain
+                    topo_skipped += 1
+                note(pod, err)
+                continue
+            tightened = constraints.tighten(pod)
+            key = _constraints_key(tightened, res.gpu_limits_for(pod))
+            if gspec is not None:
+                # fold the gang identity into the group key: a gang
+                # schedule holds exactly its members
+                key = key + (gspec.group_part,)
+            schedule = schedules.get(key)
+            if schedule is None:
+                schedule = schedules[key] = Schedule(constraints=tightened, pods=[], gang=gspec)
+                # warm the allowed-sets memo at window assembly: the solver
+                # reads these five sets per schedule
+                adapter.allowed_sets_cached(tightened)
+            schedule.pods.append(pod)
+        # a gang schedule that lost members to validation above is partial:
+        # all-or-nothing means the survivors shed with the group; a complete
+        # one is held out (gang co-pack is not ported yet)
+        for key in [k for k, s in schedules.items() if s.gang is not None]:
+            s = schedules.pop(key)
+            skipped += len(s.pods)
+            if len(s.pods) != s.gang.size:
+                gang_skipped += len(s.pods)
+                why = (f"gang {s.gang.namespace}/{s.gang.name} incomplete in "
+                       f"window ({len(s.pods)}/{s.gang.size} members)")
+            else:
+                gang_held += len(s.pods)
+                why = HELD_GANG
+            for pod in s.pods:
+                pod.__dict__["_gang_unsat"] = why
+            if len(samples) < 5:
+                samples.append(f"gang {s.gang.namespace}/{s.gang.name}: {why}")
+        self.held_out["affinity"] += aff_held
+        self.held_out["gang"] += gang_held
+        if skipped:
+            log.info("unable to schedule %d/%d pod(s) in window "
+                     "(reason=topology: %d, reason=gang: %d, held out: "
+                     "pod-affinity %d, gang-copack %d, other: %d): %s",
+                     skipped, len(pods), topo_skipped, gang_skipped, aff_held,
+                     gang_held, skipped - topo_skipped - gang_skipped - aff_held - gang_held,
+                     "; ".join(samples))
+        return list(schedules.values())

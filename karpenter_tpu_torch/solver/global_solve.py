@@ -34,6 +34,7 @@ relu clips).
 
 from __future__ import annotations
 
+import os
 import time
 from contextlib import nullcontext
 from dataclasses import dataclass, field
@@ -60,6 +61,13 @@ ITERS = 300
 # calls of the program (relax_node_counts), on any device: a run can show
 # that its windows went through it
 RUNS = 0
+
+
+def enabled() -> bool:
+    """The kill switch: KARPENTER_GLOBAL_SOLVE=0/false/off makes the
+    provisioning controller take the FFD window backend whatever
+    ``SolverConfig.window_backend`` says; default on."""
+    return os.environ.get("KARPENTER_GLOBAL_SOLVE", "").strip().lower() not in ("0", "false", "off")
 
 
 def warm_start(counts: torch.Tensor, num_types: torch.Tensor, tb: int) -> torch.Tensor:

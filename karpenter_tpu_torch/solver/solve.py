@@ -69,6 +69,11 @@ class SolverConfig:
     # pick the cheapest instead of Go's first-smallest. Changes which node
     # set is produced, so it is off by default (parity mode).
     cost_tiebreak: bool = False
+    # the provisioning controller's window backend: "global" solves each
+    # window's relaxation beside dispatch_batch and takes a schedule's
+    # rounded plan only where it is strictly cheaper in exact int micro-$
+    # (solver/global_solve.py); "ffd" keeps the batch's plans
+    window_backend: str = "global"
 
 
 @dataclass

@@ -169,3 +169,24 @@ EPHEMERAL_STORAGE = "ephemeral-storage"
 
 def parse_resource_list(d: Optional[Mapping[str, Union[str, int, float, Quantity]]]) -> ResourceList:
     return {k: Quantity.parse(v) for k, v in (d or {}).items()}
+
+
+def merge(*resource_lists: ResourceList) -> ResourceList:
+    """Sum resource lists key-wise (resources.go Merge)."""
+    out: ResourceList = {}
+    for rl in resource_lists:
+        for name, q in rl.items():
+            out[name] = out.get(name, Quantity(0)).add(q)
+    return out
+
+
+_GPU_RESOURCES = (NVIDIA_GPU, AMD_GPU, AWS_NEURON)
+
+
+def gpu_limits_for(pod) -> ResourceList:
+    """GPU-class limits on a pod (resources.go GPULimitsFor): used to split
+    schedules by accelerator demand."""
+    return merge(*(
+        {n: q for n, q in c.resources.limits.items() if n in _GPU_RESOURCES}
+        for c in pod.spec.containers
+    ))

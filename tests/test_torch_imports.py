@@ -45,7 +45,22 @@ def test_port_imports_without_jax_or_the_jax_package():
                 "karpenter_tpu_torch.parallel.batched_pack",
                 "karpenter_tpu_torch.ops.global_solve",
                 "karpenter_tpu_torch.solver.global_solve",
-                "karpenter_tpu_torch.solver.relax"}
+                "karpenter_tpu_torch.solver.relax",
+                "karpenter_tpu_torch.api.provisioner",
+                "karpenter_tpu_torch.api.gang",
+                "karpenter_tpu_torch.utils.clock",
+                "karpenter_tpu_torch.utils.pod",
+                "karpenter_tpu_torch.utils.fastcopy",
+                "karpenter_tpu_torch.runtime.kubecore",
+                "karpenter_tpu_torch.cloudprovider.fake.provider",
+                "karpenter_tpu_torch.pressure.bands",
+                "karpenter_tpu_torch.pressure.monitor",
+                "karpenter_tpu_torch.scheduling.batcher",
+                "karpenter_tpu_torch.scheduling.topology",
+                "karpenter_tpu_torch.scheduling.scheduler",
+                "karpenter_tpu_torch.solver.pipeline",
+                "karpenter_tpu_torch.controllers.provisioning",
+                "karpenter_tpu_torch.controllers.selection"}
     assert expected <= set(report["imported"])
 
 
