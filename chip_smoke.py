@@ -1,18 +1,24 @@
 #!/usr/bin/env python3
-"""Chip smoke for the PyTorch/CUDA port: build the kernel, hold it against
+"""Chip smoke for the PyTorch/CUDA port: build the kernels, hold each against
 its plain version, and drive the public solve(), the batched window, the
-provisioning controller and the global window backend at full size on one
-card.
+provisioning controller, the global window backend and node removal
+(consolidation, termination, emptiness) at full size on one card.
 
     python3 chip_smoke.py
 
 Needs one CUDA device (exits non-zero without one, printing no result) and
-nvcc (the pack kernel is built from karpenter_tpu_torch/csrc/pack.cu at
-first use). Phases, each printing one JSON record:
+nvcc (the pack kernel is built from karpenter_tpu_torch/csrc/pack.cu and the
+what-if kernel from karpenter_tpu_torch/csrc/whatif.cu at first use, one
+nvcc each, both at once). Phases, each printing one JSON record:
 
-1. the card (nvidia-smi name and power limit) and the kernel build, with
-   ptxas's registers and spills and the cluster size and threads the
-   kernel launches with at type buckets 8, 512 and 4096;
+1. the card (nvidia-smi name and power limit) and the kernels' builds,
+   with ptxas's registers and spills and the cluster size and threads the
+   pack kernel launches with at type buckets 8, 512 and 4096;
+1b. whatif_fuzz: the what-if kernel against whatif_scan_plain bit for bit
+   (feasible and every slot) over seeded windows from 4 x 4 x 4 to
+   4 x 4 x 2**22 (NB x KB x BB), free rows in shared memory (BB <= 4096)
+   and in the global scratch, negative free values, own bins of -1, all-invalid rows,
+   all-zero compat rows and a candidate that fails then places;
 2. kernel vs plain: a seeded fuzz over shape buckets 32/512/8192, type
    buckets 8/512/4096, cost tie-break off and on, drops, chunk resume at
    num_iters=2, and the edges of the cluster design (fewer types than
@@ -81,8 +87,26 @@ first use). Phases, each printing one JSON record:
 11. global_window_400: the 9,984-pod window through the global backend
    twice, the time split (encode, program on the card, host rounding,
    total) and the verdicts by reason;
-12. the device-programs line (B7 and B8), the kernels line (pack_chunk and
-   pack_batch), the card line, and the final ok line.
+12. whatif_window: config_5's 2,000-node consolidation window
+   (bench.py:417-560) encoded and answered by one launch of the what-if
+   kernel: equal to its plain version and to host_whatif, executor
+   "device-whatif", every drain replayed on the surviving bins; the
+   kernel's time (median of 25), the plain version's, the bound and the
+   host seconds of encode_window, host_whatif and plan_window; config_5's
+   repack_plan on 2,000 fragmented nodes equal to the host oracle;
+13. deprovision: config_4's 50,000 pods provisioned through the
+   controller, the nodes made Ready and reconciled by NodeController, two
+   PDBs, a scale-down, three ConsolidationController windows with their
+   drained nodes terminated (cordon, eviction through the PDBs, provider
+   delete, finalizer strip), two nodes drained by hand under a web
+   budget at its edge (429s, then the eviction queue's retries once the
+   first node's replacement pods are bound), then the emptiness TTL on
+   the port's clock (see phase_deprovision for every check); one record
+   a window, one for the budget;
+14. the device-programs line (B7 and B8), the kernels line (pack_chunk,
+   pack_batch and whatif_scan; whatif_scan's times from the deprovision
+   window 0, the shape the main path gives it), the card line, and the
+   final ok line.
 
 Any failed check exits non-zero.
 
@@ -927,12 +951,13 @@ def numpy_result(prob):
 
 
 def reset_counts():
-    from karpenter_tpu_torch.ops import device_filter, pack_cuda
+    from karpenter_tpu_torch.ops import device_filter, pack_cuda, whatif_cuda
     from karpenter_tpu_torch.solver import global_solve
     from karpenter_tpu_torch.solver.solve import reset_executor_counts
 
     pack_cuda.LAUNCHES = 0
     pack_cuda.BATCH_LAUNCHES = 0
+    whatif_cuda.LAUNCHES = 0
     global_solve.RUNS = 0
     reset_executor_counts()
     device_filter.reset_fallback_counts()
@@ -1221,7 +1246,7 @@ class ControllerRun:
     pause it past the 1 s idle window and split the window)."""
 
     def __init__(self, catalog, device, solver_config=None, pipeline_config=None,
-                 deployed=False):
+                 deployed=False, nodes_become_ready=True):
         from karpenter_tpu_torch.api.core import ObjectMeta
         from karpenter_tpu_torch.api.provisioner import Provisioner
         from karpenter_tpu_torch.api.wellknown import LABEL_INSTANCE_TYPE
@@ -1256,7 +1281,8 @@ class ControllerRun:
             return batcher
 
         self.provisioning = ProvisioningController(
-            self.kube, FakeCloudProvider(catalog=catalog), solver_config=solver_config,
+            self.kube, FakeCloudProvider(catalog=catalog, nodes_become_ready=nodes_become_ready),
+            solver_config=solver_config,
             pipeline_config=pipeline_config, device=device, batcher_factory=recording_batcher)
         self.selection = SelectionController(self.kube, self.provisioning)
         if not deployed:
@@ -2087,6 +2113,801 @@ def phase_global_window_400(device, runs=2):
     return rec
 
 
+# -- consolidation: the what-if kernel (B9) and node removal ----------------
+
+# (NB, KB, BB) of the what-if fuzz: from the smallest bucket to the largest
+# window MAX_WINDOW_CELLS admits (BB = 2**22 at NB = KB = 4); BB = 4096 is
+# the last whose free rows fit a block's shared memory, 8192 the first that
+# takes the global scratch
+WHATIF_FUZZ = [(4, 4, 4), (8, 4, 16), (16, 8, 64), (64, 16, 512), (512, 4, 512),
+               (128, 64, 1024), (32, 32, 4096), (16, 8, 8192), (4, 4, 1 << 22)]
+# config_5's steady-state window (bench.py:417-560)
+WHATIF_W, WHATIF_FULL, WHATIF_RECV = 384, 1592, 24
+# the deprovision phase: config_4's pods, the share labelled web and db, the
+# share of pods and of nodes the scale-down deletes, the windows, the TTL
+DEPROVISION_PODS, WEB_SHARE, DB_SHARE = 50_000, 0.10, 0.02
+SCALE_DOWN_PODS, SCALE_DOWN_NODES = 0.50, 0.03
+CONSOLIDATION_WINDOWS, EMPTY_TTL = 3, 30
+
+
+def whatif_case(rng, NB, KB, BB, device):
+    """A random window in the kernel's ABI: pods over cpu, memory, the pod
+    slot and sometimes a fourth resource; free rows that may be negative;
+    valid as a prefix per candidate (encode_window's layout) with some rows
+    all invalid and some scattered; compat at a random density with some
+    all-zero rows; own bins anywhere or -1. Candidate 0 is the
+    fail-then-place case: its first pod fits nowhere and its second fits
+    bin 1, so the scan must go on past the failure and place it."""
+    import numpy as np
+    import torch
+
+    R = 8
+    tight = BB >= 8192  # long scans: most bins fit no pod
+    pods = np.zeros((NB, KB, R), np.int64)
+    pods[:, :, 0] = rng.integers(1, 400, (NB, KB))
+    pods[:, :, 1] = rng.integers(1, 400, (NB, KB))
+    pods[:, :, 2] = 1
+    pods[:, :, 3] = rng.integers(0, 3, (NB, KB)) * (rng.random((NB, KB)) < 0.2)
+    free0 = np.zeros((BB, R), np.int64)
+    free0[:, 0] = rng.integers(-200, 440 if tight else 1200, BB)
+    free0[:, 1] = rng.integers(-200, 440 if tight else 1200, BB)
+    free0[:, 2] = rng.integers(-1, 6, BB)
+    free0[:, 3] = rng.integers(0, 4, BB)
+    valid = np.arange(KB)[None, :] < rng.integers(0, KB + 1, NB)[:, None]
+    scattered = rng.random(NB) < 0.2
+    valid[scattered] = rng.random((int(scattered.sum()), KB)) < 0.5
+    valid[rng.random(NB) < 0.1] = False
+    compat = rng.random((NB, KB, BB), dtype=np.float32) < rng.choice([0.3, 0.7, 1.0])
+    compat[rng.random(NB) < 0.1] = False
+    cand_bin = rng.integers(-1, BB, NB)
+    cand_bin[rng.random(NB) < 0.2] = -1
+    # the fail-then-place candidate
+    pods[0, 0, :2] = 10**6
+    pods[0, 1, :4] = (1, 1, 1, 0)
+    valid[0, :2] = True
+    compat[0, 1, :] = True
+    compat[0, 1, 0] = False
+    free0[1, :3] = (10**5, 10**5, 10)
+    cand_bin[0] = -1
+    out = [torch.from_numpy(pods.astype(np.int32)), torch.from_numpy(valid),
+           torch.from_numpy(compat), torch.from_numpy(free0.astype(np.int32)),
+           torch.from_numpy(cand_bin.astype(np.int32))]
+    return [t.to(device) for t in out]
+
+
+def whatif_diff(a, b):
+    """Feasible flips plus the largest slot difference between two
+    (feasible, slots) answers: 0 when they are the same bit for bit."""
+    flips = int((a[0] != b[0]).sum())
+    slots = int((a[1].long() - b[1].long()).abs().max()) if a[1].numel() else 0
+    return flips + slots
+
+
+def phase_whatif_fuzz(device):
+    """whatif_scan against whatif_scan_plain on the same card tensors, bit
+    for bit, over seeded random windows (WHATIF_FUZZ): free rows in shared
+    memory up to BB = 4096, in the global scratch from 8192."""
+    import numpy as np
+    import torch
+
+    from karpenter_tpu_torch.ops import whatif_cuda as wc
+
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(SEED)
+    cases, launches0, worst = [], wc.LAUNCHES, 0
+    for NB, KB, BB in WHATIF_FUZZ:
+        args = whatif_case(rng, NB, KB, BB, device)
+        plain = wc.whatif_scan_plain(*args)
+        got = wc.whatif_scan(*args)
+        torch.cuda.synchronize()
+        err = whatif_diff(got, plain)
+        worst = max(worst, err)
+        check(err == 0, f"whatif fuzz {NB}x{KB}x{BB}: kernel != plain")
+        check(not bool(plain[0][0]) and int(plain[1][0, 1]) == 1,
+              f"whatif fuzz {NB}x{KB}x{BB}: the fail-then-place candidate gave "
+              f"{bool(plain[0][0])}, {plain[1][0, :2].tolist()}")
+        cases.append({"nb": NB, "kb": KB, "bb": BB, "shared": wc.free_rows_in_shared(BB),
+                      "threads": wc.launch_threads(BB), "feasible": int(plain[0].sum()),
+                      "placed": int((plain[1] >= 0).sum())})
+        del args, plain, got
+        torch.cuda.empty_cache()
+    rec = {"phase": "whatif_fuzz", "cases": cases, "launches": wc.LAUNCHES - launches0,
+           "max_abs_err": worst, "seconds": time.perf_counter() - t_phase}
+    emit(rec)
+    return rec
+
+
+def whatif_window_fleet():
+    """config_5's steady-state consolidation window (bench.py:417-560):
+    WHATIF_W near-full candidates (a DaemonSet filler leaves 850m free,
+    three movable 250m pods ride on top), WHATIF_FULL full bins (100m free)
+    and WHATIF_RECV empty receivers, all of the 100-type catalog's largest
+    type. Returns (nodes, pods by node name, that type)."""
+    from karpenter_tpu_torch.api import wellknown as wk
+    from karpenter_tpu_torch.api.core import (
+        Node, NodeSpec, NodeStatus, ObjectMeta, OwnerReference)
+    from karpenter_tpu_torch.utils.resources import parse_resource_list
+
+    big = max(make_catalog(100), key=lambda it: it.cpu.nano)
+
+    def mk_node(name):
+        return Node(
+            metadata=ObjectMeta(name=name, namespace="", labels={
+                wk.LABEL_INSTANCE_TYPE: big.name, wk.LABEL_CAPACITY_TYPE: "on-demand",
+                wk.PROVISIONER_NAME_LABEL: "bench"}),
+            spec=NodeSpec(),
+            status=NodeStatus(allocatable=parse_resource_list({
+                "cpu": str(big.cpu), "memory": str(big.memory), "pods": str(big.pods)})))
+
+    ds = OwnerReference(api_version="apps/v1", kind="DaemonSet", name="filler", uid="ds")
+    fill_m = (big.cpu.nano - 100 * 10**6) // 10**6
+    cand_fill_m = (big.cpu.nano - 850 * 10**6) // 10**6
+
+    def mk_pods(prefix, shapes, owner=None):
+        out = []
+        for j, (c, m) in enumerate(shapes):
+            p = make_pods(1, [(c, m)])[0]
+            p.metadata.name = f"{prefix}-{j}"
+            if owner is not None:
+                p.metadata.owner_references = [owner]
+            out.append(p)
+        return out
+
+    nodes, pods_by = [], {}
+    for i in range(WHATIF_W):
+        nodes.append(mk_node(f"cand-{i}"))
+        pods_by[f"cand-{i}"] = (mk_pods(f"cfill-{i}", [(cand_fill_m, 128)], owner=ds)
+                                + mk_pods(f"mv-{i}", [(250, 256)] * 3))
+    for i in range(WHATIF_FULL):
+        nodes.append(mk_node(f"full-{i}"))
+        pods_by[f"full-{i}"] = mk_pods(f"fill-{i}", [(fill_m, 128)], owner=ds)
+    for i in range(WHATIF_RECV):
+        nodes.append(mk_node(f"recv-{i}"))
+        pods_by[f"recv-{i}"] = []
+    return nodes, pods_by, big
+
+
+def fresh_bins(bins):
+    """Copies of a window's bins with their own free vectors."""
+    from karpenter_tpu_torch.models.consolidate import _Bin
+
+    return [_Bin(name=b.name, free=list(b.free), labels=b.labels, taints=b.taints)
+            for b in bins]
+
+
+def replay_drains(plan, enc):
+    """Every action of a plan replayed as a fresh place_onto commit sequence
+    on the bins that survive it (drained bins drop out as the replay goes
+    on), and no drained bin among the bins that received pods in the same
+    window. Returns (actions that do not replay, drained bins that
+    received)."""
+    from karpenter_tpu_torch.models.consolidate import place_onto
+
+    vbins = fresh_bins(enc.bins)
+    drained, unverified = set(), 0
+    for action in plan.actions:
+        surviving = [b for j, b in enumerate(vbins) if j != action.bin and j not in drained]
+        movable = [p for _, p in enc.cand_pods[action.cand]]
+        if place_onto(movable, surviving, commit=True) is None:
+            unverified += 1
+        else:
+            drained.add(action.bin)
+    received = {b for a in plan.actions for b in a.placements}
+    return unverified, len(received & set(plan.drained_bins))
+
+
+def whatif_bound(enc, tensors):
+    """Least time for one window: the larger of the bytes the scan must
+    move over HBM bandwidth and its operations over the op rate, both
+    over the live cells, not the padding the kernel skips. Bytes: for each
+    valid pod of each candidate, its pod vector (R int32), its valid flag,
+    its compat row over the kept bins (a byte a bin) and its slot; for each
+    candidate, its own bin and its verdict; free0 over the kept bins.
+    Operations: each valid pod against every kept bin, R compares, the
+    compat test and the own-bin test. A candidate's KB-step serial chain
+    cannot use that rate."""
+    R = tensors[0].shape[2]
+    pods, kept, cands = sum(len(p) for p in enc.cand_pods), len(enc.kept), len(enc.cand_pods)
+    nbytes = pods * (R * 4 + 1 + kept + 4) + cands * (4 + 1) + kept * R * 4
+    ops = pods * kept * (R + 2)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / OPS_PER_S
+    return {"bytes": nbytes, "ops": ops, "bound_ms": max(t_bytes, t_ops) * 1e3,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def median_event_ms(fn, runs):
+    """Median CUDA-event ms of ``runs`` calls after one warm-up."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(runs):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    return p50(times)
+
+
+def whatif_kernel_record(enc, device, runs):
+    """The window's tensors through the kernel and the plain version: the
+    difference (0 when bit for bit), the kernel's median CUDA-event ms over
+    ``runs`` warm launches, the plain version's over 5, and the bound.
+    These launches are comparisons, not the main path's: the count is
+    restored."""
+    import torch
+
+    from karpenter_tpu_torch.ops import whatif_cuda as wc
+    from karpenter_tpu_torch.solver.whatif import _to_device
+
+    launches = wc.LAUNCHES
+    tensors = _to_device(enc, device)
+    err = whatif_diff(wc.whatif_scan(*tensors), wc.whatif_scan_plain(*tensors))
+    torch.cuda.synchronize()
+    ms = median_event_ms(lambda: wc.whatif_scan(*tensors), runs)
+    plain_ms = median_event_ms(lambda: wc.whatif_scan_plain(*tensors), 5)
+    wc.LAUNCHES = launches
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "shape": list(tensors[2].shape), "kept_bins": int(len(enc.kept)),
+            "shared": wc.free_rows_in_shared(tensors[2].shape[2]),
+            "threads": wc.launch_threads(tensors[2].shape[2]), **whatif_bound(enc, tensors)}
+
+
+def check_against_host(enc, feas, slots, what):
+    """feasible equal to host_whatif's, the slots on feasible rows too;
+    returns host_whatif's seconds."""
+    import numpy as np
+
+    from karpenter_tpu_torch.ops.whatif import host_whatif
+
+    t0 = time.perf_counter()
+    host_feas, host_slots = host_whatif(enc)
+    seconds = time.perf_counter() - t0
+    check(np.array_equal(feas, host_feas), f"{what}: feasible != host_whatif")
+    check(np.array_equal(slots[feas], host_slots[feas]),
+          f"{what}: slots != host_whatif on feasible rows")
+    return seconds
+
+
+def phase_whatif_window(device):
+    """config_5's consolidation window at full size (2,000 nodes): encode,
+    one launch of the what-if kernel, the plan, and the JAX package's bench
+    checks (bench.py:417-560): the kernel equals its plain version,
+    feasible equals host_whatif (and the slots on feasible rows), executor
+    "device-whatif", every drain of plan_window replays on the surviving
+    bins. Then config_5's repack_plan on its 2,000 fragmented nodes
+    (bench.py:367-415) once, planned nodes equal to the host oracle's."""
+    import torch
+
+    from karpenter_tpu_torch.api import wellknown as wk
+    from karpenter_tpu_torch.api.core import Node, NodeSpec, NodeStatus, ObjectMeta
+    from karpenter_tpu_torch.models.consolidate import (
+        node_bin, repack_plan, reschedulable_pods)
+    from karpenter_tpu_torch.models.ffd import solve_ffd_numpy
+    from karpenter_tpu_torch.ops import whatif_cuda as wc
+    from karpenter_tpu_torch.ops.whatif import encode_window
+    from karpenter_tpu_torch.solver.adapter import build_packables, pod_vectors
+    from karpenter_tpu_torch.solver.solve import universe_constraints
+    from karpenter_tpu_torch.solver.whatif import dispatch_window, plan_window
+    from karpenter_tpu_torch.utils.resources import parse_resource_list
+
+    t_phase = time.perf_counter()
+    nodes, pods_by, big = whatif_window_fleet()
+    bins = [node_bin(n, pods_by[n.metadata.name]) for n in nodes]
+    cand_idx = list(range(WHATIF_W))
+    cand_movable = [reschedulable_pods(pods_by[f"cand-{i}"])[0] for i in cand_idx]
+
+    t0 = time.perf_counter()
+    enc = encode_window(bins, cand_idx, cand_movable)
+    encode_s = time.perf_counter() - t0
+    check(enc.device_ready, "whatif window: not device-encodable")
+    reset_counts()
+    handle = dispatch_window(enc, device)
+    feas, slots, executor = handle.fetch()
+    check(executor == "device-whatif" and wc.LAUNCHES == 1,
+          f"whatif window: executor {executor}, {wc.LAUNCHES} launches")
+    host_s = check_against_host(enc, feas, slots, "whatif window")
+    kern = whatif_kernel_record(enc, device, WARM_RUNS)
+    check(kern["max_abs_err"] == 0, "whatif window: kernel != plain")
+    t0 = time.perf_counter()
+    plan = plan_window(enc, feas, [big.price] * WHATIF_W, max_drains=WHATIF_W)
+    plan_s = time.perf_counter() - t0
+    unverified, received = replay_drains(plan, enc)
+    check(plan.actions and unverified == 0 and received == 0,
+          f"whatif window: {len(plan.actions)} drains, {unverified} do not replay, "
+          f"{received} received pods")
+
+    # config_5's whole-fleet re-pack (bench.py:367-415)
+    catalog = make_catalog(100)
+    constraints = universe_constraints(catalog)
+    frag, frag_pods = [], {}
+    pods = make_pods(2_000 * 3, [(250, 256), (500, 512), (1000, 1024)])
+    for i in range(2_000):
+        name = f"frag-{i}"
+        frag.append(Node(
+            metadata=ObjectMeta(name=name, namespace="", labels={
+                wk.LABEL_INSTANCE_TYPE: big.name, wk.LABEL_CAPACITY_TYPE: "on-demand",
+                wk.PROVISIONER_NAME_LABEL: "bench"}),
+            spec=NodeSpec(),
+            status=NodeStatus(allocatable=parse_resource_list({
+                "cpu": str(big.cpu), "memory": str(big.memory), "pods": str(big.pods)}))))
+        for j, p in enumerate(pods[i * 3:(i + 1) * 3]):
+            p.metadata.name = f"pod-{i}-{j}"
+        frag_pods[name] = pods[i * 3:(i + 1) * 3]
+    t0 = time.perf_counter()
+    rplan = repack_plan(frag, frag_pods, constraints, catalog, device=device)
+    torch.cuda.synchronize()
+    repack_s = time.perf_counter() - t0
+    packables, _ = build_packables(catalog, constraints, pods, ())
+    oracle = solve_ffd_numpy(pod_vectors(pods), list(range(len(pods))), packables).node_count
+    check(rplan.saves and rplan.planned_nodes == oracle,
+          f"config_5 repack: {rplan.planned_nodes} nodes, oracle {oracle}")
+
+    rec = {"phase": "whatif_window", "fleet_nodes": len(nodes), "candidates": WHATIF_W,
+           "executor": executor, "feasible": int(feas.sum()), "drains": len(plan.actions),
+           "unverified_drains": unverified, "reclaimed_per_hour": plan.reclaimed_per_hour,
+           "kernel": dict(kern, ms_in_window=handle.kernel_ms),
+           "encode_s": encode_s, "dispatch_s": handle.dispatch_seconds,
+           "host_whatif_s": host_s, "plan_s": plan_s,
+           "repack": {"nodes": 2_000, "pods": len(pods), "planned_nodes": rplan.planned_nodes,
+                      "oracle_nodes": oracle, "seconds": repack_s,
+                      "cost_before_per_hour": rplan.current_cost_per_hour,
+                      "cost_after_per_hour": rplan.planned_cost_per_hour},
+           "seconds": time.perf_counter() - t_phase}
+    emit(rec)
+    return rec
+
+
+def config4_pending_pods(rng):
+    """config_4's 50,000 pods (bench.py:332-364: the 32 MIXED_SHAPES
+    cycled) as pending pods the scheduler marked Unschedulable, a seeded
+    WEB_SHARE labelled app=web and DB_SHARE app=db."""
+    from karpenter_tpu_torch.api import core as c
+
+    draws = rng.random(DEPROVISION_PODS)
+    pods = []
+    for j in range(DEPROVISION_PODS):
+        cpu, mem = MIXED_SHAPES[j % len(MIXED_SHAPES)]
+        app = "web" if draws[j] < WEB_SHARE else "db" if draws[j] < WEB_SHARE + DB_SHARE else None
+        pods.append(c.Pod(
+            metadata=c.ObjectMeta(name=f"dp-{j:05d}", uid=f"dp-{j:05d}",
+                                  labels={"app": app} if app else {}),
+            spec=c.PodSpec(containers=[c.Container(resources=c.ResourceRequirements.make(
+                requests={"cpu": f"{cpu}m", "memory": f"{mem}Mi"}))]),
+            status=c.PodStatus(conditions=[c.PodCondition(
+                type="PodScheduled", status="False", reason="Unschedulable")])))
+    return pods
+
+
+def fleet_cost(kube, catalog):
+    """(nodes, $/h) of the fleet that is not being deleted."""
+    from karpenter_tpu_torch.models.consolidate import fleet_prices
+
+    nodes = [n for n in kube.list("Node") if n.metadata.deletion_timestamp is None]
+    prices, _ = fleet_prices(nodes, catalog)
+    return len(nodes), sum(prices.values())
+
+
+def pdb_breaches(kube):
+    """The PDBs whose healthy selected pods are fewer than they require."""
+    from karpenter_tpu_torch.runtime.kubecore import _scaled_int_or_percent
+
+    out = []
+    for pdb in kube.list("PodDisruptionBudget"):
+        sel = kube.list("Pod", namespace=pdb.metadata.namespace, label_selector=pdb.selector)
+        healthy = sum(1 for p in sel if p.spec.node_name and p.metadata.deletion_timestamp is None)
+        if pdb.min_available is not None:
+            desired = _scaled_int_or_percent(pdb.min_available, len(sel), pdb.metadata.name)
+        else:
+            desired = len(sel) - _scaled_int_or_percent(pdb.max_unavailable, len(sel),
+                                                        pdb.metadata.name)
+        if healthy < desired:
+            out.append((pdb.metadata.name, healthy, desired))
+    return out
+
+
+def terminate_all(kube, termination, names, timeout=120.0):
+    """TerminationController.reconcile on each node of ``names`` until every
+    one is gone, checking the PDBs after each pass; returns (seconds,
+    passes)."""
+    from karpenter_tpu_torch.runtime.kubecore import NotFound
+
+    t0, passes, left = time.perf_counter(), 0, list(names)
+    while left:
+        check(time.perf_counter() - t0 < timeout,
+              f"termination: {len(left)} nodes still there after {timeout} s")
+        still = []
+        for name in left:
+            try:
+                kube.get("Node", name, "")
+            except NotFound:
+                continue
+            termination.reconcile(name)
+            still.append(name)
+        passes += 1
+        breaches = pdb_breaches(kube)
+        check(not breaches, f"termination: PDBs breached {breaches}")
+        left = still
+        if left:
+            time.sleep(0.02)
+    return time.perf_counter() - t0, passes
+
+
+def check_removed(kube, provider, names, pods_before, events, what):
+    """Each node of ``names`` was cordoned (a watch event with
+    spec.unschedulable before it went), FakeCloudProvider.delete was
+    called once for it, its Node object and every one of its pods are
+    gone, and every pod that was on any other node is still there."""
+    from collections import Counter
+
+    from karpenter_tpu_torch.runtime.kubecore import NotFound
+
+    deleted = Counter(provider.deleted)
+    cordoned = {e.obj.metadata.name for e in events
+                if e.type == "MODIFIED" and e.obj.spec.unschedulable}
+    gone = {e.obj.metadata.name for e in events if e.type == "DELETED"}
+    names = set(names)
+    for name in names:
+        check(deleted[name] == 1, f"{what}: provider.delete called {deleted[name]}x for {name}")
+        check(name in cordoned and name in gone, f"{what}: {name} not cordoned, then deleted")
+        try:
+            kube.get("Node", name, "")
+            check(False, f"{what}: node {name} is still there")
+        except NotFound:
+            pass
+    now = {p.metadata.name: p.spec.node_name for p in kube.list("Pod")}
+    evicted = [p for p, n in pods_before.items() if n in names and p in now]
+    lost = [p for p, n in pods_before.items() if n not in names and p not in now]
+    check(not evicted, f"{what}: pods of removed nodes still there: {evicted[:3]}")
+    check(not lost, f"{what}: pods of surviving nodes evicted: {lost[:3]}")
+
+
+def drain_events(q):
+    import queue
+
+    out = []
+    while True:
+        try:
+            out.append(q.get_nowait())
+        except queue.Empty:
+            return out
+
+
+def log_evictions(kube):
+    """Wrap ``kube.evict_pod`` so that every call's outcome is logged, in
+    order: (pod name, "evicted" or the error's class name). Returns the
+    log."""
+    outcomes = []
+    evict = kube.evict_pod
+
+    def logged(name, namespace="default"):
+        try:
+            evict(name, namespace)
+        except Exception as e:
+            outcomes.append((name, type(e).__name__))
+            raise
+        outcomes.append((name, "evicted"))
+    kube.evict_pod = logged
+    return outcomes
+
+
+def web_pods(kube):
+    """The app=web pods, and the healthy ones among them (scheduled, not
+    terminating)."""
+    pods = [p for p in kube.list("Pod") if p.metadata.labels.get("app") == "web"]
+    return pods, sum(1 for p in pods if p.spec.node_name and p.metadata.deletion_timestamp is None)
+
+
+def budget_drains(kube, termination, provider, watch, outcomes, timeout=60.0):
+    """The web budget made to bind: two nodes drained by hand. The web PDB
+    becomes minAvailable = its healthy pods less those of node A (the
+    surviving node with the most web pods and no db pod), so draining A
+    takes the budget to its edge, and the Deployment recreates A's web
+    pods, Pending. Deleting B (the next such node) then meets the budget:
+    each of B's web pods is refused with a 429 and requeued with backoff,
+    while the rest of B drains. The replacements are then bound to
+    surviving nodes, as the scheduler would; healthy web pods rise above
+    the budget and the eviction queue's retries drain B. Checks the PDBs
+    after every pass, A and B removed as every drained node is, and every
+    refused pod evicted by a later retry. The web PDB is put back to
+    maxUnavailable "20%". Returns the record."""
+    import copy
+    from collections import Counter
+
+    from karpenter_tpu_torch.models.consolidate import node_bin, place_onto
+
+    t0 = time.perf_counter()
+    live = {n.metadata.name for n in kube.list("Node") if n.metadata.deletion_timestamp is None}
+    db_nodes = {p.spec.node_name for p in kube.list("Pod") if p.metadata.labels.get("app") == "db"}
+    web, healthy = web_pods(kube)
+    per_node = Counter(p.spec.node_name for p in web if p.spec.node_name in live - db_nodes)
+    ranked = sorted(per_node.items(), key=lambda t: (-t[1], t[0]))
+    check(len(ranked) >= 2, f"budget: {len(ranked)} nodes with web pods and no db pod")
+    (node_a, a), (node_b, b) = ranked[:2]
+    min_available = healthy - a
+
+    def set_budget(min_a, max_u):
+        def apply(pdb):
+            pdb.min_available, pdb.max_unavailable = min_a, max_u
+        kube.patch("PodDisruptionBudget", "web", "default", apply)
+    set_budget(min_available, None)
+    evicted_web = [p for p in web if p.spec.node_name == node_a]
+    b_web = {p.metadata.name for p in web if p.spec.node_name == node_b}
+
+    drain_events(watch)
+    pods_before = {p.metadata.name: p.spec.node_name for p in kube.list("Pod")}
+    kube.delete("Node", node_a, "")
+    term_a, _ = terminate_all(kube, termination, [node_a])
+    check_removed(kube, provider, [node_a], pods_before, drain_events(watch), "budget node A")
+    check(web_pods(kube)[1] == min_available, "budget: draining A did not take web to its edge")
+    replacements = []
+    for p in evicted_web:
+        r = copy.deepcopy(p)
+        r.metadata.name, r.metadata.uid = p.metadata.name + "-r", ""
+        r.metadata.resource_version, r.spec.node_name = None, ""
+        replacements.append(kube.create(r))
+
+    mark = len(outcomes)
+    pods_before = {p.metadata.name: p.spec.node_name for p in kube.list("Pod")}
+    kube.delete("Node", node_b, "")
+    t_refused, passes = time.perf_counter(), 0
+    while True:
+        termination.reconcile(node_b)
+        passes += 1
+        breaches = pdb_breaches(kube)
+        check(not breaches, f"budget: PDBs breached {breaches}")
+        refused = {n for n, what in outcomes[mark:] if what == "TooManyRequests"}
+        if b_web <= refused:
+            break
+        check(time.perf_counter() - t_refused < timeout,
+              f"budget: {len(b_web - refused)} of B's web pods never refused")
+        time.sleep(0.02)
+    on_b = {p.metadata.name for p in kube.pods_on_node(node_b)}
+    check(b_web <= on_b, "budget: a web pod left B while the budget was at its edge")
+    refusals = sum(1 for _, what in outcomes[mark:] if what == "TooManyRequests")
+
+    # the scheduler binds the replacements onto the surviving nodes
+    survivors = [n for n in kube.list("Node")
+                 if n.metadata.deletion_timestamp is None and n.metadata.name != node_b]
+    bins = [node_bin(n, kube.pods_on_node(n.metadata.name)) for n in survivors]
+    for r in replacements:
+        target = place_onto([r], bins, commit=True)
+        check(target is not None, f"budget: no surviving node fits {r.metadata.name}")
+        check(not kube.bind_pods([r], target[0]), f"budget: binding {r.metadata.name} failed")
+    term_b, passes_b = terminate_all(kube, termination, [node_b], timeout)
+    check_removed(kube, provider, [node_b], pods_before, drain_events(watch), "budget node B")
+    retried = {n for n, what in outcomes[mark:] if what == "evicted"}
+    check(refused <= retried, f"budget: {len(refused - retried)} refused pods never evicted")
+    set_budget(None, "20%")
+    return {"phase": "deprovision_budget", "node_a": node_a, "web_on_a": a,
+            "node_b": node_b, "web_on_b": b, "web_healthy": healthy,
+            "min_available": min_available, "refusals_429": refusals,
+            "refused_pods": len(refused), "retried_evicted": len(refused & retried),
+            "passes_refused": passes, "termination_a_s": term_a, "termination_b_s": term_b,
+            "passes_b": passes_b, "seconds": time.perf_counter() - t0}
+
+
+def phase_deprovision(device):
+    """Node removal end to end at the north star's size, through the
+    port's entry points:
+
+    1. config_4's 50,000 pods provisioned through ProvisioningController and
+       SelectionController (ControllerRun, the "ffd" backend), a seeded
+       WEB_SHARE app=web and DB_SHARE app=db, on nodes that boot NotReady;
+    2. each node's Ready condition set, as a kubelet would;
+    3. NodeController.reconcile over every node: the not-ready taint goes,
+       the termination finalizer stays;
+    4. two PDBs: web maxUnavailable "20%", db minAvailable "100%";
+    5. the scale-down: a seeded SCALE_DOWN_PODS of the pods deleted, and
+       every pod of a seeded SCALE_DOWN_NODES of the nodes;
+    6. CONSOLIDATION_WINDOWS windows of ConsolidationController at its
+       defaults, each window's drained nodes driven through
+       TerminationController.reconcile until gone, the eviction queue's
+       thread live;
+    7. the budget made to bind (budget_drains): two nodes drained by hand
+       under a web budget at its edge, the second one's web pods refused
+       with 429s until the first one's replacements are bound, then
+       evicted by the queue's retries;
+    8. emptiness: ttlSecondsAfterEmpty EMPTY_TTL, the empty nodes stamped,
+       kept at 29 s on the port's clock, deleted at 31 s and terminated.
+
+    Checks: every window on "device-whatif" with one whatif_scan launch;
+    window 1's tensors through the kernel equal to the plain version and
+    its feasible to host_whatif; every drain replays on fresh surviving
+    bins; no drained bin received pods in its window; no node with a db
+    pod drained; every PDB holds after every termination pass; at least
+    one 429 and its later retry; each removed node cordoned, its pods
+    evicted, deleted at the provider once and gone; no pod of a surviving
+    node evicted."""
+    import numpy as np
+
+    from karpenter_tpu_torch.api import wellknown as wk
+    from karpenter_tpu_torch.api.core import (
+        LabelSelector, NodeCondition, ObjectMeta, PodDisruptionBudget)
+    from karpenter_tpu_torch.controllers.consolidation import ConsolidationController
+    from karpenter_tpu_torch.controllers.node import NodeController
+    from karpenter_tpu_torch.controllers.termination import TerminationController
+    from karpenter_tpu_torch.ops import whatif_cuda as wc
+    from karpenter_tpu_torch.solver.solve import SolverConfig
+    from karpenter_tpu_torch.utils import clock
+
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(SEED)
+    catalog = make_catalog(400)
+    run = ControllerRun(catalog, device, SolverConfig(window_backend="ffd"),
+                        nodes_become_ready=False)
+    try:
+        pods = config4_pending_pods(rng)
+        prov = run.window(pods)
+    finally:
+        run.stop()
+    kube, provider = run.kube, run.provisioning.cloud_provider
+    check(prov["pods_bound"] == DEPROVISION_PODS,
+          f"deprovision: {prov['pods_bound']} of {DEPROVISION_PODS} pods bound")
+    nodes = sorted(n.metadata.name for n in kube.list("Node"))
+    check(not any(n.status.conditions for n in kube.list("Node")),
+          "deprovision: nodes booted with conditions")
+
+    def ready(live):
+        live.status.conditions = [NodeCondition(type="Ready", status="True",
+                                                reason="KubeletReady")]
+    node_ctl = NodeController(kube)
+    for name in nodes:
+        kube.patch("Node", name, "", ready)
+        node_ctl.reconcile(name)
+    live = kube.list("Node")
+    check(all(not any(t.key == wk.NOT_READY_TAINT_KEY for t in n.spec.taints)
+              and wk.TERMINATION_FINALIZER in n.metadata.finalizers for n in live),
+          "deprovision: NodeController left a not-ready taint or took the finalizer")
+    kube.create(PodDisruptionBudget(metadata=ObjectMeta(name="web"),
+                                    selector=LabelSelector(match_labels={"app": "web"}),
+                                    max_unavailable="20%"))
+    kube.create(PodDisruptionBudget(metadata=ObjectMeta(name="db"),
+                                    selector=LabelSelector(match_labels={"app": "db"}),
+                                    min_available="100%"))
+
+    # the scale-down
+    emptied = {str(n) for n in rng.choice(nodes, size=round(SCALE_DOWN_NODES * len(nodes)),
+                                          replace=False)}
+    bound = sorted((p.metadata.name, p.spec.node_name) for p in kube.list("Pod"))
+    drop = rng.random(len(bound)) < SCALE_DOWN_PODS
+    for (name, node), d in zip(bound, drop):
+        if d or node in emptied:
+            kube.delete("Pod", name, "default")
+    remaining = len(kube.list("Pod"))
+
+    def set_spec(fn):
+        kube.patch("Provisioner", "default", "default", lambda p: fn(p.spec))
+    set_spec(lambda s: setattr(s, "consolidation_enabled", True))
+    consolidation = ConsolidationController(kube, provider, device=device)
+    termination = TerminationController(kube, provider)
+    outcomes = log_evictions(kube)
+    watch = kube.watch("Node")
+    windows, launches, worst = [], 0, 0
+    try:
+        for w in range(CONSOLIDATION_WINDOWS):
+            drain_events(watch)
+            nodes_before, cost_before = fleet_cost(kube, catalog)
+            pods_before = {p.metadata.name: p.spec.node_name for p in kube.list("Pod")}
+            db_nodes = {p.spec.node_name for p in kube.list("Pod")
+                        if p.metadata.labels.get("app") == "db"}
+            reset_counts()
+            consolidation.reconcile("default")
+            lw = dict(consolidation.last_window)
+            enc, feas, slots, plan = consolidation.last_solve
+            check(lw["executor"] == "device-whatif" and wc.LAUNCHES == 1,
+                  f"deprovision window {w}: executor {lw['executor']}, {wc.LAUNCHES} launches")
+            launches += wc.LAUNCHES
+            drained = lw["drained"]
+            check(drained, f"deprovision window {w}: nothing drained")
+            check(not set(drained) & db_nodes, f"deprovision window {w}: drained a db node")
+            unverified, received = replay_drains(plan, enc)
+            check(unverified == 0 and received == 0,
+                  f"deprovision window {w}: {unverified} drains do not replay, "
+                  f"{received} drained bins received pods")
+            extra = {}
+            if w == 0:
+                extra["host_whatif_s"] = check_against_host(enc, feas, slots,
+                                                            "deprovision window 0")
+                extra["kernel"] = whatif_kernel_record(enc, device, WARM_RUNS)
+                worst = max(worst, extra["kernel"]["max_abs_err"])
+                check(extra["kernel"]["max_abs_err"] == 0, "deprovision window 0: kernel != plain")
+            term_s, passes = terminate_all(kube, termination, drained)
+            check_removed(kube, provider, drained, pods_before, drain_events(watch),
+                          f"deprovision window {w}")
+            nodes_after, cost_after = fleet_cost(kube, catalog)
+            rec = {"phase": "deprovision_window", "window": w, **lw, **extra,
+                   "nodes_before": nodes_before, "nodes_after": nodes_after,
+                   "cost_before_per_hour": cost_before, "cost_after_per_hour": cost_after,
+                   "termination_s": term_s, "termination_passes": passes}
+            emit(rec)
+            windows.append(rec)
+
+        budget = budget_drains(kube, termination, provider, watch, outcomes)
+        emit(budget)
+
+        # emptiness
+        set_spec(lambda s: setattr(s, "ttl_seconds_after_empty", EMPTY_TTL))
+        names = sorted(n.metadata.name for n in kube.list("Node"))
+        empty = [n for n in names if not kube.pods_on_node(n)]
+        check(empty, "deprovision: no empty node to reap")
+        t0 = clock.now()
+        clock.DEFAULT.set(t0)
+        requeues = {n: node_ctl.reconcile(n) for n in names}
+        stamped = {n.metadata.name for n in kube.list("Node")
+                   if wk.EMPTINESS_TIMESTAMP_ANNOTATION in n.metadata.annotations}
+        check(stamped == set(empty), f"emptiness: stamped {len(stamped)}, empty {len(empty)}")
+        check(all(requeues[n] == EMPTY_TTL for n in empty),
+              "emptiness: an empty node's requeue is not the TTL")
+        clock.DEFAULT.set(t0 + EMPTY_TTL - 1)
+        for n in empty:
+            node_ctl.reconcile(n)
+        check(not any(n.metadata.deletion_timestamp for n in kube.list("Node")),
+              "emptiness: a node was deleted before its TTL")
+        drain_events(watch)
+        pods_before = {p.metadata.name: p.spec.node_name for p in kube.list("Pod")}
+        nodes_before, cost_before = fleet_cost(kube, catalog)
+        clock.DEFAULT.set(t0 + EMPTY_TTL + 1)
+        for n in empty:
+            node_ctl.reconcile(n)
+        deleting = {n.metadata.name for n in kube.list("Node") if n.metadata.deletion_timestamp}
+        check(deleting == set(empty), f"emptiness: {len(deleting)} deleted, {len(empty)} empty")
+        term_s, passes = terminate_all(kube, termination, empty)
+        check_removed(kube, provider, empty, pods_before, drain_events(watch), "emptiness")
+        nodes_after, cost_after = fleet_cost(kube, catalog)
+    finally:
+        clock.DEFAULT.reset()
+        kube.unwatch(watch)
+        termination.stop_all()
+    rec = {"phase": "deprovision", "provision": {k: prov[k] for k in (
+        "pods", "pods_bound", "nodes", "wall_s", "chunks", "executor_counts")},
+        "scale_down": {"pods_left": remaining, "nodes_emptied": len(emptied)},
+        "windows": len(windows), "whatif_launches": launches, "max_abs_err": worst,
+        "kernel": windows[0]["kernel"],
+        "drained": sum(len(w["drained"]) for w in windows),
+        "budget": {k: budget[k] for k in ("refusals_429", "refused_pods", "retried_evicted")},
+        "emptiness": {"empty": len(empty), "termination_s": term_s, "passes": passes,
+                      "nodes_before": nodes_before, "nodes_after": nodes_after,
+                      "cost_before_per_hour": cost_before, "cost_after_per_hour": cost_after},
+        "seconds": time.perf_counter() - t_phase}
+    emit(rec)
+    return rec
+
+
+def build_all():
+    """Build every kernel library at once, one nvcc each, and load them."""
+    import threading
+
+    from karpenter_tpu_torch.ops import pack_cuda, whatif_cuda
+
+    errors = []
+
+    def run(build):
+        try:
+            build()
+        except Exception as e:  # reported below, from this thread
+            errors.append(e)
+
+    threads = [threading.Thread(target=run, args=(b,))
+               for b in (pack_cuda.build, whatif_cuda.build)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    if errors:
+        raise errors[0]
+    pack_cuda._library()
+    whatif_cuda._library()
+
+
+def ptxas_lines(log):
+    return [ln.strip() for ln in log.splitlines()
+            if "registers" in ln or "spill" in ln or "Compiling entry" in ln]
+
+
 def card_line() -> str:
     proc = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -2107,7 +2928,7 @@ def main(argv) -> int:
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
               file=sys.stderr)
         return 2
-    from karpenter_tpu_torch.ops import pack_cuda
+    from karpenter_tpu_torch.ops import pack_cuda, whatif_cuda
 
     device = torch.device("cuda")
     card = card_line()
@@ -2120,14 +2941,15 @@ def main(argv) -> int:
           "name": torch.cuda.get_device_name(0),
           "count": torch.cuda.device_count(), "torch": torch.__version__,
           "cuda": torch.version.cuda})
-    pack_cuda.build()
-    pack_cuda._library()
+    build_all()
     emit({"phase": "build", "seconds": pack_cuda.BUILD_SECONDS,
-          "ptxas": [ln.strip() for ln in pack_cuda.BUILD_LOG.splitlines()
-                    if "registers" in ln or "spill" in ln or "Compiling entry" in ln],
+          "ptxas": ptxas_lines(pack_cuda.BUILD_LOG),
           "launch": {f"T={T}": {"cluster": c, "types_per_thread": 1,
                                 "threads": pack_cuda.launch_threads(T, c)}
-                     for T in (8, 512, 4096) for c in [pack_cuda.launch_shape(T)]}})
+                     for T in (8, 512, 4096) for c in [pack_cuda.launch_shape(T)]},
+          "whatif": {"seconds": whatif_cuda.BUILD_SECONDS,
+                     "ptxas": ptxas_lines(whatif_cuda.BUILD_LOG)}})
+    wf = phase_whatif_fuzz(device)
     fuzz_err = phase_fuzz(device)
     batch_err = phase_batch_fuzz(device)
     c4 = phase_config4(device)
@@ -2140,6 +2962,8 @@ def main(argv) -> int:
     gp = phase_global_program(device)
     gw = phase_global_window(device)
     phase_global_window_400(device)
+    ww = phase_whatif_window(device)
+    dp = phase_deprovision(device)
     emit({"phase": "total", "seconds": time.perf_counter() - t_start})
     b8 = gw["relax_pack"]
     emit({"device_programs": [{
@@ -2182,6 +3006,16 @@ def main(argv) -> int:
         "ms": kw["ms"], "plain_ms": kw["plain_ms"],
         "bound_ms": kw["bound_ms"], "bound_by": kw["bound_by"],
         "library_ms": None,
+    }, {
+        "name": "whatif_scan",
+        "route": "cuda",
+        "source": "karpenter_tpu_torch/csrc/whatif.cu",
+        "replaces": "karpenter_tpu/solver/whatif.py:49",
+        "launches": dp["whatif_launches"],
+        "max_abs_err": max(wf["max_abs_err"], ww["kernel"]["max_abs_err"], dp["max_abs_err"]),
+        "ms": dp["kernel"]["ms"], "plain_ms": dp["kernel"]["plain_ms"],
+        "bound_ms": dp["kernel"]["bound_ms"], "bound_by": dp["kernel"]["bound_by"],
+        "shape": dp["kernel"]["shape"], "library_ms": None,
     }]})
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

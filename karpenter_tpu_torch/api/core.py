@@ -4,9 +4,10 @@ A trimmed copy of the JAX package's object model: metadata (labels,
 annotations, finalizers, owner references, deletion timestamp), the PodSpec
 scheduling fields (node selector, tolerations, node and pod affinity,
 topology spread, priority), containers with their resource requirements,
-pod and node status, taints, and the DaemonSet template. Everything is a
-plain dataclass; the in-memory API server (runtime/kubecore.py) gives them
-create/patch/delete/watch and finalizer semantics.
+pod and node status, taints, the DaemonSet template and the
+PodDisruptionBudget. Everything is a plain dataclass; the in-memory API
+server (runtime/kubecore.py) gives them create/patch/delete/watch,
+finalizer and eviction semantics.
 """
 
 from __future__ import annotations
@@ -255,3 +256,16 @@ class DaemonSet:
     metadata: ObjectMeta = field(default_factory=ObjectMeta)
     spec: DaemonSetSpec = field(default_factory=DaemonSetSpec)
     kind: str = "DaemonSet"
+
+
+@dataclass
+class PodDisruptionBudget:
+    metadata: ObjectMeta = field(default_factory=ObjectMeta)
+    selector: Optional[LabelSelector] = None
+    # IntOrString, like the real API: an integer count or a percentage
+    # string ("50%") resolved against the PDB's expected pods at eviction
+    # time (runtime/kubecore.py evict_pod). Setting both is the same
+    # misconfiguration it is upstream and 500s the eviction.
+    min_available: Optional[object] = None  # int | "N%"
+    max_unavailable: Optional[object] = None  # int | "N%"
+    kind: str = "PodDisruptionBudget"

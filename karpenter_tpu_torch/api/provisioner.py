@@ -1,8 +1,7 @@
 """The Provisioner custom resource.
 
 Reference: pkg/apis/provisioning/v1alpha5/{provisioner.go,provisioner_status.go}.
-A copy of the JAX package's module without the consolidation switch, which
-no port controller reads yet.
+A copy of the JAX package's module.
 """
 
 from __future__ import annotations
@@ -25,6 +24,9 @@ class ProvisionerSpec:
     # disables expiry (provisioner.go:43-50).
     ttl_seconds_until_expired: Optional[int] = None
     limits: Limits = field(default_factory=Limits)
+    # Actively drain under-utilized nodes whose pods fit elsewhere
+    # (controllers/consolidation.py). Off by default: it evicts running pods.
+    consolidation_enabled: bool = False
 
 
 @dataclass

@@ -22,6 +22,8 @@ LABEL_BETA_INSTANCE_TYPE = "beta.kubernetes.io/instance-type"
 KARPENTER_DOMAIN = "karpenter.sh"
 PROVISIONER_NAME_LABEL = KARPENTER_DOMAIN + "/provisioner-name"
 NOT_READY_TAINT_KEY = KARPENTER_DOMAIN + "/not-ready"
+DO_NOT_EVICT_ANNOTATION = KARPENTER_DOMAIN + "/do-not-evict"
+EMPTINESS_TIMESTAMP_ANNOTATION = KARPENTER_DOMAIN + "/emptiness-timestamp"
 TERMINATION_FINALIZER = KARPENTER_DOMAIN + "/termination"
 LABEL_CAPACITY_TYPE = KARPENTER_DOMAIN + "/capacity-type"
 # operator-defined placement domain (a topology key for pod affinity); kept

@@ -2,7 +2,8 @@
 
 Prices live on the catalog (InstanceType.price = on-demand $/h; spot offers
 a discounted rate), so the solver can order each node's options
-cheapest-first, with capacity order as the tiebreak.
+cheapest-first, with capacity order as the tiebreak, and consolidation can
+price a running node (``node_price``) and a re-pack plan (``plan_cost``).
 """
 
 from __future__ import annotations
@@ -57,3 +58,23 @@ def order_options_by_price(
     """Stable cheapest-first ordering of a node's instance-type options;
     the stable sort keeps capacity order as the tiebreak."""
     return sorted(options, key=lambda it: effective_price(it, requirements, config)[0])
+
+
+def node_price(it: InstanceType, capacity_type: str) -> float:
+    """$/h of one node of this type at this capacity type."""
+    if capacity_type == wellknown.CAPACITY_TYPE_SPOT:
+        return it.price * CostConfig().spot_price_factor
+    return it.price
+
+
+def plan_cost(packings, requirements: Requirements) -> float:
+    """$/h of a pack plan (a sequence of solver.solve.Packing), charging
+    each node its cheapest viable option."""
+    total = 0.0
+    config = CostConfig()
+    for packing in packings:
+        price, _ = min(
+            (effective_price(it, requirements, config) for it in packing.instance_type_options),
+            key=lambda t: t[0])
+        total += price * packing.node_quantity
+    return total

@@ -30,7 +30,7 @@ import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import Optional, Union
+from typing import Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -75,26 +75,35 @@ def _find_nvcc() -> str:
                        "/usr/local/cuda/bin): the pack kernel cannot be built")
 
 
-def build() -> Path:
-    """Compile csrc/pack.cu into build/ (keyed by the source's digest, so an
-    edited source never loads a stale library) and return the library's
-    path."""
-    global BUILD_SECONDS, BUILD_LOG
-    digest = hashlib.sha256(SOURCE.read_bytes()).hexdigest()[:16]
-    lib_path = BUILD_DIR / f"libkt_pack_{digest}.so"
+def nvcc_build(source: Path, stem: str) -> Tuple[Path, Optional[float], str]:
+    """Compile one CUDA source into build/ as a shared library named by
+    ``stem`` and the source's digest (an edited source never loads a stale
+    library). Returns (path, seconds nvcc took, its output); seconds is None
+    and the output empty when the library was already there."""
+    digest = hashlib.sha256(source.read_bytes()).hexdigest()[:16]
+    lib_path = BUILD_DIR / f"lib{stem}_{digest}.so"
     if lib_path.exists():
-        return lib_path
+        return lib_path, None, ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib_path.with_name(f"{lib_path.name}.{os.getpid()}.tmp")
-    cmd = [_find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)]
+    tmp = lib_path.with_name(f"{lib_path.name}.{os.getpid()}.{threading.get_ident()}.tmp")
+    cmd = [_find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(source)]
     t0 = time.perf_counter()
     proc = subprocess.run(cmd, capture_output=True, text=True)
-    BUILD_SECONDS = time.perf_counter() - t0
-    BUILD_LOG = proc.stdout + proc.stderr
+    seconds = time.perf_counter() - t0
+    log = proc.stdout + proc.stderr
     if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{BUILD_LOG}")
+        raise RuntimeError(f"nvcc failed on {source.name} ({proc.returncode}):\n{log}")
     os.replace(tmp, lib_path)
-    return lib_path
+    return lib_path, seconds, log
+
+
+def build() -> Path:
+    """Compile csrc/pack.cu into build/ and return the library's path."""
+    global BUILD_SECONDS, BUILD_LOG
+    path, seconds, log = nvcc_build(SOURCE, "kt_pack")
+    if seconds is not None:
+        BUILD_SECONDS, BUILD_LOG = seconds, log
+    return path
 
 
 def _library():

@@ -10,16 +10,18 @@ API-server semantics the provisioning path reads and writes, in process.
 - Watch: per-subscriber event queues with ADDED/MODIFIED/DELETED.
 - Field index on pod spec.nodeName for O(1) pods-on-node lookups.
 - Binding subresource for pods, a node's worth under one lock.
+- Eviction subresource with PodDisruptionBudget semantics (``evict_pod``),
+  over namespace indexes of pods and PDBs.
 
 Objects live in per-kind stripes, each with its own RLock; a stripe's dict
 IS the by-kind index. The stripe-creation guard is never acquired while a
-stripe lock is held. ``_watchers`` is copy-on-write: ``watch``/``unwatch``
-replace it under ``_watch_lock`` and ``_notify`` iterates a snapshot.
-resourceVersion is one shared ``itertools.count``. Left out, since no port
-controller calls them yet: full updates with their stale-version conflict,
-no-copy scans, delete preconditions, the one-pod binding, the eviction
-subresource with its PodDisruptionBudget indexes, meta-only watches and the
-single-lock reference layout.
+stripe lock is held; an operation over two kinds (the eviction) takes
+their stripes in sorted order. ``_watchers`` is copy-on-write:
+``watch``/``unwatch`` replace it under ``_watch_lock`` and ``_notify``
+iterates a snapshot. resourceVersion is one shared ``itertools.count``.
+Left out, since no port controller calls them yet: full updates with their
+stale-version conflict, no-copy scans, delete preconditions, the one-pod
+binding, meta-only watches and the single-lock reference layout.
 """
 
 from __future__ import annotations
@@ -46,6 +48,38 @@ class NotFound(ApiError):
 
 class AlreadyExists(ApiError):
     pass
+
+
+class Conflict(ApiError):
+    pass
+
+
+class TooManyRequests(ApiError):
+    """HTTP 429 from the eviction subresource: the eviction would violate a
+    PodDisruptionBudget."""
+
+
+class InternalError(ApiError):
+    """HTTP 500: for eviction, the PDB configuration is ambiguous (more than
+    one PodDisruptionBudget selects the pod, or one sets both fields)."""
+
+
+def _scaled_int_or_percent(value, expected: int, pdb_name: str) -> int:
+    """apimachinery's GetScaledValueFromIntOrPercent with roundUp=true:
+    integers pass through; "N%" resolves to ceil(N × expected / 100).
+    Anything else is a malformed PDB → 500."""
+    if isinstance(value, bool):  # bool is an int subclass; reject explicitly
+        raise InternalError(f"PDB {pdb_name}: invalid IntOrString {value!r}")
+    if isinstance(value, int):
+        return value
+    if isinstance(value, str) and value.endswith("%"):
+        try:
+            percent = int(value[:-1])
+        except ValueError:
+            raise InternalError(
+                f"PDB {pdb_name}: invalid percentage {value!r}")
+        return -((-percent * expected) // 100)  # ceil for non-negative
+    raise InternalError(f"PDB {pdb_name}: invalid IntOrString {value!r}")
 
 
 @dataclass
@@ -93,6 +127,12 @@ class KubeCore:
         # dicts are ordered sets, so iteration keeps insertion order. Only
         # ever touched under the Pod stripe's lock.
         self._pods_by_node: Dict[str, Dict[Key, None]] = {}
+        # namespace indexes for the eviction subresource's PDB lookup and
+        # healthy count; namespace is part of the key, so they change only
+        # on create and delete. Pod index under the Pod stripe's lock, PDB
+        # index under the PodDisruptionBudget stripe's lock.
+        self._pods_by_namespace: Dict[str, Dict[Key, None]] = {}
+        self._pdbs_by_namespace: Dict[str, Dict[Key, None]] = {}
 
     # -- stripes -------------------------------------------------------------
     def _stripe(self, kind: str) -> _Stripe:
@@ -101,6 +141,20 @@ class KubeCore:
             with self._stripes_guard:
                 s = self._stripes.setdefault(kind, _Stripe(kind))
         return s
+
+    @contextmanager
+    def _multi_stripe(self, *kinds: str):
+        """The stripes of ``kinds``, locked in sorted order. Every stripe is
+        resolved before any lock is taken, so the creation guard is never
+        acquired under a stripe lock."""
+        ordered = [self._stripe(k) for k in sorted(set(kinds))]
+        for s in ordered:
+            s.lock.acquire()
+        try:
+            yield
+        finally:
+            for s in reversed(ordered):
+                s.lock.release()
 
     @contextmanager
     def _world(self):
@@ -124,10 +178,15 @@ class KubeCore:
         return next(self._rv)
 
     def _reindex(self, key: Key, old, new) -> None:
-        """Maintain the nodeName index across any mutation. Caller holds
-        the subject kind's stripe lock."""
-        if key[0] != "Pod":
+        """Maintain the nodeName and namespace indexes across any mutation.
+        Caller holds the subject kind's stripe lock."""
+        kind, ns = key[0], key[1]
+        if kind == "PodDisruptionBudget":
+            self._ns_index(self._pdbs_by_namespace, ns, key, old, new)
             return
+        if kind != "Pod":
+            return
+        self._ns_index(self._pods_by_namespace, ns, key, old, new)
         old_node = old.spec.node_name if old is not None else None
         new_node = new.spec.node_name if new is not None else None
         if old_node == new_node:
@@ -140,6 +199,19 @@ class KubeCore:
                     del self._pods_by_node[old_node]
         if new_node:
             self._pods_by_node.setdefault(new_node, {})[key] = None
+
+    @staticmethod
+    def _ns_index(index: Dict[str, Dict[Key, None]], ns: str, key: Key,
+                  old, new) -> None:
+        """Add or remove ``key`` in a namespace index; updates are no-ops."""
+        if old is None and new is not None:
+            index.setdefault(ns, {})[key] = None
+        elif new is None and old is not None:
+            bucket = index.get(ns)
+            if bucket is not None:
+                bucket.pop(key, None)
+                if not bucket:
+                    del index[ns]
 
     def _notify(self, event_type: str, obj) -> None:
         # safe with or without any stripe lock held: _watchers is
@@ -275,24 +347,29 @@ class KubeCore:
         """Delete; with finalizers present, only stamps deletionTimestamp."""
         s = self._stripe(kind)
         with s.lock:
-            k = (kind, namespace, name)
-            stored = s.objects.get(k)
-            if stored is None:
-                raise NotFound(f"{kind} {namespace}/{name} not found")
-            if stored.metadata.finalizers:
-                if stored.metadata.deletion_timestamp is None:
-                    # k8s semantics: deletionTimestamp = request time + the
-                    # pod's grace period (a FUTURE time)
-                    grace = getattr(getattr(stored, "spec", None),
-                                    "termination_grace_period_seconds", 0) or 0
-                    stored.metadata.deletion_timestamp = clock.now() + grace
-                    stored.metadata.resource_version = self._next_rv()
-                    self._notify("MODIFIED", stored)
-                return deep_copy(stored)
-            del s.objects[k]
-            self._reindex(k, stored, None)
-            self._notify("DELETED", stored)
+            return self._delete_locked(s, kind, name, namespace)
+
+    def _delete_locked(self, s: _Stripe, kind: str, name: str, namespace: str):
+        """Delete body; the caller holds ``s``'s lock (the eviction holds
+        the Pod and PDB stripes, so its check-then-delete is one step)."""
+        k = (kind, namespace, name)
+        stored = s.objects.get(k)
+        if stored is None:
+            raise NotFound(f"{kind} {namespace}/{name} not found")
+        if stored.metadata.finalizers:
+            if stored.metadata.deletion_timestamp is None:
+                # k8s semantics: deletionTimestamp = request time + the
+                # pod's grace period (a FUTURE time)
+                grace = getattr(getattr(stored, "spec", None),
+                                "termination_grace_period_seconds", 0) or 0
+                stored.metadata.deletion_timestamp = clock.now() + grace
+                stored.metadata.resource_version = self._next_rv()
+                self._notify("MODIFIED", stored)
             return deep_copy(stored)
+        del s.objects[k]
+        self._reindex(k, stored, None)
+        self._notify("DELETED", stored)
+        return deep_copy(stored)
 
     # -- subresources -------------------------------------------------------
     def bind_pods(self, pods: List[Pod], node_name: str) -> List[str]:
@@ -328,6 +405,66 @@ class KubeCore:
         for stored in bound:
             self._notify("MODIFIED", stored)
         return errs
+
+    def evict_pod(self, name: str, namespace: str = "default") -> None:
+        """Eviction subresource with PodDisruptionBudget semantics:
+
+        - more than one PDB selects the pod → 500 InternalError;
+        - the one PDB sets both minAvailable and maxUnavailable → 500;
+        - evicting would drop the PDB's healthy selected pods below its
+          desired count → 429 TooManyRequests;
+        - otherwise the pod is deleted.
+
+        A pod is healthy when it is scheduled (spec.nodeName set) and not
+        terminating (no deletionTimestamp). Both fields are IntOrString; a
+        percentage resolves against the selected pods of the namespace,
+        rounded up, and maxUnavailable gives desired = expected − resolved.
+        The Pod and PodDisruptionBudget stripes are held together, in sorted
+        order, across the check and the delete, so that two evictions
+        cannot both pass the budget check."""
+        pod_stripe = self._stripe("Pod")
+        pdb_stripe = self._stripe("PodDisruptionBudget")
+        with self._multi_stripe("Pod", "PodDisruptionBudget"):
+            pod = pod_stripe.objects.get(("Pod", namespace, name))
+            if pod is not None:
+                matching = []
+                for pk in self._pdbs_by_namespace.get(namespace, ()):
+                    o = pdb_stripe.objects[pk]
+                    if o.selector is not None and o.selector.matches(pod.metadata.labels):
+                        matching.append(o)
+                if len(matching) > 1:
+                    raise InternalError(
+                        f"pod {namespace}/{name}: found more than one "
+                        f"PodDisruptionBudget ({len(matching)}) — misconfigured")
+                min_a = matching[0].min_available if matching else None
+                max_u = matching[0].max_unavailable if matching else None
+                if min_a is not None and max_u is not None:
+                    raise InternalError(
+                        f"pod {namespace}/{name}: PDB {matching[0].metadata.name} "
+                        "sets both minAvailable and maxUnavailable — misconfigured")
+                if min_a is not None or max_u is not None:
+                    pdb = matching[0]
+                    expected = healthy = 0
+                    for pk in self._pods_by_namespace.get(namespace, ()):
+                        o = pod_stripe.objects[pk]
+                        if not pdb.selector.matches(o.metadata.labels):
+                            continue
+                        expected += 1
+                        if o.spec.node_name and o.metadata.deletion_timestamp is None:
+                            healthy += 1
+                    if min_a is not None:
+                        desired = _scaled_int_or_percent(min_a, expected, pdb.metadata.name)
+                    else:
+                        desired = expected - _scaled_int_or_percent(
+                            max_u, expected, pdb.metadata.name)
+                    # evicting a pod that is not counted healthy moves nothing
+                    loss = 1 if (pod.spec.node_name
+                                 and pod.metadata.deletion_timestamp is None) else 0
+                    if healthy - loss < desired:
+                        raise TooManyRequests(
+                            f"pod {namespace}/{name}: eviction would violate PDB "
+                            f"{pdb.metadata.name} ({healthy} healthy, {desired} required)")
+            self._delete_locked(pod_stripe, "Pod", name, namespace)
 
     # -- convenience indexes -------------------------------------------------
     def pods_on_node(self, node_name: str) -> List[Pod]:

@@ -2,7 +2,7 @@
 
 from __future__ import annotations
 
-from karpenter_tpu_torch.api.core import Pod
+from karpenter_tpu_torch.api.core import Pod, Taint
 
 
 def failed_to_schedule(pod: Pod) -> bool:
@@ -33,3 +33,9 @@ def is_owned_by_daemonset(pod: Pod) -> bool:
 def is_owned_by_node(pod: Pod) -> bool:
     """Static pods are owned by their Node."""
     return any(o.kind == "Node" for o in pod.metadata.owner_references)
+
+
+def tolerates_unschedulable_taint(pod: Pod) -> bool:
+    """True if the pod tolerates the node.kubernetes.io/unschedulable taint."""
+    taint = Taint(key="node.kubernetes.io/unschedulable", effect="NoSchedule")
+    return any(t.tolerates_taint(taint) for t in pod.spec.tolerations)

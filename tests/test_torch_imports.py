@@ -60,7 +60,16 @@ def test_port_imports_without_jax_or_the_jax_package():
                 "karpenter_tpu_torch.scheduling.scheduler",
                 "karpenter_tpu_torch.solver.pipeline",
                 "karpenter_tpu_torch.controllers.provisioning",
-                "karpenter_tpu_torch.controllers.selection"}
+                "karpenter_tpu_torch.controllers.selection",
+                "karpenter_tpu_torch.utils.node",
+                "karpenter_tpu_torch.scheduling.affinity",
+                "karpenter_tpu_torch.models.consolidate",
+                "karpenter_tpu_torch.ops.whatif",
+                "karpenter_tpu_torch.ops.whatif_cuda",
+                "karpenter_tpu_torch.solver.whatif",
+                "karpenter_tpu_torch.controllers.node",
+                "karpenter_tpu_torch.controllers.termination",
+                "karpenter_tpu_torch.controllers.consolidation"}
     assert expected <= set(report["imported"])
 
 
