@@ -16,9 +16,13 @@ nvcc each, both at once). Phases, each printing one JSON record:
    pack kernel launches with at type buckets 8, 512 and 4096;
 1b. whatif_fuzz: the what-if kernel against whatif_scan_plain bit for bit
    (feasible and every slot) over seeded windows from 4 x 4 x 4 to
-   4 x 4 x 2**22 (NB x KB x BB), free rows in shared memory (BB <= 4096)
-   and in the global scratch, negative free values, own bins of -1, all-invalid rows,
-   all-zero compat rows and a candidate that fails then places;
+   4 x 4 x 2**22 (NB x KB x BB), the staged kernel (BB <= 4096) and the
+   global one, negative free values, own bins of -1, all-invalid rows,
+   all-zero compat rows and a candidate that fails then places; then the
+   staged design's edges (WHATIF_EDGE_FUZZ): BB at each geometry
+   boundary, own bins on word edges, folded resources with negative free
+   values, five to eight active resources, scattered valid flags, one
+   long candidate, compat at an odd address and runs of replicas;
 2. kernel vs plain: a seeded fuzz over shape buckets 32/512/8192, type
    buckets 8/512/4096, cost tie-break off and on, drops, chunk resume at
    num_iters=2, and the edges of the cluster design (fewer types than
@@ -120,6 +124,16 @@ Copied into another tree (a git archive of an earlier commit, unpacked
 into a fresh directory outside this package's directory, e.g. one made
 by mktemp -d, where the import test does not scan it), it times that
 tree's kernel on the same inputs: the A/B of PERF.md.
+
+    python3 chip_smoke.py --whatif-times
+
+times the what-if kernel alone, through whatif_scan's public signature,
+on a window of the deprovision phase's shape built straight from
+encode_window (deprovision_shaped_window: 512 x 128 x 1024) and on
+config_5's window: the CUDA-event median, the device time from
+torch.profiler, the host enqueue time, the bound and a digest of
+(feasible, slots). Copied into another tree, it times that tree's kernel
+on the same windows: the parent/change A/B of PERF.md.
 
     python3 chip_smoke.py --controller-deployed
 
@@ -2121,6 +2135,23 @@ def phase_global_window_400(device, runs=2):
 # takes the global scratch
 WHATIF_FUZZ = [(4, 4, 4), (8, 4, 16), (16, 8, 64), (64, 16, 512), (512, 4, 512),
                (128, 64, 1024), (32, 32, 4096), (16, 8, 8192), (4, 4, 1 << 22)]
+# (NB, KB, BB, kind) at the edges of the staged kernel's design, drawn
+# after WHATIF_FUZZ from the same generator (whatif_case's ``kind``): BB at
+# each geometry boundary (one run, one group of 32 runs, two and four
+# groups, the first global bucket); "edges" puts own bins on word edges,
+# folds resources (all of a candidate's pods 0 on a resource whose free
+# value is negative on some bins), gives one candidate all-zero vectors
+# and some five to eight active resources; "scattered" valid flags at
+# KB = 128 (four chunks of 32 through two buffers); "one_long" a window
+# whose longest candidate is its only long one; "misaligned" compat at an
+# odd address (the byte-load packing); KB = 1024 at BB = 16 (32 chunks,
+# bins below one block); "replicas" runs of the same pod (the stepping
+# warp's run path)
+WHATIF_EDGE_FUZZ = [(64, 8, 32, "edges"), (64, 16, 1024, "edges"), (32, 16, 2048, "edges"),
+                    (16, 16, 4096, "edges"), (16, 8, 8192, "edges"),
+                    (64, 128, 1024, "scattered"), (64, 128, 256, "one_long"),
+                    (32, 32, 1024, "misaligned"), (8, 1024, 16, "edges"),
+                    (64, 128, 1024, "replicas"), (128, 64, 128, "replicas")]
 # config_5's steady-state window (bench.py:417-560)
 WHATIF_W, WHATIF_FULL, WHATIF_RECV = 384, 1592, 24
 # the deprovision phase: config_4's pods, the share labelled web and db, the
@@ -2130,14 +2161,17 @@ SCALE_DOWN_PODS, SCALE_DOWN_NODES = 0.50, 0.03
 CONSOLIDATION_WINDOWS, EMPTY_TTL = 3, 30
 
 
-def whatif_case(rng, NB, KB, BB, device):
+def whatif_case(rng, NB, KB, BB, device, kind=None):
     """A random window in the kernel's ABI: pods over cpu, memory, the pod
     slot and sometimes a fourth resource; free rows that may be negative;
     valid as a prefix per candidate (encode_window's layout) with some rows
     all invalid and some scattered; compat at a random density with some
     all-zero rows; own bins anywhere or -1. Candidate 0 is the
     fail-then-place case: its first pod fits nowhere and its second fits
-    bin 1, so the scan must go on past the failure and place it."""
+    bin 1, so the scan must go on past the failure and place it. ``kind``
+    (WHATIF_EDGE_FUZZ) adds the edges of the staged kernel's design, with
+    draws after the base ones, so a case without it is the same window as
+    before."""
     import numpy as np
     import torch
 
@@ -2161,6 +2195,46 @@ def whatif_case(rng, NB, KB, BB, device):
     compat[rng.random(NB) < 0.1] = False
     cand_bin = rng.integers(-1, BB, NB)
     cand_bin[rng.random(NB) < 0.2] = -1
+    if kind == "edges":
+        # own bins on word edges (candidate 0 keeps -1)
+        for c, b in zip(range(1, NB), (31, 32, 1023, BB - 1, 0)):
+            cand_bin[c] = b if b < BB else -1
+        # folds: resource 3 negative on some bins while a third of the
+        # candidates ask 0 of it; resource 6 negative on some bins, asked
+        # by no pod; resources 4-7 asked by some candidates (5 to 8
+        # active), one candidate's vectors all 0
+        free0[:, 3] = rng.integers(-1, 4, BB)
+        free0[:, 6] = -(rng.random(BB) < 0.05).astype(np.int64)
+        free0[:, 4:6] = rng.integers(-1, 40, (BB, 2))
+        free0[:, 7] = rng.integers(0, 40, BB)
+        pods[rng.random(NB) < 0.33, :, 3] = 0
+        wide = rng.random(NB) < 0.2
+        for r in (4, 5, 7):
+            pods[wide, :, r] = rng.integers(0, 3, (int(wide.sum()), KB))
+        pods[NB - 1] = 0
+        pods[0, :, 3:] = 0
+        free0[1, 3:] = np.maximum(free0[1, 3:], 0)
+    elif kind == "scattered":
+        valid = rng.random((NB, KB)) < 0.5
+    elif kind == "one_long":
+        valid = np.arange(KB)[None, :] < rng.integers(0, 5, NB)[:, None]
+        valid[NB // 2] = True
+    elif kind == "replicas":
+        # runs of the same pod (a Deployment's replicas): three shapes a
+        # candidate, sorted descending as encode_window sorts, compat the
+        # same along a run but on some candidates, free rows that fill,
+        # and some candidates whose pods fit nowhere
+        shapes = np.stack([rng.integers(1, 120, (NB, 3)), rng.integers(1, 120, (NB, 3))], -1)
+        pick = np.sort(rng.integers(0, 3, (NB, KB)), axis=1)
+        pods[:, :, :2] = np.take_along_axis(shapes, pick[:, :, None], 1)
+        pods[:, :, :2] = -np.sort(-pods[:, :, :2], axis=1)
+        pods[:, :, 3] = 0
+        compat[:] = True
+        mixed = rng.random(NB) < 0.3
+        compat[mixed] = rng.random((int(mixed.sum()), KB, BB)) < 0.8
+        free0[:, :2] = rng.integers(-50, 600, (BB, 2))
+        free0[:, 2] = rng.integers(-1, 12, BB)
+        pods[rng.random(NB) < 0.1, :, 0] *= 50  # runs that fit nowhere
     # the fail-then-place candidate
     pods[0, 0, :2] = 10**6
     pods[0, 1, :4] = (1, 1, 1, 0)
@@ -2172,7 +2246,13 @@ def whatif_case(rng, NB, KB, BB, device):
     out = [torch.from_numpy(pods.astype(np.int32)), torch.from_numpy(valid),
            torch.from_numpy(compat), torch.from_numpy(free0.astype(np.int32)),
            torch.from_numpy(cand_bin.astype(np.int32))]
-    return [t.to(device) for t in out]
+    out = [t.to(device) for t in out]
+    if kind == "misaligned":
+        # compat one byte past an aligned address: no 16-byte loads
+        flat = torch.empty(compat.size + 1, dtype=torch.bool, device=device)
+        flat[1:] = out[2].reshape(-1)
+        out[2] = flat[1:].view(NB, KB, BB)
+    return out
 
 
 def whatif_diff(a, b):
@@ -2185,8 +2265,9 @@ def whatif_diff(a, b):
 
 def phase_whatif_fuzz(device):
     """whatif_scan against whatif_scan_plain on the same card tensors, bit
-    for bit, over seeded random windows (WHATIF_FUZZ): free rows in shared
-    memory up to BB = 4096, in the global scratch from 8192."""
+    for bit, over seeded random windows (WHATIF_FUZZ, then the design's
+    edges, WHATIF_EDGE_FUZZ): the staged kernel up to BB = 4096, the
+    global one from 8192."""
     import numpy as np
     import torch
 
@@ -2195,20 +2276,21 @@ def phase_whatif_fuzz(device):
     t_phase = time.perf_counter()
     rng = np.random.default_rng(SEED)
     cases, launches0, worst = [], wc.LAUNCHES, 0
-    for NB, KB, BB in WHATIF_FUZZ:
-        args = whatif_case(rng, NB, KB, BB, device)
+    for NB, KB, BB, kind in [(*c, None) for c in WHATIF_FUZZ] + WHATIF_EDGE_FUZZ:
+        args = whatif_case(rng, NB, KB, BB, device, kind)
         plain = wc.whatif_scan_plain(*args)
         got = wc.whatif_scan(*args)
         torch.cuda.synchronize()
         err = whatif_diff(got, plain)
         worst = max(worst, err)
-        check(err == 0, f"whatif fuzz {NB}x{KB}x{BB}: kernel != plain")
+        what = f"whatif fuzz {NB}x{KB}x{BB}" + (f" {kind}" if kind else "")
+        check(err == 0, f"{what}: kernel != plain")
         check(not bool(plain[0][0]) and int(plain[1][0, 1]) == 1,
-              f"whatif fuzz {NB}x{KB}x{BB}: the fail-then-place candidate gave "
+              f"{what}: the fail-then-place candidate gave "
               f"{bool(plain[0][0])}, {plain[1][0, :2].tolist()}")
-        cases.append({"nb": NB, "kb": KB, "bb": BB, "shared": wc.free_rows_in_shared(BB),
-                      "threads": wc.launch_threads(BB), "feasible": int(plain[0].sum()),
-                      "placed": int((plain[1] >= 0).sum())})
+        cases.append({"nb": NB, "kb": KB, "bb": BB, "kind": kind,
+                      "kernel": wc.launch_geometry(BB)["kernel"],
+                      "feasible": int(plain[0].sum()), "placed": int((plain[1] >= 0).sum())})
         del args, plain, got
         torch.cuda.empty_cache()
     rec = {"phase": "whatif_fuzz", "cases": cases, "launches": wc.LAUNCHES - launches0,
@@ -2315,6 +2397,25 @@ def whatif_bound(enc, tensors):
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
+def replica_share(enc):
+    """The share of a window's valid pods that are the same pod (reserve
+    vector and compat row over the bins) as the valid pod before them in
+    their candidate: the runs of replicas the what-if kernel places without
+    a search."""
+    import numpy as np
+
+    pods, valid, compat = enc.d_pods, enc.d_valid, enc.d_compat
+    same = total = 0
+    for i in range(enc.n):
+        ks = np.flatnonzero(valid[i])
+        total += len(ks)
+        if len(ks) > 1:
+            a, b = ks[1:], ks[:-1]
+            same += int(((pods[i, a] == pods[i, b]).all(1)
+                         & (compat[i, a] == compat[i, b]).all(1)).sum())
+    return same / max(total, 1)
+
+
 def median_event_ms(fn, runs):
     """Median CUDA-event ms of ``runs`` calls after one warm-up."""
     import torch
@@ -2335,7 +2436,9 @@ def median_event_ms(fn, runs):
 def whatif_kernel_record(enc, device, runs):
     """The window's tensors through the kernel and the plain version: the
     difference (0 when bit for bit), the kernel's median CUDA-event ms over
-    ``runs`` warm launches, the plain version's over 5, and the bound.
+    ``runs`` warm launches (the wrapper's host work between the events
+    included), its mean device ms over as many under torch.profiler, the
+    plain version's event ms over 5, the launch geometry and the bound.
     These launches are comparisons, not the main path's: the count is
     restored."""
     import torch
@@ -2348,12 +2451,151 @@ def whatif_kernel_record(enc, device, runs):
     err = whatif_diff(wc.whatif_scan(*tensors), wc.whatif_scan_plain(*tensors))
     torch.cuda.synchronize()
     ms = median_event_ms(lambda: wc.whatif_scan(*tensors), runs)
+    device_ms, _ = profiled_kernel_ms(lambda: wc.whatif_scan(*tensors), runs, "whatif")
     plain_ms = median_event_ms(lambda: wc.whatif_scan_plain(*tensors), 5)
     wc.LAUNCHES = launches
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+    return {"max_abs_err": err, "ms": ms, "device_ms": device_ms, "plain_ms": plain_ms,
             "shape": list(tensors[2].shape), "kept_bins": int(len(enc.kept)),
-            "shared": wc.free_rows_in_shared(tensors[2].shape[2]),
-            "threads": wc.launch_threads(tensors[2].shape[2]), **whatif_bound(enc, tensors)}
+            "geometry": wc.launch_geometry(tensors[2].shape[2]),
+            "replica_share": replica_share(enc), **whatif_bound(enc, tensors)}
+
+
+# --whatif-times: a deprovision-shaped window (bench.py:121-164's 400-type
+# catalog, config_4's MIXED_SHAPES): nodes, the share of them that FFD's
+# tail fills with the eight smallest shapes, the share the scale-down
+# leaves whole, candidates
+WHATIF_TIMES_NODES, WHATIF_TIMES_SMALL, WHATIF_TIMES_WHOLE = 781, 0.15, 0.12
+WHATIF_TIMES_CANDIDATES = 420
+
+
+def deprovision_shaped_window():
+    """A window of deprovision window 0's shape (512 x 128 x 1024) without
+    the controller run: WHATIF_TIMES_NODES nodes of the 400-type catalog's
+    16- to 96-cpu types, each first-fit filled with seeded MIXED_SHAPES pods
+    (WHATIF_TIMES_SMALL of them with the eight smallest, up to their 110 pod
+    slots), then a share of each node's pods (30 to 90 %) kept, all of them
+    on WHATIF_TIMES_WHOLE of the nodes; the first WHATIF_TIMES_CANDIDATES scaled-down nodes that
+    still hold pods are the candidates, every node a bin. Returns the
+    encoding."""
+    import numpy as np
+
+    from karpenter_tpu_torch.api import wellknown as wk
+    from karpenter_tpu_torch.api.core import Node, NodeSpec, NodeStatus, ObjectMeta
+    from karpenter_tpu_torch.models.consolidate import node_bin
+    from karpenter_tpu_torch.ops.whatif import encode_window
+    from karpenter_tpu_torch.utils.resources import parse_resource_list
+
+    rng = np.random.default_rng(SEED)
+    types = [it for it in make_catalog(400) if it.cpu.nano >= 16 * 10**9]
+    shapes = [_pod(c, m) for c, m in MIXED_SHAPES]
+    nodes, pods_by, cand = [], {}, []
+    for n in range(WHATIF_TIMES_NODES):
+        it = types[int(rng.integers(len(types)))]
+        name = f"node-{n}"
+        nodes.append(Node(
+            metadata=ObjectMeta(name=name, namespace="", labels={
+                wk.LABEL_INSTANCE_TYPE: it.name, wk.LABEL_CAPACITY_TYPE: "on-demand",
+                wk.PROVISIONER_NAME_LABEL: "default"}),
+            spec=NodeSpec(),
+            status=NodeStatus(allocatable=parse_resource_list({
+                "cpu": str(it.cpu), "memory": str(it.memory), "pods": str(it.pods)}))))
+        cpu, mem, slots = it.cpu.nano, it.memory.nano, it.pods.nano // 10**9
+        pick = 8 if rng.random() < WHATIF_TIMES_SMALL else len(shapes)
+        placed = []
+        for s in rng.integers(pick, size=4 * slots):
+            c, m = MIXED_SHAPES[int(s)]
+            if len(placed) < slots and c * 10**6 <= cpu and m * 2**20 * 10**9 <= mem:
+                cpu -= c * 10**6
+                mem -= m * 2**20 * 10**9
+                placed.append(shapes[int(s)])
+        if rng.random() < WHATIF_TIMES_WHOLE:
+            pods_by[name] = placed
+            continue
+        share = rng.uniform(0.3, 0.9)
+        pods_by[name] = [p for p, k in zip(placed, rng.random(len(placed)) < share) if k]
+        if pods_by[name] and len(cand) < WHATIF_TIMES_CANDIDATES:
+            cand.append(n)
+    bins = [node_bin(n, pods_by[n.metadata.name]) for n in nodes]
+    return encode_window(bins, cand, [pods_by[nodes[i].metadata.name] for i in cand])
+
+
+def config5_window():
+    """config_5's consolidation window (whatif_window_fleet), encoded."""
+    from karpenter_tpu_torch.models.consolidate import node_bin, reschedulable_pods
+    from karpenter_tpu_torch.ops.whatif import encode_window
+
+    nodes, pods_by, _ = whatif_window_fleet()
+    bins = [node_bin(n, pods_by[n.metadata.name]) for n in nodes]
+    return encode_window(bins, list(range(WHATIF_W)), [
+        reschedulable_pods(pods_by[f"cand-{i}"])[0] for i in range(WHATIF_W)])
+
+
+def profiled_kernel_ms(fn, runs, key):
+    """``runs`` calls of ``fn`` under torch.profiler: the mean device time of
+    the kernels whose name holds ``key`` and their count; (None, 0) where
+    the profiler saw none."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(runs):
+            fn()
+        torch.cuda.synchronize()
+    spans = [e.time_range.end - e.time_range.start for e in prof.events()
+             if e.device_type == DeviceType.CUDA and key in e.name]
+    return (sum(spans) / len(spans) / 1e3 if spans else None), len(spans)
+
+
+def phase_whatif_times(device):
+    """``--whatif-times``: the what-if kernel alone, through whatif_scan's
+    public signature, on a deprovision-shaped window and on config_5's
+    window: the warm CUDA-event median, the kernel's device time from
+    torch.profiler (host enqueue split out), the host seconds a call takes
+    to enqueue, the bound, the share of replica pods, the difference from
+    the plain version and a digest of (feasible, slots), so a run of
+    another tree's kernel (this script copied into it) compares launch for
+    launch."""
+    import hashlib
+
+    import torch
+
+    from karpenter_tpu_torch.ops import whatif_cuda as wc
+    from karpenter_tpu_torch.solver.whatif import _to_device
+
+    for name, build in (("deprovision_shaped", deprovision_shaped_window),
+                        ("config_5", config5_window)):
+        enc = build()
+        check(enc.device_ready, f"{name}: not device-encodable")
+        tensors = _to_device(enc, device)
+
+        def run():
+            return wc.whatif_scan(*tensors)
+
+        feas, slots = run()
+        torch.cuda.synchronize()
+        digest = hashlib.sha256(feas.cpu().numpy().tobytes()
+                                + slots.cpu().numpy().tobytes()).hexdigest()[:16]
+        err = whatif_diff((feas, slots), wc.whatif_scan_plain(*tensors))
+        ms = median_event_ms(run, WARM_RUNS)
+        device_ms, launches = profiled_kernel_ms(run, WARM_RUNS, "whatif")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(WARM_RUNS):
+            run()
+        host_us = (time.perf_counter() - t0) / WARM_RUNS * 1e6
+        torch.cuda.synchronize()
+        geometry = getattr(wc, "launch_geometry", None)
+        emit({"phase": "whatif_times", "window": name, "shape": list(tensors[2].shape),
+              "candidates": enc.n, "kept_bins": int(len(enc.kept)),
+              "longest": max(len(p) for p in enc.cand_pods),
+              "replica_share": replica_share(enc),
+              "geometry": geometry(tensors[2].shape[2]) if geometry else None,
+              "ms": ms, "device_ms": device_ms, "profiled_launches": launches,
+              "host_enqueue_us": host_us, "max_abs_err": err, "digest": digest,
+              "feasible": int(feas.sum()), **whatif_bound(enc, tensors)})
 
 
 def check_against_host(enc, feas, slots, what):
@@ -2918,9 +3160,10 @@ def card_line() -> str:
 
 def main(argv) -> int:
     t_start = time.perf_counter()
-    if argv not in ([], ["--kernel-times"], ["--solve-times"], ["--controller-deployed"]):
-        print("usage: chip_smoke.py [--kernel-times | --solve-times | --controller-deployed]",
-              file=sys.stderr)
+    if argv not in ([], ["--kernel-times"], ["--solve-times"], ["--controller-deployed"],
+                    ["--whatif-times"]):
+        print("usage: chip_smoke.py [--kernel-times | --solve-times | --controller-deployed"
+              " | --whatif-times]", file=sys.stderr)
         return 2
     import torch
 
@@ -2935,7 +3178,8 @@ def main(argv) -> int:
     if argv:
         emit({"phase": "card", "nvidia_smi": card})
         {"--kernel-times": phase_kernel_times, "--solve-times": phase_solve_times,
-         "--controller-deployed": phase_controller_deployed}[argv[0]](device)
+         "--controller-deployed": phase_controller_deployed,
+         "--whatif-times": phase_whatif_times}[argv[0]](device)
         return 0
     emit({"phase": "card", "nvidia_smi": card,
           "name": torch.cuda.get_device_name(0),
@@ -3013,7 +3257,8 @@ def main(argv) -> int:
         "replaces": "karpenter_tpu/solver/whatif.py:49",
         "launches": dp["whatif_launches"],
         "max_abs_err": max(wf["max_abs_err"], ww["kernel"]["max_abs_err"], dp["max_abs_err"]),
-        "ms": dp["kernel"]["ms"], "plain_ms": dp["kernel"]["plain_ms"],
+        "ms": dp["kernel"]["ms"], "device_ms": dp["kernel"]["device_ms"],
+        "plain_ms": dp["kernel"]["plain_ms"],
         "bound_ms": dp["kernel"]["bound_ms"], "bound_by": dp["kernel"]["bound_by"],
         "shape": dp["kernel"]["shape"], "library_ms": None,
     }]})

@@ -13,9 +13,14 @@ plain version. Every comparison is exact:
   feasible rows only (host_whatif stops at a candidate's first failure);
 - ``plan_window``'s actions, ``repack_plan``, ``removable_nodes``,
   ``fleet_prices`` and ``soft_affinity_loss`` in both packages;
-- the kernel's design (bins strided over threads, a thread's first fit,
-  the block minimum, the owner's debit) emulated in numpy against the
-  plain version.
+- the global kernel's design (bins strided over threads, a thread's
+  first fit, the block minimum, the owner's debit) and the staged
+  kernel's (resources folded out, valid pods by chunk ballots, compat
+  packed into column words of the four bins a lane owns in each block of
+  128, the first fit over the marked blocks) emulated in numpy against the plain
+  version, on chip_smoke's fuzz windows; the fold alone against the
+  plain version on the original inputs; the launch geometry per bin
+  bucket.
 
 The shared builders here serve the other ``test_torch_*`` files of the
 node-removal slice.
@@ -28,6 +33,7 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from karpenter_tpu.solver.whatif import WhatIfConfig, _whatif_jit
 from karpenter_tpu_torch.ops import whatif_cuda
 from karpenter_tpu_torch.ops.whatif_cuda import whatif_scan, whatif_scan_plain
@@ -380,6 +386,193 @@ class TestKernelDesign:
         # free rows of BB = 4096 (128 KiB) fit a block's 227 KiB; 8192 do not
         assert whatif_cuda.free_rows_in_shared(4096)
         assert not whatif_cuda.free_rows_in_shared(8192)
+
+    @pytest.mark.parametrize("BB, kernel, threads, shared_bytes, groups, blocks", [
+        (4, "staged", 160, 14856, 1, 1), (32, "staged", 160, 14856, 1, 1),
+        (128, "staged", 160, 14856, 1, 1), (512, "staged", 160, 27528, 1, 4),
+        (1024, "staged", 160, 44424, 1, 8), (2048, "staged", 160, 86792, 2, 16),
+        (4096, "staged", 160, 171528, 4, 32), (8192, "global", 512, 0, None, None),
+        (1 << 22, "global", 512, 0, None, None)])
+    def test_launch_geometry_per_bucket(self, BB, kernel, threads, shared_bytes, groups, blocks):
+        # PERF.md's geometry table: the staged kernel (5 warps, the free
+        # rows and two chunk buffers in shared memory) up to BB = 4096,
+        # whose 171,528 bytes fit a block's 227 KiB less the static margin;
+        # the global kernel (free rows in a global scratch) from 8192
+        g = whatif_cuda.launch_geometry(BB)
+        assert (g["kernel"], g["threads"], g["shared_bytes"]) == (kernel, threads, shared_bytes)
+        assert (g.get("groups"), g.get("blocks")) == (groups, blocks)
+        assert whatif_cuda.free_rows_in_shared(BB) == (kernel == "staged")
+        assert shared_bytes <= whatif_cuda.SHARED_OPTIN_BYTES - whatif_cuda.SHARED_MARGIN_BYTES
+
+
+# -- the staged kernel's design (csrc/whatif.cu whatif_staged_kernel) ---------
+
+U32 = np.uint64(0xFFFFFFFF)
+
+
+def pack4(w):
+    """csrc/whatif.cu pack4 on uint64 arrays holding 32-bit words: bit 7 of
+    each nonzero byte, gathered onto bits 28..31 by one multiply."""
+    hi = (((w & np.uint64(0x7f7f7f7f)) + np.uint64(0x7f7f7f7f)) | w) & np.uint64(0x80808080)
+    return ((hi * np.uint64(0x00204081)) & U32) >> np.uint64(28)
+
+
+def column_words(row, g, BB):
+    """One compat row's column words of group g, a lane each: bit 4q + e of
+    lane l's word is bin 1024g + 128q + 4l + e; each lane's four bytes of a
+    block are one little-endian 32-bit load, packed by pack4."""
+    out = np.zeros(32, np.uint64)
+    for lane in range(32):
+        for q in range(8):
+            b = 1024 * g + 128 * q + 4 * lane
+            if b + 4 <= BB:
+                word = np.uint64(int.from_bytes(row[b:b + 4].astype(np.uint8).tobytes(), "little"))
+                out[lane] |= pack4(word) << np.uint64(4 * q)
+    return out
+
+
+def emulate_staged(arrays):
+    """csrc/whatif.cu's staged kernel in numpy: the active dimensions over a
+    candidate's valid pods, padded to 3, 4 or 8 with folded ones; smask
+    (bin exists, not the own bin, folded free values >= 0) in column words;
+    chunks of 32 pods by their valid ballot; column words packed from
+    4-byte loads, ANDed with smask, and their OR over the lanes; the step
+    walks the marked blocks of 128 bins in order, each lane tests its four
+    bins, the lowest lane with a fit takes its lowest fitting bin and
+    debits it; a pod equal to the chunk's last valid one (vector and
+    compat row) fails where that one failed and goes into its bin of
+    block 0 without a search while it fits."""
+    pods, valid, compat, free0, cand_bin = arrays
+    NB, KB, R = pods.shape
+    BB = free0.shape[0]
+    assert BB % 4 == 0  # the 4-byte loads (the kernel reads bytes otherwise)
+    groups = -(-BB // 1024)
+    bbr = -(-BB // 128) * 128
+    feasible = np.ones(NB, bool)
+    slots = np.full((NB, KB), -1, np.int32)
+    lanes = np.arange(32)
+    for i in range(NB):
+        v = valid[i].astype(bool)
+        if not v.any():
+            continue
+        active = [r for r in range(R) if (pods[i][v][:, r] != 0).any()]
+        folded = [r for r in range(R) if r not in active]
+        nstep = 3 if len(active) <= 3 else 4 if len(active) <= 4 else R
+        dims = (active + folded)[:nstep]
+        b = np.arange(bbr)
+        ok = (b < BB) & (b != cand_bin[i])
+        for r in folded:
+            ok[:BB] &= free0[:, r] >= 0
+        okbytes = np.zeros(groups * 1024, np.uint8)
+        okbytes[:bbr] = ok
+        smask = [column_words(okbytes, g, groups * 1024) for g in range(groups)]
+        rows = np.zeros((nstep, groups * 1024), np.int64)
+        rows[:, :BB] = free0[:, dims].T
+        prev = None  # (k, bin) of the last valid pod of the chunk
+        for c in range(-(-KB // 32)):
+            prev = None
+            for t in range(32):
+                k = 32 * c + t
+                if k >= KB or not valid[i, k]:
+                    continue
+                vec = pods[i, k, dims].astype(np.int64)
+                if prev is not None and np.array_equal(pods[i, k], pods[i, prev[0]]) \
+                        and np.array_equal(compat[i, k].astype(bool), compat[i, prev[0]].astype(bool)):
+                    # a run of the same pod: where the last one went, while it fits
+                    b_prev = prev[1]
+                    if b_prev < 0:
+                        feasible[i] = False
+                        prev = (k, -1)
+                        continue
+                    if b_prev < 128 and (rows[:, b_prev] >= vec).all():
+                        rows[:, b_prev] -= vec
+                        slots[i, k] = b_prev
+                        prev = (k, b_prev)
+                        continue
+                placed = False
+                for g in range(groups):
+                    cw = column_words(compat[i, k], g, BB) & smask[g]
+                    blocks = int(np.bitwise_or.reduce(cw))
+                    while blocks and not placed:
+                        q = ((blocks & -blocks).bit_length() - 1) >> 2
+                        base = 1024 * g + 128 * q + 4 * lanes
+                        nib = (cw >> np.uint64(4 * q)) & np.uint64(0xF)
+                        bins = base[:, None] + np.arange(4)[None, :]  # [lane, e]
+                        fit = ((nib[:, None] >> np.arange(4, dtype=np.uint64)[None, :])
+                               & np.uint64(1)).astype(bool)
+                        fit &= (rows[:, bins] >= vec[:, None, None]).all(0)
+                        hit = fit.any(1)
+                        if hit.any():
+                            lane = int(np.argmax(hit))
+                            chosen = int(bins[lane, np.argmax(fit[lane])])
+                            rows[:, chosen] -= vec
+                            slots[i, k] = chosen
+                            placed = True
+                        blocks &= ~(0xF << (4 * q))
+                    if placed:
+                        break
+                if not placed:
+                    feasible[i] = False
+                prev = (k, int(slots[i, k]))
+    return feasible, slots
+
+
+def smoke_case(seed, NB, KB, BB, kind):
+    """chip_smoke.whatif_case's window on the CPU, as numpy arrays."""
+    return [t.numpy() for t in chip_smoke.whatif_case(
+        np.random.default_rng(seed), NB, KB, BB, "cpu", kind)]
+
+
+def folded_answer(arrays):
+    """whatif_scan_plain on the folded inputs, a candidate at a time: its
+    static resources' free0 >= 0 ANDed into compat and then zeroed, its own
+    bin cleared from compat (and cand_bin -1)."""
+    pods, valid, compat, free0, cand_bin = arrays
+    NB, KB, R = pods.shape
+    feas, slots = [], []
+    for i in range(NB):
+        v = valid[i].astype(bool)
+        static = [r for r in range(R) if not (pods[i][v][:, r] != 0).any()]
+        f0 = free0.copy()
+        cmp = compat[i:i + 1].astype(bool).copy()
+        cmp &= (free0[:, static] >= 0).all(1)[None, None, :]
+        f0[:, static] = 0
+        if 0 <= cand_bin[i] < free0.shape[0]:
+            cmp[..., cand_bin[i]] = False
+        f, s = plain_on([pods[i:i + 1], valid[i:i + 1], cmp, f0, np.array([-1], np.int32)])
+        feas.append(f)
+        slots.append(s)
+    return np.concatenate(feas), np.concatenate(slots)
+
+
+STAGED_CASES = [(1, 8, 4, 4, None), (2, 16, 8, 64, None), (3, 16, 8, 32, "edges"),
+                (4, 8, 8, 1024, "edges"), (5, 4, 4, 2048, "edges"), (6, 8, 64, 64, "scattered"),
+                (7, 8, 40, 96, "one_long"), (8, 4, 96, 16, "edges"), (9, 8, 8, 100, None),
+                (10, 4, 6, 4096, "edges"), (11, 8, 64, 256, "replicas"),
+                (12, 16, 40, 128, "replicas")]
+
+
+class TestStagedKernelDesign:
+    def test_pack4_maps_every_byte_to_its_bit(self):
+        rng = np.random.RandomState(0)
+        b = rng.choice([0, 1, 2, 128, 255], size=(4096, 4)).astype(np.uint8)
+        want = ((b != 0) * (1 << np.arange(4))).sum(1)
+        got = pack4(b.view("<u4").ravel().astype(np.uint64))
+        assert np.array_equal(got.astype(np.int64), want)
+
+    @pytest.mark.parametrize("seed, NB, KB, BB, kind", STAGED_CASES)
+    def test_staged_design_equals_plain(self, seed, NB, KB, BB, kind):
+        arrays = smoke_case(seed, NB, KB, BB, kind)
+        want = plain_on(arrays)
+        got = emulate_staged(arrays)
+        assert np.array_equal(got[0], want[0]) and np.array_equal(got[1], want[1])
+
+    @pytest.mark.parametrize("seed, NB, KB, BB, kind", STAGED_CASES)
+    def test_fold_is_exact(self, seed, NB, KB, BB, kind):
+        arrays = smoke_case(seed, NB, KB, BB, kind)
+        want = plain_on(arrays)
+        got = folded_answer(arrays)
+        assert np.array_equal(got[0], want[0]) and np.array_equal(got[1], want[1])
 
 
 # -- host mirror, plan -------------------------------------------------------
