@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Chip smoke for the PyTorch/CUDA port: build the kernels, hold each against
 its plain version, and drive the public solve(), the batched window, the
-provisioning controller, the global window backend and node removal
-(consolidation, termination, emptiness) at full size on one card.
+provisioning controller, the global window backend, node removal
+(consolidation, termination, emptiness), pod-(anti-)affinity and the
+packing policies at full size on one card.
 
     python3 chip_smoke.py
 
@@ -107,10 +108,25 @@ nvcc each, both at once). Phases, each printing one JSON record:
    first node's replacement pods are bound), then the emptiness TTL on
    the port's clock (see phase_deprovision for every check); one record
    a window, one for the budget;
-14. the device-programs line (B7 and B8), the kernels line (pack_chunk,
-   pack_batch and whatif_scan; whatif_scan's times from the deprovision
-   window 0, the shape the main path gives it), the card line, and the
-   final ok line.
+14. affinity_fuzz (B5): the selectors × peers match program against the
+   scalar matches() oracle on every cell, its numpy twin and the host
+   columnar leg, from 4 × 8 up to 1,024 selectors × 4,096 peers, 0 heals,
+   and the program's time, launches and bound (phase_affinity_fuzz);
+15. policy_window (B6 and the pack kernel's price seam): config_13's
+   priced window under interruption-priced and cheapest (rows equal to
+   the mirror and to encode_prices, solve_batch equal to solo solve(),
+   the frontier sweep) and config_18's soft-affinity window (rows, steering,
+   node count), the program's time and the priced batched launch's
+   (phase_policy_window);
+16. controller_affinity: config_12's window plus replicas with hostname
+   anti-affinity, cohorts with required and preferred zone affinity and
+   two unsatisfiable cases through the controller, under cheapest and
+   interruption-priced, and the affinity pods alone on the card against
+   the CPU (phase_controller_affinity);
+17. the device-programs line (B7, B8, B5, B6), the kernels line (pack_chunk,
+   pack_batch with the price-row launch beside it, and whatif_scan;
+   whatif_scan's times from the deprovision window 0, the shape the main
+   path gives it), the card line, and the final ok line.
 
 Any failed check exits non-zero.
 
@@ -193,9 +209,11 @@ def check(cond: bool, what: str) -> None:
 
 # -- workload generators (bench.py:121-164 and :724-735) ---------------------
 
-def make_catalog(n_types, zones=3, price_base=0.05, cpus_per_gpu=0):
+def make_catalog(n_types, zones=3, price_base=0.05, cpus_per_gpu=0, spot_rate=None):
     """The synthetic catalog; with ``cpus_per_gpu`` every type carries
-    NVIDIA GPUs, one per that many cpus and at least one."""
+    NVIDIA GPUs, one per that many cpus and at least one; ``spot_rate(i,
+    z)`` stamps type i's spot offering in zone z with that interruption
+    rate."""
     from karpenter_tpu_torch.cloudprovider.spi import Offering, make_instance_type
 
     catalog = []
@@ -205,7 +223,8 @@ def make_catalog(n_types, zones=3, price_base=0.05, cpus_per_gpu=0):
     while len(catalog) < n_types:
         cpu = cpus[i % len(cpus)]
         ratio = ratios[(i // len(cpus)) % len(ratios)]
-        offerings = [Offering(ct, f"bench-zone-{z + 1}")
+        offerings = [Offering(ct, f"bench-zone-{z + 1}", interruption_rate=(
+            spot_rate(i, z) if spot_rate and ct == "spot" else 0.0))
                      for z in range(zones) for ct in ("on-demand", "spot")]
         catalog.append(make_instance_type(
             name=f"syn-{cpu}x{ratio}-{i}",
@@ -966,6 +985,7 @@ def numpy_result(prob):
 
 def reset_counts():
     from karpenter_tpu_torch.ops import device_filter, pack_cuda, whatif_cuda
+    from karpenter_tpu_torch.ops import policy as ops_policy
     from karpenter_tpu_torch.solver import global_solve
     from karpenter_tpu_torch.solver.solve import reset_executor_counts
 
@@ -973,6 +993,8 @@ def reset_counts():
     pack_cuda.BATCH_LAUNCHES = 0
     whatif_cuda.LAUNCHES = 0
     global_solve.RUNS = 0
+    device_filter.AFFINITY_RUNS = 0
+    ops_policy.RUNS = 0
     reset_executor_counts()
     device_filter.reset_fallback_counts()
 
@@ -1799,11 +1821,17 @@ def device_launches(fn):
     the copies and sets apart, the device's busy time (the union of their
     intervals), the call's time from CUDA events under the profiler, and
     the device's idle share of that time; None where the profiler saw
-    nothing."""
+    nothing. A first profiled call is made and dropped: the first session
+    of a process spends ~0.3 s starting the profiler inside the call's
+    events, and the first one after the deprovision phase's threads
+    reported half the kernels of the calls after it."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        fn()
+        torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         start.record()
@@ -3119,6 +3147,553 @@ def phase_deprovision(device):
     return rec
 
 
+# -- pod-(anti-)affinity (B5) and the packing policies (B6) ------------------
+
+# (selectors, distinct peers) of the match-matrix fuzz, up to what a 50k-pod
+# window of mixed Deployments dedupes to
+AFFINITY_FUZZ = [(4, 8), (16, 64), (64, 256), (256, 1024), (1024, 4096)]
+AFFINITY_KEYS = [f"k{i}" for i in range(10)]
+AFFINITY_VALUES = [f"v{j}" for j in range(48)]
+
+
+def affinity_fuzz_case(rng, S, P):
+    """``S`` selectors against ``P`` distinct peer label sets. A peer holds
+    1-6 of 10 keys, each with one of 48 values; a selector 0-2
+    match_labels (a value no peer holds among the draws) and 0-3
+    expressions over all four operators, some on a key no peer has or with
+    values no peer holds; every 16th selector is empty."""
+    from karpenter_tpu_torch.api.core import LabelSelector, NodeSelectorRequirement
+    from karpenter_tpu_torch.ops.feasibility import labels_signature
+
+    vals = AFFINITY_VALUES + ["unseen"]
+    peers = {}
+    while len(peers) < P:
+        labels = {k: rng.choice(AFFINITY_VALUES)
+                  for k in rng.sample(AFFINITY_KEYS, rng.randint(1, 6))}
+        peers.setdefault(labels_signature(labels), None)
+    selectors = []
+    for s in range(S):
+        if s % 16 == 15:
+            selectors.append(LabelSelector())
+            continue
+        ml = {k: rng.choice(vals) for k in rng.sample(AFFINITY_KEYS, rng.randint(0, 2))}
+        exprs = []
+        for _ in range(rng.randint(0 if ml else 1, 3)):
+            op = rng.choice(["In", "NotIn", "Exists", "DoesNotExist"])
+            values = ([rng.choice(vals) for _ in range(rng.randint(1, 8))]
+                      if op in ("In", "NotIn") else [])
+            exprs.append(NodeSelectorRequirement(key=rng.choice(AFFINITY_KEYS + ["absent"]),
+                                                 operator=op, values=values))
+        selectors.append(LabelSelector(match_labels=ml, match_expressions=exprs))
+    return selectors, tuple(peers)
+
+
+def affinity_program_record(sigs, peers, oracle, device):
+    """B5 on one window's encoding: the program's CUDA-event median over
+    20 warm calls, its kernels and idle share (torch.profiler), its bound
+    by bytes (peer plane, clause masks, kinds, selector ids and the (S,
+    Ppad) bool output at the HBM rate) and the same program on the CPU."""
+    import numpy as np
+    import torch
+
+    from karpenter_tpu_torch.backend import to_device_int32
+    from karpenter_tpu_torch.ops import device_filter
+
+    S, P = len(sigs), len(peers)
+    enc = device_filter.affinity_planes(sigs, peers)
+    planes_d = to_device_int32(list(enc), device)
+    planes_c = to_device_int32(list(enc), torch.device("cpu"))
+    out = device_filter.affinity_program(*planes_d, S)
+    check(np.array_equal(out[:, :P].cpu().numpy(), oracle),
+          "affinity_fuzz: the timed program differs from the oracle")
+    ms = median_event_ms(lambda: device_filter.affinity_program(*planes_d, S), 20)
+    launches = device_launches(lambda: device_filter.affinity_program(*planes_d, S))
+    t0 = time.perf_counter()
+    device_filter.affinity_program(*planes_c, S)
+    cpu_ms = (time.perf_counter() - t0) * 1000.0
+    nbytes = sum(a.nbytes for a in enc) + S * enc[0].shape[0]
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    return {"shape": [S, P], "padded": [int(enc[1].shape[0]), int(enc[0].shape[0]),
+                                        int(enc[0].shape[1])],
+            "ms": ms, "cpu_ms": cpu_ms, "launches_per_call": launches, "bytes": nbytes,
+            "bound_ms": t_bytes * 1e3, "bound_by": "bytes"}
+
+
+def phase_affinity_fuzz(device):
+    """B5: the selectors × peers match program on the card against the
+    scalar LabelSelector.matches oracle on every cell, and against its
+    numpy twin (affinity_matrix_plain) and the host columnar leg, over
+    AFFINITY_FUZZ's seeded cases; the full entry (affinity_match_matrix,
+    probe included) equal too, with 0 heals. Then the program timed at the
+    largest case."""
+    import numpy as np
+
+    from karpenter_tpu_torch.ops import device_filter, feasibility
+
+    t_phase = time.perf_counter()
+    rng = random.Random(SEED)
+    feasibility.reset_heals()
+    cases = []
+    for S, P in AFFINITY_FUZZ:
+        selectors, peers = affinity_fuzz_case(rng, S, P)
+        sigs = tuple(feasibility.selector_signature(s) for s in selectors)
+        device_filter.clear_affinity_cache()
+        t0 = time.perf_counter()
+        card = device_filter.affinity_matrix(sigs, peers, device)
+        card_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        oracle = feasibility._affinity_scalar(selectors, peers)
+        scalar_s = time.perf_counter() - t0
+        device_filter.clear_affinity_cache()
+        legs = {"card": card, "plain": device_filter.affinity_matrix_plain(sigs, peers),
+                "columnar": feasibility._affinity_columnar(selectors, peers),
+                "entry": feasibility.affinity_match_matrix(selectors, peers, device)}
+        for name, mat in legs.items():
+            diverged = int((mat != oracle).sum())
+            check(mat.shape == oracle.shape and diverged == 0,
+                  f"affinity_fuzz S={S} P={P}: {name} differs from matches() on {diverged} cells")
+        cases.append({"s": S, "p": P, "true_cells": int(oracle.sum()),
+                      "card_call_s": card_s, "scalar_s": scalar_s})
+    check(feasibility.heal_counts() == {},
+          f"affinity_fuzz: heals {feasibility.heal_counts()}")
+    rec = {"phase": "affinity_fuzz", "cases": cases, "divergent_cells": 0, "heals": 0,
+           "max_abs_err": 0, **affinity_program_record(sigs, peers, oracle, device),
+           "seconds": time.perf_counter() - t_phase}
+    emit(rec)
+    return rec
+
+
+def config13_catalog():
+    """bench.py:1332-1420 (config_13): the 400-type catalog with a spot
+    interruption rate per (type, zone), 0.01-0.106 reclaims/h."""
+    return make_catalog(WINDOW_TYPES,
+                        spot_rate=lambda i, z: round(0.01 + 0.004 * ((i * 7 + z) % 25), 6))
+
+
+def policy_program_record(fused, policy, cost, ctx, device):
+    """B6 on one fused window: every member's full card row against the
+    numpy mirror (_host_best) on every column (the program's own output,
+    before any heal), the program's CUDA-event median over 20 warm calls,
+    its kernels and idle share, its bound by bytes (operands read once, the
+    (B, TB) rows written once) and the same program on the CPU."""
+    import numpy as np
+    import torch
+
+    from karpenter_tpu_torch.ops import device_filter
+    from karpenter_tpu_torch.ops import policy as ops_policy
+
+    planes = device_filter.planes_for(fused.uni_types)
+    tables = ops_policy.tables_for(planes, fused.uni_types, policy, cost, ctx)
+    zw, cta, za = ops_policy._rows_host(planes, fused.verify)
+    soft = ops_policy._soft_rows(planes, fused.soft, ctx)
+    inputs = ops_policy.device_inputs(planes, tables, zw, cta, za, soft, device)
+    best, cells = ops_policy._cells_expr(**inputs)
+    mirror = ops_policy._host_best(tables, planes, zw, cta, za, soft_bz=soft)
+    diverged = int((best.cpu().numpy() != mirror).sum())
+    check(diverged == 0, f"policy_window: {diverged} card cells differ from the mirror")
+    inputs_c = ops_policy.device_inputs(planes, tables, zw, cta, za, soft, torch.device("cpu"))
+    ms = median_event_ms(lambda: ops_policy._cells_expr(**inputs), 20)
+    launches = device_launches(lambda: ops_policy._cells_expr(**inputs))
+    t0 = time.perf_counter()
+    ops_policy._cells_expr(**inputs_c)
+    cpu_ms = (time.perf_counter() - t0) * 1000.0
+    nbytes = sum(t.numel() * t.element_size() for t in inputs.values()
+                 if isinstance(t, torch.Tensor)) + best.numel() * 4
+    return {"shape": list(best.shape) + [int(tables.price_ct.shape[1])],
+            "viable_cells": int(cells), "soft": soft is not None, "penalty": tables.use_pen,
+            "ms": ms, "cpu_ms": cpu_ms, "launches_per_call": launches, "bytes": nbytes,
+            "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+            "mirror_divergence": 0}
+
+
+def time_priced_batch(run, iters):
+    """The window's first-chunk launch with its price rows (cost tie-break
+    on) against pack_batch_plain on the same inputs, its CUDA-event time
+    beside the same launch without prices, and its bound."""
+    from karpenter_tpu_torch.ops.pack_cuda import launch_shape, pack_batch
+
+    args = (run.shapes_d, run.counts_d, run.dropped_d, run.totals_d, run.reserved0_d,
+            run.valid_d, run.last_valid_d, run.pods_unit_d)
+    L, T = run.L, run.totals_d.shape[1]
+    check(run.prices_d is not None, "policy_window: the window launched without prices")
+    ok, err, _, stats = compare_batch(args, L, run.prices_d, True, run.maxfit_d,
+                                      [launch_shape(T)])
+    check(ok, "policy_window: the priced batched launch != plain")
+    hints = dict(maxfit=run.maxfit_d, log_bound=run.log_bound, resource_mask=run.resource_mask)
+    ms = cuda_ms(lambda: pack_batch(*args, L, prices=run.prices_d, cost_tiebreak=True,
+                                    **hints), iters)
+    unpriced_ms = cuda_ms(lambda: pack_batch(*args, L, **hints), iters)
+    return {"ms": ms, "unpriced_ms": unpriced_ms, "plain_ms": stats["ms"], "max_abs_err": err,
+            "type_steps": stats["type_steps"], **work_bound(args, L, True, stats["type_steps"])}
+
+
+def phase_policy_window(device):
+    """B6 and the pack kernel's price seam on two full-size windows.
+
+    config_13's window (bench.py:1332-1420): 24 one-zone schedules × 416
+    pods over config13_catalog under interruption-priced with a repack
+    price of $2/h: every member's card row equal to the mirror on every
+    column; under cheapest every row equal to encode_prices of the host
+    scores; solve_batch on the card (one scoring program, the price rows
+    in the batched launch) equal to solo solve() under the same policy,
+    plan for plan; the frontier sweep (tests/test_policy.py's
+    test_frontier_break_even algebra, through solve_batch and the card's
+    rows) chooses spot exactly when rate × repack < price × (1 − factor).
+
+    config_18's window (bench.py:2407-2530): 24 follower cohorts × 200
+    pods over the two-zone catalog, each voting +100 for its anchor's zone
+    at $0.001 a weight: the soft rows equal the mirror; steer_zone puts
+    every cohort in its anchor's zone; the steered window's node count is
+    at most 1 % above the unsteered one."""
+    import numpy as np
+    import torch
+
+    from karpenter_tpu_torch.api import wellknown as wk
+    from karpenter_tpu_torch.api.constraints import Constraints
+    from karpenter_tpu_torch.api.core import NodeSelectorRequirement
+    from karpenter_tpu_torch.cloudprovider.spi import Offering, make_instance_type
+    from karpenter_tpu_torch.models.cost import CostConfig
+    from karpenter_tpu_torch.models.ffd import encode_prices
+    from karpenter_tpu_torch.ops import device_filter, pack_cuda
+    from karpenter_tpu_torch.ops import policy as ops_policy
+    from karpenter_tpu_torch.solver import policy as registry
+    from karpenter_tpu_torch.solver.adapter import marshal_pods
+    from karpenter_tpu_torch.solver.batch_solve import Problem, dispatch_batch, solve_batch
+    from karpenter_tpu_torch.solver.policy import PolicyContext
+    from karpenter_tpu_torch.solver.solve import SolverConfig, solve, universe_constraints
+
+    t_phase = time.perf_counter()
+    cost = CostConfig()
+    priced, cheapest = registry.get("interruption-priced"), registry.get("cheapest")
+    mism0 = ops_policy.MISMATCHES
+
+    def fused_of(problems):
+        fused = device_filter.prepare_fused(problems, [marshal_pods(p.pods) for p in problems],
+                                            device)
+        check(fused is not None and len(fused.batch_idx) == len(problems),
+              "policy_window: the window was not fused")
+        return fused
+
+    # config_13
+    catalog = config13_catalog()
+    problems = window_problems(catalog, 416)
+    ctx = PolicyContext(repack_cost_per_hour=2.0)
+    fused = fused_of(problems)
+    b6 = policy_program_record(fused, priced, cost, ctx, device)
+    rows, cells = ops_policy.score_fused_window(fused, priced, cost, ctx)
+    rows_c, _ = ops_policy.score_fused_window(fused, cheapest, cost, PolicyContext())
+    TB = device_filter.planes_for(fused.uni_types).TB
+    for b, i in enumerate(fused.batch_idx):
+        reqs = problems[i].constraints.requirements
+        want = encode_prices([cheapest.score(fused.uni_types[p.index], reqs, cost,
+                                             PolicyContext())[0] for p in fused.packables], TB)
+        check(np.array_equal(rows_c[b], want),
+              f"policy_window: cheapest row {b} != encode_prices of the host scores")
+    taxed = sum(int((a != c).sum()) for a, c in zip(rows, rows_c))
+    check(taxed > 0, "policy_window: the reclaim tax moved no cell")
+    cfg = SolverConfig(packing_policy="interruption-priced", policy_context=ctx)
+    reset_counts()
+    handle = dispatch_batch(problems, cfg, device)   # the policy's window path
+    results = handle.fetch()
+    torch.cuda.synchronize()
+    launches = {"policy_programs": ops_policy.RUNS, "pack_batch": pack_cuda.BATCH_LAUNCHES}
+    check(launches["policy_programs"] == 1 and launches["pack_batch"] >= 1
+          and handle.device_run.prices_d is not None,
+          f"policy_window: launches {launches}")
+    check(executor_counts() == {"device-batch": len(problems)},
+          f"policy_window answered by {executor_counts()}")
+    spot_nodes = 0
+    for b, (prob, got) in enumerate(zip(problems, results)):
+        solo = solve(prob.constraints, prob.pods, catalog, config=cfg, device=device)
+        check(canonical(got, prob.pods) == canonical(solo, prob.pods),
+              f"policy_window: problem {b} != solo solve() under interruption-priced")
+        reqs = prob.constraints.requirements
+        spot_nodes += sum(p.node_quantity for p in got.packings
+                          if priced.score(p.instance_type_options[0], reqs, cost, ctx)[1]
+                          == wk.CAPACITY_TYPE_SPOT)
+    fresh = dispatch_batch(problems, cfg, device)
+    priced_kernel = time_priced_batch(fresh.device_run, 20)
+    fresh.fetch()
+
+    # the frontier: one type, one spot offering at rate r
+    f, P, r = cost.spot_price_factor, 1.0, 0.5
+    threshold = P * (1.0 - f) / r
+    mini = [make_instance_type(
+        name="frontier-4x", cpu="4", memory="8Gi", pods="16", price=P,
+        offerings=[Offering("on-demand", "bench-zone-1"),
+                   Offering("spot", "bench-zone-1", interruption_rate=r)])]
+    frontier = []
+    for mult in (0.0, 0.25, 0.5, 0.9, 1.1, 2.0, 4.0):
+        v = round(threshold * mult, 6)
+        pctx = PolicyContext(repack_cost_per_hour=v)
+        probs = [Problem(constraints=universe_constraints(mini), pods=make_pods(40, [(500, 512)]),
+                         instance_types=mini) for _ in range(2)]
+        rs = solve_batch(probs, SolverConfig(packing_policy="interruption-priced",
+                                             policy_context=pctx), device=device)
+        reqs = probs[0].constraints.requirements
+        scalar_spot = {priced.score(p.instance_type_options[0], reqs, cost, pctx)[1]
+                       == wk.CAPACITY_TYPE_SPOT for res in rs for p in res.packings}
+        card_row = ops_policy.score_fused_window(fused_of(probs), priced, cost, pctx)[0][0][0]
+        card_spot = int(card_row) < int(encode_prices([P], 1)[0])
+        want = r * v < P * (1.0 - f)
+        placed = sum(res.node_count for res in rs)
+        check(scalar_spot == {want} and card_spot == want and placed > 0,
+              f"policy_window: frontier x{mult}: spot {scalar_spot} / card {card_spot}, "
+              f"want {want}, {placed} nodes")
+        frontier.append({"mult": mult, "repack": v, "spot": want, "card_row": int(card_row),
+                         "nodes": placed})
+
+    # config_18
+    catalog18 = make_catalog(WINDOW_TYPES, zones=2)
+    universe = universe_constraints(catalog18)
+    zones = ["bench-zone-1", "bench-zone-2"]
+    sctx = PolicyContext(soft_affinity_cost_per_weight=0.001)
+    problems18, anchors = [], []
+    for b in range(WINDOW_SCHEDULES):
+        anchors.append(zones[b % 2])
+        k = b % len(MIXED_SHAPES)
+        problems18.append(Problem(
+            constraints=Constraints(requirements=universe.requirements),
+            pods=make_pods(4800 // WINDOW_SCHEDULES, MIXED_SHAPES[k:] + MIXED_SHAPES[:k]),
+            instance_types=catalog18,
+            soft_affinity={(wk.LABEL_TOPOLOGY_ZONE, anchors[-1]): 100}))
+    fused18 = fused_of(problems18)
+    b6_soft = policy_program_record(fused18, cheapest, cost, sctx, device)
+    check(b6_soft["soft"], "policy_window: config_18's window carried no soft rows")
+    ops_policy.score_fused_window(fused18, cheapest, cost, sctx)
+    steers = [ops_policy.steer_zone(catalog18, p.constraints.requirements, cost, sctx,
+                                    p.soft_affinity) for p in problems18]
+    check(steers == anchors, f"policy_window: steered {steers}, anchors {anchors}")
+    steered = [Problem(constraints=Constraints(requirements=p.constraints.requirements.add(
+        NodeSelectorRequirement(key=wk.LABEL_TOPOLOGY_ZONE, operator="In", values=[z]))),
+        pods=p.pods, instance_types=catalog18) for p, z in zip(problems18, steers)]
+    plain = [Problem(constraints=p.constraints, pods=p.pods, instance_types=catalog18)
+             for p in problems18]
+    nodes_steered = sum(res.node_count for res in solve_batch(steered, device=device))
+    nodes_plain = sum(res.node_count for res in solve_batch(plain, device=device))
+    check(nodes_steered <= nodes_plain * 1.01,
+          f"policy_window: steering took {nodes_steered} nodes against {nodes_plain}")
+    check(ops_policy.MISMATCHES == mism0,
+          f"policy_window: {ops_policy.MISMATCHES - mism0} members healed to the mirror")
+    rec = {"phase": "policy_window",
+           "config13": {"schedules": len(problems), "pods": sum(len(p.pods) for p in problems),
+                        "types": len(catalog), "viable_cells": cells, "taxed_cells": taxed,
+                        "launches": launches, "nodes": sum(r.node_count for r in results),
+                        "spot_nodes": spot_nodes, "equal_to_solo": True, "program": b6,
+                        "priced_pack_batch": priced_kernel},
+           "frontier": frontier,
+           "config18": {"schedules": len(problems18),
+                        "pods": sum(len(p.pods) for p in problems18), "steered_to_anchor": 24,
+                        "nodes_steered": nodes_steered, "nodes_unsteered": nodes_plain,
+                        "program": b6_soft},
+           "mismatches": 0, "seconds": time.perf_counter() - t_phase}
+    emit(rec)
+    return rec
+
+
+AFFINITY_REPLICAS, AFFINITY_COHORTS, AFFINITY_COHORT, AFFINITY_ANCHORS = 128, 24, 16, 4
+
+
+def pending_affinity_pod(name, labels, cpu_m=500, mem_mi=512, aff=(), anti=(), preferred=(),
+                         zone=None):
+    """A pending, Unschedulable pod with ``labels``, required pod-affinity
+    terms ``aff`` and anti-affinity terms ``anti`` ((topology key,
+    match_labels) pairs), ``preferred`` (weight, term) pairs, and with
+    ``zone`` a zone node selector."""
+    from karpenter_tpu_torch.api import core as c
+    from karpenter_tpu_torch.api import wellknown as wk
+
+    def term(key, ml):
+        return c.PodAffinityTerm(topology_key=key,
+                                 label_selector=c.LabelSelector(match_labels=dict(ml)))
+
+    pod = c.Pod(
+        metadata=c.ObjectMeta(name=name, uid=name, labels=dict(labels)),
+        spec=c.PodSpec(containers=[c.Container(resources=c.ResourceRequirements.make(
+            requests={"cpu": f"{cpu_m}m", "memory": f"{mem_mi}Mi"}))]),
+        status=c.PodStatus(conditions=[c.PodCondition(
+            type="PodScheduled", status="False", reason="Unschedulable")]))
+    if zone:
+        pod.spec.node_selector = {wk.LABEL_TOPOLOGY_ZONE: zone}
+    if aff or anti or preferred:
+        pod.spec.affinity = c.Affinity(
+            pod_affinity=c.PodAffinity(
+                required=[term(*t) for t in aff],
+                preferred=[c.WeightedPodAffinityTerm(weight=w, term=term(*t))
+                           for w, t in preferred]) if aff or preferred else None,
+            pod_anti_affinity=c.PodAffinity(
+                required=[term(*t) for t in anti]) if anti else None)
+    return pod
+
+
+def affinity_controller_pods():
+    """(a) 128 app=cache replicas with required hostname anti-affinity
+    against app=cache; (b) 24 cohorts of 16 app=web-k pods with required
+    zone affinity to app=db-k, 4 anchors pinned to bench-zone-{1 + k mod
+    3}; (c) 24 cohorts of 16 app=soft-k pods with a preferred zone affinity
+    (weight 50) to the same anchors; (d) a pod whose affinity and
+    anti-affinity both select its partner (a conflict inside one
+    component: both stay Pending); (e) a pod with a required zone affinity
+    no pod matches. 995 pods."""
+    from karpenter_tpu_torch.api import wellknown as wk
+
+    host, zone = wk.LABEL_HOSTNAME, wk.LABEL_TOPOLOGY_ZONE
+    pods = [pending_affinity_pod(f"cache-{i:03d}", {"app": "cache"}, 1500, 2048,
+                                 anti=[(host, {"app": "cache"})])
+            for i in range(AFFINITY_REPLICAS)]
+    for k in range(AFFINITY_COHORTS):
+        db = {"app": f"db-{k}"}
+        pods += [pending_affinity_pod(f"db-{k:02d}-{j}", db, 1000, 2048,
+                                      zone=f"bench-zone-{1 + k % 3}")
+                 for j in range(AFFINITY_ANCHORS)]
+        pods += [pending_affinity_pod(f"web-{k:02d}-{j:02d}", {"app": f"web-{k}"},
+                                      aff=[(zone, db)]) for j in range(AFFINITY_COHORT)]
+        pods += [pending_affinity_pod(f"soft-{k:02d}-{j:02d}", {"app": f"soft-{k}"},
+                                      preferred=[(50, (zone, db))])
+                 for j in range(AFFINITY_COHORT)]
+    pods.append(pending_affinity_pod("conflict", {"app": "d"}, aff=[(host, {"role": "p"})],
+                                     anti=[(host, {"role": "p"})]))
+    pods.append(pending_affinity_pod("partner", {"role": "p"}))
+    pods.append(pending_affinity_pod("lonely", {"app": "e"}, aff=[(zone, {"app": "nobody"})]))
+    return pods
+
+
+AFFINITY_UNSAT = ("conflict", "partner", "lonely")
+
+
+def placement(kube):
+    """The API server's placement: a Counter of nodes as (instance type,
+    zone, capacity type, sorted pod names), and each bound pod's zone."""
+    from collections import Counter
+
+    from karpenter_tpu_torch.api import wellknown as wk
+
+    labels = {n.metadata.name: n.metadata.labels for n in kube.list("Node")}
+    by_node = {}
+    for p in kube.list("Pod"):
+        if p.spec.node_name:
+            by_node.setdefault(p.spec.node_name, []).append(p.metadata.name)
+    nodes = Counter((labels[n][wk.LABEL_INSTANCE_TYPE], labels[n][wk.LABEL_TOPOLOGY_ZONE],
+                     labels[n][wk.LABEL_CAPACITY_TYPE], tuple(sorted(names)))
+                    for n, names in by_node.items())
+    zones = {name: labels[n][wk.LABEL_TOPOLOGY_ZONE]
+             for n, names in by_node.items() for name in names}
+    return nodes, zones, by_node
+
+
+class SchedulerLog:
+    """The scheduler's window log lines while open: the pods counted as
+    reason=affinity."""
+
+    def __enter__(self):
+        import logging
+
+        self.lines, self.logger = [], logging.getLogger("karpenter.scheduler")
+        outer = self
+
+        class Handler(logging.Handler):
+            def emit(self, record):
+                outer.lines.append(record.getMessage())
+
+        self.handler, self.level = Handler(), self.logger.level
+        self.logger.addHandler(self.handler)
+        self.logger.setLevel(logging.INFO)
+        return self
+
+    def __exit__(self, *exc):
+        self.logger.removeHandler(self.handler)
+        self.logger.setLevel(self.level)
+
+    def affinity(self):
+        import re
+
+        return sum(int(m.group(1)) for ln in self.lines
+                   for m in [re.search(r"reason=affinity: (\d+)", ln)] if m)
+
+
+def phase_controller_affinity(device):
+    """config_12's window (24 node-affinity groups × 416 pods, as the
+    controller phase's run 1: backend "ffd", one chunk) plus the 995 pods
+    of affinity_controller_pods, through ProvisioningController and
+    SelectionController on the card, once under cheapest and once under
+    interruption-priced. Checks: every pod of (a)-(c), the anchors and
+    config_12's (group 15's ENI pods aside) bound exactly once; the 128
+    cache replicas on 128 distinct nodes; every (b) and (c) cohort in its
+    anchor's zone; (d), its partner and (e) Pending, counted as
+    reason=affinity; no affinity arm in held_out; pressure level 0; the
+    match program and the batched kernel launched in the window (and the
+    scoring program under interruption-priced). Then (a)-(e) alone through
+    the port on the card and on the CPU: the same nodes (type, zone,
+    capacity type, pods)."""
+    import torch
+
+    from karpenter_tpu_torch.ops import device_filter, pack_cuda
+    from karpenter_tpu_torch.ops import policy as ops_policy
+    from karpenter_tpu_torch.solver.pipeline import PipelineConfig
+    from karpenter_tpu_torch.solver.solve import SolverConfig
+
+    t_phase = time.perf_counter()
+    catalog = make_catalog(WINDOW_TYPES)
+    runs = {}
+    for policy in ("cheapest", "interruption-priced"):
+        cfg = SolverConfig(window_backend="ffd", packing_policy=policy)
+        run = ControllerRun(catalog, device, cfg, PipelineConfig(chunk_items=0))
+        try:
+            base = config12_controller_pods(catalog, 416, "w")
+            extra = affinity_controller_pods()
+            # the match matrix is cached per (selectors, peers): a run after
+            # the first would answer from the cache, not the program
+            device_filter.clear_affinity_cache()
+            with SchedulerLog() as log_lines:
+                rec = run.window(base + extra)
+            programs = {"affinity": device_filter.AFFINITY_RUNS, "policy": ops_policy.RUNS,
+                        "pack_batch": pack_cuda.BATCH_LAUNCHES}
+            nodes, zones, by_node = placement(run.kube)
+        finally:
+            run.stop()
+        what = f"controller_affinity ({policy})"
+        eni = {p.metadata.name for p in base if "vpc.amazonaws.com/pod-eni"
+               in p.spec.containers[0].resources.requests}
+        expected = [p.metadata.name for p in base + extra
+                    if p.metadata.name not in eni and p.metadata.name not in AFFINITY_UNSAT]
+        once_each([n for _, g in run.binds for n in g], expected, what)
+        cache_nodes = {n for n, names in by_node.items() for x in names if x.startswith("cache-")}
+        check(len(cache_nodes) == AFFINITY_REPLICAS,
+              f"{what}: {AFFINITY_REPLICAS} cache replicas on {len(cache_nodes)} nodes")
+        for k in range(AFFINITY_COHORTS):
+            z = f"bench-zone-{1 + k % 3}"
+            for kind in ("db", "web", "soft"):
+                got = {zones[p.metadata.name] for p in extra
+                       if p.metadata.name.startswith(f"{kind}-{k:02d}-")}
+                check(got == {z}, f"{what}: cohort {kind}-{k} in zones {got}, anchor {z}")
+        check(log_lines.affinity() == len(AFFINITY_UNSAT),
+              f"{what}: {log_lines.affinity()} pods counted reason=affinity")
+        check(rec["held_out"] == {"gang": 0}, f"{what}: held out {rec['held_out']}")
+        check(rec["pressure_level"] == 0, f"{what}: pressure level {rec['pressure_level']}")
+        check(programs["affinity"] >= 1 and programs["pack_batch"] >= 1
+              and (programs["policy"] >= 1) == (policy != "cheapest"),
+              f"{what}: programs {programs}")
+        check(set(rec["executor_counts"]) <= {"device-batch", "device"},
+              f"{what}: answered by {rec['executor_counts']}")
+        # (a)-(e) alone, on the card and on the CPU
+        alone = []
+        for dev in (device, torch.device("cpu")):
+            solo = ControllerRun(catalog, dev, cfg, PipelineConfig(chunk_items=0))
+            try:
+                solo.window(affinity_controller_pods())
+                alone.append(placement(solo.kube)[0])
+            finally:
+                solo.stop()
+        check(alone[0] == alone[1], f"{what}: the card's partition != the CPU's")
+        runs[policy] = {**rec, "programs": programs, "nodes_total": sum(nodes.values()),
+                        "unschedulable_eni": len(eni), "affinity_unsat": len(AFFINITY_UNSAT),
+                        "alone_nodes": sum(alone[0].values()), "card_equals_cpu": True}
+    rec = {"phase": "controller_affinity", "runs": runs,
+           "seconds": time.perf_counter() - t_phase}
+    emit(rec)
+    return rec
+
+
 def build_all():
     """Build every kernel library at once, one nvcc each, and load them."""
     import threading
@@ -3208,8 +3783,13 @@ def main(argv) -> int:
     phase_global_window_400(device)
     ww = phase_whatif_window(device)
     dp = phase_deprovision(device)
+    af = phase_affinity_fuzz(device)
+    pw = phase_policy_window(device)
+    ca = phase_controller_affinity(device)
     emit({"phase": "total", "seconds": time.perf_counter() - t_start})
     b8 = gw["relax_pack"]
+    b6 = pw["config13"]["program"]
+    priced = pw["config13"]["priced_pack_batch"]
     emit({"device_programs": [{
         "name": "relax_node_counts (window)",
         "source": "karpenter_tpu_torch/solver/global_solve.py",
@@ -3228,6 +3808,24 @@ def main(argv) -> int:
         "bound_ms": b8["bound_ms"], "bound_by": b8["bound_by"],
         "eager_state_bound_ms": b8["eager_state_bound_ms"],
         "shape": [b8["b"], b8["sb"], b8["tb"]],
+    }, {
+        "name": "affinity_program (B5)",
+        "source": "karpenter_tpu_torch/ops/device_filter.py",
+        "replaces": "karpenter_tpu/ops/device_filter.py:709",
+        "runs": ca["runs"]["cheapest"]["programs"]["affinity"],
+        "launches_per_call": af["launches_per_call"], "max_abs_err": af["max_abs_err"],
+        "ms": af["ms"], "cpu_ms": af["cpu_ms"], "bound_ms": af["bound_ms"],
+        "bound_by": af["bound_by"], "shape": af["shape"],
+    }, {
+        "name": "policy scoring _cells_expr (B6)",
+        "source": "karpenter_tpu_torch/ops/policy.py",
+        "replaces": "karpenter_tpu/ops/policy.py:267",
+        "runs": ca["runs"]["interruption-priced"]["programs"]["policy"],
+        "launches_per_call": b6["launches_per_call"], "max_abs_err": b6["mirror_divergence"],
+        "ms": b6["ms"], "cpu_ms": b6["cpu_ms"], "bound_ms": b6["bound_ms"],
+        "bound_by": b6["bound_by"], "shape": b6["shape"],
+        "soft_rows": {k: pw["config18"]["program"][k] for k in
+                      ("ms", "cpu_ms", "bound_ms", "launches_per_call", "shape")},
     }]})
     k4, kw = c4["kernel"], win["kernel"]
     emit({"kernels": [{
@@ -3246,9 +3844,13 @@ def main(argv) -> int:
         "source": "karpenter_tpu_torch/csrc/pack.cu",
         "replaces": "karpenter_tpu/parallel/sharded_pack.py:90",
         "launches": win["launches_per_window"]["pack_batch"],
-        "max_abs_err": max(batch_err, kw["max_abs_err"]),
+        "max_abs_err": max(batch_err, kw["max_abs_err"], priced["max_abs_err"]),
         "ms": kw["ms"], "plain_ms": kw["plain_ms"],
         "bound_ms": kw["bound_ms"], "bound_by": kw["bound_by"],
+        "priced": {"ms": priced["ms"], "unpriced_ms": priced["unpriced_ms"],
+                   "plain_ms": priced["plain_ms"], "bound_ms": priced["bound_ms"],
+                   "bound_by": priced["bound_by"],
+                   "launches": pw["config13"]["launches"]["pack_batch"]},
         "library_ms": None,
     }, {
         "name": "whatif_scan",

@@ -138,11 +138,15 @@ class ConsolidationController:
 
     def __init__(self, kube: KubeCore, provider=None,
                  max_actions_per_pass: int = 8,
+                 repack_cost_per_hour: float = 0.0,
                  device: DeviceLike = None):
         self.kube = kube
         self.provider = provider
         self.device = resolve_device(device)
         self.max_actions_per_pass = max_actions_per_pass
+        # interruption-priced handoff: spot nodes' keep-cost carries their
+        # reclaim tax, so savings rank risk as well as discount
+        self.repack_cost_per_hour = repack_cost_per_hour
         # the last window: its time split (host seconds; the kernel's
         # CUDA-event ms), its counts and the $/h it reclaimed; and what it
         # solved: (encoding, feasible, slots, plan), for checks
@@ -182,7 +186,8 @@ class ConsolidationController:
 
         catalog = self.provider.get_instance_types(
             provisioner.spec.constraints) if self.provider is not None else []
-        prices, unknown = fleet_prices(fleet, catalog)
+        prices, unknown = fleet_prices(fleet, catalog,
+                                       repack_cost_per_hour=self.repack_cost_per_hour)
         if unknown and catalog:
             log.warning(
                 "consolidation window: %d node(s) have instance types absent "

@@ -26,10 +26,16 @@ drain. The one error that is caught is the global leg's, as the reference
 catches it: the chunk keeps its FFD plans, which came from the same device
 path, and the worker counts it in ``global_errors``.
 
-Left out (ROADMAP): the gang, carve and preemption paths and pod-affinity
-injection (the scheduler holds such pods out), the interruption-priced
-chunk policy and soft-affinity zone steering, the intent journal, SLO
-stamps, trace spans and histograms.
+The scheduler injects pod-(anti-)affinity (its match matrix on the same
+device). The packing policy and its context ride the worker's
+``solver_config``; under ``interruption-priced`` with no pinned repack
+price, each chunk prices its own (``_chunk_solver_config``), and a
+schedule with soft-affinity votes launches in the zone its row was priced
+at (``_steer``).
+
+Left out (ROADMAP): the gang, carve and preemption paths (the scheduler
+holds complete gangs out), the intent journal, SLO stamps, trace spans and
+histograms.
 """
 
 from __future__ import annotations
@@ -39,26 +45,31 @@ import threading
 import time
 import uuid
 import zlib
-from dataclasses import dataclass, field
+from dataclasses import dataclass, field, replace
 from typing import Callable, Dict, List, Optional, Tuple
 
 from karpenter_tpu_torch.api import wellknown
 from karpenter_tpu_torch.api.constraints import Constraints
-from karpenter_tpu_torch.api.core import Node, Pod, Taint
+from karpenter_tpu_torch.api.core import Node, NodeSelectorRequirement, Pod, Taint
 from karpenter_tpu_torch.api.gang import gang_of
 from karpenter_tpu_torch.api.provisioner import Provisioner, set_condition
 from karpenter_tpu_torch.backend import DeviceLike, resolve_device
 from karpenter_tpu_torch.cloudprovider.spi import CloudProvider
 from karpenter_tpu_torch import pressure
+from karpenter_tpu_torch.models.consolidate import free_capacity_vector
+from karpenter_tpu_torch.ops import policy as ops_policy
 from karpenter_tpu_torch.runtime.kubecore import AlreadyExists, ApiError, KubeCore, NotFound
 from karpenter_tpu_torch.scheduling.batcher import Batcher
 from karpenter_tpu_torch.scheduling.scheduler import Scheduler
 from karpenter_tpu_torch.solver import global_solve
+from karpenter_tpu_torch.solver.adapter import pod_vector
 from karpenter_tpu_torch.solver.batch_solve import Problem, dispatch_batch
 from karpenter_tpu_torch.solver.pipeline import PipelineConfig, SolvePipeline
+from karpenter_tpu_torch.solver.policy import PolicyContext, whatif_repack_cost
 from karpenter_tpu_torch.solver.solve import (
     SolveResult, SolverConfig, global_requirements, solver_health,
 )
+from karpenter_tpu_torch.utils import node as nodeutil
 from karpenter_tpu_torch.utils import pod as podutil
 
 log = logging.getLogger("karpenter.provisioning")
@@ -90,6 +101,9 @@ class _ChunkPrep:
     # its fetch substitutes only strictly cheaper host-verified plans, so
     # None (or a declined schedule) keeps the FFD result
     global_handle: Optional[object] = None
+    # chunk-scoped SolverConfig: the interruption-priced policy's repack
+    # cost priced for this chunk (None: the worker's config as-is)
+    solver_config: Optional[SolverConfig] = None
 
 
 class ProvisionerEngine:
@@ -99,11 +113,12 @@ class ProvisionerEngine:
     the one-worker-per-Provisioner shape it hosts exactly one."""
 
     def __init__(self, provisioner: Provisioner, kube: KubeCore,
-                 pipeline_config: Optional[PipelineConfig] = None):
+                 pipeline_config: Optional[PipelineConfig] = None,
+                 device: DeviceLike = None):
         self.provisioner = provisioner
         self.pipeline_config = pipeline_config or PipelineConfig()
         self.pipeline = SolvePipeline(self.pipeline_config)
-        self.scheduler = Scheduler(kube)
+        self.scheduler = Scheduler(kube, device=device)
 
 
 class ProvisionerWorker:
@@ -158,7 +173,8 @@ class ProvisionerWorker:
     # -- engine management ----------------------------------------------------
     def attach(self, provisioner: Provisioner) -> None:
         """Add (or replace, on spec change) the engine for a Provisioner."""
-        eng = ProvisionerEngine(provisioner, self.kube, pipeline_config=self.pipeline_config)
+        eng = ProvisionerEngine(provisioner, self.kube, pipeline_config=self.pipeline_config,
+                                device=self.device)
         with self._engines_lock:
             engines = dict(self._engines)
             engines[provisioner.metadata.name] = eng
@@ -339,11 +355,50 @@ class ProvisionerWorker:
         problems = [
             Problem(constraints=s.constraints, pods=s.pods,
                     instance_types=self.cloud_provider.get_instance_types(s.constraints),
-                    daemons=self._get_daemons(s.constraints))
+                    daemons=self._get_daemons(s.constraints),
+                    soft_affinity=s.soft_affinity)
             for s in schedules
         ]
-        return _ChunkPrep(schedules=schedules, problems=problems, pods=pods,
-                          schedule_s=time.perf_counter() - t0)
+        prep = _ChunkPrep(schedules=schedules, problems=problems, pods=pods)
+        prep.solver_config = self._chunk_solver_config(prep)
+        prep.schedule_s = time.perf_counter() - t0
+        return prep
+
+    def _chunk_solver_config(self, prep: _ChunkPrep) -> Optional[SolverConfig]:
+        """What-if pricing handoff: when the interruption-priced policy is
+        active and the operator left repack_cost_per_hour unpinned (0),
+        price this chunk's spot-loss cost through
+        solver/policy.whatif_repack_cost: 0 when the chunk's pods would
+        refit on the fleet's existing free capacity (losing a spot node is
+        then free, so spot's discount wins), else the cheapest on-demand
+        replacement $/h (spot must now beat its reclaim tax). Returns a
+        chunk-scoped SolverConfig carrying the priced PolicyContext, or
+        None to use the worker config as-is."""
+        cfg = self.solver_config
+        if cfg.packing_policy != "interruption-priced":
+            return None
+        if cfg.policy_context.repack_cost_per_hour > 0.0:
+            return None  # operator-pinned: respect the explicit price
+        if not prep.problems:
+            return None
+        free_vecs = []
+        for node in self.kube.list("Node"):
+            if node.metadata.deletion_timestamp is not None:
+                continue
+            if not nodeutil.is_ready(node):
+                continue
+            free_vecs.append(free_capacity_vector(
+                node, self.kube.pods_on_node(node.metadata.name)))
+        # price the dearest schedule group of the chunk: conservative, spot
+        # is only chosen when even the worst-case repack is cheap
+        repack = 0.0
+        for problem in prep.problems:
+            repack = max(repack, whatif_repack_cost(
+                [pod_vector(p) for p in problem.pods], free_vecs,
+                problem.instance_types, problem.constraints.requirements,
+                cfg.cost_config))
+        return replace(cfg, policy_context=PolicyContext(
+            repack_cost_per_hour=repack, throughput=cfg.policy_context.throughput))
 
     def _dispatch_chunk(self, prep: _ChunkPrep):
         """ALL the chunk's schedules pack in one batched device launch
@@ -352,7 +407,7 @@ class ProvisionerWorker:
         same problems rides the same stage. Asynchronous: returns the
         in-flight BatchHandle for the pipeline to fetch."""
         t0 = time.perf_counter()
-        cfg = self.solver_config
+        cfg = prep.solver_config or self.solver_config
         handle = dispatch_batch(prep.problems, config=cfg, device=self.device)
         if (cfg.window_backend == "global" and prep.problems and global_solve.enabled()
                 and int(self.batcher._monitor().level()) < 1):
@@ -396,7 +451,7 @@ class ProvisionerWorker:
                 result = global_results[idx]
             last_result = result
             for packing in result.packings:
-                err = self._launch(schedule.constraints, packing)
+                err = self._launch(self._steer(schedule, packing), packing)
                 if err is not None:
                     log.error("could not launch node: %s window_id=%s", err, self._window_id)
         return last_result
@@ -427,6 +482,29 @@ class ProvisionerWorker:
             if constraints.validate_pod(pod) is None:
                 daemons.append(pod)
         return daemons
+
+    def _steer(self, schedule, packing) -> Constraints:
+        """Soft-affinity zone steering: the scoring program priced this
+        schedule's row at its best-case zone (ops/policy.py soft term); the
+        fleet launch would otherwise pick the lowest price among ALL
+        allowed zones and could scatter the cohort. steer_zone re-derives
+        the winning zone on the host in the same exact int micro-$ fixed
+        point and the launch narrows to it, on a copy, never the cached
+        schedule constraints. No votes, the kill switch off or a zone
+        already pinned: the original constraints object."""
+        soft = schedule.soft_affinity
+        if not soft:
+            return schedule.constraints
+        cfg = self.solver_config
+        zone = ops_policy.steer_zone(
+            packing.instance_type_options, schedule.constraints.requirements,
+            cfg.cost_config, cfg.policy_context, soft)
+        if zone is None:
+            return schedule.constraints
+        steered = schedule.constraints.deepcopy()
+        steered.requirements.items.append(NodeSelectorRequirement(
+            key=wellknown.LABEL_TOPOLOGY_ZONE, operator="In", values=[zone]))
+        return steered
 
     def _launch(self, constraints: Constraints, packing) -> Optional[str]:
         """Limits check + CloudProvider.create with the bind callback

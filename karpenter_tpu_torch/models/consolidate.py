@@ -42,9 +42,29 @@ def node_instance_type(node: Node, catalog: Sequence[InstanceType]) -> Optional[
     return None
 
 
+def spot_interruption_rate(it: InstanceType, zone: str) -> float:
+    """Published reclaims/hour of this type's spot offering in ``zone``
+    (the rate stamped on Offering.interruption_rate by the provider); a
+    node whose zone label is stale falls back to the type's lowest spot
+    rate: under-charging, never over-charging, the reclaim premium."""
+    exact = None
+    best = None
+    for o in it.offerings:
+        if o.capacity_type != wellknown.CAPACITY_TYPE_SPOT:
+            continue
+        if o.zone == zone:
+            exact = o.interruption_rate
+        if best is None or o.interruption_rate < best:
+            best = o.interruption_rate
+    if exact is not None:
+        return exact
+    return best if best is not None else 0.0
+
+
 def fleet_prices(
     nodes: Sequence[Node],
     catalog: Sequence[InstanceType],
+    repack_cost_per_hour: float = 0.0,
 ) -> Tuple[Dict[str, float], List[Node]]:
     """$/h per node name at its actual capacity type, plus the nodes whose
     instance-type label is absent from the catalog (stale label, or the
@@ -54,9 +74,10 @@ def fleet_prices(
     priced). Callers log the unknowns once per window with the
     consolidation_unknown_instance_type_total counter.
 
-    Not ported: the interruption-priced policy's reclaim tax on spot
-    nodes (its ``repack_cost_per_hour``), which comes with the scoring
-    policies."""
+    With ``repack_cost_per_hour`` > 0 (the interruption-priced policy's
+    what-if handoff, solver/policy.py), a spot node's keep-cost includes
+    its expected reclaim tax, ``interruption_rate × repack_cost``, so the
+    consolidation ranking sees the spot discount AND the reclaim risk."""
     by_name = {it.name: it for it in catalog}
     prices: Dict[str, float] = {}
     unknown: List[Node] = []
@@ -68,7 +89,11 @@ def fleet_prices(
             continue
         capacity_type = node.metadata.labels.get(
             wellknown.LABEL_CAPACITY_TYPE, wellknown.CAPACITY_TYPE_ON_DEMAND)
-        prices[node.metadata.name] = node_price(it, capacity_type)
+        price = node_price(it, capacity_type)
+        if repack_cost_per_hour > 0.0 and capacity_type == wellknown.CAPACITY_TYPE_SPOT:
+            zone = node.metadata.labels.get(wellknown.LABEL_TOPOLOGY_ZONE, "")
+            price += spot_interruption_rate(it, zone) * repack_cost_per_hour
+        prices[node.metadata.name] = price
     return prices, unknown
 
 

@@ -97,9 +97,11 @@ class DeviceRun:
     device→host copy. ``mask``, when given, is the device feasibility
     mask's ``(valid, last_valid)`` tensors (ops/device_filter.py), used in
     place of the encodings' without touching the host. ``prices_list``
-    holds each problem's per-packable $/h or None; a row without prices
-    gets INT32_MAX, which leaves the tie-break to the lowest index, as for
-    an unpriced catalog."""
+    holds each problem's per-packable $/h, an int32 ndarray row already
+    encoded in micro-$ on the padded type axis (the policy scoring
+    program's, ops/policy.py), or None; a row without prices gets
+    INT32_MAX, which leaves the tie-break to the lowest index, as for an
+    unpriced catalog."""
 
     def __init__(self, encs, prices_list, chunk_iters: int, device: torch.device,
                  mask=None):
@@ -122,7 +124,9 @@ class DeviceRun:
         if self.use_cost:
             prices = np.full((B, totals.shape[1]), _INT32_MAX, np.int32)
             for b, pr in enumerate(prices_list):
-                if pr is not None:
+                if isinstance(pr, np.ndarray) and pr.dtype == np.int32:
+                    prices[b, :pr.shape[0]] = pr  # pre-encoded micro-$ row
+                elif pr is not None:
                     prices[b] = encode_prices(pr, totals.shape[1])
             host.append(prices)
         # the invariants and the first counts in one host→device copy

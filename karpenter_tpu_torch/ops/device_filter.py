@@ -345,11 +345,14 @@ class FusedBatch:
     """What the batched run needs to consume the device mask: the mask and
     last_valid tensors (the pack kernel's ``valid`` and ``last_valid``),
     the shared universe packables and type axis, and per problem the
-    verification state (probe columns, a memo of scalar verdicts)."""
+    verification state (probe columns, a memo of scalar verdicts) and its
+    soft-affinity votes (``soft``, one entry per member, None for no
+    preference: the policy scoring program prices them, ops/policy.py)."""
 
     def __init__(self, batch_idx, encs, packables, uni_types, verify,
-                 mask_d, last_valid_d, any_d, probe_d, probe_idx):
+                 mask_d, last_valid_d, any_d, probe_d, probe_idx, soft=None):
         self.batch_idx = list(batch_idx)
+        self.soft = list(soft) if soft is not None else [None] * len(self.batch_idx)
         self.encs = list(encs)
         self.packables = packables
         self.uni_types = uni_types
@@ -479,7 +482,7 @@ def prepare_fused(problems, marshaled,
     if planes is None:
         return None
 
-    batch_idx, encs, verify = [], [], []
+    batch_idx, encs, verify, soft = [], [], [], []
     for i, prob in enumerate(problems):
         vecs, required = marshaled[i]
         if len(required & set(_GPU_CLASSES)) >= 3:
@@ -499,6 +502,7 @@ def prepare_fused(problems, marshaled,
         batch_idx.append(i)
         encs.append(penc)
         verify.append((allowed, required))
+        soft.append(getattr(prob, "soft_affinity", None))
     if len(batch_idx) < 2:
         return None
     TB = encs[0].totals.shape[0]
@@ -513,5 +517,157 @@ def prepare_fused(problems, marshaled,
     mask_d, lv_d, any_d, probe_out = window_mask(
         resident_planes(planes, dev), tuple(rows_d), probe_d.long())
     return FusedBatch(batch_idx, encs, packables, uni_types, verify,
-                      mask_d, lv_d, any_d, probe_out, probe_idx)
+                      mask_d, lv_d, any_d, probe_out, probe_idx, soft=soft)
 
+
+
+# -- pod-pod affinity: the selectors × peers match matrix (B5) ----------------
+#
+# Peers (distinct pod-label signatures) intern their (key, value) pairs into
+# dense bit positions; each peer becomes one row of 32-bit words with its
+# pair bits set. Every supported selector clause reduces to ANY / NONE over a
+# clause bitmask against that plane: match_labels and In are ANY over the
+# named pair bits, NotIn is NONE over them, Exists / DoesNotExist are ANY /
+# NONE over all pair bits of the key. The (S, P) matrix is one device
+# program: per-clause hits, then the violations summed per selector by
+# ``index_add_``. The planes and masks are built on the host, as the JAX
+# package builds them; the caller (ops/feasibility.affinity_match_matrix)
+# probe-checks cells against the scalar matches() oracle.
+
+_AFFINITY_MATRIX_CACHE: dict = {}
+_AFFINITY_MATRIX_CACHE_CAP = 64
+# elements of the (C, P, words) intermediate one step of the program holds:
+# the word axis is walked in slices so a 1,024 × 4,096 matrix stays bounded
+_AFFINITY_STEP_ELEMS = 1 << 26
+AFFINITY_RUNS = 0  # device programs run since import (cache hits excluded)
+
+
+def affinity_planes(sel_sigs: tuple, peer_sigs: tuple) -> Optional[tuple]:
+    """Host encoding of one matrix: ``(peer_plane (Ppad, W), cmask (Cpad,
+    W), ckind (Cpad,), csel (Cpad,))`` as uint32 / int32 arrays, or None
+    when every selector is empty (the matrix is all True). ``ckind`` is 0
+    for ANY-of, 1 for NONE-of; padding clauses are NONE over the empty
+    mask, charged to selector 0, never a violation."""
+    pair_vocab: Dict[tuple, int] = {}
+    key_bits: Dict[str, list] = {}
+    for sig in peer_sigs:
+        for kv in sig:
+            if kv not in pair_vocab:
+                pair_vocab[kv] = len(pair_vocab)
+                key_bits.setdefault(kv[0], []).append(pair_vocab[kv])
+    W = _words(len(pair_vocab))
+    P = len(peer_sigs)
+    Ppad = max(8, 1 << (P - 1).bit_length())
+    peer_plane = np.zeros((Ppad, W), np.uint32)
+    for p, sig in enumerate(peer_sigs):
+        for kv in sig:
+            _set_bit(peer_plane, (p,), pair_vocab[kv])
+
+    def clause_mask(bits) -> np.ndarray:
+        row = np.zeros((W,), np.uint32)
+        for b in bits:
+            _set_bit(row, (), b)
+        return row
+
+    masks: List[np.ndarray] = []
+    kinds: List[int] = []
+    sel_of: List[int] = []
+    for s, (match_labels, exprs) in enumerate(sel_sigs):
+        for kv in match_labels:
+            b = pair_vocab.get(kv)
+            # an unseen pair matches no peer: the empty ANY mask makes the
+            # clause (and the row's cells) False, as the scalar oracle does
+            masks.append(clause_mask([] if b is None else [b]))
+            kinds.append(0)
+            sel_of.append(s)
+        for key, op, values in exprs:
+            if op in ("In", "NotIn"):
+                bits = [pair_vocab[(key, v)] for v in values if (key, v) in pair_vocab]
+                masks.append(clause_mask(bits))
+                kinds.append(0 if op == "In" else 1)
+            else:  # Exists / DoesNotExist: ANY / NONE over the key's pairs
+                masks.append(clause_mask(key_bits.get(key, [])))
+                kinds.append(0 if op == "Exists" else 1)
+            sel_of.append(s)
+    C = len(masks)
+    if C == 0:
+        return None
+    Cpad = -(-C // 8) * 8
+    while len(masks) < Cpad:
+        masks.append(np.zeros((W,), np.uint32))
+        kinds.append(1)
+        sel_of.append(0)
+    return (peer_plane, np.stack(masks), np.asarray(kinds, np.int32),
+            np.asarray(sel_of, np.int32))
+
+
+def affinity_program(peer_plane, cmask, ckind, csel, S: int) -> torch.Tensor:
+    """The device program on int32 bit patterns: (Cpad, Ppad) clause hits
+    (any shared bit), ``ok`` as ANY or NONE by the clause kind, violations
+    summed per selector with ``index_add_`` on int32 → (S, Ppad) bool."""
+    C, P, W = cmask.shape[0], peer_plane.shape[0], peer_plane.shape[1]
+    step = max(1, _AFFINITY_STEP_ELEMS // max(1, C * P))
+    hit = torch.zeros((C, P), dtype=torch.bool, device=peer_plane.device)
+    for w0 in range(0, W, step):
+        w1 = min(W, w0 + step)
+        hit |= ((peer_plane[None, :, w0:w1] & cmask[:, None, w0:w1]) != 0).any(-1)
+    ok = torch.where(ckind[:, None] == 0, hit, ~hit)
+    viol = torch.zeros((S, P), dtype=torch.int32, device=peer_plane.device)
+    viol.index_add_(0, csel.long(), (~ok).to(torch.int32))
+    return viol == 0
+
+
+def affinity_matrix_plain(sel_sigs: tuple, peer_sigs: tuple) -> np.ndarray:
+    """The same algebra in numpy on the same host encoding: the plain twin
+    the tests hold the device program against. No path of the provisioner
+    runs it."""
+    S, P = len(sel_sigs), len(peer_sigs)
+    enc = affinity_planes(sel_sigs, peer_sigs)
+    if enc is None:
+        return np.ones((S, P), bool)
+    peer_plane, cmask, ckind, csel = enc
+    hit = ((peer_plane[None, :, :] & cmask[:, None, :]) != 0).any(-1)
+    ok = np.where(ckind[:, None] == 0, hit, ~hit)
+    viol = np.zeros((S, peer_plane.shape[0]), np.int32)
+    np.add.at(viol, csel, (~ok).astype(np.int32))
+    return (viol == 0)[:, :P]
+
+
+def affinity_matrix(sel_sigs: tuple, peer_sigs: tuple,
+                    device: DeviceLike = None) -> np.ndarray:
+    """(S, P) match matrix of pre-validated selector signatures (the
+    feasibility layer's ``selector_signature`` tuples: only In / NotIn /
+    Exists / DoesNotExist reach here) against peer label signatures,
+    computed on ``device`` (default: the CUDA device; ``"cpu"`` runs the
+    same torch ops on the CPU) and cached per (selectors, peers). The
+    result is read-only."""
+    global AFFINITY_RUNS
+    ckey = (sel_sigs, peer_sigs)
+    with _LOCK:
+        hit = _AFFINITY_MATRIX_CACHE.get(ckey)
+    if hit is not None:
+        return hit
+    dev = resolve_device(device)
+    S, P = len(sel_sigs), len(peer_sigs)
+    enc = affinity_planes(sel_sigs, peer_sigs)
+    if enc is None:
+        # every selector is empty: matches() is True everywhere
+        mat = np.ones((S, P), bool)
+    else:
+        planes_d = to_device_int32(list(enc), dev)
+        out = affinity_program(*planes_d, S)
+        with _LOCK:
+            AFFINITY_RUNS += 1
+        mat = out[:, :P].cpu().numpy()
+    mat = np.asarray(mat, bool)
+    mat.flags.writeable = False
+    with _LOCK:
+        if len(_AFFINITY_MATRIX_CACHE) >= _AFFINITY_MATRIX_CACHE_CAP:
+            _AFFINITY_MATRIX_CACHE.pop(next(iter(_AFFINITY_MATRIX_CACHE)))
+        _AFFINITY_MATRIX_CACHE[ckey] = mat
+    return mat
+
+
+def clear_affinity_cache() -> None:
+    with _LOCK:
+        _AFFINITY_MATRIX_CACHE.clear()

@@ -1,20 +1,21 @@
 """Scheduler: constraint solve — group pods into isomorphic schedules.
 
 Reference: pkg/controllers/provisioning/scheduling/scheduler.go. Topology is
-injected first (as JIT node selectors), then pods group by
-hash(tightened constraints + GPU requests); each group bin-packs
-independently, which is what makes the batch axis of the window's device
-solve embarrassingly parallel.
+injected first (as JIT node selectors), then pod-(anti-)affinity
+(scheduling/affinity.py, its match matrix on the scheduler's device), then
+pods group by hash(tightened constraints + GPU requests + soft-affinity
+votes); each group bin-packs independently, which is what makes the batch
+axis of the window's device solve embarrassingly parallel.
 
 A copy of the JAX package's scheduler on the scalar path it falls back to
 when ``feasibility.compile_constraints`` gives None: ``validate_pod`` and
-``tighten`` per pod (the columnar engine is not ported yet). Pod-affinity
-injection and gang co-pack are not ported yet either, so two kinds of pod
-are **held out** with an explicit reason: a pod with pod-(anti-)affinity
-terms (``_affinity_unsat``) and the members of a complete gang schedule
-(``_gang_unsat``). They stay Pending, are counted in ``held_out`` and are
-named in the window's log line; they are never solved without their
-constraint.
+``tighten`` per pod (the columnar engine is not ported yet). A pod the
+affinity injection proved unsatisfiable (``_affinity_unsat``) fails
+validation and is counted as ``reason=affinity`` in the window's log line.
+Gang co-pack is not ported yet, so the members of a complete gang schedule
+are **held out** (``_gang_unsat``): they stay Pending, are counted in
+``held_out`` and are named in the window's log line; they are never solved
+without their constraint.
 """
 
 from __future__ import annotations
@@ -27,14 +28,15 @@ from karpenter_tpu_torch.api.constraints import Constraints
 from karpenter_tpu_torch.api.core import Pod
 from karpenter_tpu_torch.api.gang import GangSpec, gang_of
 from karpenter_tpu_torch.api.provisioner import Provisioner
+from karpenter_tpu_torch.backend import DeviceLike
 from karpenter_tpu_torch.runtime.kubecore import KubeCore
+from karpenter_tpu_torch.scheduling.affinity import AffinityGroups
 from karpenter_tpu_torch.scheduling.topology import Topology
 from karpenter_tpu_torch.solver import adapter
 from karpenter_tpu_torch.utils import resources as res
 
 log = logging.getLogger("karpenter.scheduler")
 
-HELD_AFFINITY = "pod affinity is not ported: held out, left Pending"
 HELD_GANG = "gang co-pack is not ported: held out, left Pending"
 
 
@@ -48,15 +50,10 @@ class Schedule:
     constraints: Constraints
     pods: List[Pod] = field(default_factory=list)
     gang: Optional[GangSpec] = None
-
-
-def has_pod_affinity(pod: Pod) -> bool:
-    """True when the pod carries any pod-(anti-)affinity term, required or
-    preferred."""
-    a = pod.spec.affinity
-    return a is not None and any(
-        side is not None and (side.required or side.preferred)
-        for side in (a.pod_affinity, a.pod_anti_affinity))
+    # preferred-affinity votes shared by every member ({(key, value):
+    # signed weight}); the soft signature is folded into the group key so
+    # all pods of one schedule carry the SAME votes. None = no preference.
+    soft_affinity: Optional[Dict] = None
 
 
 def _constraints_key(c: Constraints, gpu_requests) -> tuple:
@@ -71,16 +68,23 @@ def _constraints_key(c: Constraints, gpu_requests) -> tuple:
 
 
 class Scheduler:
-    def __init__(self, kube: KubeCore):
+    """``device`` (default: the CUDA device; ``"cpu"`` runs the same torch
+    ops on the CPU) runs the affinity match matrix."""
+
+    def __init__(self, kube: KubeCore, device: DeviceLike = None):
         self.kube = kube
         self.topology = Topology(kube)
+        self.affinity = AffinityGroups(device)
         # pods held out since this scheduler was made, by reason
-        self.held_out: Dict[str, int] = {"affinity": 0, "gang": 0}
+        self.held_out: Dict[str, int] = {"gang": 0}
 
     def solve(self, provisioner: Provisioner, pods: List[Pod]) -> List[Schedule]:
-        """scheduler.go:66-82; gang schedules are held out of the result."""
+        """scheduler.go:66-82. Affinity injects after topology so a pod
+        carrying both a hostname spread and a pod-(anti-)affinity term gets
+        the affinity verdict; gang schedules are held out of the result."""
         constraints = provisioner.spec.constraints.deepcopy()
         self.topology.inject(constraints, pods)
+        self.affinity.inject(constraints, pods)
         return self._get_schedules(constraints, pods)
 
     def _get_schedules(self, constraints: Constraints, pods: List[Pod]) -> List[Schedule]:
@@ -88,7 +92,7 @@ class Scheduler:
         held-out pods aggregate to one summary log line per window (counts
         by reason + up to 5 sample reasons)."""
         schedules: Dict[tuple, Schedule] = {}
-        skipped = topo_skipped = aff_held = gang_skipped = gang_held = 0
+        skipped = topo_skipped = aff_skipped = gang_skipped = gang_held = 0
         samples: List[str] = []
 
         def note(pod: Pod, why: str) -> None:
@@ -104,18 +108,16 @@ class Scheduler:
                 pod.__dict__["_gang_unsat"] = gspec.error
                 note(pod, gspec.error)
                 continue
-            if has_pod_affinity(pod):
-                skipped += 1
-                aff_held += 1
-                pod.__dict__["_affinity_unsat"] = HELD_AFFINITY
-                note(pod, HELD_AFFINITY)
-                continue
             err = constraints.validate_pod(pod)
             if err is not None:
                 skipped += 1
                 if pod.__dict__.get("_topology_unsat"):
                     # topology.inject found no satisfiable spread domain
                     topo_skipped += 1
+                elif pod.__dict__.get("_affinity_unsat"):
+                    # affinity.inject proved the pod's required pod-pod
+                    # constraints unsatisfiable within the window
+                    aff_skipped += 1
                 note(pod, err)
                 continue
             tightened = constraints.tighten(pod)
@@ -124,9 +126,16 @@ class Scheduler:
                 # fold the gang identity into the group key: a gang
                 # schedule holds exactly its members
                 key = key + (gspec.group_part,)
+            soft = pod.__dict__.get("_soft_affinity")
+            if soft:
+                # fold the soft-vote signature in too: scoring prices a
+                # schedule's preference row once, so members must agree
+                key = key + (tuple(sorted(soft.items())),)
             schedule = schedules.get(key)
             if schedule is None:
-                schedule = schedules[key] = Schedule(constraints=tightened, pods=[], gang=gspec)
+                schedule = schedules[key] = Schedule(
+                    constraints=tightened, pods=[], gang=gspec,
+                    soft_affinity=dict(soft) if soft else None)
                 # warm the allowed-sets memo at window assembly: the solver
                 # reads these five sets per schedule
                 adapter.allowed_sets_cached(tightened)
@@ -148,13 +157,12 @@ class Scheduler:
                 pod.__dict__["_gang_unsat"] = why
             if len(samples) < 5:
                 samples.append(f"gang {s.gang.namespace}/{s.gang.name}: {why}")
-        self.held_out["affinity"] += aff_held
         self.held_out["gang"] += gang_held
         if skipped:
             log.info("unable to schedule %d/%d pod(s) in window "
-                     "(reason=topology: %d, reason=gang: %d, held out: "
-                     "pod-affinity %d, gang-copack %d, other: %d): %s",
-                     skipped, len(pods), topo_skipped, gang_skipped, aff_held,
-                     gang_held, skipped - topo_skipped - gang_skipped - aff_held - gang_held,
+                     "(reason=topology: %d, reason=affinity: %d, reason=gang: %d, "
+                     "held out: gang-copack %d, other: %d): %s",
+                     skipped, len(pods), topo_skipped, aff_skipped, gang_skipped,
+                     gang_held, skipped - topo_skipped - aff_skipped - gang_skipped - gang_held,
                      "; ".join(samples))
         return list(schedules.values())

@@ -33,7 +33,7 @@ the launch or the copy is not caught: it propagates out of
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import List, Optional, Sequence
+from typing import List, Mapping, Optional, Sequence
 
 from karpenter_tpu_torch.api.constraints import Constraints
 from karpenter_tpu_torch.api.core import Pod
@@ -43,7 +43,9 @@ from karpenter_tpu_torch.models.ffd import DeviceRun, _decode
 from karpenter_tpu_torch.ops import device_filter
 from karpenter_tpu_torch.ops.encode import encode, pad_encoding
 from karpenter_tpu_torch.solver.adapter import build_packables, marshal_pods
-from karpenter_tpu_torch.solver.policy import DEFAULT_POLICY
+from karpenter_tpu_torch.ops import policy as ops_policy
+from karpenter_tpu_torch.solver import policy as policy_registry
+from karpenter_tpu_torch.solver.policy import soft_zone_adjust, soft_zone_votes
 from karpenter_tpu_torch.solver.solve import (
     SolveResult, SolverConfig, materialize, record_executor, solve_with_packables,
 )
@@ -55,6 +57,10 @@ class Problem:
     pods: Sequence[Pod]
     instance_types: Sequence[InstanceType]
     daemons: Sequence[Pod] = ()
+    # preferred-affinity votes shared by the schedule's pods
+    # ({(topology_key, value): signed weight}); the scoring program prices
+    # the zone-keyed entries (ops/policy.py), everything else is inert here
+    soft_affinity: Optional[Mapping] = None
 
 
 def solve_batch(problems: Sequence[Problem], config: Optional[SolverConfig] = None,
@@ -92,17 +98,26 @@ def dispatch_batch(problems: Sequence[Problem], config: Optional[SolverConfig] =
         prepared[i] = build_packables(prob.instance_types, prob.constraints,
                                       prob.pods, prob.daemons, required=required)
 
+    policy = policy_registry.get(config.packing_policy)
+    # non-default policies imply the in-kernel tie-break: a policy that
+    # never scored would silently behave as cheapest
+    tiebreak = config.cost_tiebreak or policy.always_tiebreak
+
     def problem_prices(i: int) -> Optional[list]:
-        """Problem i's per-packable scores for the in-kernel cost tie-break
-        (the ``cheapest`` policy's host loop), the vector the solo path
-        builds. Fused members price the whole universe axis; the kernel only
-        compares prices of mask-valid types."""
+        """Problem i's per-packable policy scores for the in-kernel cost
+        tie-break, with its soft-affinity adjustment: the per-cell host
+        loop, which a window the scoring program cannot take runs. Fused
+        members price the whole universe axis; the kernel only compares
+        prices of mask-valid types."""
         packables, sorted_types = ((fused.packables, fused.uni_types) if i in fused_set
                                    else prepared[i])
         if not (packables and any(it.price for it in sorted_types)):
             return None
+        votes = soft_zone_votes(problems[i].soft_affinity)
         reqs = problems[i].constraints.requirements
-        return [DEFAULT_POLICY.score(sorted_types[p.index], reqs, config.cost_config)[0]
+        ctx = config.policy_context
+        return [policy.score(sorted_types[p.index], reqs, config.cost_config, ctx)[0]
+                + soft_zone_adjust(sorted_types[p.index], reqs, votes, ctx)
                 for p in packables]
 
     batch_idx: List[int] = []
@@ -126,8 +141,17 @@ def dispatch_batch(problems: Sequence[Problem], config: Optional[SolverConfig] =
 
     run = None
     if len(batch_idx) >= 2:
-        prices_list = ([problem_prices(i) for i in batch_idx] if config.cost_tiebreak
-                       else [None] * len(batch_idx))
+        prices_list = [None] * len(batch_idx)
+        if tiebreak:
+            # a fused window over a priced catalog is scored in one program
+            # (ops/policy.py) and rides the prices seam as pre-encoded int32
+            # rows; any other window pays the per-cell host loop
+            scored = None
+            if fused is not None and any(it.price for it in fused.uni_types):
+                scored = ops_policy.score_fused_window(
+                    fused, policy, config.cost_config, config.policy_context)
+            prices_list = (scored[0] if scored is not None
+                           else [problem_prices(i) for i in batch_idx])
         mask = (fused.mask_d, fused.last_valid_d) if fused is not None else None
         run = DeviceRun(encs, prices_list, config.chunk_iters, dev, mask=mask)
         run.launch()

@@ -25,7 +25,8 @@ from karpenter_tpu_torch.models.ffd import solve_ffd_device
 from karpenter_tpu_torch.ops.encode import encode
 from karpenter_tpu_torch.solver import host_ffd
 from karpenter_tpu_torch.solver.adapter import build_packables, marshal_pods
-from karpenter_tpu_torch.solver.policy import DEFAULT_POLICY
+from karpenter_tpu_torch.solver import policy as policy_registry
+from karpenter_tpu_torch.solver.policy import PolicyContext
 
 # -- solver health: which executor answered, and how often -------------------
 _HEALTH_LOCK = threading.Lock()
@@ -69,6 +70,16 @@ class SolverConfig:
     # pick the cheapest instead of Go's first-smallest. Changes which node
     # set is produced, so it is off by default (parity mode).
     cost_tiebreak: bool = False
+    # packing policy (solver/policy.py registry): which score orders each
+    # node's type options and feeds the in-kernel tie-break. "cheapest"
+    # (the default) delegates to models/cost.py; non-default policies imply
+    # the tie-break (always_tiebreak), since a policy that never scored
+    # would silently be cheapest
+    packing_policy: str = "cheapest"
+    # pricing context for non-default policies: the what-if engine's repack
+    # cost (interruption-priced), the throughput table
+    # (throughput-per-dollar) and the soft-affinity weight price
+    policy_context: PolicyContext = field(default_factory=PolicyContext)
     # the provisioning controller's window backend: "global" solves each
     # window's relaxation beside dispatch_batch and takes a schedule's
     # rounded plan only where it is strictly cheaper in exact int micro-$
@@ -161,11 +172,15 @@ def solve_with_packables(
         return SolveResult(packings=[], unschedulable=list(pods))
 
     pod_ids = list(range(len(pods)))
+    # per-packable policy score ($/h-shaped, lower wins) for the in-kernel
+    # cost tie-break; the default policy's score IS effective_price
+    policy = policy_registry.get(config.packing_policy)
     prices = None
-    if config.cost_tiebreak and any(it.price for it in sorted_types):
+    if (config.cost_tiebreak or policy.always_tiebreak) and \
+            any(it.price for it in sorted_types):
         prices = [
-            DEFAULT_POLICY.score(sorted_types[p.index], constraints.requirements,
-                                 config.cost_config)[0]
+            policy.score(sorted_types[p.index], constraints.requirements,
+                         config.cost_config, config.policy_context)[0]
             for p in packables
         ]
 
@@ -200,10 +215,11 @@ def materialize(result, pods, sorted_types, constraints: Constraints,
         for hp in result.packings
     ]
     if any(it.price for it in sorted_types):
+        policy = policy_registry.get(config.packing_policy)
         for p in packings:
-            p.instance_type_options = DEFAULT_POLICY.order_options(
+            p.instance_type_options = policy.order_options(
                 p.instance_type_options, constraints.requirements,
-                config.cost_config)
+                config.cost_config, config.policy_context)
     return SolveResult(
         packings=packings,
         unschedulable=[pods[i] for i in result.unschedulable],

@@ -27,14 +27,22 @@ versions on the CPU. The windows:
   ``global_errors == 1`` and no ``"device-global"`` executor;
 - (e) the pressure monitor held at level 1: the window split into chunks,
   the FFD backend although ``"global"`` is configured, binds equal to the
-  JAX package's under the same level.
+  JAX package's under the same level;
+- (f) a pod-(anti-)affinity window: replicas with required hostname
+  anti-affinity, cohorts with required zone affinity to a pinned anchor,
+  cohorts with a preferred zone affinity (steered at launch), an
+  unsatisfiable pod and a lonely term, at depth 1 and 2, under the
+  default and the interruption-priced policy. Binds carry the node's zone
+  and capacity type here; hostname domains are random in both packages,
+  so the binds compare as partitions of pod names (never as hostnames).
 
 **Alone**, through the port's ``ProvisioningController`` and
 ``SelectionController`` as tests/test_provisioning.py drives the JAX
 package's, with worker threads: nodes provisioned, pods grouped, daemon
 sets, zone selectors, taints, deleted pods, limits, first match, status
 conditions, bind errors, both deployment shapes, and the pods the port's
-scheduler holds out (pod affinity, complete gangs). Every test stops every
+scheduler sheds (an unsatisfiable affinity term) or holds out (complete
+gangs). Every test stops every
 worker it made; the process-wide state both packages keep (the support
 controllers, the JAX watchdog, the pressure monitors, the executor counts)
 is reset before and after each test.
@@ -257,9 +265,12 @@ def priced_window(pkg: Pkg):
 
 # -- one worker pass -------------------------------------------------------------
 
-def run_worker(pkg: Pkg, window, backend="ffd", depth=1, chunk_items=0, monitor=None):
-    """One worker pass over ``window`` = (catalog, pods); returns the binds
-    (instance type, sorted pod names) in call order, and the worker."""
+def run_worker(pkg: Pkg, window, backend="ffd", depth=1, chunk_items=0, monitor=None,
+               policy="cheapest", zones=False):
+    """One worker pass over ``window`` = (catalog, pods) under packing
+    ``policy``; returns the binds (instance type, sorted pod names; with
+    ``zones`` also the node's zone and capacity type) in call order, and
+    the worker."""
     catalog, pods = window
     kube = pkg.kube.KubeCore()
     provider = pkg.fake.FakeCloudProvider(catalog=catalog)
@@ -274,18 +285,25 @@ def run_worker(pkg: Pkg, window, backend="ffd", depth=1, chunk_items=0, monitor=
     if pkg.name == "jax":
         worker = jax_prov.ProvisionerWorker(
             provisioner, kube, provider, batcher=batcher, pipeline_config=pipeline_config,
-            solver_config=jax_solve_mod.SolverConfig(window_backend=backend, device_min_pods=1))
+            solver_config=jax_solve_mod.SolverConfig(window_backend=backend, device_min_pods=1,
+                                                     packing_policy=policy))
     else:
         worker = port_prov.ProvisionerWorker(
             provisioner, kube, provider, batcher=batcher, pipeline_config=pipeline_config,
-            solver_config=port_solve_mod.SolverConfig(window_backend=backend), device="cpu")
+            solver_config=port_solve_mod.SolverConfig(window_backend=backend,
+                                                      packing_policy=policy), device="cpu")
     binds = []
     orig_bind = worker._bind
     label = pkg.wellknown.LABEL_INSTANCE_TYPE
 
+    wk = pkg.wellknown
+
     def recording_bind(node, node_pods):
-        binds.append((node.metadata.labels[label],
-                      tuple(sorted(p.metadata.name for p in node_pods))))
+        record = (node.metadata.labels[label], tuple(sorted(p.metadata.name for p in node_pods)))
+        if zones:
+            record += (node.metadata.labels[wk.LABEL_TOPOLOGY_ZONE],
+                       node.metadata.labels[wk.LABEL_CAPACITY_TYPE])
+        binds.append(record)
         return orig_bind(node, node_pods)
 
     worker._bind = recording_bind
@@ -296,7 +314,7 @@ def run_worker(pkg: Pkg, window, backend="ffd", depth=1, chunk_items=0, monitor=
         worker.provision()
     finally:
         worker.stop()
-    bound = [n for _, group in binds for n in group]
+    bound = [n for bind in binds for n in bind[1]]
     assert len(bound) == len(set(bound)), "a pod was bound twice"
     return binds, worker
 
@@ -422,6 +440,89 @@ def test_pressure_level_1_splits_and_takes_ffd(global_handles):
     assert worker.last_window["pressure_level"] == 1
     assert global_handles == {"jax": [], "port": []}
     assert "device-global" not in port_solve_mod.solver_health()["executor_counts"]
+
+
+def pod_affinity_pod(pkg: Pkg, name, labels, cpu="500m", mem="512Mi", aff=(), anti=(),
+                     preferred=(), zone=None):
+    """A pending pod with required pod-(anti-)affinity terms ``aff`` /
+    ``anti`` and ``preferred`` (weight, term) pairs, each term a (topology
+    key, match_labels) pair; ``zone`` pins it by node selector."""
+    c = pkg.core
+
+    def term(key, ml):
+        return c.PodAffinityTerm(topology_key=key,
+                                 label_selector=c.LabelSelector(match_labels=dict(ml)))
+
+    p = affinity_pod(pkg, name, cpu, mem, [])
+    p.metadata.labels = dict(labels)
+    if zone:
+        p.spec.node_selector = {pkg.wellknown.LABEL_TOPOLOGY_ZONE: zone}
+    if aff or anti or preferred:
+        p.spec.affinity = c.Affinity(
+            pod_affinity=c.PodAffinity(
+                required=[term(*t) for t in aff],
+                preferred=[c.WeightedPodAffinityTerm(weight=w, term=term(*t))
+                           for w, t in preferred]) if aff or preferred else None,
+            pod_anti_affinity=c.PodAffinity(required=[term(*t) for t in anti]) if anti else None)
+    return p
+
+
+def pod_affinity_window(pkg: Pkg, seed, cohorts=3, per=6, replicas=12):
+    """config12_catalog with (a) ``replicas`` app=cache pods with required
+    hostname anti-affinity against app=cache; (b) ``cohorts`` cohorts of
+    ``per`` app=web-k pods with required zone affinity to app=db-k, whose
+    2 anchors are pinned to a zone; (c) as many cohorts with a preferred
+    zone affinity (weight 50) to the same anchors; (d) a pod whose
+    affinity and anti-affinity conflict inside its component; (e) a pod
+    with a lonely required term; shuffled by ``seed``."""
+    wk = pkg.wellknown
+    host, zone = wk.LABEL_HOSTNAME, wk.LABEL_TOPOLOGY_ZONE
+    pods = [pod_affinity_pod(pkg, f"cache-{i:02d}", {"app": "cache"}, cpu="1500m", mem="2Gi",
+                             anti=[(host, {"app": "cache"})]) for i in range(replicas)]
+    for k in range(cohorts):
+        db, z = {"app": f"db-{k}"}, ZONES[k % len(ZONES)]
+        pods += [pod_affinity_pod(pkg, f"db-{k}-{j}", db, zone=z) for j in range(2)]
+        pods += [pod_affinity_pod(pkg, f"web-{k}-{j}", {"app": f"web-{k}"}, aff=[(zone, db)])
+                 for j in range(per)]
+        pods += [pod_affinity_pod(pkg, f"soft-{k}-{j}", {"app": f"soft-{k}"},
+                                  preferred=[(50, (zone, db))]) for j in range(per)]
+    pods.append(pod_affinity_pod(pkg, "conflict", {"app": "solo"},
+                                 aff=[(host, {"app": "solo"})], anti=[(host, {"app": "solo"})]))
+    pods.append(pod_affinity_pod(pkg, "partner", {"app": "solo"}, aff=[(host, {"app": "solo"})]))
+    pods.append(pod_affinity_pod(pkg, "lonely", {"app": "x"}, aff=[(zone, {"app": "nobody"})]))
+    random.Random(seed).shuffle(pods)
+    return config12_catalog(pkg), pods
+
+
+@pytest.mark.parametrize("policy", ["cheapest", "interruption-priced"])
+@pytest.mark.parametrize("depth", [1, 2])
+def test_pod_affinity_window_binds_as_the_jax_controller(depth, policy):
+    """(f): the same binds (zone and capacity type included) as the JAX
+    controller; the cache replicas on distinct nodes, every required and
+    preferred cohort in its anchor's zone, the unsatisfiable pods left
+    out."""
+    chunk_items = 0 if depth == 1 else 40
+    want, _ = run_worker(JAX, pod_affinity_window(JAX, depth), depth=depth,
+                         chunk_items=chunk_items, policy=policy, zones=True)
+    got, worker = run_worker(PORT, pod_affinity_window(PORT, depth), depth=depth,
+                             chunk_items=chunk_items, policy=policy, zones=True)
+    assert got == want
+    node_of_pod = {n: (i, b[2]) for i, b in enumerate(got) for n in b[1]}
+    assert {"conflict", "partner", "lonely"}.isdisjoint(node_of_pod)
+    caches = [node_of_pod[n][0] for n in node_of_pod if n.startswith("cache-")]
+    assert len(set(caches)) == len(caches)
+    if chunk_items == 0:
+        # one chunk holds every cohort with its anchors (in chunks of 40 a
+        # follower without its anchor in the chunk is a lonely term in both
+        # packages)
+        assert len(node_of_pod) == 12 + 3 * (2 + 6 + 6)
+        for k in range(3):
+            anchor = {node_of_pod[f"db-{k}-{j}"][1] for j in range(2)}
+            assert anchor == {ZONES[k]}
+            for j in range(6):
+                assert node_of_pod[f"web-{k}-{j}"][1] == ZONES[k]
+                assert node_of_pod[f"soft-{k}-{j}"][1] == ZONES[k]
+    assert worker.scheduler.held_out == {"gang": 0}
 
 
 # -- the port alone, through the controllers ----------------------------------------
@@ -751,10 +852,59 @@ def test_already_bound_pod_is_success():
     assert kube.get("Pod", "bound-once").spec.node_name == "elsewhere"
 
 
-def test_affinity_and_gang_pods_are_held_out(env):
-    """Pod affinity and gang co-pack are not ported: a pod with a
-    pod-affinity term and the members of a complete gang stay Pending with
-    their reason and are counted; a plain pod in the same window binds."""
+@pytest.mark.parametrize("case", ["cheapest", "pinned", "unpinned"])
+def test_chunk_solver_config_prices_the_repack(case):
+    """Only interruption-priced with no pinned repack price prices the
+    chunk: with no ready node to refit on, the cheapest on-demand price of
+    the chunk's catalog; the throughput table rides along."""
+    from karpenter_tpu_torch.solver.policy import PolicyContext
+
+    catalog = config12_catalog(PORT)
+    policy = "cheapest" if case == "cheapest" else "interruption-priced"
+    ctx = PolicyContext(repack_cost_per_hour=1.5 if case == "pinned" else 0.0,
+                        throughput={"t00-1x2": 2.0})
+    worker = port_prov.ProvisionerWorker(
+        make_provisioner(constraints=PORT.universe(catalog)), port_kube.KubeCore(),
+        port_fake.FakeCloudProvider(catalog=catalog), device="cpu",
+        solver_config=port_solve_mod.SolverConfig(packing_policy=policy, policy_context=ctx))
+    prep = worker._prepare_chunk([affinity_pod(PORT, f"p{i}", "500m", "512Mi", [])
+                                  for i in range(3)])
+    if case != "unpinned":
+        assert prep.solver_config is None
+        return
+    cfg = prep.solver_config
+    assert cfg.policy_context.repack_cost_per_hour == min(it.price for it in catalog)
+    assert dict(cfg.policy_context.throughput) == {"t00-1x2": 2.0}
+    assert cfg.packing_policy == "interruption-priced"
+
+
+def test_steer_narrows_a_copy_to_the_voted_zone():
+    """A schedule with zone votes launches in the voted zone, on a copy of
+    its constraints; without votes the schedule's own constraints go to
+    the launch."""
+    from karpenter_tpu_torch.scheduling.scheduler import Schedule
+    from karpenter_tpu_torch.solver.solve import Packing
+
+    catalog = config12_catalog(PORT)
+    worker = bind_worker(port_kube.KubeCore())
+    constraints = PORT.universe(catalog)
+    packing = Packing(pods=[[]], instance_type_options=catalog[:3])
+    plain = Schedule(constraints=constraints)
+    assert worker._steer(plain, packing) is constraints
+    zone = port_wellknown.LABEL_TOPOLOGY_ZONE
+    voted = Schedule(constraints=constraints, soft_affinity={(zone, "z2"): 50})
+    steered = worker._steer(voted, packing)
+    assert steered is not constraints
+    assert steered.requirements.zones() == {"z2"}
+    assert constraints.requirements.zones() == set(ZONES)
+
+
+def test_affinity_and_gang_pods_are_held_out(env, caplog):
+    """A pod with a lonely required zone-affinity term is proven
+    unsatisfiable by the affinity injection (the JAX package's rule): it
+    stays Pending with ``_affinity_unsat`` and is counted as
+    ``reason=affinity``; the members of a complete gang are still held
+    out; a plain pod in the same window binds."""
     kube, provider, provisioning, selection = env
     setup_provisioner(kube, provisioning)
     c, wk = port_core, port_wellknown
@@ -774,14 +924,16 @@ def test_affinity_and_gang_pods_are_held_out(env):
         return prep
 
     worker._prepare_chunk = recording_prepare
-    expect_provisioned(kube, selection, provisioning, [affine, *gang, plain])
+    with caplog.at_level("INFO", logger="karpenter.scheduler"):
+        expect_provisioned(kube, selection, provisioning, [affine, *gang, plain])
     assert node_of(kube, plain) != ""
     for pod in [affine, *gang]:
         assert node_of(kube, pod) == ""
-    assert worker.scheduler.held_out == {"affinity": 1, "gang": 2}
+    assert worker.scheduler.held_out == {"gang": 2}
     marks = {p.metadata.name: p.__dict__ for p in seen}
-    assert "not ported" in marks[affine.metadata.name]["_affinity_unsat"]
+    assert marks[affine.metadata.name]["_affinity_unsat"] is True
     assert all("not ported" in marks[p.metadata.name]["_gang_unsat"] for p in gang)
+    assert any("reason=affinity: 1," in r.getMessage() for r in caplog.records)
     assert len(provider.created) == 1
 
 
