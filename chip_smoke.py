@@ -2,8 +2,9 @@
 """Chip smoke for the PyTorch/CUDA port: build the kernels, hold each against
 its plain version, and drive the public solve(), the batched window, the
 provisioning controller, the global window backend, node removal
-(consolidation, termination, emptiness), pod-(anti-)affinity and the
-packing policies at full size on one card.
+(consolidation, termination, emptiness), pod-(anti-)affinity, the
+packing policies, gangs, torus carving and preemption at full size on
+one card.
 
     python3 chip_smoke.py
 
@@ -123,10 +124,34 @@ nvcc each, both at once). Phases, each printing one JSON record:
    two unsatisfiable cases through the controller, under cheapest and
    interruption-priced, and the affinity pods alone on the card against
    the CPU (phase_controller_affinity);
-17. the device-programs line (B7, B8, B5, B6), the kernels line (pack_chunk,
-   pack_batch with the price-row launch beside it, and whatif_scan;
-   whatif_scan's times from the deprovision window 0, the shape the main
-   path gives it), the card line, and the final ok line.
+17. gang_fuzz (B10): gang windows through dispatch_gang_window on the
+   card (a one-member gang, a 4,096-member gang, all-incompatible rows,
+   runs of identical members, padded rows, slices with and without seed
+   bins, a gang that fails then places, BB = 8,192 on the global kernel)
+   against whatif_scan_plain bit for bit and host_gang, and padded gang
+   tensors through gang_scan (phase_gang_fuzz);
+18. carve_fuzz (B11 and the member column): the carve program against
+   host_carve on every cell up to 256 gangs × 1,024 bins, at 1,024 ×
+   4,096 against a numpy evaluation per (slice class, bin) and 4,096
+   cells of scalar_carve_cell, 0 heals; the program and the member
+   column timed (phase_carve_fuzz);
+19. gang_window: config_11's window (256 gangs over 100 types) and the
+   full-width window (1,024 gangs × 16 members × 4,096 bins), the kernel
+   against its plain version and host_gang, the card-filtered plan equal
+   to the plain host plan, their times (phase_gang_window);
+20. carve_window: config_16's legs with their gates (phase_carve_window);
+21. controller_gang: 144 gangs (96 slice gangs of three shapes, 48 plain)
+   and 4,096 pods through the controller on tpu_catalog(), a second wave
+   on the carved nodes, high-band gangs preempting low-band ones, a
+   carved node terminated; each gang window's answer against
+   whatif_scan_plain on the tensors it launched (phase_controller_gang);
+22. the device-programs line (B7, B8, B5, B6, B11, the member column), the
+   kernels line (pack_chunk, pack_batch with the price-row launch beside
+   it, whatif_scan with its times from the deprovision window 0, the shape
+   the main path gives it, and whatif_scan for gang co-pack with its times
+   from the full-width gang window and config_11's and the controller
+   window's shapes beside them), the card line, and
+   the final ok line.
 
 Any failed check exits non-zero.
 
@@ -986,14 +1011,16 @@ def numpy_result(prob):
 def reset_counts():
     from karpenter_tpu_torch.ops import device_filter, pack_cuda, whatif_cuda
     from karpenter_tpu_torch.ops import policy as ops_policy
-    from karpenter_tpu_torch.solver import global_solve
+    from karpenter_tpu_torch.solver import global_solve, topology
     from karpenter_tpu_torch.solver.solve import reset_executor_counts
 
     pack_cuda.LAUNCHES = 0
     pack_cuda.BATCH_LAUNCHES = 0
     whatif_cuda.LAUNCHES = 0
     global_solve.RUNS = 0
+    topology.RUNS = 0
     device_filter.AFFINITY_RUNS = 0
+    device_filter.GANG_COLUMN_RUNS = 0
     ops_policy.RUNS = 0
     reset_executor_counts()
     device_filter.reset_fallback_counts()
@@ -1407,7 +1434,7 @@ class ControllerRun:
             "pack_chunk_launches": pack_cuda.LAUNCHES,
             "launches_per_chunk": (pack_cuda.BATCH_LAUNCHES + pack_cuda.LAUNCHES) / max(1, len(chunks)),
             "executor_counts": executor_counts(), "global_errors": self.worker.global_errors,
-            "held_out": dict(self.worker.scheduler.held_out)}
+            "gang_windows": sum(1 for c in chunks if c["gang"])}
 
     def stop(self):
         from karpenter_tpu_torch.pressure import set_monitor
@@ -2461,6 +2488,25 @@ def median_event_ms(fn, runs):
     return p50(times)
 
 
+def queued_event_ms(fn, runs, sleep_cycles=50_000_000):
+    """Device ms a call of ``fn``, by CUDA events around ``runs`` calls
+    enqueued behind a spin kernel (``torch.cuda._sleep``): the calls are
+    queued before the card reaches them, so the host's work between them
+    leaves no gap. No profiler."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(sleep_cycles)
+    start.record()
+    for _ in range(runs):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / runs
+
+
 def whatif_kernel_record(enc, device, runs):
     """The window's tensors through the kernel and the plain version: the
     difference (0 when bit for bit), the kernel's median CUDA-event ms over
@@ -2558,23 +2604,34 @@ def config5_window():
         reschedulable_pods(pods_by[f"cand-{i}"])[0] for i in range(WHATIF_W)])
 
 
-def profiled_kernel_ms(fn, runs, key):
+def profiled_kernel_ms(fn, runs, key, attempts=5, per_call=1):
     """``runs`` calls of ``fn`` under torch.profiler: the mean device time of
-    the kernels whose name holds ``key`` and their count; (None, 0) where
-    the profiler saw none."""
+    the kernels whose name holds ``key`` and their count. A first profiled
+    call is made and dropped, as in device_launches. Late in the whole
+    script a session can miss kernels of the calls it profiles, so a
+    session that saw other than ``runs × per_call`` of them is taken again,
+    up to ``attempts`` sessions; (None, the last session's count) where
+    none saw them all."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(runs):
-            fn()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        fn()
         torch.cuda.synchronize()
-    spans = [e.time_range.end - e.time_range.start for e in prof.events()
-             if e.device_type == DeviceType.CUDA and key in e.name]
-    return (sum(spans) / len(spans) / 1e3 if spans else None), len(spans)
+    spans = []
+    for _ in range(attempts):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(runs):
+                fn()
+            torch.cuda.synchronize()
+        spans = [e.time_range.end - e.time_range.start for e in prof.events()
+                 if e.device_type == DeviceType.CUDA and key in e.name]
+        if len(spans) == runs * per_call:
+            return sum(spans) / len(spans) / 1e3, len(spans)
+    return None, len(spans)
 
 
 def phase_whatif_times(device):
@@ -3620,7 +3677,7 @@ def phase_controller_affinity(device):
     config_12's (group 15's ENI pods aside) bound exactly once; the 128
     cache replicas on 128 distinct nodes; every (b) and (c) cohort in its
     anchor's zone; (d), its partner and (e) Pending, counted as
-    reason=affinity; no affinity arm in held_out; pressure level 0; the
+    reason=affinity; no gang window; pressure level 0; the
     match program and the batched kernel launched in the window (and the
     scoring program under interruption-priced). Then (a)-(e) alone through
     the port on the card and on the CPU: the same nodes (type, zone,
@@ -3668,7 +3725,7 @@ def phase_controller_affinity(device):
                 check(got == {z}, f"{what}: cohort {kind}-{k} in zones {got}, anchor {z}")
         check(log_lines.affinity() == len(AFFINITY_UNSAT),
               f"{what}: {log_lines.affinity()} pods counted reason=affinity")
-        check(rec["held_out"] == {"gang": 0}, f"{what}: held out {rec['held_out']}")
+        check(rec["gang_windows"] == 0, f"{what}: {rec['gang_windows']} gang windows")
         check(rec["pressure_level"] == 0, f"{what}: pressure level {rec['pressure_level']}")
         check(programs["affinity"] >= 1 and programs["pack_batch"] >= 1
               and (programs["policy"] >= 1) == (policy != "cheapest"),
@@ -3689,6 +3746,1034 @@ def phase_controller_affinity(device):
                         "unschedulable_eni": len(eni), "affinity_unsat": len(AFFINITY_UNSAT),
                         "alone_nodes": sum(alone[0].values()), "card_equals_cpu": True}
     rec = {"phase": "controller_affinity", "runs": runs,
+           "seconds": time.perf_counter() - t_phase}
+    emit(rec)
+    return rec
+
+
+# -- gangs, torus carving and preemption (B10, B11, B4's rest) ----------------
+
+# gang fuzz windows encoded by encode_gang_window: (kind, gangs, members);
+# each is checked on the card against whatif_scan_plain bit for bit and
+# against host_gang
+GANG_FUZZ = [("one", 1, 1), ("max", 1, 4096), ("mixed", 40, 6), ("incompat", 24, 5),
+             ("replicas", 32, 12), ("padded", 5, 7), ("carve", 48, 8), ("seeded", 16, 4),
+             ("fail_then_place", 8, 3), ("wide", 65, 64), ("mixed", 300, 3),
+             ("carve", 200, 16)]
+# padded tensors in the gang ABI (GB, KB, BB): gang 0 fails then places
+GANG_TENSOR_FUZZ = [(8, 4, 16), (64, 16, 512), (16, 32, 4096), (32, 8, 8192)]
+# the fuzz's three member-sized types (cpu, memory Gi, pods, price)
+GANG_TYPES = [("gf-4", 4, 8, 16, 1.0), ("gf-16", 16, 32, 64, 3.0), ("gf-64", 64, 256, 110, 10.0)]
+# the full-width window: 1,024 gangs of 16 members, four to a node
+GANG_FULL_G, GANG_FULL_K = 1024, 16
+# carve_fuzz: (gangs, bins) checked on every cell against host_carve, then
+# the window checked against a numpy evaluation per (slice class, bin) and
+# CARVE_PROBE_CELLS cells of scalar_carve_cell
+CARVE_FUZZ = [(4, 8), (16, 64), (64, 256), (256, 1024)]
+CARVE_FULL = (1024, 4096)
+CARVE_PROBE_CELLS = 4096
+CARVE_GRIDS = [(4, 4), (4, 8), (2, 2, 4), (8, 8), None]
+CARVE_SLICES = [(2, 2), (2, 4), (4, 4), (2, 2, 2), (1, 4), (4, 8), None]
+# controller_gang: slice gangs per shape with their members, plain gangs,
+# plain pods (over three zones), the second wave, the preemption windows
+CG_SLICES = [("v5e-2x4", 8), ("v5e-4x4", 16), ("v4-2x2x2", 8)]
+CG_PER_SHAPE, CG_PLAIN_GANGS, CG_PLAIN_PODS = 32, 48, 4096
+CG_WAVE2, CG_PREEMPT_WINDOWS = 32, 4
+
+
+def gang_catalog(types=GANG_TYPES):
+    """Types of (name, cpu, memory Gi, pods, price[, TPU topology])."""
+    from karpenter_tpu_torch.cloudprovider.spi import make_instance_type
+
+    return [make_instance_type(t[0], cpu=str(t[1]), memory=f"{t[2]}Gi", pods=str(t[3]),
+                               price=t[4], tpu_topology=t[5] if len(t) > 5 else "")
+            for t in types]
+
+
+def gang_window_encoding(catalog, gangs, **kwargs):
+    """encode_gang_window over ``catalog``'s packables (type total minus
+    overhead, as the controller takes them) for ``gangs`` = (key, pods,
+    type mask or None for every type); with ``slices`` the types' torus
+    grids go with them, in the packables' order."""
+    import numpy as np
+
+    from karpenter_tpu_torch.ops.gang import encode_gang_window
+    from karpenter_tpu_torch.solver.adapter import build_packables
+    from karpenter_tpu_torch.solver.solve import universe_constraints
+
+    pods = [p for _, ps, _ in gangs for p in ps]
+    packables, types = build_packables(catalog, universe_constraints(catalog), pods, ())
+    frees = [[t - r for t, r in zip(pk.total, pk.reserved)] for pk in packables]
+    window = [(key, ps, np.ones(len(types), bool) if mask is None else mask, None)
+              for key, ps, mask in gangs]
+    if "slices" in kwargs:
+        kwargs["type_grids"] = [it.grid_dims() for it in types]
+    return encode_gang_window(window, frees, [it.price for it in types],
+                              [it.name for it in types], **kwargs)
+
+
+def gang_fuzz_encoding(rng, kind, G, K):
+    """One GANG_FUZZ window. Members are drawn in millicores and MiB;
+    ``incompat`` zeroes some gangs' compat rows (host and device alike),
+    ``replicas`` gives each gang one member shape, ``carve`` declares
+    slices on TPU grids, ``seeded`` adds fragmented seed bins,
+    ``fail_then_place`` seeds bins where a gang's first member fits nowhere
+    and its second does (no fresh growth), ``wide`` needs 64 bins a gang
+    (BB = 8192, the global kernel)."""
+    from karpenter_tpu_torch.ops.gang import GangBin
+    from karpenter_tpu_torch.ops.whatif import _reserve_vec
+
+    catalog = gang_catalog()
+    kwargs = {}
+
+    def member(i):
+        if kind == "max":
+            return _pod(100, 128)
+        if kind == "wide":
+            return _pod(3500, 4096)
+        return _pod(int(rng.integers(100, 3000)), int(rng.integers(128, 6000)))
+
+    gangs = []
+    for g in range(G):
+        size = K if kind in ("max", "wide", "replicas", "one") else int(rng.integers(1, K + 1))
+        pods = [member(i) for i in range(size)]
+        if kind == "replicas":
+            shape = (int(rng.integers(100, 3000)), int(rng.integers(128, 6000)))
+            pods = [_pod(*shape) for _ in range(size)]
+        for i, p in enumerate(pods):
+            p.metadata.name = f"gf-{kind}-{g}-m{i}"
+        mask = None
+        if kind in ("mixed", "incompat"):
+            mask = rng.random(len(catalog)) < 0.7
+            mask[-1] = True
+        gangs.append((("gf", f"{kind}-{g}"), pods, mask))
+    if kind in ("carve", "seeded"):
+        # the 4x4 type sorts first (fewest cpus): seed bins are its
+        catalog = gang_catalog([("gf-v5e-4x4", 32, 64, 32, 4.0, "v5e-4x4"),
+                                ("gf-v5e-4x8", 64, 128, 64, 8.0, "v5e-4x8"),
+                                ("gf-v4", 64, 96, 64, 6.0, "v4-2x2x4")])
+        slices = [[(2, 2), (2, 4), (4, 4), (1, 2), None][int(rng.integers(0, 5))]
+                  for _ in range(G)]
+        kwargs.update(slices=slices, bands=["default"] * G)
+    if kind == "seeded":
+        unit = _reserve_vec(_pod(1000, 1024))
+        kwargs["seed_bins"] = [GangBin(
+            name=f"seed-{j}", type_index=0, free=[v * 20 for v in unit], grid=(4, 4),
+            occ=rng.random(16) < [0.0, 0.3, 0.6][j % 3], node_name=f"seed-{j}")
+            for j in range(12)]
+    if kind == "fail_then_place":
+        unit = _reserve_vec(_pod(1000, 1024))
+        kwargs.update(grow=False, seed_bins=[GangBin(
+            name=f"seed-{j}", type_index=0, free=[v * (2 + j) for v in unit],
+            node_name=f"seed-{j}") for j in range(4)])
+        for g, (_, pods, _) in enumerate(gangs):
+            pods[:] = [_pod(9000, 1024), _pod(1000, 1024)] + pods[2:]
+            for i, p in enumerate(pods):
+                p.metadata.name = f"gf-ftp-{g}-m{i}"
+    enc = gang_window_encoding(catalog, gangs, **kwargs)
+    if kind == "incompat":
+        dead = rng.random(enc.g) < 0.3
+        enc.compat[dead] = False
+        enc.d_compat[:enc.g][dead] = False
+    return enc
+
+
+def check_gang_host(enc, feas, slots, what):
+    """feasible equal to host_gang's (on the carve verdict of host_carve),
+    the slots on feasible rows too; returns host_gang's seconds."""
+    import numpy as np
+
+    from karpenter_tpu_torch.ops.gang import host_gang
+    from karpenter_tpu_torch.ops.topology import host_carve
+
+    t0 = time.perf_counter()
+    host_feas, host_slots = host_gang(enc, host_carve(enc.carve) if enc.carve else None)
+    seconds = time.perf_counter() - t0
+    check(np.array_equal(feas, host_feas), f"{what}: feasible != host_gang")
+    check(np.array_equal(slots[feas], host_slots[feas]), f"{what}: slots != host_gang on "
+          "feasible rows")
+    return seconds
+
+
+def gang_bound(enc, compat, slots):
+    """Least time for one gang window, as this run's data needs it: first
+    fit stops at the bin a member took, or tests every bin when the member
+    fit nowhere. A gang reaches the furthest bin one of its members tests.
+    Bytes: each valid member's vector (R int32), valid flag and slot; each
+    gang's compat row up to its reach (a byte a bin) and its verdict; the
+    free0 rows of the bins some gang reaches that are compatible with it,
+    read once. Operations: each valid member tests R compares and the
+    compat bit on the compatible bins up to the one it took. ``compat`` is
+    the (GB, BB) rows the kernel read (the carve verdict ANDed in),
+    ``slots`` its answer."""
+    import numpy as np
+
+    R = enc.d_pods.shape[2]
+    live = compat[:enc.g, :enc.b]
+    upto = np.cumsum(live, axis=1)                        # compatible bins <= b
+    reach = np.full(enc.g, -1)
+    members = tested = 0
+    for e in enc.gangs:
+        row, k = upto[e.index], len(e.vecs)
+        s = slots[e.index, :k]
+        members += k
+        tested += int(np.where(s >= 0, row[np.clip(s, 0, enc.b - 1)], row[-1]).sum())
+        if k:
+            reach[e.index] = enc.b - 1 if (s < 0).any() else int(s.max())
+    rows = int((live & (np.arange(enc.b)[None, :] <= reach[:, None])).any(0).sum())
+    nbytes = members * (R * 4 + 1 + 4) + int((reach + 1).sum()) + enc.g + rows * R * 4
+    ops = tested * (R + 1)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / OPS_PER_S
+    return {"bytes": nbytes, "ops": ops, "free0_rows": rows, "max_reach": int(reach.max()),
+            "bound_ms": max(t_bytes, t_ops) * 1e3,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def gang_tensor_case(rng, GB, KB, BB, device):
+    """Padded gang-ABI tensors: scattered valid members, padded gangs (no
+    valid member), an all-incompatible row, runs of identical members, free
+    rows that may be zero; gang 0 fails then places (its first member fits
+    nowhere, its second fits bin 1)."""
+    import numpy as np
+    import torch
+
+    R = 8
+    pods = np.zeros((GB, KB, R), np.int32)
+    pods[:, :, 0] = rng.integers(1, 400, (GB, KB))
+    pods[:, :, 1] = rng.integers(1, 400, (GB, KB))
+    pods[:, :, 2] = 1
+    pods[1] = pods[1, :1]
+    valid = np.arange(KB)[None, :] < rng.integers(0, KB + 1, GB)[:, None]
+    valid[rng.random(GB) < 0.2] = rng.random(KB) < 0.5
+    valid[-1] = False
+    compat = rng.random((GB, BB)) < rng.choice([0.3, 0.7, 1.0])
+    compat[2] = False
+    free0 = np.zeros((BB, R), np.int32)
+    free0[:, 0] = rng.integers(0, 440 if BB >= 8192 else 1200, BB)
+    free0[:, 1] = rng.integers(0, 440 if BB >= 8192 else 1200, BB)
+    free0[:, 2] = rng.integers(0, 6, BB)
+    pods[0, 0, :2] = 10**6
+    pods[0, 1, :3] = (1, 1, 1)
+    valid[0, :2] = True
+    compat[0, :2] = (False, True)
+    free0[1, :3] = (10**5, 10**5, 10)
+    return [torch.from_numpy(a).to(device) for a in (pods, valid, compat, free0)]
+
+
+def phase_gang_fuzz(device):
+    """B10 on the card: each GANG_FUZZ window through dispatch_gang_window
+    (executor "device-gang") against whatif_scan_plain on the tensors the
+    window launched (GangHandle.inputs) bit for bit, and against host_gang
+    (feasible, and the slots of feasible rows); then GANG_TENSOR_FUZZ's
+    padded tensors through gang_scan against the plain version, gang 0
+    failing then placing."""
+    import numpy as np
+    import torch
+
+    from karpenter_tpu_torch.ops import whatif_cuda as wc
+    from karpenter_tpu_torch.solver import topology as topo_solver
+    from karpenter_tpu_torch.solver.gang import dispatch_gang_window, gang_inputs
+
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(SEED)
+    heals0 = topo_solver.HEALS
+    cases, worst = [], 0
+    for kind, G, K in GANG_FUZZ:
+        enc = gang_fuzz_encoding(rng, kind, G, K)
+        what = f"gang fuzz {kind} {G}x{K}"
+        check(enc.device_ready and enc.g > 0, f"{what}: not device-encodable ({enc.skipped[:2]})")
+        handle = dispatch_gang_window(enc, device)
+        feas, slots, executor = handle.fetch()
+        check(executor == "device-gang", f"{what}: executor {executor}")
+        args = gang_inputs(*handle.inputs)
+        card = wc.whatif_scan(*args)
+        plain = wc.whatif_scan_plain(*args)
+        torch.cuda.synchronize()
+        err = whatif_diff(card, plain)
+        worst = max(worst, err)
+        check(err == 0, f"{what}: kernel != plain")
+        check(np.array_equal(feas, plain[0].cpu().numpy()[:enc.g])
+              and np.array_equal(slots, plain[1].cpu().numpy()[:enc.g, :max(enc.k, 1)]),
+              f"{what}: the window's answer != plain")
+        host_s = check_gang_host(enc, feas, slots, what)
+        if kind == "fail_then_place":
+            check(not feas[0] and slots[0, 0] == -1 and slots[0, 1] >= 0,
+                  f"{what}: gang 0 gave {bool(feas[0])}, {slots[0, :2].tolist()}")
+        shape = list(enc.d_pods.shape[:2]) + [enc.d_free0.shape[0]]
+        cases.append({"kind": kind, "gangs": enc.g, "k": enc.k, "bins": enc.b, "shape": shape,
+                      "kernel": wc.launch_geometry(shape[2])["kernel"],
+                      "feasible": int(feas.sum()), "carve": enc.carve is not None,
+                      "host_gang_s": host_s})
+        del handle, args, card, plain
+    for GB, KB, BB in GANG_TENSOR_FUZZ:
+        pods, valid, compat, free0 = gang_tensor_case(rng, GB, KB, BB, device)
+        args = gang_inputs(pods, valid, compat, free0)
+        card, plain = wc.whatif_scan(*args), wc.whatif_scan_plain(*args)
+        torch.cuda.synchronize()
+        err = whatif_diff(card, plain)
+        worst = max(worst, err)
+        what = f"gang fuzz tensors {GB}x{KB}x{BB}"
+        check(err == 0, f"{what}: kernel != plain")
+        check(not bool(plain[0][0]) and int(plain[1][0, 1]) == 1 and bool(plain[0][-1]),
+              f"{what}: gang 0 or the padded gang wrong")
+        cases.append({"kind": "tensors", "shape": [GB, KB, BB],
+                      "kernel": wc.launch_geometry(BB)["kernel"],
+                      "feasible": int(plain[0].sum())})
+        del args, card, plain
+        torch.cuda.empty_cache()
+    check(topo_solver.HEALS == heals0, "gang fuzz: a carve probe healed")
+    rec = {"phase": "gang_fuzz", "cases": cases, "max_abs_err": worst, "heals": 0,
+           "seconds": time.perf_counter() - t_phase}
+    emit(rec)
+    return rec
+
+
+def config11_gang_encoding(device, G=256):
+    """config_11's window (bench.py:1068-1172): G gangs of 2-4 heavyweight
+    members (2, 4 and 6 cpu) over the 100-type catalog, the gang column
+    from the member key on the card."""
+    from karpenter_tpu_torch.ops.feasibility import gang_feasibility_mask
+    from karpenter_tpu_torch.ops.gang import encode_gang_window
+    from karpenter_tpu_torch.solver import adapter
+    from karpenter_tpu_torch.solver.solve import universe_constraints
+
+    catalog = make_catalog(100)
+    constraints = universe_constraints(catalog)
+    shapes = [(2000, 2048), (4000, 4096), (6000, 6144)]
+    gangs, all_pods = [], []
+    for gi in range(G):
+        k = (2, 3, 4)[gi % 3]
+        members = make_pods(k, [shapes[(gi + j) % 3] for j in range(k)])
+        for j, p in enumerate(members):
+            p.metadata.name = f"gang-{gi}-m{j}"
+        all_pods += members
+        gangs.append((f"gang-{gi}", members))
+    packables, types = adapter.build_packables(catalog, constraints, all_pods, ())
+    frees = [[t - r for t, r in zip(pk.total, pk.reserved)] for pk in packables]
+    mask = gang_feasibility_mask(types, [(adapter._allowed_sets(constraints),
+                                          adapter._required_resources(all_pods))],
+                                 device=device)
+    return encode_gang_window([(key, pods, mask, None) for key, pods in gangs], frees,
+                              [it.price for it in types], [it.name for it in types])
+
+
+def full_gang_encoding():
+    """The full-width window: GANG_FULL_G gangs of GANG_FULL_K members
+    (3.5 cpu, 8 Gi), four to a node of their cheapest type (16 cpu), so
+    4,096 bins and GB × KB × BB = 2**26 = MAX_WINDOW_CELLS."""
+    catalog = gang_catalog([("gw-16", 16, 64, 110, 0.8), ("gw-32", 32, 128, 110, 1.7),
+                            ("gw-64", 64, 256, 110, 3.5)])
+    gangs = []
+    for g in range(GANG_FULL_G):
+        pods = make_pods(GANG_FULL_K, [(3500, 8192)])
+        for i, p in enumerate(pods):
+            p.metadata.name = f"full-{g}-m{i}"
+        gangs.append((("full", f"g{g}"), pods, None))
+    return gang_window_encoding(catalog, gangs)
+
+
+def plan_nodes(plan):
+    """A plan node for node: each placement's gang and (bin, member names)."""
+    return [(pl.gang.key, [(bi, [p.metadata.name for p in ps]) for bi, ps in pl.node_sets])
+            for pl in plan.placements]
+
+
+def gang_kernel_record(enc, handle, runs):
+    """One window's kernel on the tensors its dispatch launched
+    (``handle.inputs``): the card against the plain version (0 when bit for
+    bit), the CUDA-event median of ``runs`` warm launches (the wrapper's
+    host work between the events included), the mean device ms under
+    torch.profiler (with the kernels its accepted or last session saw),
+    the device ms of ``runs`` launches queued behind a spin kernel, the
+    plain version's event ms over 3 and the bound. Comparison launches:
+    the count is restored."""
+    import torch
+
+    from karpenter_tpu_torch.ops import whatif_cuda as wc
+    from karpenter_tpu_torch.solver.gang import gang_inputs
+
+    launches = wc.LAUNCHES
+    args = gang_inputs(*handle.inputs)
+    plain = wc.whatif_scan_plain(*args)
+    err = whatif_diff(wc.whatif_scan(*args), plain)
+    torch.cuda.synchronize()
+    bound = gang_bound(enc, handle.inputs[2].cpu().numpy(), plain[1].cpu().numpy())
+    ms = median_event_ms(lambda: wc.whatif_scan(*args), runs)
+    device_ms, seen = profiled_kernel_ms(lambda: wc.whatif_scan(*args), runs, "whatif")
+    queued_ms = queued_event_ms(lambda: wc.whatif_scan(*args), runs)
+    plain_ms = median_event_ms(lambda: wc.whatif_scan_plain(*args), 3)
+    wc.LAUNCHES = launches
+    return {"max_abs_err": err, "ms": ms, "device_ms": device_ms, "profiled_launches": seen,
+            "queued_ms": queued_ms, "plain_ms": plain_ms,
+            "shape": list(args[2].shape), "gangs": enc.g, "bins": enc.b,
+            "geometry": wc.launch_geometry(args[2].shape[2]), **bound}
+
+
+def gang_window_record(enc, device, what, runs):
+    """A window through dispatch_gang_window on the card: executor, the
+    kernel equal to its plain version, feasible equal to host_gang's, the
+    card-filtered plan equal to plan_gang_window(enc, None) node for node;
+    the host seconds of host_gang and of both plans, and the kernel's
+    record."""
+    from karpenter_tpu_torch.ops import whatif_cuda as wc
+    from karpenter_tpu_torch.solver.gang import dispatch_gang_window, plan_gang_window
+
+    launches = wc.LAUNCHES
+    t0 = time.perf_counter()
+    handle = dispatch_gang_window(enc, device)
+    feas, slots, executor = handle.fetch()
+    window_s = time.perf_counter() - t0
+    check(executor == "device-gang" and wc.LAUNCHES == launches + (device.type == "cuda"),
+          f"{what}: executor {executor}, {wc.LAUNCHES - launches} launches")
+    host_s = check_gang_host(enc, feas, slots, what)
+    t0 = time.perf_counter()
+    plan = plan_gang_window(enc, feas)
+    plan_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    plain = plan_gang_window(enc, None)
+    plain_plan_s = time.perf_counter() - t0
+    check(plan_nodes(plan) == plan_nodes(plain), f"{what}: filtered plan != host plan")
+    check(plan.verified >= len(plan.placements), f"{what}: unverified placements")
+    kern = gang_kernel_record(enc, handle, runs)
+    check(kern["max_abs_err"] == 0, f"{what}: kernel != plain")
+    return {"gangs": enc.g, "members": sum(len(e.vecs) for e in enc.gangs), "bins": enc.b,
+            "cells": enc.cells, "executor": executor, "feasible": int(feas.sum()),
+            "placed": len(plan.placements), "unplaced": len(plan.unplaced),
+            "window_s": window_s, "kernel_ms_in_window": handle.kernel_ms,
+            "host_gang_s": host_s, "plan_s": plan_s, "plan_unfiltered_s": plain_plan_s,
+            "kernel": kern}
+
+
+def phase_gang_window(device):
+    """B10 on config_11's window (256 gangs) and on the full-width window
+    (1,024 × 16 × 4,096 cells): gang_window_record on each."""
+    t_phase = time.perf_counter()
+    out = {}
+    for what, build in (("config11", lambda: config11_gang_encoding(device)),
+                        ("full", full_gang_encoding)):
+        t0 = time.perf_counter()
+        enc = build()
+        encode_s = time.perf_counter() - t0
+        check(enc.device_ready and not enc.skipped, f"gang_window {what}: encoding")
+        out[what] = {"encode_s": encode_s, **gang_window_record(enc, device, f"gang_window "
+                                                                f"{what}", WARM_RUNS)}
+    full_bins = 4 * GANG_FULL_G
+    check(out["full"]["cells"] == GANG_FULL_G * GANG_FULL_K * full_bins
+          and out["full"]["bins"] == full_bins,
+          f"gang_window full: {out['full']['cells']} cells, {out['full']['bins']} bins")
+    rec = {"phase": "gang_window", **out, "seconds": time.perf_counter() - t_phase}
+    emit(rec)
+    return rec
+
+
+class _CarveGang:
+    def __init__(self, index, slice_dims):
+        self.index, self.slice_dims = index, slice_dims
+
+
+class _CarveBin:
+    def __init__(self, grid, occ):
+        self.grid, self.occ = grid, occ
+
+
+class _CarveEnc:
+    def __init__(self, gangs, bins):
+        self.gangs, self.bins, self.g, self.b = gangs, bins, len(gangs), len(bins)
+
+
+def carve_fuzz_enc(rng, G, B):
+    """G gangs over CARVE_SLICES and B bins over CARVE_GRIDS, occupancy at
+    0-90 % (some bins empty, some nearly full), as ops/topology.encode_carve
+    takes them."""
+    from karpenter_tpu_torch.ops.topology import grid_cells
+
+    bins = []
+    for _ in range(B):
+        grid = CARVE_GRIDS[int(rng.integers(0, len(CARVE_GRIDS)))]
+        occ = None if grid is None else \
+            rng.random(grid_cells(grid)) < [0.0, 0.2, 0.5, 0.9][int(rng.integers(0, 4))]
+        bins.append(_CarveBin(grid, occ))
+    gangs = [_CarveGang(i, CARVE_SLICES[int(rng.integers(0, len(CARVE_SLICES)))])
+             for i in range(G)]
+    return _CarveEnc(gangs, bins)
+
+
+def carve_numpy(cv):
+    """The verdict as numpy per (slice class, bin): each slice class's bank
+    on each bin's grid class against its plane, then rows by class."""
+    import numpy as np
+
+    S = max(len(cv.slice_classes), 1)
+    per = np.zeros((S, cv.b), bool)
+    for s in range(S):
+        for c in range(len(cv.classes)):
+            on = np.flatnonzero(cv.cls_of == c)
+            if not len(on):
+                continue
+            overlap = (cv.pmask[s, c][None, :, :] & cv.occ0[on][:, None, :]).any(-1)
+            per[s, on] = (cv.pvalid[s, c][None, :] & ~overlap).any(-1)
+    rows = per[np.maximum(cv.scls_of, 0)]
+    return np.where(cv.scls_of[:, None] >= 0, rows, True)
+
+
+def carve_program_record(cv, device, runs):
+    """B11 on one window's padded arrays: CUDA-event median over ``runs``,
+    kernels and idle share (torch.profiler), the bound by bytes (each bin's
+    plane and each bank bit-packed, the class ids, the (G, B) bool
+    verdict) and the same program on the CPU."""
+    import torch
+
+    from karpenter_tpu_torch.backend import to_device_int32
+    from karpenter_tpu_torch.solver import topology as topo_solver
+
+    card = to_device_int32(topo_solver.carve_arrays(cv), device)
+    cpu = to_device_int32(topo_solver.carve_arrays(cv), torch.device("cpu"))
+    ms = median_event_ms(lambda: topo_solver.carve_program(*card), runs)
+    launches = device_launches(lambda: topo_solver.carve_program(*card))
+    t0 = time.perf_counter()
+    topo_solver.carve_program(*cpu)
+    cpu_ms = (time.perf_counter() - t0) * 1000.0
+    S, NC, P = cv.pvalid.shape
+    nbytes = (cv.b * cv.c + S * NC * P * (cv.c + 1)) / 8 + 4 * (cv.b + cv.g) + cv.g * cv.b
+    return {"shape": [cv.g, cv.b], "padded": [int(cv.d_scls.shape[0]), int(cv.d_occ.shape[0]),
+                                              *map(int, cv.d_pmask.shape)],
+            "ms": ms, "cpu_ms": cpu_ms, "launches_per_call": launches, "bytes": nbytes,
+            "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes"}
+
+
+def member_column_record(device, runs):
+    """The gang member column (B4's rest) on config_11's 100-type catalog
+    with four member keys: CUDA-event median, kernels and idle share, the
+    bound by bytes (the planes, the keys' rows, the (T,) column) and the
+    CPU time; equal to the scalar oracle."""
+    import numpy as np
+    import torch
+
+    from karpenter_tpu_torch.ops import device_filter
+    from karpenter_tpu_torch.ops.feasibility import gang_scalar_mask
+    from karpenter_tpu_torch.solver.solve import universe_constraints
+    from karpenter_tpu_torch.solver import adapter
+
+    catalog = make_catalog(100)
+    cts, zones, names, archs, oss = adapter._allowed_sets(universe_constraints(catalog))
+    keys = [((cts, zones, names, archs, oss), frozenset()),
+            ((cts, zones, frozenset(sorted(names)[10:]), archs, oss), frozenset()),
+            ((frozenset(["on-demand"]), zones, names, archs, oss), frozenset()),
+            ((cts, frozenset(sorted(zones)[1:]), names, archs, oss), frozenset())]
+    col = device_filter.gang_member_column(catalog, keys, device)
+    check(np.array_equal(col, gang_scalar_mask(catalog, keys, None)) and 0 < col.sum() < len(col),
+          f"member column != the scalar oracle ({int(col.sum())} types)")
+    ms = median_event_ms(lambda: device_filter.gang_member_column(catalog, keys, device), runs)
+    launches = device_launches(lambda: device_filter.gang_member_column(catalog, keys, device))
+    t0 = time.perf_counter()
+    device_filter.gang_member_column(catalog, keys, torch.device("cpu"))
+    cpu_ms = (time.perf_counter() - t0) * 1000.0
+    planes = device_filter.planes_for(catalog)
+    nbytes = sum(a.nbytes for a in planes.host_arrays().values()) + len(keys) * 4 * (
+        planes.name_plane.shape[1] + planes.arch_plane.shape[1] + planes.os_plane.shape[1]
+        + planes.offer_plane.shape[2] + 2) + planes.n
+    return {"shape": [len(keys), planes.n], "ms": ms, "cpu_ms": cpu_ms,
+            "launches_per_call": launches, "bytes": nbytes,
+            "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+            "feasible_types": int(col.sum())}
+
+
+def phase_carve_fuzz(device):
+    """B11 on the card: CARVE_FUZZ windows against host_carve on every cell
+    (and the padded rows and bins: True for gangs without a slice class,
+    False on bins without a grid); CARVE_FULL (1,024 gangs × 4,096 bins)
+    against carve_numpy on every cell and CARVE_PROBE_CELLS cells of
+    scalar_carve_cell; solve_carve_window on it with 0 heals; then the
+    program timed at CARVE_FULL and the member column timed."""
+    import numpy as np
+    import torch
+
+    from karpenter_tpu_torch.backend import to_device_int32
+    from karpenter_tpu_torch.ops.topology import encode_carve, host_carve, scalar_carve_cell
+    from karpenter_tpu_torch.ops.whatif import _pow2
+    from karpenter_tpu_torch.solver import topology as topo_solver
+
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(SEED)
+    heals0, cases = topo_solver.HEALS, []
+    for G, B in CARVE_FUZZ + [CARVE_FULL]:
+        enc = carve_fuzz_enc(rng, G, B)
+        cv = encode_carve(enc, gb=_pow2(G), bb=_pow2(B))
+        out = topo_solver.carve_program(*to_device_int32(topo_solver.carve_arrays(cv), device))
+        got = out.cpu().numpy()
+        live = got[:G, :B]
+        t0 = time.perf_counter()
+        want = host_carve(cv) if (G, B) != CARVE_FULL else carve_numpy(cv)
+        ref_s = time.perf_counter() - t0
+        diverged = int((live != want).sum())
+        check(diverged == 0, f"carve fuzz {G}x{B}: {diverged} cells differ")
+        check(got[G:].all() and not got[:G, B:][cv.scls_of >= 0].any(),
+              f"carve fuzz {G}x{B}: padded rows or bins wrong")
+        probes = 0
+        if (G, B) == CARVE_FULL:
+            for _ in range(CARVE_PROBE_CELLS):
+                gi, bi = int(rng.integers(0, G)), int(rng.integers(0, B))
+                check(scalar_carve_cell(enc, gi, bi) == bool(live[gi, bi]),
+                      f"carve fuzz: cell ({gi}, {bi}) != scalar_carve_cell")
+                probes += 1
+            enc.carve = cv
+            verdict, executor = topo_solver.solve_carve_window(enc, device)
+            check(executor == "device-carve" and np.array_equal(verdict, live),
+                  f"carve fuzz: solve_carve_window gave {executor}")
+        cases.append({"gangs": G, "bins": B, "true_cells": int(live.sum()),
+                      "reference": "host_carve" if (G, B) != CARVE_FULL else "numpy",
+                      "reference_s": ref_s, "probe_cells": probes})
+        del out
+        torch.cuda.empty_cache()
+    check(topo_solver.HEALS == heals0, "carve fuzz: a probe healed")
+    rec = {"phase": "carve_fuzz", "cases": cases, "divergent_cells": 0, "heals": 0,
+           "max_abs_err": 0, "program": carve_program_record(cv, device, WARM_RUNS),
+           "member_column": member_column_record(device, WARM_RUNS),
+           "seconds": time.perf_counter() - t_phase}
+    emit(rec)
+    return rec
+
+
+def phase_carve_window(device):
+    """config_16's legs (bench.py:1905-2168) on the port, gang windows
+    through dispatch_gang_window on the card. Fragmentation A/B on a
+    saturated 4x4 fleet without fresh growth (4 empty, 8 with a clean 2x4
+    slab, 8 checkerboarded): the carve walk places at least 20 % more
+    gangs than the shape-only baseline (empty nodes only), and every
+    phantom (a checkerboarded node the naive shape-only walk uses) is
+    rejected; the commit audit: every carve one placement-mask row,
+    disjoint from the replayed plane (0 unverified); the program against
+    scalar_carve at 64 × 64 (0 divergence) with both times; priced
+    preemption on three saturated nodes: at least one preemption, none of
+    the system-critical resident, the $10 victim declined (fresh-cheaper);
+    the kill switch: carving off, and an annotation-free encode equal to
+    the shape-only one bit for bit. 0 heals."""
+    import numpy as np
+
+    from karpenter_tpu_torch.ops import gang as ops_gang
+    from karpenter_tpu_torch.ops import topology as topo
+    from karpenter_tpu_torch.ops.gang import GangBin
+    from karpenter_tpu_torch.ops.whatif import _reserve_vec
+    from karpenter_tpu_torch.solver import gang as solver_gang
+    from karpenter_tpu_torch.solver import topology as topo_solver
+    from karpenter_tpu_torch.solver.gang import (
+        PreemptCandidate, PreemptContext, dispatch_gang_window, plan_gang_window)
+
+    t_phase = time.perf_counter()
+    heals0 = topo_solver.HEALS
+    GRID, CELLS = (4, 4), 16
+    mvec = [max(v, 1) for v in _reserve_vec(_pod(4000, 8192))]
+
+    def chips(n):
+        return [v * n for v in mvec]
+
+    names, prices, frees = ["tpu-carve-4x4"], [4.0], [chips(CELLS)]
+
+    def gangs_of(n, members, prefix, slice_dims, band="default"):
+        out = []
+        for i in range(n):
+            pods = make_pods(members, [(4000, 8192)])
+            for j, p in enumerate(pods):
+                p.metadata.name = f"{prefix}{i}-m{j}"
+            out.append(((f"cw-{prefix}", f"g{i}"), pods, np.ones(1, bool), None))
+        return out, [slice_dims] * n, [band] * n
+
+    def seed(name, occ):
+        occ = np.asarray(occ, bool)
+        return GangBin(name=name, type_index=0, free=chips(int(CELLS - occ.sum())), grid=GRID,
+                       occ=occ, node_name=name)
+
+    def card_plan(enc, preempt=None):
+        feas, _, executor = dispatch_gang_window(enc, device).fetch()
+        check(executor == "device-gang", f"carve_window: executor {executor}")
+        plan = plan_gang_window(enc, feas, preempt)
+        return plan
+
+    rows01 = np.zeros(CELLS, bool)
+    rows01[:8] = True
+    checker = np.array([(r + c) % 2 == 0 for r in range(4) for c in range(4)])
+
+    def fleet(kinds):
+        return ([seed(f"n-empty-{i}", np.zeros(CELLS, bool)) for i in range(4) if "empty" in kinds]
+                + [seed(f"n-contig-{i}", rows01) for i in range(8) if "contig" in kinds]
+                + [seed(f"n-scatter-{i}", checker) for i in range(8) if "scatter" in kinds])
+
+    # leg 1: fragmentation A/B and the phantom
+    G = 24
+    gangs, slices, bands = gangs_of(G, 8, "frag", (2, 4))
+    rej0 = ops_gang.CARVE_REJECTS
+    enc_carve = ops_gang.encode_gang_window(
+        gangs, frees, prices, names, slices=slices, bands=bands, type_grids=[GRID],
+        seed_bins=fleet({"empty", "contig", "scatter"}), grow=False)
+    plan_carve = card_plan(enc_carve)
+    carve_rejects = ops_gang.CARVE_REJECTS - rej0
+    carve_placed = len(plan_carve.placements)
+    on_scatter = sum(1 for pl in plan_carve.placements for bi, _ in pl.node_sets
+                     if enc_carve.bins[bi].name.startswith("n-scatter"))
+    # commit audit: every carve one placement-mask row, disjoint from the plane
+    unverified, replay = 0, {}
+    for pl in plan_carve.placements:
+        for bi, cells in pl.carves.items():
+            bn = enc_carve.bins[bi]
+            base = replay.setdefault(bi, bn.occ.copy())
+            want = np.zeros(CELLS, bool)
+            want[list(cells)] = True
+            masks = topo.placement_masks(bn.grid, pl.gang.slice_dims)
+            if masks is None or not any(np.array_equal(r, want) for r in masks) \
+                    or base[list(cells)].any():
+                unverified += 1
+            base[list(cells)] = True
+    gangs_a, _, _ = gangs_of(G, 8, "frag", None)
+    shape_bins = [GangBin(name=s.name, type_index=0, free=list(s.free), node_name=s.name)
+                  for s in fleet({"empty"})]
+    shape_placed = len(card_plan(ops_gang.encode_gang_window(
+        gangs_a, frees, prices, names, seed_bins=shape_bins, grow=False)).placements)
+    gangs_n, _, _ = gangs_of(G, 8, "frag", None)
+    naive_bins = [GangBin(name=s.name, type_index=0, free=list(s.free), node_name=s.name)
+                  for s in fleet({"empty", "contig", "scatter"})]
+    enc_naive = ops_gang.encode_gang_window(gangs_n, frees, prices, names,
+                                            seed_bins=naive_bins, grow=False)
+    phantom = sum(1 for pl in card_plan(enc_naive).placements
+                  if any(enc_naive.bins[bi].name.startswith("n-scatter") for bi, _ in pl.node_sets))
+    gain_pct = 100.0 * (carve_placed - shape_placed) / max(shape_placed, 1)
+    check(gain_pct >= 20.0, f"carve_window: {carve_placed} placed vs {shape_placed} shape-only")
+    check(phantom > 0 and on_scatter == 0 and carve_rejects >= 8,
+          f"carve_window: phantom {phantom}, carve on scatter {on_scatter}, "
+          f"rejects {carve_rejects}")
+    check(unverified == 0, f"carve_window: {unverified} unverified carves")
+
+    # leg 2: the program against the scalar scan at 64 x 64
+    kgangs, kslices, kbands = gangs_of(64, 4, "kern", (2, 2))
+    kseeds = []
+    for j in range(64):
+        occ = np.zeros(CELLS, bool)
+        occ[[(j * 7 + 3 * k) % CELLS for k in range(j % 10)]] = True
+        kseeds.append(seed(f"n-kern-{j}", occ))
+    enc_k = ops_gang.encode_gang_window(kgangs, frees, prices, names, slices=kslices,
+                                        bands=kbands, type_grids=[GRID], seed_bins=kseeds,
+                                        grow=False)
+    verdict, kexec = topo_solver.solve_carve_window(enc_k, device)
+    t0 = time.perf_counter()
+    scalar = topo.scalar_carve(enc_k)
+    scalar_ms = (time.perf_counter() - t0) * 1000.0
+    divergence = int((verdict != scalar).sum())
+    check(kexec == "device-carve" and divergence == 0,
+          f"carve_window: program {kexec}, {divergence} cells != scalar_carve")
+    program_ms = median_event_ms(lambda: topo_solver.dispatch_carve_window(
+        enc_k, device)._out, WARM_RUNS)
+
+    # leg 3: priced preemption on three saturated nodes
+    sat = [seed(f"p-sat-{i}", np.ones(CELLS, bool)) for i in range(3)]
+
+    def victim(bi, band, cost):
+        return PreemptCandidate(gang_key=("cw-victim", f"v{bi}"), bin_index=bi,
+                                node=f"p-sat-{bi}", band=band,
+                                pods=[("default", f"v{bi}-m{k}") for k in range(8)],
+                                cells=np.arange(8), refund=chips(8), displacement_cost=cost)
+
+    ctx = PreemptContext([victim(0, "low", 0.25), victim(1, "system-critical", 0.0),
+                          victim(2, "low", 10.0)])
+    pgangs, pslices, pbands = gangs_of(2, 8, "pre", (2, 4), band="high")
+    enc_p = ops_gang.encode_gang_window(pgangs, frees, prices, names, slices=pslices,
+                                        bands=pbands, type_grids=[GRID], seed_bins=sat, grow=True)
+    solver_gang.DECLINES.clear()
+    plan_p = card_plan(enc_p, ctx)
+    declines = dict(solver_gang.DECLINES)
+    sc = sum(1 for _, c in plan_p.preemptions if c.band == "system-critical")
+    dear_taken = any(c.displacement_cost == 10.0 for _, c in plan_p.preemptions)
+    check(len(plan_p.preemptions) >= 1 and sc == 0 and not dear_taken
+          and declines.get("fresh-cheaper", 0) >= 1,
+          f"carve_window: preemptions {len(plan_p.preemptions)}, system-critical {sc}, "
+          f"declines {declines}")
+
+    # leg 4: the kill switch
+    prev = os.environ.get("KARPENTER_TOPOLOGY_CARVE")
+    try:
+        os.environ["KARPENTER_TOPOLOGY_CARVE"] = "0"
+        killswitch = not topo_solver.carve_enabled()
+    finally:
+        if prev is None:
+            os.environ.pop("KARPENTER_TOPOLOGY_CARVE", None)
+        else:
+            os.environ["KARPENTER_TOPOLOGY_CARVE"] = prev
+    ks_a, _, _ = gangs_of(6, 4, "ks", None)
+    ks_b, sl_b, bd_b = gangs_of(6, 4, "ks", None)
+    enc_a = ops_gang.encode_gang_window(ks_a, frees, prices, names)
+    enc_b = ops_gang.encode_gang_window(ks_b, frees, prices, names, slices=sl_b, bands=bd_b,
+                                        type_grids=[GRID])
+    parity = enc_b.carve is None and all(
+        np.array_equal(getattr(enc_a, f), getattr(enc_b, f))
+        for f in ("d_pods", "d_valid", "d_compat", "d_free0")) and \
+        plan_nodes(card_plan(enc_a)) == plan_nodes(card_plan(enc_b))
+    check(killswitch and parity, f"carve_window: kill switch {killswitch}, parity {parity}")
+    check(topo_solver.HEALS == heals0, "carve_window: a carve probe healed")
+    rec = {"phase": "carve_window", "gangs": G, "shape_only_placed": shape_placed,
+           "carve_placed": carve_placed, "gain_pct": gain_pct, "phantom_gangs_naive": phantom,
+           "carve_rejects": carve_rejects, "unverified": unverified,
+           "kernel_divergence": divergence, "program_ms": program_ms, "scalar_ms": scalar_ms,
+           "preemptions": len(plan_p.preemptions), "system_critical_preemptions": sc,
+           "preempt_declines": declines, "preempt_placed": len(plan_p.placements),
+           "killswitch": killswitch, "killswitch_parity": parity, "heals": 0,
+           "seconds": time.perf_counter() - t_phase}
+    emit(rec)
+    return rec
+
+
+def cg_pod(name, cpu_m, mem_mi, labels=None, priority=0, zone=None):
+    """A pending, unschedulable pod of the controller_gang window: its
+    labels, priority and zone selector."""
+    from karpenter_tpu_torch.api import core as c
+    from karpenter_tpu_torch.api import wellknown as wk
+
+    return c.Pod(
+        metadata=c.ObjectMeta(name=name, uid=name, labels=dict(labels or {})),
+        spec=c.PodSpec(containers=[c.Container(resources=c.ResourceRequirements.make(
+            requests={"cpu": f"{cpu_m}m", "memory": f"{mem_mi}Mi"}))], priority=priority,
+            node_selector={wk.LABEL_TOPOLOGY_ZONE: zone} if zone else {}),
+        status=c.PodStatus(conditions=[c.PodCondition(
+            type="PodScheduled", status="False", reason="Unschedulable")]))
+
+
+def cg_gang(name, size, slice_=None, priority=0, cpu_m=1500, mem_mi=3072):
+    from karpenter_tpu_torch.api import wellknown as wk
+
+    labels = {wk.POD_GROUP_LABEL: name, wk.POD_GROUP_SIZE_LABEL: str(size)}
+    if slice_ is not None:
+        labels[wk.POD_GROUP_SLICE_LABEL] = slice_
+    return [cg_pod(f"{name}-m{i}", cpu_m, mem_mi, labels, priority) for i in range(size)]
+
+
+def ledger_audit(kube, commits, what):
+    """Every ledger carve one placement-mask row of its slice on its node's
+    grid, carves of one node disjoint, the ledger equal to the commits the
+    worker made (after releases) and every carve's members bound there."""
+    import numpy as np
+
+    from karpenter_tpu_torch.api import gang as api_gang
+    from karpenter_tpu_torch.ops import topology as topo
+
+    snap = {ng.node: ng for ng in topo.LEDGER.snapshot()}
+    check({(n, str(k)) for n, k in commits} == {(n, str(k)) for n, ng in snap.items()
+                                                 for k in ng.carves},
+          f"{what}: ledger != commits")
+    carves = 0
+    for name, ng in snap.items():
+        seen = np.zeros(len(ng.occ), bool)
+        on_node = {p.metadata.name for p in kube.pods_on_node(name)}
+        for rec in ng.carves.values():
+            pod = kube.get("Pod", rec.pods[0][1], rec.pods[0][0])
+            slice_dims = api_gang.gang_of(pod).slice_.dims
+            row = np.zeros(len(ng.occ), bool)
+            row[rec.cells] = True
+            masks = topo.placement_masks(ng.dims, slice_dims)
+            check(masks is not None and any(np.array_equal(m, row) for m in masks),
+                  f"{what}: carve of {rec.gang_key} on {name} not a sub-grid")
+            check(not (seen & row).any(), f"{what}: carves overlap on {name}")
+            check({n for _, n in rec.pods} <= on_node, f"{what}: members of {rec.gang_key} "
+                  f"not on {name}")
+            seen |= row
+            carves += 1
+        check(np.array_equal(seen, ng.occ), f"{what}: occupancy of {name} != its carves")
+    return carves
+
+
+def gangs_whole(kube, gangs, what):
+    """Every member of every gang bound."""
+    for name, pods in gangs:
+        nodes = [kube.get("Pod", p.metadata.name, p.metadata.namespace).spec.node_name
+                 for p in pods]
+        check(all(nodes), f"{what}: gang {name} bound {sum(map(bool, nodes))}/{len(pods)}")
+
+
+def check_gang_handles(handles, what):
+    """Each gang window the controller dispatched (its GangHandle): the
+    answer the controller fetched held against whatif_scan_plain on the
+    exact tensors the window launched, bit for bit. Returns the worst
+    difference and each device window's (GB, KB, BB); the handles are
+    released."""
+    import torch
+
+    from karpenter_tpu_torch.ops.whatif_cuda import whatif_scan_plain
+    from karpenter_tpu_torch.solver.gang import gang_inputs
+
+    worst, shapes = 0, []
+    for h in handles:
+        feas, slots, executor = h.fetch()
+        check(executor == "device-gang" and h.inputs is not None,
+              f"{what}: a gang window answered by {executor}")
+        pf, ps = whatif_scan_plain(*gang_inputs(*h.inputs))
+        g, k = h.enc.g, max(h.enc.k, 1)
+        err = whatif_diff((torch.from_numpy(feas), torch.from_numpy(slots)),
+                          (pf.cpu()[:g], ps.cpu()[:g, :k]))
+        check(err == 0, f"{what}: the controller's gang answer != plain")
+        worst = max(worst, err)
+        valid, compat = h.inputs[1], h.inputs[2]
+        shapes.append([valid.shape[0], valid.shape[1], compat.shape[1]])
+    handles.clear()
+    return worst, shapes
+
+
+def settle(run, timeout=120.0):
+    """Wait until the worker's batcher holds nothing and has processed all
+    it took in (a displaced gang comes back through it)."""
+    batcher, t0 = run.worker.batcher, time.perf_counter()
+    while batcher.depth() or batcher.processed_total < batcher.added_total:
+        check(time.perf_counter() - t0 < timeout, "controller_gang: the batcher never settled")
+        time.sleep(0.05)
+
+
+def phase_controller_gang(device):
+    """The port's controller on tpu_catalog(): window 1 holds 96 slice gangs
+    (32 each of v5e-2x4, v5e-4x4 and v4-2x2x2, 8-16 members of 1.5 cpu and
+    3 Gi, so a torus runs out of chips before cpu or memory), 48 plain
+    gangs and 4,096 plain pods over three zones (so the chunk launches
+    pack_batch too). Checks: every gang bound whole, every pod once; every
+    carve a contiguous sub-grid, disjoint on its node, the ledger equal to
+    the commits; the what-if kernel, the carve program, the member column
+    and pack_batch launched in the window. Wave 2: 32 more v5e-2x4 gangs
+    over the partly carved nodes: fewer tpu nodes created than gangs (a
+    fresh node each). Then CG_PREEMPT_WINDOWS windows of one high-band
+    v5e-4x4 gang each over full tori held by low-band gangs: displaced
+    within the budget (no more than a band's tokens a window), every victim
+    requeued and bound again, never system-critical. Then a carved node is
+    terminated and its carves leave the ledger. Every gang window the
+    controller dispatched is held against whatif_scan_plain on the tensors
+    it launched (check_gang_handles), its (GB, KB, BB) recorded. One record
+    with each window's time split."""
+    import torch
+
+    from karpenter_tpu_torch.cloudprovider.fake.provider import tpu_catalog
+    from karpenter_tpu_torch.controllers import provisioning
+    from karpenter_tpu_torch.controllers.termination import TerminationController
+    from karpenter_tpu_torch.ops import device_filter, pack_cuda
+    from karpenter_tpu_torch.ops import feasibility
+    from karpenter_tpu_torch.ops import topology as topo
+    from karpenter_tpu_torch.ops import whatif_cuda as wc
+    from karpenter_tpu_torch.solver import topology as topo_solver
+    from karpenter_tpu_torch.solver.pipeline import PipelineConfig
+    from karpenter_tpu_torch.solver.solve import SolverConfig
+
+    t_phase = time.perf_counter()
+    topo.LEDGER.reset()
+    feasibility.clear_gang_cache()
+    catalog = tpu_catalog()
+    run = ControllerRun(catalog, device, SolverConfig(window_backend="ffd"),
+                        PipelineConfig(chunk_items=0))
+    commits, preempted = [], []
+    worker = run.worker
+    commit, execute = worker._commit_carves, worker._execute_preemption
+
+    def recording_commit(prep, placement):
+        commit(prep, placement)
+        commits.extend((prep.gang_nodes[bi], placement.gang.key) for bi in placement.carves)
+
+    def recording_preempt(cand):
+        preempted.append(cand)
+        commits[:] = [c for c in commits if c[1] != cand.gang_key]
+        execute(cand)
+
+    worker._commit_carves, worker._execute_preemption = recording_commit, recording_preempt
+    dispatch, handles = provisioning.dispatch_gang_window, []
+
+    def recording_dispatch(enc, dev):
+        handle = dispatch(enc, dev)
+        handles.append(handle)
+        return handle
+
+    provisioning.dispatch_gang_window = recording_dispatch
+    windows, worst = {}, 0
+    try:
+        gangs = []
+        for shape, members in CG_SLICES:
+            family = shape.split("-")[0]
+            for g in range(CG_PER_SHAPE):
+                gangs.append((f"{family}-{shape}-{g}", cg_gang(f"s-{shape}-{g}", members, shape)))
+        gangs += [(f"plain-{g}", cg_gang(f"plain-{g}", 4, cpu_m=2000, mem_mi=4096))
+                  for g in range(CG_PLAIN_GANGS)]
+        plain = [cg_pod(f"cg-{i}", 250 + 250 * (i % 4), 512 * (1 + i % 3),
+                        zone=f"test-zone-{1 + i % 3}") for i in range(CG_PLAIN_PODS)]
+        pods = [p for _, ps in gangs for p in ps] + plain
+        rec = run.window(pods)
+        launches = {"whatif": wc.LAUNCHES, "pack_batch": pack_cuda.BATCH_LAUNCHES,
+                    "carve": topo_solver.RUNS, "member_column": device_filter.GANG_COLUMN_RUNS}
+        check(device.type != "cuda" or all(launches.values()),
+              f"controller_gang: launches {launches}")
+        settle(run)
+        once_each([p.metadata.name for p in run.kube.list("Pod") if p.spec.node_name],
+                  [p.metadata.name for p in pods], "controller_gang window 1")
+        gangs_whole(run.kube, gangs, "controller_gang window 1")
+        carves = ledger_audit(run.kube, commits, "controller_gang window 1")
+        check(carves == 3 * CG_PER_SHAPE, f"controller_gang: {carves} carves")
+        err, shapes = check_gang_handles(handles, "controller_gang window 1")
+        worst = max(worst, err)
+        windows["window1"] = {**rec, "launches": launches, "carves": carves,
+                              "gang_shapes": shapes,
+                              "gang": [c["gang"] for c in run.chunks if c["gang"]]}
+
+        # wave 2: the partly carved v5e-4x4 nodes come back as seeds
+        nodes_before = len(run.kube.list("Node"))
+        wave2 = [(f"w2-{g}", cg_gang(f"w2-{g}", 8, "v5e-2x4")) for g in range(CG_WAVE2)]
+        rec = run.window([p for _, ps in wave2 for p in ps])
+        settle(run)
+        gangs_whole(run.kube, wave2, "controller_gang wave 2")
+        created = len(run.kube.list("Node")) - nodes_before
+        check(created < CG_WAVE2, f"controller_gang wave 2: {created} nodes for {CG_WAVE2} gangs")
+        ledger_audit(run.kube, commits, "controller_gang wave 2")
+        err, shapes = check_gang_handles(handles, "controller_gang wave 2")
+        worst = max(worst, err)
+        windows["wave2"] = {**rec, "nodes_created": created, "fresh_nodes": CG_WAVE2,
+                            "gang_shapes": shapes,
+                            "gang": [c["gang"] for c in run.chunks if c["gang"]]}
+
+        # preemption: low-band gangs hold whole tori; a high-band gang a window
+        low = [(f"low-{g}", cg_gang(f"low-{g}", 16, "v5e-4x4", priority=-5))
+               for g in range(CG_PREEMPT_WINDOWS)]
+        run.window([p for _, ps in low for p in ps])
+        settle(run)
+        worst = max(worst, check_gang_handles(handles, "controller_gang low band")[0])
+        preempt_windows = []
+        for w in range(CG_PREEMPT_WINDOWS):
+            high = cg_gang(f"high-{w}", 16, "v5e-4x4", priority=10)
+            before = len(preempted)
+            tokens = worker.preempt_budget.tokens("low")
+            rec = run.window(high)
+            settle(run)
+            n = len(preempted) - before
+            check(n <= tokens + worker.preempt_budget.refill_per_window,
+                  f"controller_gang: {n} preemptions past {tokens} tokens")
+            gangs_whole(run.kube, [(f"high-{w}", high)], "controller_gang preemption")
+            err, shapes = check_gang_handles(handles, "controller_gang preemption")
+            worst = max(worst, err)
+            preempt_windows.append({"wall_s": rec["wall_s"], "preemptions": n,
+                                    "gang_shapes": shapes,
+                                    "gang": [c["gang"] for c in run.chunks if c["gang"]]})
+        check(preempted and all(c.band == "low" for c in preempted),
+              f"controller_gang: preempted {[c.band for c in preempted]}")
+        gangs_whole(run.kube, low, "controller_gang displaced gangs")
+        ledger_audit(run.kube, commits, "controller_gang after preemption")
+        windows["preemption"] = {"windows": preempt_windows, "preemptions": len(preempted),
+                                 "victims": sorted({str(c.gang_key) for c in preempted}),
+                                 "budget_declines": dict(worker.preempt_budget.declines)}
+
+        # terminate one carved node: its carves leave the ledger
+        node = sorted(ng.node for ng in topo.LEDGER.snapshot())[0]
+        on_node = {str(k) for k in {ng.node: ng for ng in topo.LEDGER.snapshot()}[node].carves}
+        termination = TerminationController(run.kube, run.provisioning.cloud_provider)
+        try:
+            run.kube.delete("Node", node, "")
+            term_s, _ = terminate_all(run.kube, termination, [node])
+        finally:
+            termination.stop_all()
+        check(node not in {ng.node for ng in topo.LEDGER.snapshot()},
+              "controller_gang: the terminated node is still in the ledger")
+        windows["termination"] = {"node": node, "carves_released": len(on_node),
+                                  "seconds": term_s}
+        torch.cuda.synchronize()
+    finally:
+        provisioning.dispatch_gang_window = dispatch
+        run.stop()
+        topo.LEDGER.reset()
+    rec = {"phase": "controller_gang", **windows, "max_abs_err": worst,
            "seconds": time.perf_counter() - t_phase}
     emit(rec)
     return rec
@@ -3786,6 +4871,11 @@ def main(argv) -> int:
     af = phase_affinity_fuzz(device)
     pw = phase_policy_window(device)
     ca = phase_controller_affinity(device)
+    gf = phase_gang_fuzz(device)
+    cf = phase_carve_fuzz(device)
+    gw10 = phase_gang_window(device)
+    phase_carve_window(device)
+    cg = phase_controller_gang(device)
     emit({"phase": "total", "seconds": time.perf_counter() - t_start})
     b8 = gw["relax_pack"]
     b6 = pw["config13"]["program"]
@@ -3826,6 +4916,24 @@ def main(argv) -> int:
         "bound_by": b6["bound_by"], "shape": b6["shape"],
         "soft_rows": {k: pw["config18"]["program"][k] for k in
                       ("ms", "cpu_ms", "bound_ms", "launches_per_call", "shape")},
+    }, {
+        "name": "carve_program (B11)",
+        "source": "karpenter_tpu_torch/solver/topology.py",
+        "replaces": "karpenter_tpu/solver/topology.py:63",
+        "runs": cg["window1"]["launches"]["carve"],
+        "launches_per_call": cf["program"]["launches_per_call"], "max_abs_err": cf["max_abs_err"],
+        "ms": cf["program"]["ms"], "cpu_ms": cf["program"]["cpu_ms"],
+        "bound_ms": cf["program"]["bound_ms"], "bound_by": cf["program"]["bound_by"],
+        "shape": cf["program"]["shape"],
+    }, {
+        "name": "gang_member_column (B4's rest)",
+        "source": "karpenter_tpu_torch/ops/device_filter.py",
+        "replaces": "karpenter_tpu/ops/device_filter.py:339",
+        "runs": cg["window1"]["launches"]["member_column"],
+        "launches_per_call": cf["member_column"]["launches_per_call"], "max_abs_err": 0,
+        "ms": cf["member_column"]["ms"], "cpu_ms": cf["member_column"]["cpu_ms"],
+        "bound_ms": cf["member_column"]["bound_ms"], "bound_by": cf["member_column"]["bound_by"],
+        "shape": cf["member_column"]["shape"],
     }]})
     k4, kw = c4["kernel"], win["kernel"]
     emit({"kernels": [{
@@ -3863,6 +4971,26 @@ def main(argv) -> int:
         "plain_ms": dp["kernel"]["plain_ms"],
         "bound_ms": dp["kernel"]["bound_ms"], "bound_by": dp["kernel"]["bound_by"],
         "shape": dp["kernel"]["shape"], "library_ms": None,
+    }, {
+        "name": "whatif_scan (gang co-pack, B10)",
+        "route": "cuda",
+        "source": "karpenter_tpu_torch/csrc/whatif.cu",
+        "replaces": "karpenter_tpu/solver/gang.py:56",
+        "launches": cg["window1"]["launches"]["whatif"],
+        "max_abs_err": max(gf["max_abs_err"], gw10["config11"]["kernel"]["max_abs_err"],
+                           gw10["full"]["kernel"]["max_abs_err"], cg["max_abs_err"]),
+        # the times and the bound are the full-width window's; the main
+        # path's launches (controller_gang window 1) were at main_path_shapes
+        "main_path_shapes": cg["window1"]["gang_shapes"],
+        "ms": gw10["full"]["kernel"]["ms"], "device_ms": gw10["full"]["kernel"]["device_ms"],
+        "queued_ms": gw10["full"]["kernel"]["queued_ms"],
+        "plain_ms": gw10["full"]["kernel"]["plain_ms"],
+        "bound_ms": gw10["full"]["kernel"]["bound_ms"],
+        "bound_by": gw10["full"]["kernel"]["bound_by"],
+        "shape": gw10["full"]["kernel"]["shape"], "library_ms": None,
+        "config11": {k: gw10["config11"]["kernel"][k] for k in
+                     ("ms", "device_ms", "queued_ms", "plain_ms", "bound_ms", "bound_by",
+                      "shape")},
     }]})
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

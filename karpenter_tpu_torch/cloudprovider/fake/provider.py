@@ -21,7 +21,8 @@ from karpenter_tpu_torch.api.core import Node, NodeCondition, NodeSpec, NodeStat
 from karpenter_tpu_torch.cloudprovider.spi import CloudProvider, InstanceType, make_instance_type
 from karpenter_tpu_torch.utils.resources import parse_resource_list
 
-__all__ = ["FakeCloudProvider", "default_catalog", "instance_types", "make_instance_type"]
+__all__ = ["FakeCloudProvider", "default_catalog", "instance_types", "make_instance_type",
+           "tpu_catalog"]
 
 _name_counter = itertools.count()
 
@@ -37,6 +38,23 @@ def instance_types(total: int) -> List[InstanceType]:
             pods=str((i + 1) * 10),
         )
         for i in range(total)
+    ]
+
+
+def tpu_catalog() -> List[InstanceType]:
+    """Multi-host TPU catalog for slice-carve runs: two 2-D torus hosts
+    (v5e 4x4 and 4x8 chip grids, priced per size), one 3-D torus host
+    (v4 2x2x4, 16 chips on an x·y·z grid) and a plain CPU type, so
+    non-slice pods never land on TPU capacity by accident."""
+    return [
+        make_instance_type("tpu-v5e-4x4", cpu="32", memory="64Gi",
+                           pods="32", price=4.0, tpu_topology="v5e-4x4"),
+        make_instance_type("tpu-v5e-4x8", cpu="64", memory="128Gi",
+                           pods="64", price=8.0, tpu_topology="v5e-4x8"),
+        make_instance_type("tpu-v4-2x2x4", cpu="64", memory="128Gi",
+                           pods="64", price=6.0, tpu_topology="v4-2x2x4"),
+        make_instance_type("cpu-standard", cpu="16", memory="64Gi",
+                           pods="64", price=1.0),
     ]
 
 

@@ -11,10 +11,11 @@ from __future__ import annotations
 
 import abc
 from dataclasses import dataclass, field
-from typing import Callable, List, Optional, Sequence
+from typing import Callable, List, Optional, Sequence, Tuple
 
 from karpenter_tpu_torch.api.constraints import Constraints
 from karpenter_tpu_torch.api.core import Node
+from karpenter_tpu_torch.api.gang import instance_slice_shape
 from karpenter_tpu_torch.utils.resources import Quantity, ResourceList, parse_resource_list
 
 
@@ -47,6 +48,22 @@ class InstanceType:
     aws_pod_eni: Quantity = field(default_factory=lambda: Quantity(0))
     overhead: ResourceList = field(default_factory=dict)
     price: float = 0.0
+    # TPU slice topology this type advertises ("v5e-4x4"; "" = none). Gangs
+    # carrying a pod-group-slice label only land on types whose topology
+    # contains the requested shape (api/gang.py, ops/feasibility.py).
+    tpu_topology: str = ""
+
+    def grid_dims(self) -> Optional[Tuple[int, ...]]:
+        """Chip-grid dimensions of the advertised TPU topology (the torus
+        ops/topology.py models occupancy over), or None when the type
+        hosts no slices. Parsed once and cached on the instance."""
+        cached = self.__dict__.get("_grid_dims", False)
+        if cached is not False:
+            return cached
+        shape = instance_slice_shape(self)
+        dims = shape.dims if shape is not None else None
+        self.__dict__["_grid_dims"] = dims
+        return dims
 
 
 _DEFAULT_OFFERINGS = [
@@ -71,6 +88,7 @@ def make_instance_type(
     aws_neurons: str = "0",
     aws_pod_eni: str = "0",
     price: float = 0.0,
+    tpu_topology: str = "",
 ) -> InstanceType:
     """fake.NewInstanceType defaults (instancetype.go:27-52)."""
     return InstanceType(
@@ -87,6 +105,7 @@ def make_instance_type(
         aws_pod_eni=Quantity.parse(aws_pod_eni),
         overhead=parse_resource_list({"cpu": "100m", "memory": "10Mi"}),
         price=price,
+        tpu_topology=tpu_topology,
     )
 
 

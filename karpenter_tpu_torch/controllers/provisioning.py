@@ -33,9 +33,18 @@ price, each chunk prices its own (``_chunk_solver_config``), and a
 schedule with soft-affinity votes launches in the zone its row was priced
 at (``_steer``).
 
-Left out (ROADMAP): the gang, carve and preemption paths (the scheduler
-holds complete gangs out), the intent journal, SLO stamps, trace spans and
-histograms.
+Gang schedules peel off into the chunk's co-pack window
+(``_encode_gangs``): one launch of the what-if kernel for every complete
+gang of the chunk, beside the carve program when a gang declares a TPU
+slice (``dispatch_gang_window``), then ``plan_gang_window`` re-verifies
+each gang on host ints, prices preemption of lower-band residents against
+fresh nodes, and ``_launch_gang`` binds it all or nothing. Bound slice
+gangs commit their carves to the occupancy ledger (``ops/topology.LEDGER``),
+whose partly carved nodes come back to the next window as seed bins.
+
+Left out (ROADMAP): the intent journal (with the gang-bind, carve and
+preempt intents and their recovery), SLO stamps, trace spans, histograms
+and the gang and topology metrics.
 """
 
 from __future__ import annotations
@@ -48,6 +57,8 @@ import zlib
 from dataclasses import dataclass, field, replace
 from typing import Callable, Dict, List, Optional, Tuple
 
+import numpy as np
+
 from karpenter_tpu_torch.api import wellknown
 from karpenter_tpu_torch.api.constraints import Constraints
 from karpenter_tpu_torch.api.core import Node, NodeSelectorRequirement, Pod, Taint
@@ -56,14 +67,24 @@ from karpenter_tpu_torch.api.provisioner import Provisioner, set_condition
 from karpenter_tpu_torch.backend import DeviceLike, resolve_device
 from karpenter_tpu_torch.cloudprovider.spi import CloudProvider
 from karpenter_tpu_torch import pressure
-from karpenter_tpu_torch.models.consolidate import free_capacity_vector
+from karpenter_tpu_torch.models.consolidate import NANO, free_capacity_vector
+from karpenter_tpu_torch.ops import feasibility
 from karpenter_tpu_torch.ops import policy as ops_policy
+from karpenter_tpu_torch.ops import topology as topo_ops
+from karpenter_tpu_torch.ops.gang import GangBin, GangEncoding, encode_gang_window
+from karpenter_tpu_torch.pressure.bands import RANK
 from karpenter_tpu_torch.runtime.kubecore import AlreadyExists, ApiError, KubeCore, NotFound
 from karpenter_tpu_torch.scheduling.batcher import Batcher
+from karpenter_tpu_torch.scheduling.preempt_budget import PreemptionBudget
 from karpenter_tpu_torch.scheduling.scheduler import Scheduler
-from karpenter_tpu_torch.solver import global_solve
+from karpenter_tpu_torch.solver import adapter, global_solve
+from karpenter_tpu_torch.solver import topology as topo_solver
 from karpenter_tpu_torch.solver.adapter import pod_vector
 from karpenter_tpu_torch.solver.batch_solve import Problem, dispatch_batch
+from karpenter_tpu_torch.solver.gang import (
+    GangPlacement, PreemptCandidate, PreemptContext, dispatch_gang_window, plan_gang_window,
+)
+from karpenter_tpu_torch.solver.host_ffd import R_PODS
 from karpenter_tpu_torch.solver.pipeline import PipelineConfig, SolvePipeline
 from karpenter_tpu_torch.solver.policy import PolicyContext, whatif_repack_cost
 from karpenter_tpu_torch.solver.solve import (
@@ -104,6 +125,15 @@ class _ChunkPrep:
     # chunk-scoped SolverConfig: the interruption-priced policy's repack
     # cost priced for this chunk (None: the worker's config as-is)
     solver_config: Optional[SolverConfig] = None
+    # the gang co-pack half of the chunk: one batched solve for every
+    # complete pod group the scheduler grouped out of it
+    gang_enc: Optional[GangEncoding] = None
+    gang_types: list = field(default_factory=list)  # type idx → (schedule, it)
+    gang_handle: Optional[object] = None
+    gang_nodes: Dict[int, str] = field(default_factory=dict)  # bin → node
+    # the gang window's readings (encode, plan and launch/bind seconds,
+    # counts, executor, kernel ms), once completed
+    gang: dict = field(default_factory=dict)
 
 
 class ProvisionerEngine:
@@ -128,7 +158,8 @@ class ProvisionerWorker:
     ``device`` (default: the CUDA device; ``"cpu"`` runs the plain
     versions) is resolved here, once. After each window ``last_window``
     holds its readings: the intake wait, and per chunk the schedule,
-    dispatch, in-flight, fetch and launch/bind seconds."""
+    dispatch, in-flight, fetch and launch/bind seconds (a chunk with gangs
+    adds its gang window's, ``gang``)."""
 
     def __init__(
         self,
@@ -145,6 +176,7 @@ class ProvisionerWorker:
         self.kube = kube
         self.cloud_provider = cloud_provider
         self.solver_config = solver_config or SolverConfig()
+        self.preempt_budget = PreemptionBudget()
         self.batcher = batcher or Batcher()
         self.pipeline_config = pipeline_config or PipelineConfig()
         self.shard = shard
@@ -352,6 +384,10 @@ class ProvisionerWorker:
         t0 = time.perf_counter()
         eng = self._engine()
         schedules = eng.scheduler.solve(eng.provisioner, pods)
+        # gang schedules peel off into the co-pack window; the rest keep the
+        # reference's per-schedule packing problems
+        gang_scheds = [s for s in schedules if s.gang is not None]
+        schedules = [s for s in schedules if s.gang is None]
         problems = [
             Problem(constraints=s.constraints, pods=s.pods,
                     instance_types=self.cloud_provider.get_instance_types(s.constraints),
@@ -360,6 +396,15 @@ class ProvisionerWorker:
             for s in schedules
         ]
         prep = _ChunkPrep(schedules=schedules, problems=problems, pods=pods)
+        if gang_scheds:
+            t_enc = time.perf_counter()
+            prep.gang_enc, prep.gang_types = self._encode_gangs(gang_scheds)
+            # seed bins ARE real nodes: their bin → node names make
+            # _launch_gang bind onto them without creating anything
+            for bi, bn in enumerate(prep.gang_enc.bins):
+                if bn.node_name:
+                    prep.gang_nodes[bi] = bn.node_name
+            prep.gang["encode_s"] = time.perf_counter() - t_enc
         prep.solver_config = self._chunk_solver_config(prep)
         prep.schedule_s = time.perf_counter() - t0
         return prep
@@ -418,6 +463,9 @@ class ProvisionerWorker:
                     prep.problems, cfg, device=self.device)
             except Exception:
                 self._global_failed("dispatch")
+        if prep.gang_enc is not None and prep.gang_enc.g > 0:
+            # the gang window rides the same stage; its fetch comes at launch
+            prep.gang_handle = dispatch_gang_window(prep.gang_enc, self.device)
         prep.dispatch_s = time.perf_counter() - t0
         return handle
 
@@ -454,7 +502,351 @@ class ProvisionerWorker:
                 err = self._launch(self._steer(schedule, packing), packing)
                 if err is not None:
                     log.error("could not launch node: %s window_id=%s", err, self._window_id)
+        if prep.gang_enc is not None:
+            self._complete_gangs(prep)
         return last_result
+
+    # -- gang co-pack (all-or-nothing pod groups) ----------------------------
+    def _encode_gangs(self, gang_scheds):
+        """Marshal every gang schedule of the chunk into ONE window
+        encoding. The window's type axis is the concatenation of each
+        schedule's validated, sorted catalog segment, so a gang's group
+        column (ops/feasibility.gang_feasibility_mask, on this worker's
+        device) is zero outside its own segment: prospective nodes only
+        ever carry one schedule's labels and taints."""
+        type_frees: list = []
+        type_prices: list = []
+        type_names: list = []
+        type_ctx: list = []
+        segments = []
+        for s in gang_scheds:
+            catalog = self.cloud_provider.get_instance_types(s.constraints)
+            packables, sorted_types = adapter.build_packables(
+                catalog, s.constraints, s.pods, self._get_daemons(s.constraints))
+            allowed = adapter.allowed_sets_cached(s.constraints)
+            required = adapter._required_resources(s.pods)
+            seg_mask = feasibility.gang_feasibility_mask(
+                sorted_types, [(allowed, required)], s.gang.slice_, self.device)
+            base = len(type_frees)
+            for pk, it in zip(packables, sorted_types):
+                type_frees.append([t - r for t, r in zip(pk.total, pk.reserved)])
+                type_prices.append(it.price)
+                type_names.append(it.name)
+                type_ctx.append((s, it))
+            segments.append((s, base, seg_mask))
+        n = len(type_frees)
+        gangs, slice_dims, gang_bands = [], [], []
+        for s, base, seg_mask in segments:
+            mask = np.zeros(n, bool)
+            mask[base:base + len(seg_mask)] = seg_mask
+            gangs.append((s.gang.key, s.pods, mask, s))
+            slice_dims.append(s.gang.slice_.dims if s.gang.slice_ is not None else None)
+            # the gang's band is its highest-priority member's: one
+            # critical member makes the whole group preemption-proof
+            gang_bands.append(min((pressure.classify(p)[0] for p in s.pods),
+                                  key=lambda b: RANK.get(b, RANK["default"]),
+                                  default="default"))
+        if topo_solver.carve_enabled() and any(d is not None for d in slice_dims):
+            # carve mode: the window carries slice grids, bands, per-type
+            # torus dims and the ledger's partly carved real nodes as seed
+            # bins; with the switch off none of these reach the encoder
+            enc = encode_gang_window(
+                gangs, type_frees, type_prices, type_names, slices=slice_dims,
+                bands=gang_bands, type_grids=[it.grid_dims() for _s, it in type_ctx],
+                seed_bins=self._gang_seed_bins(type_ctx))
+        else:
+            enc = encode_gang_window(gangs, type_frees, type_prices, type_names)
+        return enc, type_ctx
+
+    def _gang_seed_bins(self, type_ctx) -> List[GangBin]:
+        """The occupancy ledger's partly carved Ready nodes, offered to the
+        gang window as seed bins. A node matches by (instance type name,
+        constraints signature) against the window's own type axis, so a
+        seed only ever hosts gangs whose labels and taints the node
+        already carries. Its free capacity is the node's LIVE residual
+        (allocatable minus running pods)."""
+        topo_ops.LEDGER.prune([n.metadata.name for n in self.kube.list("Node")])
+        snap = topo_ops.LEDGER.snapshot()
+        if not snap:
+            return []
+        index_of: Dict[Tuple[str, tuple], int] = {}
+        sig_of: Dict[int, tuple] = {}
+        for ti, (s, it) in enumerate(type_ctx):
+            sig = sig_of.get(id(s))
+            if sig is None:
+                sig = sig_of[id(s)] = topo_ops.constraints_sig(s.constraints.labels,
+                                                               s.constraints.taints)
+            index_of.setdefault((it.name, sig), ti)
+        seeds: List[GangBin] = []
+        for ng in snap:
+            ti = index_of.get((ng.type_name, ng.labels_sig))
+            if ti is None:
+                continue
+            try:
+                node = self.kube.get("Node", ng.node, "")
+            except NotFound:
+                continue
+            if node.metadata.deletion_timestamp is not None or not nodeutil.is_ready(node):
+                continue
+            free = free_capacity_vector(node, self.kube.pods_on_node(ng.node))
+            seeds.append(GangBin(name=ng.node, type_index=ti, free=[max(f, 0) for f in free],
+                                 grid=ng.dims, occ=ng.occ.copy(), node_name=ng.node))
+        return seeds
+
+    def _complete_gangs(self, prep: _ChunkPrep) -> None:
+        """Fetch the window's batched gang solve, re-verify every accepted
+        gang on exact host ints, and bind each all or nothing. An
+        unplaceable gang stays Pending: the selection requeue offers it
+        again."""
+        enc = prep.gang_enc
+        t0 = time.perf_counter()
+        for key, reason in enc.skipped:
+            log.info("gang %s unplaceable: %s window_id=%s shard=%s", key, reason,
+                     self._window_id, self.shard or "0")
+        feasible, executor = None, None
+        handle = prep.gang_handle
+        if handle is not None:
+            feasible, _, executor = handle.fetch()
+            log.info("gang window solved: %d gang(s) executor=%s window_id=%s shard=%s",
+                     enc.g, executor, self._window_id, self.shard or "0")
+        t_fetch = time.perf_counter()
+        preempt = self._build_preempt_context(prep) if enc.carve is not None else None
+        plan = plan_gang_window(enc, feasible, preempt)
+        t_plan = time.perf_counter()
+        for e, reason in plan.unplaced:
+            log.info("gang %s unplaceable: %s window_id=%s shard=%s", e.key, reason,
+                     self._window_id, self.shard or "0")
+        pre_of: Dict[int, List[PreemptCandidate]] = {}
+        for e, cand in plan.preemptions:
+            pre_of.setdefault(e.index, []).append(cand)
+        placed = failed = preempted = 0
+        for placement in plan.placements:
+            # victims ride into _launch_gang: they unbind only once every
+            # beneficiary node exists, but before its members bind
+            victims = pre_of.pop(placement.gang.index, [])
+            err = self._launch_gang(prep, placement, victims)
+            if err is None:
+                placed += 1
+                preempted += len(victims)
+            else:
+                failed += 1
+                log.error("gang %s bind failed (unwound): %s window_id=%s shard=%s",
+                          placement.gang.key, err, self._window_id, self.shard or "0")
+        prep.gang.update({
+            "gangs": enc.g, "bins": enc.b, "skipped": len(enc.skipped),
+            "placed": placed, "unplaced": len(plan.unplaced), "bind_failed": failed,
+            "preemptions": preempted, "executor": executor,
+            "cells": enc.cells, "carve": enc.carve is not None,
+            "kernel_ms": handle.kernel_ms if handle is not None else None,
+            "carve_ms": handle.carve_ms if handle is not None else None,
+            "fetch_s": t_fetch - t0, "plan_s": t_plan - t_fetch,
+            "launch_bind_s": time.perf_counter() - t_plan})
+
+    def _build_preempt_context(self, prep: _ChunkPrep) -> Optional[PreemptContext]:
+        """Price every displaceable resident of the window's seed bins.
+        System-critical residents are never offered; every other one is
+        priced by solver/policy.whatif_repack_cost (0 when its members
+        refit on the fleet's free capacity, else the cheapest replacement
+        node's $/h), so the planner preempts exactly when displacement is
+        cheaper than a fresh node. The budget filters the candidates
+        first."""
+        enc = prep.gang_enc
+        seeds = [(bi, bn) for bi, bn in enumerate(enc.bins) if bn.node_name]
+        if not seeds:
+            return None
+        self.preempt_budget.tick()
+        by_node = {ng.node: ng for ng in topo_ops.LEDGER.snapshot()}
+        free_vecs: Optional[list] = None
+        cands: List[PreemptCandidate] = []
+        for bi, bn in seeds:
+            ng = by_node.get(bn.node_name)
+            if ng is None:
+                continue
+            sched, _it = prep.gang_types[bn.type_index]
+            seg_types = [it for s2, it in prep.gang_types if s2 is sched]
+            for rec in ng.carves.values():
+                if rec.band == "system-critical":
+                    continue
+                vecs, live = [], []
+                refund = [0] * len(bn.free)
+                for pns, pname in rec.pods:
+                    try:
+                        p = self.kube.get("Pod", pname, pns)
+                    except NotFound:
+                        continue
+                    v = pod_vector(p)
+                    vecs.append(v)
+                    refund = [a + b for a, b in zip(refund, v)]
+                    refund[R_PODS] += NANO  # the pod slot comes back too
+                    live.append((pns, pname))
+                if free_vecs is None:
+                    free_vecs = [
+                        free_capacity_vector(node, self.kube.pods_on_node(node.metadata.name))
+                        for node in self.kube.list("Node")
+                        if node.metadata.deletion_timestamp is None and nodeutil.is_ready(node)]
+                cost = (whatif_repack_cost(vecs, free_vecs, seg_types,
+                                           sched.constraints.requirements,
+                                           self.solver_config.cost_config) if vecs else 0.0)
+                cands.append(PreemptCandidate(
+                    gang_key=rec.gang_key, bin_index=bi, node=ng.node, band=rec.band,
+                    pods=live, cells=rec.cells.copy(), refund=refund,
+                    displacement_cost=cost))
+        # anti-thrash gate before the planner prices anything: a window the
+        # budget caps falls back to fresh nodes
+        cands = self.preempt_budget.admit(cands)
+        return PreemptContext(cands) if cands else None
+
+    def _execute_preemption(self, cand: PreemptCandidate) -> None:
+        """Displace one resident gang: unbind its members, release its
+        ledger carves, and requeue the whole group atomically through the
+        band-aware batcher (shed-proof: the members were running)."""
+        def clear(obj):
+            if getattr(obj.spec, "node_name", ""):
+                obj.spec.node_name = ""
+            else:
+                raise _NoChange
+
+        entries = []
+        for pns, pname in cand.pods:
+            try:
+                self.kube.patch("Pod", pname, pns, clear)
+            except (_NoChange, NotFound):
+                pass
+            try:
+                p = self.kube.get("Pod", pname, pns)
+            except NotFound:
+                continue
+            band, priority = pressure.classify(p)
+            gspec = gang_of(p)
+            gang = (gspec.key, gspec.size) if gspec is not None and not gspec.error else None
+            entries.append(((None, p), (pns, pname), band, priority, gang))
+        if entries:
+            self.batcher.requeue_displaced(entries)
+        topo_ops.LEDGER.pop_gang(cand.gang_key)
+        self.preempt_budget.charge(cand.gang_key, cand.band)
+        log.info("preempted gang %s on %s: band=%s %d pod(s) requeued displacement=$%.4f/h "
+                 "window_id=%s shard=%s", cand.gang_key, cand.node, cand.band, len(entries),
+                 cand.displacement_cost, self._window_id, self.shard or "0")
+
+    def _commit_carves(self, prep: _ChunkPrep, placement: GangPlacement) -> None:
+        """Record a bound slice gang's carve cells in the occupancy ledger,
+        so later windows seed its nodes' residual grids back into the pool
+        (and can price this gang as a preemption victim)."""
+        if not placement.carves:
+            return
+        enc = prep.gang_enc
+        constraints = placement.gang.context.constraints
+        sig = topo_ops.constraints_sig(constraints.labels, constraints.taints)
+        members = {bi: [(p.metadata.namespace, p.metadata.name) for p in pods]
+                   for bi, pods in placement.node_sets}
+        for bi, cells in placement.carves.items():
+            node = prep.gang_nodes.get(bi)
+            bn = enc.bins[bi]
+            if node is None or bn.grid is None:
+                continue
+            _s, itype = prep.gang_types[bn.type_index]
+            topo_ops.LEDGER.commit(node, bn.grid, itype.name, sig, placement.gang.key,
+                                   [int(c) for c in cells], placement.gang.band,
+                                   members.get(bi, []))
+
+    def _launch_gang(self, prep: _ChunkPrep, placement: GangPlacement,
+                     victims: Optional[List[PreemptCandidate]] = None) -> Optional[str]:
+        """Atomic gang launch: every member binds or none stays bound. Two
+        phases: create every node object first, then bind the members, so
+        a launch failure costs no bind; a bind failure unwinds the bound
+        members and hands the created nodes to the termination finalizer.
+        ``victims`` (this gang's planned preemptions) are displaced between
+        the phases: only once every node exists, so a refused launch
+        evicts nothing, yet before any member binds onto the freed
+        capacity."""
+        constraints = placement.gang.context.constraints
+        provisioner = self._engine().provisioner
+        try:
+            latest = self.kube.get("Provisioner", provisioner.metadata.name)
+        except NotFound:
+            return "provisioner deleted"
+        err = provisioner.spec.limits.exceeded_by(latest.status.resources)
+        if err is not None:
+            return err
+        enc = prep.gang_enc
+        # phase 1: every node object exists before any member binds
+        created: List[str] = []
+        node_of: Dict[int, str] = {}
+        for bin_index, _pods in placement.node_sets:
+            name = prep.gang_nodes.get(bin_index)
+            if name is None:
+                _, itype = prep.gang_types[enc.bins[bin_index].type_index]
+                name = self._create_gang_node(constraints, itype)
+                if name is None:
+                    self._unwind_gang(prep, placement, node_of, created)
+                    return f"could not launch node for bin {enc.bins[bin_index].name}"
+                prep.gang_nodes[bin_index] = name
+                created.append(name)
+            node_of[bin_index] = name
+        for cand in victims or ():
+            self._execute_preemption(cand)
+        # phase 2: bind the members node set by node set
+        for bin_index, pods in placement.node_sets:
+            name = node_of[bin_index]
+            try:
+                errs = self.kube.bind_pods(pods, name)
+            except ApiError as e:
+                errs = [str(e)] * len(pods)
+            errs = [e for e in errs if "already bound" not in e and "already exists" not in e]
+            if errs:
+                self._unwind_gang(prep, placement, node_of, created)
+                return f"binding to {name}: " + "; ".join(errs)
+        self._commit_carves(prep, placement)
+        log.info("gang %s bound: %d pod(s) across %d node(s) window_id=%s shard=%s",
+                 placement.gang.key, len(placement.gang.pods), len(placement.node_sets),
+                 self._window_id, self.shard or "0")
+        return None
+
+    def _create_gang_node(self, constraints: Constraints, itype) -> Optional[str]:
+        """Launch ONE node of ``itype`` and create its Node object
+        (finalizer + not-ready taint) without binding anything."""
+        names: List[str] = []
+
+        def bind(node: Node) -> Optional[str]:
+            node.metadata.labels.update(constraints.labels)
+            node.spec.taints.extend(constraints.taints)
+            err = self._bind(node, [])
+            if err is None:
+                names.append(node.metadata.name)
+            return err
+
+        errs = [e for e in self.cloud_provider.create(constraints, [itype], 1, bind) if e]
+        if errs:
+            log.error("gang node launch failed: %s window_id=%s", "; ".join(errs),
+                      self._window_id)
+        return names[0] if names else None
+
+    def _unwind_gang(self, prep: _ChunkPrep, placement: GangPlacement,
+                     node_of: Dict[int, str], created: List[str]) -> None:
+        """Roll a partly bound gang back to nothing: unbind every member
+        that landed on one of this gang's nodes, then delete the nodes
+        created for it (the termination finalizer tears them down)."""
+        names = set(node_of.values())
+
+        def clear(obj):
+            if getattr(obj.spec, "node_name", "") in names:
+                obj.spec.node_name = ""
+            else:
+                raise _NoChange
+
+        for pod in placement.gang.pods:
+            try:
+                self.kube.patch("Pod", pod.metadata.name, pod.metadata.namespace, clear)
+            except (_NoChange, NotFound):
+                pass
+        gone = set(created)
+        for bi in [b for b, n in prep.gang_nodes.items() if n in gone]:
+            del prep.gang_nodes[bi]  # a later gang must not bind here
+        for name in created:
+            try:
+                self.kube.delete("Node", name, "")
+            except (NotFound, ApiError):
+                pass
 
     def _observe_chunk(self, prep: _ChunkPrep, stats: dict) -> None:
         self._chunks.append({
@@ -463,7 +855,8 @@ class ProvisionerWorker:
             "schedule_s": prep.schedule_s, "dispatch_s": prep.dispatch_s,
             "inflight_s": stats["inflight_s"], "fetch_s": stats["device_s"],
             "launch_bind_s": stats["launch_bind_s"], "t_dispatch": stats["t_dispatch"],
-            "t_fetch": stats["t_fetch"], "t_done": stats["t_done"]})
+            "t_fetch": stats["t_fetch"], "t_done": stats["t_done"],
+            "gang": dict(prep.gang) if prep.gang_enc is not None else None})
 
     def _is_provisionable(self, candidate: Pod) -> bool:
         """Fresh read per pod to avoid duplicate binds (provisioner.go:

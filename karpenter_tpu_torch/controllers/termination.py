@@ -8,9 +8,10 @@ non-critical before system-critical) → CloudProvider.Delete → strip the
 finalizer, and the API server removes the Node.
 
 The EvictionQueue is a single background worker with exponential backoff
-(100 ms → 10 s) and a dedupe set (eviction.go:25-115). Left out: the intent
-journal and the release of the node's torus carves (the carve ledger comes
-with the topology port).
+(100 ms → 10 s) and a dedupe set (eviction.go:25-115). A terminated
+node's torus carves leave the occupancy ledger (``ops/topology.LEDGER``),
+so no later gang window offers its grid as a seed bin. Left out: the
+intent journal.
 """
 
 from __future__ import annotations
@@ -23,6 +24,7 @@ from typing import List, Optional, Set, Tuple
 from karpenter_tpu_torch.api import wellknown
 from karpenter_tpu_torch.api.core import Node, Pod
 from karpenter_tpu_torch.cloudprovider.spi import CloudProvider
+from karpenter_tpu_torch.ops import topology as topo_ops
 from karpenter_tpu_torch.runtime.kubecore import (
     Conflict, InternalError, KubeCore, NotFound, TooManyRequests,
 )
@@ -167,8 +169,16 @@ class Terminator:
         try:
             self.kube.patch("Node", node.metadata.name, node.metadata.namespace, apply)
         except NotFound:
+            self._release_carves(node.metadata.name)
             return
+        self._release_carves(node.metadata.name)
         log.info("deleted node %s", node.metadata.name)
+
+    def _release_carves(self, name: str) -> None:
+        """A terminated node's ledger carves die with it; otherwise the next
+        gang window would keep offering the dead node's residual grid as a
+        seed bin."""
+        topo_ops.LEDGER.pop_node(name)
 
     def _get_evictable_pods(self, pods: List[Pod]) -> List[Pod]:
         evictable = []

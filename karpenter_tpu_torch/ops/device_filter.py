@@ -320,6 +320,15 @@ def window_mask(planes_d: tuple, rows_d: tuple, probe_idx: torch.Tensor):
     return mask, last_valid, any_feas, probe
 
 
+def _pairs_mask(planes: Planes, pairs, dev: torch.device) -> torch.Tensor:
+    """The (len(pairs), TB) mask of ``pairs`` of (allowed, required) keys
+    as a tensor on ``dev``: the planes resident there, one copy of the
+    rows."""
+    rows = [schedule_row(planes, allowed, required) for allowed, required in pairs]
+    stacked = _stack_rows(planes, rows, max(1, len(rows)))
+    return _mask_expr(*resident_planes(planes, dev), *to_device_int32(stacked, dev))
+
+
 def compute_mask(instance_types, pairs, device: DeviceLike = None) -> Optional[np.ndarray]:
     """The (len(pairs), len(instance_types)) device mask of ``pairs`` of
     (allowed, required) keys, copied to the host: the verdicts the fused
@@ -328,11 +337,31 @@ def compute_mask(instance_types, pairs, device: DeviceLike = None) -> Optional[n
     planes = planes_for(instance_types)
     if planes is None:
         return None
-    dev = resolve_device(device)
-    rows = [schedule_row(planes, allowed, required) for allowed, required in pairs]
-    stacked = _stack_rows(planes, rows, max(1, len(rows)))
-    mask = _mask_expr(*resident_planes(planes, dev), *to_device_int32(stacked, dev))
-    return mask.cpu().numpy()[:len(rows), :planes.n]
+    mask = _pairs_mask(planes, pairs, resolve_device(device))
+    return mask.cpu().numpy()[:len(pairs), :planes.n]
+
+
+GANG_COLUMN_RUNS = 0  # member-column programs run since import
+
+
+def gang_member_column(instance_types, member_keys,
+                       device: DeviceLike = None) -> Optional[np.ndarray]:
+    """The gang member-AND column ((T,) bool: every member key's
+    validators accept the type), the JAX package's ``_rows_jit`` /
+    ``gang_member_column``: the window mask algebra on the member keys'
+    unpadded rows, AND-reduced over them on ``device`` (default: the CUDA
+    device), one (T,) copy back. None when there are no keys or the catalog
+    cannot be put in planes: the caller takes the scalar oracle."""
+    global GANG_COLUMN_RUNS
+    if not member_keys:
+        return None
+    planes = planes_for(instance_types)
+    if planes is None:
+        return None
+    col = _pairs_mask(planes, member_keys, resolve_device(device)).all(0)
+    with _LOCK:
+        GANG_COLUMN_RUNS += 1
+    return col.cpu().numpy()[:planes.n]
 
 
 class FusedMismatch(Exception):

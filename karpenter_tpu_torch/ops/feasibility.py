@@ -1,7 +1,22 @@
-"""Pod-pod affinity match matrix: selectors × peers, on the device.
+"""Group columns on the device: the gang feasibility column and the pod-pod
+affinity match matrix.
 
-A trimmed copy of the affinity part of the JAX package's
-``ops/feasibility.py``. Required pod-(anti-)affinity compiles to a
+A trimmed copy of the gang and affinity parts of the JAX package's
+``ops/feasibility.py``.
+
+A gang's allowed-type column (:func:`gang_feasibility_mask`) is the AND of
+its members' per-type feasibility, computed on the device from the catalog
+bit-planes (``ops/device_filter.gang_member_column``, the JAX package's
+``_rows_jit``), intersected with a slice-compatibility column when the
+gang declares a slice shape. A catalog that cannot be put in planes takes
+the scalar per-member oracle :func:`gang_scalar_mask`, counted under
+``gang-unindexable``; ``KARPENTER_DEVICE_FILTER=0`` sends every column to
+the oracle, the operator's choice, uncounted. An all-False
+column is re-derived from the oracle and the oracle wins when it finds a
+type, counted under ``gang-mismatch``. Columns are cached per gang
+signature (catalog identity, distinct member keys, slice shape).
+
+Required pod-(anti-)affinity compiles to a
 selectors × peers boolean match matrix: S distinct LabelSelector
 signatures evaluated against P distinct pod-label signatures. The device
 program (:func:`ops.device_filter.affinity_matrix`, B5) computes it from
@@ -15,8 +30,9 @@ counted under ``unsupported-operator``.
 
 Left out: the columnar constraint engine of the same module
 (``compile_constraints``, the per-signature memo of ``validate_pod`` /
-``tighten``), which is queued with the host-bound window work; and the
-``KARPENTER_POLICY_COLUMNAR`` kill switch. A device error raises.
+``tighten``, ``catalog_feasibility_mask``), which is queued with the
+host-bound window work; and the ``KARPENTER_POLICY_COLUMNAR`` kill switch.
+A device error raises.
 """
 
 from __future__ import annotations
@@ -26,6 +42,7 @@ from typing import Dict, Optional
 
 import numpy as np
 
+from karpenter_tpu_torch.api.gang import instance_slice_shape, slice_fits
 from karpenter_tpu_torch.backend import DeviceLike
 
 _AFFINITY_OPS = frozenset({"In", "NotIn", "Exists", "DoesNotExist"})
@@ -33,8 +50,10 @@ _AFFINITY_PROBE_K = 32
 
 _LOCK = threading.Lock()
 # self-heals since the last reset, by reason: "affinity-mismatch" (a probe
-# cell of the device matrix disagreed with the scalar oracle) and
-# "unsupported-operator" (the matrix went to the oracle outright)
+# cell of the device matrix disagreed with the scalar oracle),
+# "unsupported-operator" (the matrix went to the oracle outright),
+# "gang-mismatch" (an all-False gang column the oracle refuted) and
+# "gang-unindexable" (a gang column the device could not compute)
 HEALS: Dict[str, int] = {}
 
 
@@ -51,6 +70,102 @@ def heal_counts() -> Dict[str, int]:
 def reset_heals() -> None:
     with _LOCK:
         HEALS.clear()
+
+
+# -- group-level (gang) columns ----------------------------------------------
+
+_GANG_MASK_CACHE: dict = {}
+_GANG_MASK_CACHE_CAP = 128
+_SLICE_COL_CACHE: dict = {}
+_SLICE_COL_CACHE_CAP = 64
+
+
+def _slice_column(instance_types, tokens: tuple, shape) -> np.ndarray:
+    """Per-type slice compatibility column, cached per (catalog, shape)."""
+    skey = (tokens, str(shape))
+    with _LOCK:
+        col = _SLICE_COL_CACHE.get(skey)
+    if col is not None:
+        return col
+    col = np.fromiter(
+        (slice_fits(instance_slice_shape(it), shape) for it in instance_types),
+        dtype=bool, count=len(instance_types))
+    col.flags.writeable = False
+    with _LOCK:
+        if len(_SLICE_COL_CACHE) >= _SLICE_COL_CACHE_CAP:
+            _SLICE_COL_CACHE.pop(next(iter(_SLICE_COL_CACHE)))
+        _SLICE_COL_CACHE[skey] = col
+    return col
+
+
+def gang_scalar_mask(instance_types, member_keys, slice_shape) -> np.ndarray:
+    """The scalar per-member oracle: type t is gang-viable iff
+    ``adapter._validate`` accepts it for EVERY member (allowed, required)
+    key and its advertised topology contains the requested slice."""
+    from karpenter_tpu_torch.solver.adapter import _validate
+
+    out = np.zeros(len(instance_types), bool)
+    for t, it in enumerate(instance_types):
+        if any(_validate(it, allowed, required) is not None
+               for allowed, required in member_keys):
+            continue
+        if slice_shape is not None and not slice_fits(instance_slice_shape(it), slice_shape):
+            continue
+        out[t] = True
+    return out
+
+
+def gang_feasibility_mask(instance_types, member_keys, slice_shape=None,
+                          device: DeviceLike = None) -> np.ndarray:
+    """Group-level feasibility column for one gang: True = every member's
+    scalar validators accept the type AND the type can carve the requested
+    slice (when one is declared). ``member_keys`` is a sequence of
+    (allowed, required) pairs, one per member (duplicates collapse). The
+    member column runs on ``device`` (default: the CUDA device; ``"cpu"``
+    runs the same torch ops on the CPU). Never None; shared and
+    read-only."""
+    from karpenter_tpu_torch.ops import device_filter
+
+    tokens = tuple(device_filter._catalog_token(it) for it in instance_types)
+    distinct = tuple(sorted(set(member_keys)))
+    gkey = (tokens, distinct, str(slice_shape) if slice_shape else "")
+    with _LOCK:
+        hit = _GANG_MASK_CACHE.get(gkey)
+    if hit is not None:
+        return hit
+    if not distinct:
+        mask = np.ones(len(instance_types), bool)
+    elif device_filter.enabled():
+        mask = device_filter.gang_member_column(instance_types, distinct, device)
+        if mask is None:
+            _count("gang-unindexable")
+    else:  # KARPENTER_DEVICE_FILTER=0: the operator chose the host
+        mask = gang_scalar_mask(instance_types, distinct, None)
+    if mask is not None and slice_shape is not None:
+        mask = mask & _slice_column(instance_types, tokens, slice_shape)
+    if mask is None:
+        mask = gang_scalar_mask(instance_types, distinct, slice_shape)
+    elif distinct and not mask.any():
+        # an all-False column is re-derived from the oracle; scalar wins
+        scalar = gang_scalar_mask(instance_types, distinct, slice_shape)
+        if scalar.any():
+            _count("gang-mismatch")
+            mask = scalar
+    mask = np.array(mask, bool)
+    mask.flags.writeable = False
+    with _LOCK:
+        if len(_GANG_MASK_CACHE) >= _GANG_MASK_CACHE_CAP:
+            _GANG_MASK_CACHE.pop(next(iter(_GANG_MASK_CACHE)))
+        _GANG_MASK_CACHE[gkey] = mask
+    return mask
+
+
+def clear_gang_cache() -> None:
+    """Forget every cached gang and slice column (a run that counts the
+    member-column programs it launches starts here)."""
+    with _LOCK:
+        _GANG_MASK_CACHE.clear()
+        _SLICE_COL_CACHE.clear()
 
 
 def labels_signature(labels: Dict[str, str]) -> tuple:

@@ -1,8 +1,7 @@
 """Windowed pod batcher with bounded, priority-ordered intake.
 
 Reference: pkg/controllers/provisioning/batcher.go. A copy of the JAX
-package's batcher without its metrics, SLO marks and trace events, and
-without the preempted-gang requeue (preemption is not ported yet).
+package's batcher without its metrics, SLO marks and trace events.
 Separates a stream of add() calls into windows: 1 s idle / 10 s max / item
 cap — the item cap defaults higher than the reference's 2k because the
 solver's cost is sublinear in pods (shape-deduped).
@@ -32,6 +31,9 @@ Brownout extensions:
   partial group older than ``gang_ttl_seconds`` is shed whole (reason
   ``gang-expired``), keys released immediately, so the selection requeue
   re-offers every member through the band-aware path.
+- **Displaced gangs** (:meth:`Batcher.requeue_displaced`): a gang that
+  priced preemption displaced is re-admitted whole under one lock, past
+  band shedding and the depth bound (its members were running).
 
 Callers block on the gate returned by add(); the provisioning worker
 flushes the gate after a provisioning pass so selection reconcilers can
@@ -222,6 +224,39 @@ class Batcher:
             # the displaced pod, not skip it as "already pending"
             self._pending_keys.discard(worst.key)
         self._count_shed_locked("displaced", worst.band)
+
+    def requeue_displaced(self, entries) -> int:
+        """Atomically re-enqueue a preempted gang's members: one lock
+        acquisition admits the whole group, so window assembly never sees
+        a partial gang. ``entries`` is a list of ``(item, key, band,
+        priority, gang)`` tuples, the fields :meth:`add` takes. Unlike
+        :meth:`add` this bypasses band shedding and the depth bound: the
+        members were RUNNING until the provisioner displaced them, so
+        dropping them here would turn a priced preemption into lost
+        capacity. Returns the number of entries admitted (all of them)."""
+        now = time.monotonic()
+        with self._cv:
+            for item, key, band, priority, gang in entries:
+                rank = RANK.get(band, RANK["default"])
+                first_seen = now
+                if key is not None:
+                    prev = self._first_seen.get(key)
+                    if prev is not None:
+                        first_seen = prev[0]
+                    self._first_seen[key] = (first_seen, now)
+                entry = _Entry(self._seq, item, key, band, rank, priority, first_seen,
+                               gang=gang[0] if gang else None,
+                               gang_size=gang[1] if gang else 0)
+                self._seq += 1
+                self._entries.append(entry)
+                if key is not None:
+                    self._pending_keys.add(key)
+                self.added_total += 1
+            if entries:
+                self._cv.notify()
+            depth = len(self._entries)
+        self._note_depth(self._monitor(), depth)
+        return len(entries)
 
     def contains(self, key: Any) -> bool:
         """True while an item added with ``key`` awaits a window. Returns

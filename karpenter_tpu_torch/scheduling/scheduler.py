@@ -12,10 +12,9 @@ when ``feasibility.compile_constraints`` gives None: ``validate_pod`` and
 ``tighten`` per pod (the columnar engine is not ported yet). A pod the
 affinity injection proved unsatisfiable (``_affinity_unsat``) fails
 validation and is counted as ``reason=affinity`` in the window's log line.
-Gang co-pack is not ported yet, so the members of a complete gang schedule
-are **held out** (``_gang_unsat``): they stay Pending, are counted in
-``held_out`` and are named in the window's log line; they are never solved
-without their constraint.
+A complete gang is one schedule with ``gang`` set, which the controller
+peels off into its co-pack window; a gang that lost members to validation
+is dropped whole with ``reason=gang`` (``_gang_unsat``).
 """
 
 from __future__ import annotations
@@ -37,15 +36,12 @@ from karpenter_tpu_torch.utils import resources as res
 
 log = logging.getLogger("karpenter.scheduler")
 
-HELD_GANG = "gang co-pack is not ported: held out, left Pending"
-
 
 @dataclass
 class Schedule:
     """Equivalently-schedulable pods + their tightened constraints
     (scheduler.go:53-57). ``gang`` is the gang spec when the group is an
-    all-or-nothing pod group (such a schedule is held out, see the module
-    docstring)."""
+    all-or-nothing pod group (the controller's co-pack window solves it)."""
 
     constraints: Constraints
     pods: List[Pod] = field(default_factory=list)
@@ -75,24 +71,22 @@ class Scheduler:
         self.kube = kube
         self.topology = Topology(kube)
         self.affinity = AffinityGroups(device)
-        # pods held out since this scheduler was made, by reason
-        self.held_out: Dict[str, int] = {"gang": 0}
 
     def solve(self, provisioner: Provisioner, pods: List[Pod]) -> List[Schedule]:
         """scheduler.go:66-82. Affinity injects after topology so a pod
         carrying both a hostname spread and a pod-(anti-)affinity term gets
-        the affinity verdict; gang schedules are held out of the result."""
+        the affinity verdict."""
         constraints = provisioner.spec.constraints.deepcopy()
         self.topology.inject(constraints, pods)
         self.affinity.inject(constraints, pods)
         return self._get_schedules(constraints, pods)
 
     def _get_schedules(self, constraints: Constraints, pods: List[Pod]) -> List[Schedule]:
-        """scheduler.go:87-125 on the scalar path. Unschedulable and
-        held-out pods aggregate to one summary log line per window (counts
-        by reason + up to 5 sample reasons)."""
+        """scheduler.go:87-125 on the scalar path. Unschedulable pods
+        aggregate to one summary log line per window (counts by reason +
+        up to 5 sample reasons)."""
         schedules: Dict[tuple, Schedule] = {}
-        skipped = topo_skipped = aff_skipped = gang_skipped = gang_held = 0
+        skipped = topo_skipped = aff_skipped = gang_skipped = 0
         samples: List[str] = []
 
         def note(pod: Pod, why: str) -> None:
@@ -141,28 +135,25 @@ class Scheduler:
                 adapter.allowed_sets_cached(tightened)
             schedule.pods.append(pod)
         # a gang schedule that lost members to validation above is partial:
-        # all-or-nothing means the survivors shed with the group; a complete
-        # one is held out (gang co-pack is not ported yet)
-        for key in [k for k, s in schedules.items() if s.gang is not None]:
+        # all-or-nothing means the survivors shed with the group rather
+        # than entering a solve window alone
+        for key in [k for k, s in schedules.items()
+                    if s.gang is not None and len(s.pods) != s.gang.size]:
             s = schedules.pop(key)
             skipped += len(s.pods)
-            if len(s.pods) != s.gang.size:
-                gang_skipped += len(s.pods)
-                why = (f"gang {s.gang.namespace}/{s.gang.name} incomplete in "
-                       f"window ({len(s.pods)}/{s.gang.size} members)")
-            else:
-                gang_held += len(s.pods)
-                why = HELD_GANG
+            gang_skipped += len(s.pods)
             for pod in s.pods:
-                pod.__dict__["_gang_unsat"] = why
+                pod.__dict__["_gang_unsat"] = (
+                    f"gang {s.gang.namespace}/{s.gang.name} incomplete in "
+                    f"window ({len(s.pods)}/{s.gang.size} members)")
             if len(samples) < 5:
-                samples.append(f"gang {s.gang.namespace}/{s.gang.name}: {why}")
-        self.held_out["gang"] += gang_held
+                samples.append(f"gang {s.gang.namespace}/{s.gang.name}: "
+                               f"{len(s.pods)}/{s.gang.size} members")
         if skipped:
             log.info("unable to schedule %d/%d pod(s) in window "
                      "(reason=topology: %d, reason=affinity: %d, reason=gang: %d, "
-                     "held out: gang-copack %d, other: %d): %s",
+                     "other: %d): %s",
                      skipped, len(pods), topo_skipped, aff_skipped, gang_skipped,
-                     gang_held, skipped - topo_skipped - aff_skipped - gang_skipped - gang_held,
+                     skipped - topo_skipped - aff_skipped - gang_skipped,
                      "; ".join(samples))
         return list(schedules.values())

@@ -376,3 +376,28 @@ def test_bands_match_the_jax_package():
         for age in (0.0, 59.0, 60.0, 130.0, 600.0):
             assert (port_bands.effective_rank(rank, age, 60.0)
                     == jax_bands.effective_rank(rank, age, 60.0))
+
+
+@pytest.mark.parametrize("level", [0, 3])
+def test_requeue_displaced_is_atomic_and_shed_proof_as_jax(level):
+    """A displaced gang's members re-enter both packages' batchers whole,
+    past a full depth bound and a level that sheds their band, and come out
+    in the same window with the same order; a plain add of the same band
+    is shed in both."""
+    out = []
+    for b_mod, m_mod in ((jax_batcher, jax_monitor), (port_batcher, port_monitor)):
+        b = b_mod.Batcher(idle_seconds=0.01, max_seconds=1.0, max_depth=1,
+                          monitor=HeldMonitor(m_mod, level))
+        try:
+            assert (b.add("filler", key="filler", band="system-critical") is not None)
+            entries = [(f"m{i}", f"m{i}", "low", -5, (("ns", "g"), 3)) for i in range(3)]
+            assert b.requeue_displaced(entries) == 3
+            assert b.contains("m0") and b.contains("m2")
+            shed = b.add("late", key="late", band="low")
+            items, _ = b.wait()
+            out.append((items, shed is None, b.added_total, sorted(b.shed.items())
+                        if isinstance(b.shed, dict) else None))
+        finally:
+            b.stop()
+    assert out[0][:3] == out[1][:3]
+    assert out[1][0] == ["filler", "m0", "m1", "m2"] and out[1][1]

@@ -41,8 +41,8 @@ versions on the CPU. The windows:
 package's, with worker threads: nodes provisioned, pods grouped, daemon
 sets, zone selectors, taints, deleted pods, limits, first match, status
 conditions, bind errors, both deployment shapes, and the pods the port's
-scheduler sheds (an unsatisfiable affinity term) or holds out (complete
-gangs). Every test stops every
+scheduler sheds (an unsatisfiable affinity term), beside a complete gang
+that binds through the co-pack window. Every test stops every
 worker it made; the process-wide state both packages keep (the support
 controllers, the JAX watchdog, the pressure monitors, the executor counts)
 is reset before and after each test.
@@ -53,6 +53,7 @@ import random
 import time
 import uuid
 
+import numpy as np
 import pytest
 
 from karpenter_tpu import pressure as jax_pressure
@@ -522,7 +523,143 @@ def test_pod_affinity_window_binds_as_the_jax_controller(depth, policy):
             for j in range(6):
                 assert node_of_pod[f"web-{k}-{j}"][1] == ZONES[k]
                 assert node_of_pod[f"soft-{k}-{j}"][1] == ZONES[k]
-    assert worker.scheduler.held_out == {"gang": 0}
+    assert all(chunk["gang"] is None for chunk in worker.last_window["chunks"])
+
+
+# -- gang windows: co-pack, torus carving and preemption ----------------------------
+
+def gang_pod(pkg: Pkg, gang, size, i, slice_=None, priority=0, cpu="1", mem="1Gi"):
+    pod = affinity_pod(pkg, f"{gang}-m{i}", cpu, mem, [])
+    wk = pkg.wellknown
+    pod.metadata.labels[wk.POD_GROUP_LABEL] = gang
+    pod.metadata.labels[wk.POD_GROUP_SIZE_LABEL] = str(size)
+    if slice_ is not None:
+        pod.metadata.labels[wk.POD_GROUP_SLICE_LABEL] = slice_
+    pod.spec.priority = priority
+    return pod
+
+
+def gang_waves(pkg: Pkg):
+    """Wave 1: slice gangs of three shapes (2-D and 3-D), a plain gang and
+    plain pods in one window; wave 2: more slices, the first of which
+    reuses a partly carved node of wave 1 (a seed serves the window's
+    first gang schedule of its type and signature only, ROADMAP §C)."""
+    wave1 = ([gang_pod(pkg, f"sq{g}", 4, i, "v5e-2x2") for g in range(3) for i in range(4)]
+             + [gang_pod(pkg, f"cube{g}", 2, i, "v4-2x2x2") for g in range(2) for i in range(2)]
+             + [gang_pod(pkg, "big", 8, i, "v5e-4x4", cpu="2") for i in range(8)]
+             + [gang_pod(pkg, "plain", 3, i, cpu="3") for i in range(3)]
+             + [affinity_pod(pkg, f"solo-{i}", "500m", "512Mi", []) for i in range(6)])
+    wave2 = ([gang_pod(pkg, f"late{g}", 2, i, "v5e-2x2") for g in range(2) for i in range(2)]
+             + [gang_pod(pkg, "zcube", 2, i, "v4-2x2x2") for i in range(2)])
+    return [wave1, wave2]
+
+
+def preemption_waves(pkg: Pkg):
+    """A low-band gang fills a whole 4x4 torus; a high-band gang then wants
+    a 2x2 carve there: displacing the low gang (its members refit on a
+    $1/h node) is cheaper than a fresh $4/h torus."""
+    low = [gang_pod(pkg, "low-res", 2, i, "v5e-4x4", priority=-5, cpu="2") for i in range(2)]
+    high = [gang_pod(pkg, "high-pri", 2, i, "v5e-2x2", priority=10, cpu="2") for i in range(2)]
+    return [low, high]
+
+
+def run_gang_worker(pkg: Pkg, waves, carve=True):
+    """Each wave through one worker pass (``worker.add``, then
+    ``worker.provision()`` on this thread), then passes until the batcher
+    holds nothing (a displaced gang comes back through it). Returns the
+    bound partition ((instance type, sorted pod names) per node), the
+    ledger (node's pods, grid, occupancy, carves by gang) and the worker."""
+    topo = __import__(f"{pkg.prov.__name__.rsplit('.', 2)[0]}.ops.topology",
+                      fromlist=["LEDGER"])
+    topo.LEDGER.reset()
+    catalog = pkg.fake.tpu_catalog()
+    kube = pkg.kube.KubeCore()
+    provider = pkg.fake.FakeCloudProvider(catalog=catalog)
+    provisioner = pkg.Provisioner(
+        metadata=pkg.core.ObjectMeta(name="default", namespace="default"),
+        spec=pkg.ProvisionerSpec(constraints=pkg.universe(catalog)))
+    kube.create(provisioner)
+    batcher = pkg.batcher.Batcher(idle_seconds=0.01, max_seconds=5.0, monitor=quiet_monitor(pkg))
+    pipeline_config = pkg.pipeline.PipelineConfig(depth=1, chunk_items=0, adaptive=False)
+    if pkg.name == "jax":
+        worker = jax_prov.ProvisionerWorker(
+            provisioner, kube, provider, batcher=batcher, pipeline_config=pipeline_config,
+            solver_config=jax_solve_mod.SolverConfig(window_backend="ffd", device_min_pods=1))
+    else:
+        worker = port_prov.ProvisionerWorker(
+            provisioner, kube, provider, batcher=batcher, pipeline_config=pipeline_config,
+            solver_config=port_solve_mod.SolverConfig(window_backend="ffd"), device="cpu")
+    try:
+        for wave in waves:
+            for pod in wave:
+                kube.create(pod)
+                assert worker.add(pod, key=(pod.metadata.namespace, pod.metadata.name))
+            worker.provision()
+            while worker.batcher.depth():
+                worker.provision()
+    finally:
+        worker.stop()
+    label = pkg.wellknown.LABEL_INSTANCE_TYPE
+    pods_of = {n.metadata.name: tuple(sorted(p.metadata.name
+                                             for p in kube.pods_on_node(n.metadata.name)))
+               for n in kube.list("Node")}
+    partition = sorted((n.metadata.labels[label], pods_of[n.metadata.name])
+                       for n in kube.list("Node"))
+    ledger = sorted((pods_of[ng.node], ng.dims, ng.occ.tolist(),
+                     sorted((str(k), r.band, tuple(int(c) for c in r.cells), sorted(r.pods))
+                            for k, r in ng.carves.items()))
+                    for ng in topo.LEDGER.snapshot())
+    topo.LEDGER.reset()
+    return partition, ledger, worker
+
+
+def test_gang_waves_bind_as_the_jax_controller():
+    """Both controllers bind the same node partition, commit the same
+    carves and reuse the same partly carved nodes; every gang is whole on
+    its nodes and every carve is a placement-mask row of its slice."""
+    from karpenter_tpu_torch.ops import topology as port_topo
+
+    want = run_gang_worker(JAX, gang_waves(JAX))
+    got = run_gang_worker(PORT, gang_waves(PORT))
+    assert got[:2] == want[:2]
+    partition, ledger, worker = got
+    bound = [p for _, pods in partition for p in pods]
+    assert len(bound) == len(set(bound)) == sum(len(w) for w in gang_waves(PORT))
+    chunks = [ch for ch in worker.last_window["chunks"] if ch["gang"]]
+    assert chunks and chunks[-1]["gang"]["executor"] == "device-gang"
+    assert chunks[-1]["gang"]["carve"] and chunks[-1]["gang"]["placed"] == 3
+    # wave 2 reused a partly carved node of wave 1
+    shared = [pods for _, pods in partition if "late0-m0" in pods][0]
+    assert any(p.startswith("sq") for p in shared)
+    for pods, dims, occ, carves in ledger:
+        for _key, _band, cells, _members in carves:
+            slice_dims = {4: (2, 2), 8: (2, 2, 2), 16: (4, 4)}[len(cells)]
+            masks = port_topo.placement_masks(dims, slice_dims)
+            row = np.zeros(len(occ), bool)
+            row[list(cells)] = True
+            assert any(np.array_equal(m, row) for m in masks)
+
+
+def test_gang_preemption_lifecycle_as_the_jax_controller():
+    """The high gang displaces the low one on its torus; the low gang is
+    requeued and binds again elsewhere, in both packages alike."""
+    want = run_gang_worker(JAX, preemption_waves(JAX))
+    got = run_gang_worker(PORT, preemption_waves(PORT))
+    assert got[:2] == want[:2]
+    partition, ledger, worker = got
+    nodes = {p: i for i, (_, pods) in enumerate(partition) for p in pods}
+    assert nodes["high-pri-m0"] == nodes["high-pri-m1"]
+    assert nodes["low-res-m0"] != nodes["high-pri-m0"]
+    assert worker.preempt_budget.in_cooldown(("default", "low-res"))
+
+
+def test_gang_carve_switch_off_binds_as_the_jax_controller(monkeypatch):
+    """KARPENTER_TOPOLOGY_CARVE=0 in both packages: shape-only windows,
+    no ledger, the same partition."""
+    monkeypatch.setenv("KARPENTER_TOPOLOGY_CARVE", "0")
+    want = run_gang_worker(JAX, gang_waves(JAX))
+    got = run_gang_worker(PORT, gang_waves(PORT))
+    assert got[:2] == want[:2] and got[1] == []
 
 
 # -- the port alone, through the controllers ----------------------------------------
@@ -903,8 +1040,9 @@ def test_affinity_and_gang_pods_are_held_out(env, caplog):
     """A pod with a lonely required zone-affinity term is proven
     unsatisfiable by the affinity injection (the JAX package's rule): it
     stays Pending with ``_affinity_unsat`` and is counted as
-    ``reason=affinity``; the members of a complete gang are still held
-    out; a plain pod in the same window binds."""
+    ``reason=affinity``. The members of a complete gang are no longer held
+    out: they go through the chunk's co-pack window and bind together,
+    beside a plain pod of the same window."""
     kube, provider, provisioning, selection = env
     setup_provisioner(kube, provisioning)
     c, wk = port_core, port_wellknown
@@ -927,14 +1065,16 @@ def test_affinity_and_gang_pods_are_held_out(env, caplog):
     with caplog.at_level("INFO", logger="karpenter.scheduler"):
         expect_provisioned(kube, selection, provisioning, [affine, *gang, plain])
     assert node_of(kube, plain) != ""
-    for pod in [affine, *gang]:
-        assert node_of(kube, pod) == ""
-    assert worker.scheduler.held_out == {"gang": 2}
+    assert node_of(kube, affine) == ""
+    gang_nodes = {node_of(kube, pod) for pod in gang}
+    assert "" not in gang_nodes and node_of(kube, plain) not in gang_nodes
     marks = {p.metadata.name: p.__dict__ for p in seen}
     assert marks[affine.metadata.name]["_affinity_unsat"] is True
-    assert all("not ported" in marks[p.metadata.name]["_gang_unsat"] for p in gang)
+    assert all("_gang_unsat" not in marks[p.metadata.name] for p in gang)
     assert any("reason=affinity: 1," in r.getMessage() for r in caplog.records)
-    assert len(provider.created) == 1
+    chunk_gangs = [ch["gang"] for ch in worker.last_window["chunks"] if ch["gang"]]
+    assert chunk_gangs[0]["placed"] == 1 and chunk_gangs[0]["executor"] == "device-gang"
+    assert len(provider.created) == 1 + len(gang_nodes)
 
 
 # -- validate_pod: the verdicts selection and the scheduler route by ------------

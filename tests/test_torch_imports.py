@@ -69,7 +69,12 @@ def test_port_imports_without_jax_or_the_jax_package():
                 "karpenter_tpu_torch.solver.whatif",
                 "karpenter_tpu_torch.controllers.node",
                 "karpenter_tpu_torch.controllers.termination",
-                "karpenter_tpu_torch.controllers.consolidation"}
+                "karpenter_tpu_torch.controllers.consolidation",
+                "karpenter_tpu_torch.ops.gang",
+                "karpenter_tpu_torch.ops.topology",
+                "karpenter_tpu_torch.solver.gang",
+                "karpenter_tpu_torch.solver.topology",
+                "karpenter_tpu_torch.scheduling.preempt_budget"}
     assert expected <= set(report["imported"])
 
 

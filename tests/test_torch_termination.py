@@ -275,3 +275,30 @@ class TestTermination:
                 assert provider.deleted == []
             finally:
                 ctl.stop_all()
+
+
+def test_terminate_releases_the_node_carves_as_jax():
+    """A terminated carved node leaves the occupancy ledger in both
+    packages; another node's carves stay."""
+    import importlib
+
+    left = []
+    for P in BOTH:
+        topo = importlib.import_module(P.root + ".ops.topology")
+        term = importlib.import_module(P.root + ".controllers.termination")
+        topo.LEDGER.reset()
+        kube = P.kube.KubeCore()
+        terminating_node(P, kube, "carved-n1")
+        node = kube.get("Node", "carved-n1", "")
+        topo.LEDGER.commit("carved-n1", (4, 4), "tpu-v5e-4x4", ((), ()), ("ns", "g1"),
+                           [0, 1, 4, 5], "default", [("ns", "p0")])
+        topo.LEDGER.commit("other", (4, 4), "tpu-v5e-4x4", ((), ()), ("ns", "g2"),
+                           [0, 1], "low", [("ns", "p1")])
+        terminator = term.Terminator(kube, P.fake.FakeCloudProvider())
+        try:
+            terminator.terminate(node)
+        finally:
+            terminator.eviction_queue.stop()
+        left.append([ng.node for ng in topo.LEDGER.snapshot()])
+        topo.LEDGER.reset()
+    assert left == [["other"], ["other"]]
