@@ -3,8 +3,8 @@
 its plain version, and drive the public solve(), the batched window, the
 provisioning controller, the global window backend, node removal
 (consolidation, termination, emptiness), pod-(anti-)affinity, the
-packing policies, gangs, torus carving and preemption at full size on
-one card.
+packing policies, gangs, torus carving and preemption, the delta-marshal
+window stream and the columnar controller at full size on one card.
 
     python3 chip_smoke.py
 
@@ -61,6 +61,14 @@ nvcc each, both at once). Phases, each printing one JSON record:
 8. mixed window: 23 of those schedules and one of 25,000 high-cardinality
    pods (the 8192 bucket, compaction across problems), every problem equal
    to solo solve(), the buckets walked and the launches;
+8a. marshal_delta: config_10 at full size (20,000 pods over
+   MIXED_SHAPES, make_catalog(100), 12 windows of 10 % object churn, seed
+   42) through marshal_pods_interned, build_packables_versioned and
+   encode, delta and cold: 12 of 12 encodings bit-identical, the last
+   window's solve() equal delta and cold, a repeat solve() with 0 fresh
+   ring allocations; delta and cold p50/p99, the bytes each window's
+   solve() copies with and without the content tokens, and the ring's
+   in-place refill (B13) timed by CUDA events against the host link;
 8b. controller: pending pods created in the port's in-memory API server,
    enqueued by SelectionController.reconcile, batched, scheduled, solved,
    launched and bound by the ProvisioningController's worker thread
@@ -71,6 +79,11 @@ nvcc each, both at once). Phases, each printing one JSON record:
    pods, and config_14's window on the global backend with its kill
    switch), the kernel rebuilt and launched on the worker thread, one
    record a run;
+8c. controller_columnar: config_12's 9,984-pod window through the
+   controller in one chunk, twice on the columnar path (the default) and
+   twice on the scalar path (compile_constraints patched to give None):
+   the binds identical, no self-heal, 0 ring allocations in the steady
+   window; reconcile_s and schedule_s both ways and the ring's counts;
 9. global_program: the relaxation program of the global window backend
    (solver/global_solve.relax_node_counts) on the encoding of the
    9,984-pod window (B = 32, SB = 32, TB = 512) on the card and on the CPU:
@@ -145,7 +158,8 @@ nvcc each, both at once). Phases, each printing one JSON record:
    on the carved nodes, high-band gangs preempting low-band ones, a
    carved node terminated; each gang window's answer against
    whatif_scan_plain on the tensors it launched (phase_controller_gang);
-22. the device-programs line (B7, B8, B5, B6, B11, the member column), the
+22. each phase's seconds on a line of its own as it ends; the
+   device-programs line (B7, B8, B5, B6, B11, the member column, B13), the
    kernels line (pack_chunk, pack_batch with the price-row launch beside
    it, whatif_scan with its times from the deprovision window 0, the shape
    the main path gives it, and whatif_scan for gang co-pack with its times
@@ -206,6 +220,9 @@ HIGHCARD_PODS, HIGHCARD_SHAPES = 50_000, 8_000
 HIGHCARD_NODES = 1070
 WARM_RUNS = 25
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3 (NVIDIA data sheet)
+# the host link of an H100 SXM: PCIe 5.0 x16, 64 GB/s each way (the data
+# sheet's 128 GB/s counts both directions); the bound of a host→device copy
+PCIE_BYTES_PER_S = 64e9
 # H100 SXM peak rate of 32-bit operations of any mix of integer pipes (the
 # INT32 ALUs and IMAD on the FMA pipe): each of an SM's 4 schedulers issues
 # one warp instruction, 32 lanes, a clock, so 128 lanes x 132 SMs x the
@@ -1102,8 +1119,8 @@ def time_batch_kernel(run, iters):
     table = [{"cluster": c, "ms": cuda_ms(lambda: launch_pack_batch(
         *args, L, None, False, run.maxfit_d, run.log_bound, run.resource_mask, c), iters)}
         for c in clusters]
-    return {"ms": ms, "cluster": launch_shape(T), "plain_ms": stats["ms"], "max_abs_err": err,
-            "solo_launches": B, "solo_ms": solo_ms, "shape_steps": stats["shape_steps"],
+    return {"ms": ms, "cluster": launch_shape(T), "type_bucket": int(T),
+            "plain_ms": stats["ms"], "max_abs_err": err, "solo_launches": B, "solo_ms": solo_ms, "shape_steps": stats["shape_steps"],
             "type_steps": stats["type_steps"], **work_bound(args, L, False, stats["type_steps"]),
             "by_cluster": table}
 
@@ -1162,7 +1179,7 @@ def phase_window(device, per, warm_runs):
     kern = time_batch_kernel(fresh.device_run, 20)
     fresh.fetch()
     rec = {"phase": "window", "schedules": n, "pods": sum(len(p.pods) for p in problems),
-           "types": len(catalog), "shape_bucket": run.S0, "type_bucket": int(run.totals_d.shape[1]),
+           "types": len(catalog), "shape_bucket": run.S0, "type_bucket": kern["type_bucket"],
            "nodes": sum(nodes), "nodes_per_problem": nodes,
            "unschedulable": sum(len(r.unschedulable) for r in results),
            "executor": "device-batch", "mask_mismatches": 0, "launches_per_window": launches,
@@ -1217,6 +1234,266 @@ def phase_mixed_window(device):
 
 
 # -- the provisioning controller: pods in, nodes and binds out ---------------
+
+MARSHAL_PODS, MARSHAL_WINDOWS, MARSHAL_CHURN, MARSHAL_TYPES = 20_000, 12, 0.10, 100
+RING_PROBE_BYTES = 16 << 20
+
+
+def marshal_streams():
+    """config_10's window stream (bench.py:950-1060): 20,000 pods over
+    MIXED_SHAPES, each of 12 windows (+ one to warm) replacing 10 % of the
+    pod objects, seed 42."""
+    rng = random.Random(42)
+    pop = list(make_pods(MARSHAL_PODS, MIXED_SHAPES))
+    streams = []
+    for _ in range(MARSHAL_WINDOWS + 1):
+        k = int(MARSHAL_PODS * MARSHAL_CHURN)
+        fresh = make_pods(k, MIXED_SHAPES)
+        for j, idx in enumerate(rng.sample(range(MARSHAL_PODS), k)):
+            pop[idx] = fresh[j]
+        streams.append(list(pop))
+    return streams
+
+
+def ring_refill_record(arrays, device, runs=20):
+    """B13 on the card: ``arrays`` refilled in place into a ring slot's
+    tensors (pinned staging, copy_ non_blocking), the median CUDA-event ms
+    of one refill of them all, the same on CPU tensors, the bytes and the
+    bound (the bytes at the host link's rate). Checks the device tensors
+    hold the bytes, were written in place, and the counts."""
+    import numpy as np
+    import torch
+
+    from karpenter_tpu_torch.solver.pipeline import DeviceRing
+
+    def ring_on(dev):
+        ring = DeviceRing()
+        slot = ring.acquire(DeviceRing.signature(arrays))
+        first = {n: ring.fill(slot, n, a, dev) for n, a in arrays.items()}
+        return ring, slot, first
+
+    ring, slot, first = ring_on(device)
+    torch.cuda.synchronize()
+
+    def refill():
+        for name, a in arrays.items():
+            ring.fill(slot, name, a, device)
+
+    ms = median_event_ms(refill, runs)
+    torch.cuda.synchronize()
+    for name, a in arrays.items():
+        check(slot.arrays[name] is first[name], f"B13: {name} was not refilled in place")
+        check(np.array_equal(slot.arrays[name].cpu().numpy(), a), f"B13: {name} != its host bytes")
+    c = ring.counters()
+    check(c["allocations"] == len(arrays) and c["refills"] == (runs + 1) * len(arrays),
+          f"B13: ring counts {c}")
+    cring, cslot, _ = ring_on(torch.device("cpu"))
+    t0 = time.perf_counter()
+    for _ in range(runs):
+        for name, a in arrays.items():
+            cring.fill(cslot, name, a, torch.device("cpu"))
+    cpu_ms = (time.perf_counter() - t0) * 1000.0 / runs
+    nbytes = int(sum(np.asarray(a).nbytes for a in arrays.values()))
+    return {"bytes": nbytes, "copies": len(arrays), "ms": ms, "cpu_ms": cpu_ms,
+            "bound_ms": nbytes / PCIE_BYTES_PER_S * 1e3, "bound_by": "bytes",
+            "max_abs_err": 0}
+
+
+def phase_marshal_delta(device):
+    """config_10 at full size (bench.py:950-1060): 20,000 pods over
+    MIXED_SHAPES and make_catalog(100), 12 windows of 10 % object churn,
+    seed 42, through the production entry points (marshal_pods_interned →
+    build_packables_versioned → encode) twice a window: DELTA (the warm
+    arena and catalog cache) and COLD (arena, catalog cache and the pods'
+    entries cleared first). Checks: 12 of 12 encodings bit-identical; the
+    last window's solve() on the card equal delta and cold (node count and
+    bound sets); a repeat solve() of it makes 0 fresh ring allocations and
+    reuses the catalog tensors; every window's solve() ships only what its
+    tokens do not cover. Reports the p50/p99 of both, the ring's counts,
+    the bytes each window's solve() copied with and without tokens, and
+    B13's refill of the solve's working set timed by CUDA events against
+    the host link."""
+    import numpy as np
+    import torch
+
+    from karpenter_tpu_torch.ops import encode as enc_mod
+    from karpenter_tpu_torch.ops import feasibility
+    from karpenter_tpu_torch.ops.encode import pad_encoding
+    from karpenter_tpu_torch.parallel.batched_pack import pad_problems
+    from karpenter_tpu_torch.solver import adapter, pipeline
+    from karpenter_tpu_torch.solver.solve import solve, universe_constraints
+
+    catalog = make_catalog(MARSHAL_TYPES)
+    constraints = universe_constraints(catalog)
+    streams = marshal_streams()
+
+    def marshal_encode(win):
+        vecs, required, sids = adapter.marshal_pods_interned(win)
+        packables, _st, ver = adapter.build_packables_versioned(
+            catalog, constraints, win, [], required=required)
+        return enc_mod.encode(vecs, list(range(len(win))), packables, pad=False, sids=sids,
+                              catalog_version=ver)
+
+    def clear_all(win):
+        for p in win:
+            p.__dict__.pop(adapter._CACHE_KEY, None)
+            p.__dict__.pop(adapter._ROW_KEY, None)
+        enc_mod.reset_marshal_arena()
+        enc_mod.clear_catalog_encoding_cache()
+
+    def enc_key(e):
+        return (e.shapes.tobytes(), e.counts.tobytes(), e.totals.tobytes(),
+                e.reserved0.tobytes(), e.valid.tobytes(), e.last_valid, e.num_shapes,
+                e.num_types, e.shape_pods, e.scales, e.pods_unit)
+
+    feasibility.reset_heals()
+    marshal_encode(streams[0])  # warm the arena and the caches
+    delta_ms, cold_ms, identical, fractions = [], [], 0, []
+    for win in streams[1:]:
+        t0 = time.perf_counter()
+        e_delta = marshal_encode(win)
+        delta_ms.append((time.perf_counter() - t0) * 1000.0)
+        fractions.append(enc_mod.marshal_arena().delta_fraction)
+        clear_all(win)
+        t0 = time.perf_counter()
+        e_cold = marshal_encode(win)  # repopulates for the next delta
+        cold_ms.append((time.perf_counter() - t0) * 1000.0)
+        identical += enc_key(e_delta) == enc_key(e_cold)
+    check(identical == MARSHAL_WINDOWS,
+          f"marshal_delta: {identical} of {MARSHAL_WINDOWS} encodings bit-identical")
+
+    def bound_key(win, result):
+        pos = {id(p): i for i, p in enumerate(win)}
+        return (result.node_count, sorted(
+            (tuple(it.name for it in p.instance_type_options), p.node_quantity,
+             sorted(tuple(sorted(pos[id(pod)] for pod in node)) for node in p.pods))
+            for p in result.packings))
+
+    final = streams[-1]
+    reset_counts()
+    k_delta = bound_key(final, solve(constraints, final, catalog, device=device))
+    clear_all(final)
+    k_cold = bound_key(final, solve(constraints, final, catalog, device=device))
+    torch.cuda.synchronize()
+    check(k_delta == k_cold, "marshal_delta: the last window's solve differs delta and cold")
+    check(executor_counts() == {"device": 2}, f"marshal_delta: solved by {executor_counts()}")
+
+    # the ring: a repeat solve() of the same window on the card
+    pipeline.reset_ring()
+    ring = pipeline.get_ring()
+    solve(constraints, final, catalog, device=device)
+    c0 = ring.counters()
+    solve(constraints, final, catalog, device=device)
+    torch.cuda.synchronize()
+    c1 = ring.counters()
+    steady = {k: c1[k] - c0[k] for k in ("allocations", "refills", "reuses")}
+    check(steady["allocations"] == 0 and steady["reuses"] >= 5 and steady["refills"] >= 1,
+          f"marshal_delta: the repeat solve's ring counts {steady}")
+
+    # the bytes every window's solve() copies host→device, and would copy
+    # without the content tokens
+    real_fill, shipped = ring.fill, []
+
+    def counting_fill(slot, name, host, dev, token=None):
+        reuses = ring.reuses
+        out = real_fill(slot, name, host, dev, token=token)
+        shipped[-1][1] += int(np.asarray(host).nbytes)
+        if ring.reuses == reuses:
+            shipped[-1][0] += int(np.asarray(host).nbytes)
+        return out
+
+    ring.fill = counting_fill
+    try:
+        for win in streams[1:]:
+            shipped.append([0, 0])
+            solve(constraints, win, catalog, device=device)
+    finally:
+        del ring.fill
+    torch.cuda.synchronize()
+
+    # B13: the solve's working set refilled in place, and a 16 MiB probe
+    enc = pad_encoding(marshal_encode(final))
+    shapes, counts, dropped, totals, reserved0, valid, last_valid, pods_unit, _ = \
+        pad_problems([enc])
+    working = {"shapes": shapes, "counts": counts, "dropped": dropped, "totals": totals,
+               "reserved0": reserved0, "valid": valid, "last_valid": last_valid,
+               "pods_unit": pods_unit}
+    refill = ring_refill_record(working, device)
+    probe = ring_refill_record(
+        {"probe": np.arange(RING_PROBE_BYTES // 4, dtype=np.int32)}, device)
+    check(feasibility.heal_counts() == {}, f"marshal_delta: heals {feasibility.heal_counts()}")
+    delta_ms.sort()
+    cold_ms.sort()
+    rec = {"phase": "marshal_delta", "pods": MARSHAL_PODS, "windows": MARSHAL_WINDOWS,
+           "churn": MARSHAL_CHURN, "types": len(catalog),
+           "delta_p50_ms": p50(delta_ms), "delta_p99_ms": delta_ms[-1],
+           "cold_p50_ms": p50(cold_ms), "cold_p99_ms": cold_ms[-1],
+           "delta_ms": delta_ms, "cold_ms": cold_ms, "delta_fraction": fractions,
+           "encodings_identical": identical, "solve_parity": True, "nodes": k_delta[0],
+           "arena": enc_mod.marshal_arena().stats(), "steady_ring": steady,
+           "window_bytes_shipped": [a for a, _ in shipped],
+           "window_bytes_untokened": [b for _, b in shipped],
+           "refill": refill, "refill_16mib": probe}
+    emit(rec)
+    return rec
+
+
+def phase_controller_columnar(device):
+    """config_12's 9,984-pod window through the controller (backend "ffd",
+    one chunk), two windows on the columnar path (the default: the
+    selection controller's validate_pod_fast, the scheduler's memoized
+    schedule_entry, the ring) and two on the scalar path
+    (feasibility.compile_constraints patched to give None: validate_pod and
+    tighten per pod). The binds must be identical, window for window, and
+    no engine self-heal may fire. Reports reconcile_s and schedule_s both
+    ways and the ring's counts of each window (B13's refills a window)."""
+    from karpenter_tpu_torch.ops import feasibility
+    from karpenter_tpu_torch.solver import pipeline
+    from karpenter_tpu_torch.solver.pipeline import PipelineConfig
+    from karpenter_tpu_torch.solver.solve import SolverConfig
+
+    catalog = make_catalog(WINDOW_TYPES)
+    real_compile = feasibility.compile_constraints
+    feasibility.reset_heals()
+    runs = {}
+    for mode in ("columnar", "scalar"):
+        if mode == "scalar":
+            feasibility.compile_constraints = lambda c: None
+        run = ControllerRun(catalog, device, SolverConfig(window_backend="ffd"),
+                            PipelineConfig(chunk_items=0))
+        try:
+            recs = []
+            for w in range(2):
+                ring = pipeline.get_ring()
+                before = ring.counters()
+                rec = run.window(config12_controller_pods(catalog, 416, f"c{w}"))
+                after = pipeline.get_ring().counters()
+                rec["ring"] = {k: after[k] - before[k]
+                               for k in ("allocations", "refills", "reuses")}
+                rec["binds"] = strip_prefix(run.binds)
+                check(rec["chunks"] == 1 and set(rec["executor_counts"]) == {"device-batch"},
+                      f"controller_columnar ({mode}): {rec['chunks']} chunks, "
+                      f"{rec['executor_counts']}")
+                recs.append(rec)
+        finally:
+            feasibility.compile_constraints = real_compile
+            run.stop()
+        runs[mode] = recs
+    for w, (c, s) in enumerate(zip(runs["columnar"], runs["scalar"])):
+        check(c["binds"] == s["binds"],
+              f"controller_columnar: window {w} binds differ columnar and scalar")
+    check(feasibility.heal_counts() == {},
+          f"controller_columnar: heals {feasibility.heal_counts()}")
+    check(runs["columnar"][1]["ring"]["allocations"] == 0,
+          f"controller_columnar: the second window allocated {runs['columnar'][1]['ring']}")
+    keep = ("wall_s", "reconcile_s", "batch_window_s", "schedule_s", "dispatch_s",
+            "inflight_s", "fetch_s", "launch_bind_s", "nodes", "pods_bound", "ring")
+    rec = {"phase": "controller_columnar", "pods": runs["columnar"][0]["pods"],
+           "binds_identical": True,
+           **{mode: [{k: r[k] for k in keep} for r in recs] for mode, recs in runs.items()}}
+    emit(rec)
+    return rec
+
 
 CONTROLLER_GROUPS = 24
 CONTROLLER_WINDOWS = 3
@@ -3414,7 +3691,7 @@ def phase_policy_window(device):
     from karpenter_tpu_torch.ops import device_filter, pack_cuda
     from karpenter_tpu_torch.ops import policy as ops_policy
     from karpenter_tpu_torch.solver import policy as registry
-    from karpenter_tpu_torch.solver.adapter import marshal_pods
+    from karpenter_tpu_torch.solver.adapter import marshal_pods_interned
     from karpenter_tpu_torch.solver.batch_solve import Problem, dispatch_batch, solve_batch
     from karpenter_tpu_torch.solver.policy import PolicyContext
     from karpenter_tpu_torch.solver.solve import SolverConfig, solve, universe_constraints
@@ -3425,7 +3702,7 @@ def phase_policy_window(device):
     mism0 = ops_policy.MISMATCHES
 
     def fused_of(problems):
-        fused = device_filter.prepare_fused(problems, [marshal_pods(p.pods) for p in problems],
+        fused = device_filter.prepare_fused(problems, [marshal_pods_interned(p.pods) for p in problems],
                                             device)
         check(fused is not None and len(fused.batch_idx) == len(problems),
               "policy_window: the window was not fused")
@@ -3455,7 +3732,7 @@ def phase_policy_window(device):
     torch.cuda.synchronize()
     launches = {"policy_programs": ops_policy.RUNS, "pack_batch": pack_cuda.BATCH_LAUNCHES}
     check(launches["policy_programs"] == 1 and launches["pack_batch"] >= 1
-          and handle.device_run.prices_d is not None,
+          and handle.device_run.use_cost,
           f"policy_window: launches {launches}")
     check(executor_counts() == {"device-batch": len(problems)},
           f"policy_window answered by {executor_counts()}")
@@ -4853,29 +5130,39 @@ def main(argv) -> int:
                      for T in (8, 512, 4096) for c in [pack_cuda.launch_shape(T)]},
           "whatif": {"seconds": whatif_cuda.BUILD_SECONDS,
                      "ptxas": ptxas_lines(whatif_cuda.BUILD_LOG)}})
-    wf = phase_whatif_fuzz(device)
-    fuzz_err = phase_fuzz(device)
-    batch_err = phase_batch_fuzz(device)
-    c4 = phase_config4(device)
-    hc = phase_highcard(device)
-    phase_mask(device)
-    win = phase_window(device, 416, WARM_RUNS)          # 9,984 pods
-    phase_window(device, 2084, WARM_RUNS)               # 50,016 pods
-    phase_mixed_window(device)
-    phase_controller(device)
-    gp = phase_global_program(device)
-    gw = phase_global_window(device)
-    phase_global_window_400(device)
-    ww = phase_whatif_window(device)
-    dp = phase_deprovision(device)
-    af = phase_affinity_fuzz(device)
-    pw = phase_policy_window(device)
-    ca = phase_controller_affinity(device)
-    gf = phase_gang_fuzz(device)
-    cf = phase_carve_fuzz(device)
-    gw10 = phase_gang_window(device)
-    phase_carve_window(device)
-    cg = phase_controller_gang(device)
+
+    def timed(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        print(json.dumps({"phase_seconds": name, "seconds": time.perf_counter() - t0}),
+              flush=True)
+        return out
+
+    wf = timed("whatif_fuzz", phase_whatif_fuzz, device)
+    fuzz_err = timed("fuzz", phase_fuzz, device)
+    batch_err = timed("batch_fuzz", phase_batch_fuzz, device)
+    c4 = timed("config4", phase_config4, device)
+    hc = timed("highcard", phase_highcard, device)
+    timed("mask", phase_mask, device)
+    win = timed("window_416", phase_window, device, 416, WARM_RUNS)   # 9,984 pods
+    timed("window_2084", phase_window, device, 2084, WARM_RUNS)       # 50,016 pods
+    timed("mixed_window", phase_mixed_window, device)
+    md = timed("marshal_delta", phase_marshal_delta, device)
+    timed("controller", phase_controller, device)
+    cc = timed("controller_columnar", phase_controller_columnar, device)
+    gp = timed("global_program", phase_global_program, device)
+    gw = timed("global_window", phase_global_window, device)
+    timed("global_window_400", phase_global_window_400, device)
+    ww = timed("whatif_window", phase_whatif_window, device)
+    dp = timed("deprovision", phase_deprovision, device)
+    af = timed("affinity_fuzz", phase_affinity_fuzz, device)
+    pw = timed("policy_window", phase_policy_window, device)
+    ca = timed("controller_affinity", phase_controller_affinity, device)
+    gf = timed("gang_fuzz", phase_gang_fuzz, device)
+    cf = timed("carve_fuzz", phase_carve_fuzz, device)
+    gw10 = timed("gang_window", phase_gang_window, device)
+    timed("carve_window", phase_carve_window, device)
+    cg = timed("controller_gang", phase_controller_gang, device)
     emit({"phase": "total", "seconds": time.perf_counter() - t_start})
     b8 = gw["relax_pack"]
     b6 = pw["config13"]["program"]
@@ -4934,6 +5221,21 @@ def main(argv) -> int:
         "ms": cf["member_column"]["ms"], "cpu_ms": cf["member_column"]["cpu_ms"],
         "bound_ms": cf["member_column"]["bound_ms"], "bound_by": cf["member_column"]["bound_by"],
         "shape": cf["member_column"]["shape"],
+    }, {
+        "name": "ring refill (B13)",
+        "source": "karpenter_tpu_torch/solver/pipeline.py",
+        "replaces": "karpenter_tpu/solver/pipeline.py:77",
+        # a copy on the copy engine, not a kernel: the refills of the
+        # controller's steady 9,984-pod window (controller_columnar's
+        # second columnar window), timed on the solve's working set
+        "runs": sum(r["ring"]["refills"] for r in cc["columnar"]),
+        "launches_per_call": md["refill"]["copies"],
+        "refills_per_window": cc["columnar"][1]["ring"]["refills"],
+        "reuses_per_window": cc["columnar"][1]["ring"]["reuses"],
+        "max_abs_err": md["refill"]["max_abs_err"], "ms": md["refill"]["ms"],
+        "cpu_ms": md["refill"]["cpu_ms"], "bound_ms": md["refill"]["bound_ms"],
+        "bound_by": md["refill"]["bound_by"], "bytes": md["refill"]["bytes"],
+        "probe_16mib": {k: md["refill_16mib"][k] for k in ("bytes", "ms", "bound_ms")},
     }]})
     k4, kw = c4["kernel"], win["kernel"]
     emit({"kernels": [{

@@ -521,7 +521,7 @@ class ProvisionerWorker:
         segments = []
         for s in gang_scheds:
             catalog = self.cloud_provider.get_instance_types(s.constraints)
-            packables, sorted_types = adapter.build_packables(
+            packables, sorted_types = adapter.build_packables_cached(
                 catalog, s.constraints, s.pods, self._get_daemons(s.constraints))
             allowed = adapter.allowed_sets_cached(s.constraints)
             required = adapter._required_resources(s.pods)

@@ -6,9 +6,10 @@ validates supported features; relaxes preferences on retries; picks the
 first Provisioner whose constraints validate the pod and enqueues it on
 that Provisioner's worker.
 
-The route takes the scalar ``Constraints.validate_pod`` where the JAX
-package calls the columnar ``feasibility.validate_pod_fast``; the verdicts
-are the same. Left out: volume topology (the port's Pod has no volumes)
+The route validates through the columnar engine
+(``feasibility.validate_pod_fast``: a memoized signature lookup per
+provisioner and pod shape, the scalar validator's verdicts and error
+strings). Left out: volume topology (the port's Pod has no volumes)
 and the SLO shed marks.
 """
 
@@ -21,6 +22,7 @@ from typing import Dict, List, Optional, Tuple
 
 from karpenter_tpu_torch.api import wellknown
 from karpenter_tpu_torch.api.core import Affinity, Pod
+from karpenter_tpu_torch.ops import feasibility
 from karpenter_tpu_torch.pressure import get_monitor
 from karpenter_tpu_torch.runtime.kubecore import KubeCore, NotFound
 from karpenter_tpu_torch.utils import clock
@@ -207,7 +209,7 @@ class SelectionController:
         errs = []
         chosen = chosen_worker = None
         for provisioner, worker in targets:
-            err = provisioner.spec.constraints.validate_pod(pod)
+            err = feasibility.validate_pod_fast(provisioner.spec.constraints, pod)
             if err is None:
                 chosen, chosen_worker = provisioner, worker
                 break

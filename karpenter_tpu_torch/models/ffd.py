@@ -8,6 +8,7 @@ representation-agnostic.
 
 from __future__ import annotations
 
+import hashlib
 from typing import List, Optional, Sequence
 
 import numpy as np
@@ -61,6 +62,7 @@ def solve_ffd_device(
     cost_tiebreak: bool = False,
     enc: Optional[EncodedProblem] = None,  # precomputed (possibly unpadded)
     device: DeviceLike = None,
+    donate: bool = True,
 ) -> Optional[HostSolveResult]:
     """Solve on ``device`` (default: the CUDA device; raises without one);
     None only when the problem is not encodable, before anything reaches
@@ -68,7 +70,13 @@ def solve_ffd_device(
     unsorted; the same descending order as the host oracle is applied
     here. The device side is a :class:`DeviceRun` of one problem, the
     batched window's run with B = 1; an exception from the kernel, or a
-    chunk loop that does not finish within ``MAX_CHUNKS``, propagates."""
+    chunk loop that does not finish within ``MAX_CHUNKS``, propagates.
+
+    ``donate`` routes the problem's tensors through the process
+    ``DeviceRing`` (solver/pipeline.py): a repeat solve refills the last
+    solve's tensors in place, and tensors whose content token matches (the
+    catalog tensors by the encoder's catalog token, the shapes by a byte
+    digest) copy nothing."""
     dev = resolve_device(device)
     if not packables:
         return HostSolveResult(packings=[], unschedulable=list(pod_ids))
@@ -79,14 +87,39 @@ def solve_ffd_device(
     enc = pad_encoding(enc)
     if enc is None:
         return None
-    run = DeviceRun([enc], [prices if cost_tiebreak else None], chunk_iters, dev)
+    run = DeviceRun([enc], [prices if cost_tiebreak else None], chunk_iters, dev,
+                    donate=donate, solo=True)
     records, dropped = run.finish()
     return _decode(enc, records[0], dropped[0], packables)
 
 
+def _digest(arr: np.ndarray) -> tuple:
+    """A content token for a pod-side array: exact byte equality."""
+    return ("bytes", hashlib.blake2b(np.ascontiguousarray(arr).tobytes(),
+                                     digest_size=16).digest())
+
+
+def _device_tensor(name: str):
+    """A device tensor of the run, which raises once the run's ring slot is
+    released: a later window refills those tensors in place, so a read
+    would see its bytes (the JAX package's read of a donated buffer
+    raises the same way)."""
+    def get(self):
+        if self._released:
+            raise RuntimeError(
+                f"DeviceRun.{name} was read after the run's fetch released its ring "
+                "slot; the slot's tensors now hold a later window's inputs")
+        return self._t[name]
+
+    def put(self, value):
+        self._t[name] = value
+
+    return property(get, put)
+
+
 class DeviceRun:
     """The device side of one solve of B >= 1 encoded problems: the batch
-    tensors, copied to the device in one copy, and the chunk loop.
+    tensors on the device and the chunk loop.
 
     Every problem is padded to the largest (S, T) bucket of the batch
     (parallel/batched_pack.pad_problems). ``maxfit`` is computed once on the
@@ -101,44 +134,78 @@ class DeviceRun:
     encoded in micro-$ on the padded type axis (the policy scoring
     program's, ops/policy.py), or None; a row without prices gets
     INT32_MAX, which leaves the tie-break to the lowest index, as for an
-    unpriced catalog."""
+    unpriced catalog.
+
+    With ``donate`` the tensors come from a slot of the process
+    ``DeviceRing`` (solver/pipeline.py) under the names and content tokens
+    the JAX package's runs give them: the solo solve's (``solo`` = True,
+    ``models/ffd.py:205-260`` there: its counts refill from the host at
+    every resume, its prices are copied off the ring) or the batched
+    window's (``solver/batch_solve.py:474-536``: the kernel's resume
+    counts and dropped rows are handed back to the slot, so a resume that
+    compacts nothing copies nothing to the device). The slot is released
+    once :meth:`finish` has its last chunk on the host; the run's device
+    tensors raise ``RuntimeError`` after that. Without ``donate`` the
+    invariants and first counts go to the device in one copy."""
+
+    shapes_d = _device_tensor("shapes_d")
+    counts_d = _device_tensor("counts_d")
+    dropped_d = _device_tensor("dropped_d")
+    totals_d = _device_tensor("totals_d")
+    reserved0_d = _device_tensor("reserved0_d")
+    valid_d = _device_tensor("valid_d")
+    last_valid_d = _device_tensor("last_valid_d")
+    pods_unit_d = _device_tensor("pods_unit_d")
+    prices_d = _device_tensor("prices_d")
+    maxfit_d = _device_tensor("maxfit_d")
 
     def __init__(self, encs, prices_list, chunk_iters: int, device: torch.device,
-                 mask=None):
+                 mask=None, donate: bool = True, solo: bool = False):
         from karpenter_tpu_torch.ops.pack import compute_maxfit
         from karpenter_tpu_torch.ops.pack_cuda import batch_log_bound, requested_mask
         from karpenter_tpu_torch.parallel.batched_pack import pad_problems
 
+        self._t = {}
+        self._released = False
         self.encs = encs
         self.device = device
         self.L = chunk_iters
-        (shapes, counts, _dropped, totals, reserved0, valid, last_valid, pods_unit,
+        self.solo = solo
+        (shapes, counts, dropped, totals, reserved0, valid, last_valid, pods_unit,
          B) = pad_problems(encs)
         if mask is not None and tuple(mask[0].shape) != valid.shape:
             raise ValueError(f"mask shape {tuple(mask[0].shape)} != batch valid shape "
                              f"{valid.shape}")
         self.use_cost = any(p is not None for p in prices_list)
-        host = [shapes, counts, totals, reserved0, pods_unit]
-        if mask is None:
-            host += [valid, last_valid]
-        if self.use_cost:
-            prices = np.full((B, totals.shape[1]), _INT32_MAX, np.int32)
-            for b, pr in enumerate(prices_list):
-                if isinstance(pr, np.ndarray) and pr.dtype == np.int32:
-                    prices[b, :pr.shape[0]] = pr  # pre-encoded micro-$ row
-                elif pr is not None:
-                    prices[b] = encode_prices(pr, totals.shape[1])
-            host.append(prices)
-        # the invariants and the first counts in one host→device copy
-        (self.shapes_d, self.counts_d, self.totals_d, self.reserved0_d, self.pods_unit_d,
-         *rest) = to_device_int32(host, device)
-        if mask is None:
-            valid_i, self.last_valid_d, *rest = rest
-            self.valid_d = valid_i != 0
+        # an explicit INT32_MAX row per unpriced problem; the batched ring
+        # carries the row (zeros) even when nothing is priced, as the JAX
+        # package's does
+        prices = np.full((B, totals.shape[1]), _INT32_MAX if self.use_cost else 0, np.int32)
+        for b, pr in enumerate(prices_list):
+            if isinstance(pr, np.ndarray) and pr.dtype == np.int32:
+                prices[b, :pr.shape[0]] = pr  # pre-encoded micro-$ row
+            elif pr is not None:
+                prices[b] = encode_prices(pr, totals.shape[1])
+        self._ring = self._slot = None
+        if donate:
+            self._fill_from_ring(shapes, counts, dropped, totals, reserved0, valid,
+                                 last_valid, pods_unit, prices, mask)
         else:
+            host = [shapes, counts, totals, reserved0, pods_unit]
+            if mask is None:
+                host += [valid, last_valid]
+            if self.use_cost:
+                host.append(prices)
+            # the invariants and the first counts in one host→device copy
+            (self.shapes_d, self.counts_d, self.totals_d, self.reserved0_d,
+             self.pods_unit_d, *rest) = to_device_int32(host, device)
+            if mask is None:
+                valid_i, self.last_valid_d, *rest = rest
+                self.valid_d = valid_i != 0
+            self.prices_d = rest[0] if self.use_cost else None
+            self.dropped_d = torch.zeros_like(self.counts_d)
+        if mask is not None:
             self.valid_d, self.last_valid_d = mask
-        self.prices_d = rest[0] if self.use_cost else None
-        self.dropped_d = torch.zeros_like(self.counts_d)
         self.shapes_host = shapes
         self.maxfit_full_d = compute_maxfit(self.shapes_d, self.totals_d, self.reserved0_d,
                                             self.valid_d)
@@ -150,6 +217,65 @@ class DeviceRun:
         self.buckets = [self.S0]   # the shape bucket of each chunk
         self.launches = 0
         self._pending = None
+
+    def _fill_from_ring(self, shapes, counts, dropped, totals, reserved0, valid,
+                        last_valid, pods_unit, prices, mask) -> None:
+        from karpenter_tpu_torch.solver.pipeline import DeviceRing, get_ring
+
+        self._ring = ring = get_ring()
+        cats = tuple(e.catalog_token for e in self.encs)
+        have_cat = all(t is not None for t in cats)
+        if self.solo:
+            prefix = "solo_"
+            host = {"solo_shapes": shapes, "solo_counts": counts, "solo_dropped": dropped,
+                    "solo_totals": totals, "solo_reserved0": reserved0, "solo_valid": valid,
+                    "solo_last_valid": last_valid, "solo_pods_unit": pods_unit}
+            cat = lambda field: ("solo", field, cats[0]) if have_cat else None  # noqa: E731
+            dropped_tok = ("zeros", dropped.shape)
+        else:
+            prefix = ""
+            host = {"shapes": shapes, "counts": counts, "dropped": dropped,
+                    "totals": totals, "reserved0": reserved0, "valid": valid,
+                    "last_valid": last_valid, "pods_unit": pods_unit, "prices": prices}
+            if mask is not None:
+                # the fused mask's tensors never come from the host, and the
+                # distinct signature keeps fused and classic windows apart
+                del host["valid"], host["last_valid"]
+            cat = lambda field: ("cat-batch", field, cats) if have_cat else None  # noqa: E731
+            dropped_tok = None
+        self._slot = ring.acquire(DeviceRing.signature(host))
+        try:
+            def put(name, arr, token=None):
+                return ring.fill(self._slot, prefix + name, arr, self.device, token=token)
+
+            self.shapes_d = put("shapes", shapes, _digest(shapes))
+            self.counts_d = put("counts", counts)
+            self.dropped_d = put("dropped", dropped, dropped_tok)
+            self.totals_d = put("totals", totals, cat("totals"))
+            self.reserved0_d = put("reserved0", reserved0, cat("reserved0"))
+            if mask is None:
+                self.valid_d = put("valid", valid, cat("valid"))
+                self.last_valid_d = put("last_valid", last_valid, cat("last_valid"))
+            self.pods_unit_d = put("pods_unit", pods_unit, cat("pods_unit"))
+            if self.solo:
+                # the solo solve's prices are copied off the ring
+                self.prices_d = (torch.from_numpy(prices).to(self.device)
+                                 if self.use_cost else None)
+            else:
+                prices_d = put("prices", prices, _digest(prices))
+                self.prices_d = prices_d if self.use_cost else None
+        except BaseException:
+            self.close()
+            raise
+
+    def close(self) -> None:
+        """Release the ring slot (idempotent). Its tensors stay on the
+        device for a later window to refill in place; this run's device
+        tensors raise from here on."""
+        slot, self._slot = self._slot, None
+        if slot is not None:
+            self._ring.release(slot)
+            self._released = True
 
     def launch(self) -> None:
         """Enqueue the next chunk; a no-op while one is pending."""
@@ -163,6 +289,10 @@ class DeviceRun:
             self.L, prices=self.prices_d, cost_tiebreak=self.use_cost,
             maxfit=self.maxfit_d, log_bound=self.log_bound,
             resource_mask=self.resource_mask)
+        if self._slot is not None and not self.solo:
+            # the resume tensors belong to the slot from here on
+            _, counts_next, dropped_next = self._pending
+            self._ring.hand_back(self._slot, counts=counts_next, dropped=dropped_next)
         self.launches += 1
 
     def finish(self):
@@ -171,10 +301,18 @@ class DeviceRun:
         sparse [(shape, n), ...])`` and its dropped counts, in the original
         shape index space. Between chunks the batch keeps ONE S: when the
         largest alive set of any problem fits a smaller bucket, every row is
-        compacted to it (ops/compact.compact_rows); otherwise the kernel's
-        own ``counts_next`` and zeroed ``dropped_next`` feed the next chunk
-        and nothing is copied to the device. Each problem's dropped deltas
-        accumulate on the host through its permutation."""
+        compacted to it (ops/compact.compact_rows); otherwise the next chunk
+        resumes from the kernel's own ``counts_next`` and zeroed
+        ``dropped_next`` (the solo ring refills its counts from the host
+        copy instead). Each problem's dropped deltas accumulate on the host
+        through its permutation. The ring slot is released at the end,
+        once the last chunk is on the host, or on an error."""
+        try:
+            return self._finish()
+        finally:
+            self.close()
+
+    def _finish(self):
         from karpenter_tpu_torch.ops.compact import (
             compact_rows, scatter_dropped, sparse_record,
         )
@@ -186,6 +324,7 @@ class DeviceRun:
         dropped_full = [np.zeros(self.S0, np.int64) for _ in range(B)]
         perms: List[Optional[np.ndarray]] = [None] * B
         S_cur = self.S0
+        prefix = "solo_" if self.solo else ""
         for _ in range(MAX_CHUNKS):
             self.launch()  # a no-op for a chunk already enqueued
             (flat, counts_next, dropped_next), self._pending = self._pending, None
@@ -207,10 +346,33 @@ class DeviceRun:
                 perms, shapes_c, counts_c, maxfit_c = compact_rows(
                     counts_f, perms, self.shapes_host, self._maxfit_host, S_new)
                 S_cur = S_new
-                self.shapes_d, self.counts_d, self.maxfit_d = to_device_int32(
-                    [shapes_c, counts_c, maxfit_c], self.device)
-                self.dropped_d = torch.zeros_like(self.counts_d)
                 self.buckets.append(S_new)
+                zeros_c = np.zeros_like(counts_c)
+                if self._slot is None:
+                    self.shapes_d, self.counts_d, self.maxfit_d = to_device_int32(
+                        [shapes_c, counts_c, maxfit_c], self.device)
+                    self.dropped_d = torch.zeros_like(self.counts_d)
+                    continue
+                # smaller rows: the fills see the new shape and make counted
+                # fresh allocations (a compaction is an event, not the steady
+                # state); maxfit is copied off the ring
+                ring, slot = self._ring, self._slot
+                self.shapes_d = ring.fill(slot, prefix + "shapes", shapes_c, self.device)
+                self.counts_d = ring.fill(slot, prefix + "counts", counts_c, self.device)
+                self.dropped_d = ring.fill(
+                    slot, prefix + "dropped", zeros_c, self.device,
+                    token=("zeros", zeros_c.shape) if self.solo else None)
+                self.maxfit_d = torch.from_numpy(maxfit_c).to(self.device)
+                if self.solo:
+                    ring.note_allocation(1)
+            elif self._slot is not None and self.solo:
+                # the solo resume: the counts row refills the slot's tensor
+                # in place; the zeros row matches its token and copies nothing
+                zeros = np.zeros_like(counts_f)
+                self.counts_d = self._ring.fill(self._slot, "solo_counts", counts_f,
+                                                self.device)
+                self.dropped_d = self._ring.fill(self._slot, "solo_dropped", zeros,
+                                                 self.device, token=("zeros", zeros.shape))
             else:
                 self.counts_d, self.dropped_d = counts_next, dropped_next
         else:

@@ -49,6 +49,7 @@ import numpy as np
 import torch
 
 from karpenter_tpu_torch.backend import DeviceLike, resolve_device, to_device_int32
+from karpenter_tpu_torch.ops.feasibility import _catalog_token
 from karpenter_tpu_torch.utils import resources as res
 
 _ENV = "KARPENTER_DEVICE_FILTER"
@@ -64,7 +65,6 @@ _MAX_CT_VOCAB = 32       # capacity-type bits live in ONE row word
 _PROBE_K = 32            # sampled columns per window (the full row when T <= K)
 
 _LOCK = threading.Lock()
-_token_counter = itertools.count(1)
 _PLANES_CACHE: dict = {}           # catalog token tuple -> Planes | _FAILED
 _PLANES_CACHE_CAP = 8
 _FAILED = object()
@@ -100,15 +100,6 @@ def fallback_counts() -> Dict[str, int]:
 def reset_fallback_counts() -> None:
     with _LOCK:
         _FALLBACKS.clear()
-
-
-def _catalog_token(it) -> int:
-    """A monotonic token on the InstanceType object: the catalog identity
-    the plane cache is keyed by."""
-    tok = it.__dict__.get("_feas_token")
-    if tok is None:
-        tok = it.__dict__["_feas_token"] = next(_token_counter)
-    return tok
 
 
 def _words(nbits: int) -> int:
@@ -350,10 +341,11 @@ def gang_member_column(instance_types, member_keys,
     validators accept the type), the JAX package's ``_rows_jit`` /
     ``gang_member_column``: the window mask algebra on the member keys'
     unpadded rows, AND-reduced over them on ``device`` (default: the CUDA
-    device), one (T,) copy back. None when there are no keys or the catalog
-    cannot be put in planes: the caller takes the scalar oracle."""
+    device), one (T,) copy back. None when there are no keys, the kill
+    switch is set or the catalog cannot be put in planes: the caller takes
+    the host columns."""
     global GANG_COLUMN_RUNS
-    if not member_keys:
+    if not enabled() or not member_keys:
         return None
     planes = planes_for(instance_types)
     if planes is None:
@@ -483,7 +475,9 @@ def prepare_fused(problems, marshaled,
     cannot be fused (kill switch, mixed catalogs, no packables, planes
     refused, fewer than two eligible members); the caller then takes the
     classic host-filtered batch path. ``marshaled[i]`` is problem i's
-    ``(pod vectors, required special resources)``."""
+    ``adapter.marshal_pods_interned`` triple (pod vectors, required special
+    resources, interned shape ids); the members encode against the
+    universe packables' versioned catalog arrays."""
     if not enabled():
         return None
     from karpenter_tpu_torch.ops.encode import encode, pad_encoding
@@ -503,7 +497,7 @@ def prepare_fused(problems, marshaled,
             return None
     if key0 is None or not key0[0]:
         return None
-    packables, uni_types, _ = adapter.build_universe_packables(
+    packables, uni_types, uni_version = adapter.build_universe_packables(
         problems[0].instance_types, daemon_vecs=key0[1])
     if not packables:
         return None
@@ -513,7 +507,7 @@ def prepare_fused(problems, marshaled,
 
     batch_idx, encs, verify, soft = [], [], [], []
     for i, prob in enumerate(problems):
-        vecs, required = marshaled[i]
+        vecs, required, sids = marshaled[i]
         if len(required & set(_GPU_CLASSES)) >= 3:
             # all three GPU classes required: the host comparator's order on
             # the feasible subset is no longer the stable (cpu, mem) key
@@ -524,7 +518,8 @@ def prepare_fused(problems, marshaled,
             # a None or empty allowed set rejects every type: the solo path
             # answers "all unschedulable" at once
             continue
-        enc = encode(vecs, list(range(len(prob.pods))), packables, pad=False)
+        enc = encode(vecs, list(range(len(prob.pods))), packables, pad=False,
+                     sids=sids, catalog_version=uni_version)
         penc = None if enc is None else pad_encoding(enc)
         if penc is None:
             continue

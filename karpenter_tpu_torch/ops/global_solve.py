@@ -190,7 +190,9 @@ def encode_window(problems: Sequence, cost_config,
     decline reason and no row: the caller's FFD result stands for it."""
     from karpenter_tpu_torch.models.cost import effective_price
     from karpenter_tpu_torch.ops.encode import encode
-    from karpenter_tpu_torch.solver.adapter import build_packables, marshal_pods
+    from karpenter_tpu_torch.solver.adapter import (
+        build_packables_cached, marshal_pods_interned,
+    )
 
     scheds: List[GlobalScheduleEnc] = []
     rows: List[tuple] = []
@@ -201,8 +203,8 @@ def encode_window(problems: Sequence, cost_config,
         if not problem.pods or pos >= max_schedules:
             s.reason = "empty" if not problem.pods else "window-cap"
             continue
-        pod_vecs, required = marshal_pods(problem.pods)
-        packables, sorted_types = build_packables(
+        pod_vecs, required, _ = marshal_pods_interned(problem.pods)
+        packables, sorted_types = build_packables_cached(
             problem.instance_types, problem.constraints, problem.pods,
             problem.daemons, required=required)
         if not packables:

@@ -7,11 +7,12 @@ pods group by hash(tightened constraints + GPU requests + soft-affinity
 votes); each group bin-packs independently, which is what makes the batch
 axis of the window's device solve embarrassingly parallel.
 
-A copy of the JAX package's scheduler on the scalar path it falls back to
-when ``feasibility.compile_constraints`` gives None: ``validate_pod`` and
-``tighten`` per pod (the columnar engine is not ported yet). A pod the
-affinity injection proved unsatisfiable (``_affinity_unsat``) fails
-validation and is counted as ``reason=affinity`` in the window's log line.
+A copy of the JAX package's scheduler. The columnar engine
+(``ops/feasibility.compile_constraints``) validates each pod and memoizes
+``tighten()`` and the group key per pod signature; where it gives None the
+scalar ``validate_pod`` and ``tighten`` run per pod. A pod the affinity
+injection proved unsatisfiable (``_affinity_unsat``) fails validation and
+is counted as ``reason=affinity`` in the window's log line.
 A complete gang is one schedule with ``gang`` set, which the controller
 peels off into its co-pack window; a gang that lost members to validation
 is dropped whole with ``reason=gang`` (``_gang_unsat``).
@@ -28,6 +29,7 @@ from karpenter_tpu_torch.api.core import Pod
 from karpenter_tpu_torch.api.gang import GangSpec, gang_of
 from karpenter_tpu_torch.api.provisioner import Provisioner
 from karpenter_tpu_torch.backend import DeviceLike
+from karpenter_tpu_torch.ops import feasibility
 from karpenter_tpu_torch.runtime.kubecore import KubeCore
 from karpenter_tpu_torch.scheduling.affinity import AffinityGroups
 from karpenter_tpu_torch.scheduling.topology import Topology
@@ -54,13 +56,12 @@ class Schedule:
 
 def _constraints_key(c: Constraints, gpu_requests) -> tuple:
     """Structural hash of tightened constraints + GPU requests
-    (scheduler.go:100-110). SlicesAsSets semantics: order-insensitive."""
-    reqs = tuple(sorted((r.key, r.operator, tuple(sorted(r.values)))
-                        for r in c.requirements.items))
-    taints = tuple(sorted((t.key, t.value, t.effect) for t in c.taints))
-    labels = tuple(sorted(c.labels.items()))
+    (scheduler.go:100-110). SlicesAsSets semantics: order-insensitive. The
+    (requirements, taints, labels) parts are
+    ``feasibility.constraints_key_parts``, so the engine's memoized group
+    keys are this function by construction."""
     gpus = tuple(sorted((k, q.nano) for k, q in gpu_requests.items()))
-    return (reqs, taints, labels, gpus)
+    return feasibility.constraints_key_parts(c) + (gpus,)
 
 
 class Scheduler:
@@ -82,9 +83,11 @@ class Scheduler:
         return self._get_schedules(constraints, pods)
 
     def _get_schedules(self, constraints: Constraints, pods: List[Pod]) -> List[Schedule]:
-        """scheduler.go:87-125 on the scalar path. Unschedulable pods
-        aggregate to one summary log line per window (counts by reason +
-        up to 5 sample reasons)."""
+        """scheduler.go:87-125, columnar: one tighten per distinct pod
+        signature. Unschedulable pods aggregate to one summary log line per
+        window (counts by reason + up to 5 sample reasons). Verdicts and
+        error strings are the scalar path's."""
+        engine = feasibility.compile_constraints(constraints)
         schedules: Dict[tuple, Schedule] = {}
         skipped = topo_skipped = aff_skipped = gang_skipped = 0
         samples: List[str] = []
@@ -102,7 +105,13 @@ class Scheduler:
                 pod.__dict__["_gang_unsat"] = gspec.error
                 note(pod, gspec.error)
                 continue
-            err = constraints.validate_pod(pod)
+            if engine is not None:
+                err, tightened, key = engine.schedule_entry(pod)
+            else:
+                err = constraints.validate_pod(pod)
+                if err is None:
+                    tightened = constraints.tighten(pod)
+                    key = _constraints_key(tightened, res.gpu_limits_for(pod))
             if err is not None:
                 skipped += 1
                 if pod.__dict__.get("_topology_unsat"):
@@ -114,8 +123,6 @@ class Scheduler:
                     aff_skipped += 1
                 note(pod, err)
                 continue
-            tightened = constraints.tighten(pod)
-            key = _constraints_key(tightened, res.gpu_limits_for(pod))
             if gspec is not None:
                 # fold the gang identity into the group key: a gang
                 # schedule holds exactly its members
@@ -131,7 +138,8 @@ class Scheduler:
                     constraints=tightened, pods=[], gang=gspec,
                     soft_affinity=dict(soft) if soft else None)
                 # warm the allowed-sets memo at window assembly: the solver
-                # reads these five sets per schedule
+                # reads these five sets per schedule, and the tighten memo
+                # hands back the same constraints object window after window
                 adapter.allowed_sets_cached(tightened)
             schedule.pods.append(pod)
         # a gang schedule that lost members to validation above is partial:

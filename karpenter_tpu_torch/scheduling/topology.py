@@ -4,9 +4,10 @@ Reference: pkg/controllers/provisioning/scheduling/{topology.go,
 topologygroup.go}. The trick (scheduler.go:69-72) carries over unchanged:
 topology decisions are injected into pods as node selectors *before*
 constraint grouping, keeping the solver oblivious to topology. A copy of
-the JAX package's module on its scalar path: each pod's allowed domains
-come from the requirement algebra, the oracle the JAX package's columnar
-engine (``ops/feasibility.py``, not ported yet) self-heals against.
+the JAX package's module: each pod's allowed domains come from the columnar
+engine (``ops/feasibility.topology_allowed``) once per pod signature, with
+the requirement algebra as the oracle it self-heals against. Left out: the
+``KARPENTER_TOPOLOGY_COLUMNAR`` kill switch.
 """
 
 from __future__ import annotations
@@ -22,8 +23,11 @@ from karpenter_tpu_torch.api.core import (
     NodeSelectorRequirement, Pod, TopologySpreadConstraint,
 )
 from karpenter_tpu_torch.api.requirements import pod_requirements
+from karpenter_tpu_torch.ops import feasibility
 from karpenter_tpu_torch.runtime.kubecore import KubeCore, NotFound
 from karpenter_tpu_torch.utils import pod as podutil
+
+_UNSET = object()  # cache sentinel: None is a real value (unconstrained)
 
 
 @dataclass
@@ -85,7 +89,17 @@ class Topology:
 
     def inject(self, constraints: Constraints, pods: List[Pod]) -> None:
         """Inject each spread group's next domain into its pods as a node
-        selector. Pods left with no satisfiable domain are marked
+        selector. The allowed-domain set is computed once per pod
+        signature through the compiled bitset engine
+        (``feasibility.topology_allowed``).
+
+        Whenever the columnar set yields no satisfiable domain (next_domain
+        would return ""), the scalar algebra recomputes the set once per
+        signature; a disagreement is counted in ``feasibility.HEALS`` under
+        ``topology-mismatch`` and the scalar answer wins, so a divergence
+        can never strand a spreadable pod. Signature-less pods (unsupported
+        operators) and compile failures take the scalar path outright.
+        Pods left with no satisfiable domain are marked
         (``_topology_unsat``) so the scheduler's window summary can bucket
         them under reason=topology."""
         groups = self._get_topology_groups(pods)
@@ -95,16 +109,40 @@ class Topology:
         for group in groups:
             self._compute_current_topology(constraints, group)
             key = group.constraint.topology_key
+            # hostname groups appended an In row above: the fingerprint
+            # length moved, so this recompiles rather than serving stale
+            cc = feasibility.compile_constraints(constraints)
+            allowed_cache: Dict[tuple, Optional[frozenset]] = {}
             for pod in group.pods:
-                allowed = constraints.requirements.add(
-                    *pod_requirements(pod).items).requirement(key)
+                sig = feasibility.pod_signature(pod) if cc is not None else None
+                if sig is None:
+                    allowed = self._scalar_allowed(constraints, pod, key)
+                else:
+                    allowed = allowed_cache.get(sig, _UNSET)
+                    if allowed is _UNSET:
+                        allowed = allowed_cache[sig] = feasibility.topology_allowed(
+                            cc, sig, key)
                 domain = group.next_domain(allowed)
+                if domain == "" and sig is not None:
+                    # self-heal: "" never mutates the spread counts, so a
+                    # scalar recheck and retry is free of side effects
+                    scalar = self._scalar_allowed(constraints, pod, key)
+                    if scalar != allowed:
+                        feasibility._count("topology-mismatch")
+                        allowed_cache[sig] = scalar
+                        domain = group.next_domain(scalar)
                 if domain == "":
                     pod.__dict__["_topology_unsat"] = True
                 pod.spec.node_selector = {
                     **pod.spec.node_selector,
                     key: domain,
                 }
+
+    @staticmethod
+    def _scalar_allowed(constraints: Constraints, pod: Pod, key: str) -> Optional[frozenset]:
+        """The per-pod scalar algebra: the oracle the columnar path heals
+        against."""
+        return constraints.requirements.add(*pod_requirements(pod).items).requirement(key)
 
     def _get_topology_groups(self, pods: List[Pod]) -> List[TopologyGroup]:
         groups: Dict[tuple, TopologyGroup] = {}

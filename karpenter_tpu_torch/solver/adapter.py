@@ -4,22 +4,38 @@ Mirrors PackablesFor (packable.go:44-91): viability validators, kubelet/system
 overhead reservation, daemonset overhead packing, and the GPU-class-aware
 ascending sort. Output feeds both the host oracle and the device encoder.
 
-A pod's resource vector is computed once per Pod object and cached on it:
-resource requests are immutable after admission, so the vector computed at
-the first solve serves every later one. Viability takes the scalar
-per-type validators (:func:`_validate`).
+A port of the JAX package's ``solver/adapter.py``. A pod's resource vector
+is computed once per Pod object and cached on it, with its special-resource
+mask and an interned shape id: resource requests are immutable after
+admission, so the first computation serves every later solve. A window's
+marshal goes through the delta-marshal arena (``ops/encode.MarshalArena``):
+a pod that went through an earlier window carries its arena row, so a
+steady-state window is a gather of cached ints. Viability is the whole
+catalog's columnar mask (``ops/feasibility.catalog_feasibility_mask``), and
+``build_packables`` is memoized per (catalog, allowed sets, daemons,
+required resources) with a content version the encoder's catalog cache and
+the device ring key on.
+
+Left out: the ``KARPENTER_MARSHAL_ARENA=0`` kill switch (the per-pod scan
+stays as the arena's fallback).
 """
 
 from __future__ import annotations
 
 import functools
 import itertools
+import logging
+import os
 import threading
 from typing import List, Optional, Sequence, Tuple
+
+import numpy as np
 
 from karpenter_tpu_torch.api.constraints import Constraints
 from karpenter_tpu_torch.api.core import Pod
 from karpenter_tpu_torch.cloudprovider.spi import InstanceType
+from karpenter_tpu_torch.ops import feasibility
+from karpenter_tpu_torch.ops.feasibility import _fingerprint
 from karpenter_tpu_torch.solver.host_ffd import (
     NUM_RESOURCES, Packable, R_AMD, R_CPU, R_EXOTIC, R_MEMORY, R_NEURON,
     R_NVIDIA, R_POD_ENI, R_PODS, Vec, pack_one,
@@ -41,7 +57,10 @@ _SPECIAL_RESOURCES = (res.AWS_POD_ENI, res.NVIDIA_GPU, res.AMD_GPU, res.AWS_NEUR
 # _SPECIAL_RESOURCES[i] appears in any container's requests OR limits
 # (requiresResource, packable.go:221-233 — presence, not quantity).
 _ALL_SPECIAL_BITS = (1 << len(_SPECIAL_RESOURCES)) - 1
+# the per-pod cache entries on Pod.__dict__: the marshal tuple and the arena
+# row (named apart from the JAX package's, whose pods carry their own)
 _CACHE_KEY = "_torch_marshal"
+_ROW_KEY = "_torch_arena_row"
 
 
 def _compute_pod_marshal(pod: Pod) -> Tuple[Vec, int]:
@@ -62,11 +81,74 @@ def _compute_pod_marshal(pod: Pod) -> Tuple[Vec, int]:
     return tuple(v), special
 
 
-def _marshal(pod: Pod) -> Tuple[Vec, int]:
-    """(vector, special-bitmask) for a pod, cached on the Pod object."""
+# -- shape interning --------------------------------------------------------
+# Every distinct resource vector gets a stable small integer id at marshal
+# time, so the encoder's pod→shape dedupe runs as np.unique over int64 ids
+# (nano-unit vectors themselves can exceed int64). Bounded: crossing the cap
+# bumps the generation and clears the table; cached pod entries and
+# in-flight id batches carry their generation, and any mismatch makes the
+# consumer fall back to the dict dedupe, so a stale id never indexes the
+# wrong vector.
+
+
+def _intern_max_from_env() -> int:
+    raw = os.environ.get("KARPENTER_INTERN_MAX", "")
+    if not raw.strip():
+        return 1 << 18
+    try:
+        return max(1, int(raw.strip()))
+    except ValueError:
+        logging.getLogger("karpenter.solver.adapter").warning(
+            "KARPENTER_INTERN_MAX=%r is not an integer; using default %d", raw, 1 << 18)
+        return 1 << 18
+
+
+_INTERN_LOCK = threading.Lock()
+_VEC_INTERN: dict = {}
+_VEC_BY_ID: List[Vec] = []
+_INTERN_MAX = _intern_max_from_env()
+_INTERN_GEN = 0
+
+
+def _intern_vec(vec: Vec) -> Tuple[int, int]:
+    """Intern under the lock; returns (sid, generation) consistently."""
+    global _INTERN_GEN
+    with _INTERN_LOCK:
+        sid = _VEC_INTERN.get(vec)
+        if sid is None:
+            if len(_VEC_BY_ID) >= _INTERN_MAX:
+                _VEC_INTERN.clear()
+                _VEC_BY_ID.clear()
+                _INTERN_GEN += 1
+            sid = len(_VEC_BY_ID)
+            _VEC_BY_ID.append(vec)
+            _VEC_INTERN[vec] = sid
+        return sid, _INTERN_GEN
+
+
+def interned_vecs_snapshot(sids, gen: int) -> Optional[List[Vec]]:
+    """Map interned ids back to vectors, verifying the table is still the
+    generation the ids were minted in; None = the caller must fall back."""
+    with _INTERN_LOCK:
+        if gen != _INTERN_GEN:
+            return None
+        try:
+            return [_VEC_BY_ID[int(s)] for s in sids]
+        except IndexError:
+            return None
+
+
+def _marshal(pod: Pod) -> Tuple[Vec, int, int, int]:
+    """The (vector, special-bitmask, interned shape id, intern generation)
+    tuple for a pod, cached on the Pod object. A cached entry from an older
+    intern generation re-interns on next touch (vector and mask are
+    reused)."""
     cached = pod.__dict__.get(_CACHE_KEY)
-    if cached is None:
-        cached = pod.__dict__[_CACHE_KEY] = _compute_pod_marshal(pod)
+    if cached is None or cached[3] != _INTERN_GEN:
+        vec, special = (_compute_pod_marshal(pod) if cached is None
+                        else (cached[0], cached[1]))
+        sid, gen = _intern_vec(vec)
+        cached = pod.__dict__[_CACHE_KEY] = (vec, special, sid, gen)
     return cached
 
 
@@ -74,8 +156,23 @@ def pod_vector(pod: Pod) -> Vec:
     """Sum of container requests as an 8-dim nano-unit vector. Any request
     outside the well-known seven maps onto the EXOTIC dimension (total is
     always 0 there), reproducing Go's zero-value map lookup that makes such
-    pods unreservable (packable.go:157-167)."""
+    pods unreservable (packable.go:157-167). Call
+    :func:`invalidate_pod_marshal` after mutating a pod's containers."""
     return _marshal(pod)[0]
+
+
+def pod_special_mask(pod: Pod) -> int:
+    """Which of _SPECIAL_RESOURCES the pod names in requests or limits, as a
+    bitmask, cached alongside the vector."""
+    return _marshal(pod)[1]
+
+
+def invalidate_pod_marshal(pod: Pod) -> None:
+    """Forget a pod's cached marshal and its arena row. (The JAX package
+    drops only the marshal, so a pod it already placed in the arena keeps
+    its old shape id there.)"""
+    pod.__dict__.pop(_CACHE_KEY, None)
+    pod.__dict__.pop(_ROW_KEY, None)
 
 
 def pod_vectors(pods: Sequence[Pod]) -> List[Vec]:
@@ -85,13 +182,8 @@ def pod_vectors(pods: Sequence[Pod]) -> List[Vec]:
 def marshal_pods(pods: Sequence[Pod]) -> Tuple[List[Vec], frozenset]:
     """One pass over the batch returning (vectors, required special
     resources)."""
-    vecs: List[Vec] = []
-    mask = 0
-    for pod in pods:
-        vec, bits = _marshal(pod)
-        vecs.append(vec)
-        mask |= bits
-    return vecs, _required_from_mask(mask)
+    vecs, required, _ = marshal_pods_interned(pods)
+    return list(vecs), required
 
 
 def _required_from_mask(mask: int) -> frozenset:
@@ -109,6 +201,103 @@ def _required_resources(pods: Sequence[Pod]) -> frozenset:
         if mask == _ALL_SPECIAL_BITS:
             break
     return _required_from_mask(mask)
+
+
+class _LazyVecs:
+    """Sequence facade over a pod batch's vectors, materialized on first
+    element access. The arena path hands the encoder interned shape ids,
+    whose dedupe never reads the vectors, so in the steady state the list
+    is never built; only the dict fallback (an intern rollover mid-flight)
+    pays for it."""
+
+    __slots__ = ("_pods", "_vecs")
+
+    def __init__(self, pods: Sequence[Pod]):
+        self._pods = pods
+        self._vecs: Optional[List[Vec]] = None
+
+    def _materialize(self) -> List[Vec]:
+        if self._vecs is None:
+            self._vecs = [_marshal(p)[0] for p in self._pods]
+        return self._vecs
+
+    def __len__(self) -> int:
+        return len(self._pods)
+
+    def __getitem__(self, i):
+        return self._materialize()[i]
+
+    def __iter__(self):
+        return iter(self._materialize())
+
+
+def _marshal_pods_interned_scan(pods: Sequence[Pod]):
+    """The always-correct per-pod scan (the arena's fallback): marshal
+    every pod through its cached attribute."""
+    vecs: List[Vec] = []
+    sid_list: List[int] = []
+    mask = 0
+    gen_seen = -1
+    mixed = False
+    for pod in pods:
+        vec, bits, sid, gen = _marshal(pod)
+        vecs.append(vec)
+        sid_list.append(sid)
+        mask |= bits
+        if gen != gen_seen:
+            mixed = gen_seen != -1
+            gen_seen = gen
+    sids = (None if mixed or gen_seen < 0
+            else (np.array(sid_list, dtype=np.int64), gen_seen))
+    return vecs, _required_from_mask(mask), sids
+
+
+def marshal_pods_interned(pods: Sequence[Pod]):
+    """(vectors, required special resources, interned shape ids): the
+    encoder's vectorized dedupe input. The third element is ``(int64 array,
+    generation)``, or None when the batch spans an intern table reset (the
+    encoder then takes the dict dedupe).
+
+    Backed by the delta-marshal arena (ops/encode.py): a pod that went
+    through an earlier window carries its arena row index, so a
+    steady-state window is a cached-int gather plus one numpy fancy index,
+    and the vector list is lazy. Any generation movement seen mid-window
+    (intern rebind, vocab rebind, arena rollover, concurrent reset) voids
+    the attempt and restarts it; after three attempts the per-pod scan
+    answers."""
+    from karpenter_tpu_torch.ops import encode as enc_mod
+
+    arena = enc_mod.marshal_arena()
+    n = len(pods)
+    for _attempt in range(3):
+        with _INTERN_LOCK:
+            adapter_gen = _INTERN_GEN
+        arena_gen = arena.begin_window(adapter_gen)
+        rows = np.empty(n, np.int64)
+        hits = 0
+        restart = False
+        for i, pod in enumerate(pods):
+            cached = pod.__dict__.get(_ROW_KEY)
+            if cached is not None and cached[0] == arena_gen:
+                rows[i] = cached[1]
+                hits += 1
+                continue
+            _vec, bits, sid, gen = _marshal(pod)
+            row, g = arena.assign(sid, bits, gen)
+            if g != arena_gen:
+                restart = True
+                break
+            pod.__dict__[_ROW_KEY] = (arena_gen, row)
+            rows[i] = row
+        if restart:
+            continue
+        gathered = arena.gather(rows, arena_gen)
+        if gathered is None:
+            continue
+        sids_arr, mask, sid_gen = gathered
+        arena.note_window(hits, n - hits)
+        return _LazyVecs(pods), _required_from_mask(mask), (sids_arr, sid_gen)
+    return _marshal_pods_interned_scan(pods)
 
 
 def resource_list_vector(rl: res.ResourceList) -> Vec:
@@ -190,17 +379,12 @@ def _allowed_sets(constraints: Constraints) -> tuple:
             reqs.architectures(), reqs.operating_systems())
 
 
-def _fingerprint(c: Constraints) -> tuple:
-    # identity + length: an in-place append to a live requirement or taint
-    # list changes a length, a replacement changes an id
-    return (id(c.requirements), len(c.requirements.items),
-            id(c.taints), len(c.taints))
-
-
 def allowed_sets_cached(constraints: Constraints) -> tuple:
     """:func:`_allowed_sets` memoized on the constraints object itself,
-    guarded by its fingerprint: a window that hands back the same
-    constraints object skips the five requirement-list walks."""
+    guarded by its fingerprint (the CompiledConstraints idiom): the
+    scheduler's tighten memo hands back the same constraints object window
+    after window, so steady-state windows skip the five requirement-list
+    walks."""
     fp = _fingerprint(constraints)
     hit = constraints.__dict__.get("_allowed_sets_memo")
     if hit is not None and hit[0] == fp:
@@ -220,13 +404,30 @@ def build_packables(
     """PackablesFor (packable.go:44-91): validate → reserve overhead → pack
     daemons → sort ascending. Callers that already marshaled the batch
     (:func:`marshal_pods`) pass ``required`` to skip the O(pods) re-scan."""
-    allowed = allowed_sets_cached(constraints)
     if required is None:
         required = _required_resources(pods)
-    daemon_vecs = [pod_vector(d) for d in daemons]
+    return _build_packables_from(
+        instance_types, allowed_sets_cached(constraints),
+        [pod_vector(d) for d in daemons], required)
+
+
+def _build_packables_from(
+    instance_types: Sequence[InstanceType],
+    allowed: tuple,
+    daemon_vecs: Sequence[Vec],
+    required: frozenset,
+) -> Tuple[List[Packable], List[InstanceType]]:
+    # whole-catalog viability as one columnar mask (memoized by catalog
+    # identity + allowed + required); None = the catalog cannot be indexed,
+    # and the scalar per-type validators answer. Same verdicts either way.
+    mask = feasibility.catalog_feasibility_mask(instance_types, allowed, required)
+    daemon_vecs = list(daemon_vecs)
     viable: List[Tuple[Vec, InstanceType, Packable]] = []
-    for it in instance_types:
-        if _validate(it, allowed, required) is not None:
+    for t, it in enumerate(instance_types):
+        if mask is not None:
+            if not mask[t]:
+                continue
+        elif _validate(it, allowed, required) is not None:
             continue
         totals = instance_totals(it)
         p = Packable(index=-1, total=list(totals), reserved=[0] * NUM_RESOURCES)
@@ -251,6 +452,84 @@ def build_packables(
     return packables, sorted_types
 
 
+# -- build_packables memoization ---------------------------------------------
+#
+# Between catalog refreshes the (catalog, constraints, daemons, required)
+# inputs repeat window after window. The key is identity-based for catalog
+# objects (a monotonic token on each InstanceType: a new catalog from a
+# provider refresh gets new tokens, so a stale hit is impossible) and
+# value-based for everything else.
+
+_token_counter = itertools.count(1)
+_packables_version_counter = itertools.count(1)
+_packables_lock = threading.Lock()
+_PACKABLES_CACHE: dict = {}
+_PACKABLES_CACHE_CAP = 64
+_UNIVERSE_CACHE: dict = {}
+_UNIVERSE_CACHE_CAP = 8
+
+
+def _instance_token(it: InstanceType) -> int:
+    """A monotonic token attached to the InstanceType object: a catalog
+    refresh (new objects) gets new tokens, so a cache keyed by them cannot
+    serve a stale catalog."""
+    tok = it.__dict__.get("_marshal_token")
+    if tok is None:
+        tok = it.__dict__["_marshal_token"] = next(_token_counter)
+    return tok
+
+
+def build_packables_cached(
+    instance_types: Sequence[InstanceType],
+    constraints: Constraints,
+    pods: Sequence[Pod],
+    daemons: Sequence[Pod],
+    required: Optional[frozenset] = None,
+) -> Tuple[List[Packable], List[InstanceType]]:
+    """Memoized :func:`build_packables`. A hit returns fresh ``Packable``
+    copies (callers may mutate them) over the shared sorted-type list. Pods
+    enter the key only through the special resources they require."""
+    packables, sorted_types, _ = build_packables_versioned(
+        instance_types, constraints, pods, daemons, required)
+    return packables, sorted_types
+
+
+def build_packables_versioned(
+    instance_types: Sequence[InstanceType],
+    constraints: Constraints,
+    pods: Sequence[Pod],
+    daemons: Sequence[Pod],
+    required: Optional[frozenset] = None,
+) -> Tuple[List[Packable], List[InstanceType], int]:
+    """:func:`build_packables_cached` plus a monotonic content version that
+    identifies the exact packable list: a catalog refresh (new instance
+    tokens), a provisioner spec change (new allowed sets), new daemon
+    overhead or a new required-resource set each land on a new cache key
+    and mint a new version; repeated windows with the same inputs repeat
+    it. It keys the encoder's catalog cache and, through the encoding's
+    catalog token, lets the device ring prove a slot already holds these
+    bytes."""
+    allowed = allowed_sets_cached(constraints)
+    daemon_vecs = tuple(pod_vector(d) for d in daemons)
+    if required is None:
+        required = _required_resources(pods)
+    key = (tuple(_instance_token(it) for it in instance_types),
+           allowed, daemon_vecs, required)
+    with _packables_lock:
+        hit = _PACKABLES_CACHE.get(key)
+    if hit is None:
+        packables, sorted_types = _build_packables_from(
+            instance_types, allowed, daemon_vecs, required)
+        version = next(_packables_version_counter)
+        with _packables_lock:
+            if len(_PACKABLES_CACHE) >= _PACKABLES_CACHE_CAP:
+                _PACKABLES_CACHE.pop(next(iter(_PACKABLES_CACHE)))
+            _PACKABLES_CACHE[key] = (packables, sorted_types, version)
+    else:
+        packables, sorted_types, version = hit
+    return [p.copy() for p in packables], list(sorted_types), version
+
+
 # -- universe packables (ops/device_filter.py) ---------------------------------
 #
 # The fused device filter masks the WHOLE catalog on the device, so its type
@@ -264,22 +543,6 @@ def build_packables(
 # sort to a subset gives the subset's stable key sort. A problem requiring
 # all three GPU classes at once has no such class and stays off the fused
 # path.
-
-_token_counter = itertools.count(1)
-_packables_version_counter = itertools.count(1)
-_packables_lock = threading.Lock()
-_UNIVERSE_CACHE: dict = {}
-_UNIVERSE_CACHE_CAP = 8
-
-
-def _instance_token(it: InstanceType) -> int:
-    """A monotonic token attached to the InstanceType object: a catalog
-    refresh (new objects) gets new tokens, so a cache keyed by them cannot
-    serve a stale catalog."""
-    tok = it.__dict__.get("_marshal_token")
-    if tok is None:
-        tok = it.__dict__["_marshal_token"] = next(_token_counter)
-    return tok
 
 
 def build_universe_packables(

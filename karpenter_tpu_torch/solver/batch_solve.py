@@ -7,7 +7,14 @@ module packs every problem that can join the batch in ONE launch of the
 pack kernel per chunk, a cluster of CTAs per problem
 (parallel/batched_pack.py), with the window's feasibility mask computed on
 the device (ops/device_filter.py) and fed to the kernel as its ``valid``
-input. Each chunk costs one device→host copy.
+input. Each chunk costs one device→host copy. Pods are marshaled through
+the delta-marshal arena (``adapter.marshal_pods_interned``), packables are
+versioned (``adapter.build_packables_versioned``), and with
+``SolverConfig.device_donate`` (the default) the batch's tensors come from
+a slot of the process ``DeviceRing`` (solver/pipeline.py): a window whose
+catalog, constraints and pods repeat copies only its counts rows. The JAX
+package's host mirrors for its hedged fetch are left out: the port has no
+hedge.
 
 :func:`dispatch_batch` marshals, encodes, computes the mask and enqueues the
 first chunk on the current CUDA stream without synchronising, and returns a
@@ -42,7 +49,9 @@ from karpenter_tpu_torch.cloudprovider.spi import InstanceType
 from karpenter_tpu_torch.models.ffd import DeviceRun, _decode
 from karpenter_tpu_torch.ops import device_filter
 from karpenter_tpu_torch.ops.encode import encode, pad_encoding
-from karpenter_tpu_torch.solver.adapter import build_packables, marshal_pods
+from karpenter_tpu_torch.solver.adapter import (
+    build_packables_versioned, marshal_pods_interned,
+)
 from karpenter_tpu_torch.ops import policy as ops_policy
 from karpenter_tpu_torch.solver import policy as policy_registry
 from karpenter_tpu_torch.solver.policy import soft_zone_adjust, soft_zone_votes
@@ -79,7 +88,7 @@ def dispatch_batch(problems: Sequence[Problem], config: Optional[SolverConfig] =
     is ``solve_batch(p)``."""
     config = config or SolverConfig()
     dev = resolve_device(device)
-    marshaled = [marshal_pods(prob.pods) for prob in problems]
+    marshaled = [marshal_pods_interned(prob.pods) for prob in problems]
     device_gate = len(problems) >= 2
 
     # the fused filter replaces the host filter and per-constraint packables
@@ -94,9 +103,7 @@ def dispatch_batch(problems: Sequence[Problem], config: Optional[SolverConfig] =
     for i, prob in enumerate(problems):
         if i in fused_set:
             continue  # a fused member that falls back builds these at fetch
-        vecs, required = marshaled[i]
-        prepared[i] = build_packables(prob.instance_types, prob.constraints,
-                                      prob.pods, prob.daemons, required=required)
+        prepared[i] = _prepare(prob, marshaled[i])
 
     policy = policy_registry.get(config.packing_policy)
     # non-default policies imply the in-kernel tie-break: a policy that
@@ -110,7 +117,7 @@ def dispatch_batch(problems: Sequence[Problem], config: Optional[SolverConfig] =
         members price the whole universe axis; the kernel only compares
         prices of mask-valid types."""
         packables, sorted_types = ((fused.packables, fused.uni_types) if i in fused_set
-                                   else prepared[i])
+                                   else prepared[i][:2])
         if not (packables and any(it.price for it in sorted_types)):
             return None
         votes = soft_zone_votes(problems[i].soft_affinity)
@@ -127,11 +134,11 @@ def dispatch_batch(problems: Sequence[Problem], config: Optional[SolverConfig] =
         batch_idx, encs = list(fused.batch_idx), list(fused.encs)
     elif device_gate:
         for i, prob in enumerate(problems):
-            packables = prepared[i][0]
+            packables, _, vecs, sids, cat_version = prepared[i]
             # exact-size encode once: a problem left out of the batch hands
             # it to the solo path, a member pads it to the buckets
-            enc = encode(marshaled[i][0], list(range(len(prob.pods))), packables,
-                         pad=False) if packables else None
+            enc = encode(vecs, list(range(len(prob.pods))), packables, pad=False,
+                         sids=sids, catalog_version=cat_version) if packables else None
             raw_encs[i] = enc
             if enc is not None:
                 penc = pad_encoding(enc)
@@ -153,10 +160,20 @@ def dispatch_batch(problems: Sequence[Problem], config: Optional[SolverConfig] =
             prices_list = (scored[0] if scored is not None
                            else [problem_prices(i) for i in batch_idx])
         mask = (fused.mask_d, fused.last_valid_d) if fused is not None else None
-        run = DeviceRun(encs, prices_list, config.chunk_iters, dev, mask=mask)
+        run = DeviceRun(encs, prices_list, config.chunk_iters, dev, mask=mask,
+                        donate=config.device_donate)
         run.launch()
     return BatchHandle(problems, config, dev, prepared, raw_encs, marshaled,
                        batch_idx, run, fused if run is not None else None)
+
+
+def _prepare(prob: Problem, marshaled) -> tuple:
+    """A problem's host-filtered ``(packables, sorted_types, vecs, sids,
+    catalog version)`` from its ``marshal_pods_interned`` triple."""
+    vecs, required, sids = marshaled
+    packables, sorted_types, cat_version = build_packables_versioned(
+        prob.instance_types, prob.constraints, prob.pods, prob.daemons, required=required)
+    return packables, sorted_types, vecs, sids, cat_version
 
 
 class BatchHandle:
@@ -165,7 +182,10 @@ class BatchHandle:
     ``fetch()`` is idempotent: the results are computed once and kept. It
     waits for the batch's chunks, decodes the device answers and solves
     every other problem alone. If it raises, every later call raises too:
-    a failed batch is never answered by another path."""
+    a failed batch is never answered by another path. The batch's ring slot
+    is released once its last chunk is on the host; ``device_run``'s
+    device tensors raise ``RuntimeError`` after that (its counts, such as
+    ``launches`` and ``buckets``, stay readable)."""
 
     def __init__(self, problems, config, device, prepared, raw_encs, marshaled,
                  batch_idx, run, fused):
@@ -226,14 +246,13 @@ class BatchHandle:
         for i, prob in enumerate(problems):
             if results[i] is not None:
                 continue
-            vecs, required = self._marshaled[i]
             if prepared[i] is None:
                 # a fused member falling back: the host-filtered packables
                 # it skipped at dispatch
-                prepared[i] = build_packables(prob.instance_types, prob.constraints,
-                                              prob.pods, prob.daemons, required=required)
-            packables, sorted_types = prepared[i]
+                prepared[i] = _prepare(prob, self._marshaled[i])
+            packables, sorted_types, vecs, sids, cat_version = prepared[i]
             results[i] = solve_with_packables(
                 prob.constraints, prob.pods, packables, sorted_types, vecs, config,
-                device=self._device, enc=self._raw_encs[i])
+                device=self._device, enc=self._raw_encs[i], sids=sids,
+                catalog_version=cat_version)
         return results

@@ -35,7 +35,7 @@ from karpenter_tpu_torch.ops.global_solve import (
     SAT_MICRO, objective_prices, one_problem_window, plan_cost_micro, price_micro,
 )
 from karpenter_tpu_torch.solver import host_ffd
-from karpenter_tpu_torch.solver.adapter import build_packables, marshal_pods
+from karpenter_tpu_torch.solver.adapter import build_packables_cached, marshal_pods_interned
 from karpenter_tpu_torch.solver.global_solve import ITERS, program_inputs, run_program
 from karpenter_tpu_torch.solver.host_ffd import HostSolveResult
 from karpenter_tpu_torch.solver.solve import SolveResult, SolverConfig, materialize, solve
@@ -132,9 +132,9 @@ def relax_solve(
     dev = resolve_device(device)
     exact = solve(constraints, pods, instance_types, daemons=daemons, config=config,
                   device=dev)
-    pod_vecs, required = marshal_pods(pods)
-    packables, sorted_types = build_packables(instance_types, constraints, pods, daemons,
-                                              required=required)
+    pod_vecs, required, _ = marshal_pods_interned(pods)
+    packables, sorted_types = build_packables_cached(instance_types, constraints, pods,
+                                                     daemons, required=required)
     if not packables:
         return exact, RelaxInfo(used=False, reason="fallback-no-packables")
     order = sorted(range(len(pods)), key=lambda i: (-pod_vecs[i][0], -pod_vecs[i][1]))

@@ -24,7 +24,9 @@ from karpenter_tpu_torch.models.cost import CostConfig
 from karpenter_tpu_torch.models.ffd import solve_ffd_device
 from karpenter_tpu_torch.ops.encode import encode
 from karpenter_tpu_torch.solver import host_ffd
-from karpenter_tpu_torch.solver.adapter import build_packables, marshal_pods
+from karpenter_tpu_torch.solver.adapter import (
+    build_packables_versioned, marshal_pods_interned,
+)
 from karpenter_tpu_torch.solver import policy as policy_registry
 from karpenter_tpu_torch.solver.policy import PolicyContext
 
@@ -85,6 +87,11 @@ class SolverConfig:
     # rounded plan only where it is strictly cheaper in exact int micro-$
     # (solver/global_solve.py); "ffd" keeps the batch's plans
     window_backend: str = "global"
+    # the device-resident hot loop (solver/pipeline.DeviceRing): a solve's
+    # tensors come from a ring slot, refilled in place by a later solve of
+    # the same buckets (B13), and tensors whose content token matches copy
+    # nothing; False copies every solve's inputs to fresh tensors
+    device_donate: bool = True
 
 
 @dataclass
@@ -147,11 +154,12 @@ def solve(
     versions)."""
     config = config or SolverConfig()
     dev = resolve_device(device)
-    pod_vecs, required = marshal_pods(pods)
-    packables, sorted_types = build_packables(
+    pod_vecs, required, sids = marshal_pods_interned(pods)
+    packables, sorted_types, catalog_version = build_packables_versioned(
         instance_types, constraints, pods, daemons, required=required)
     return solve_with_packables(constraints, pods, packables, sorted_types,
-                                pod_vecs, config, device=dev)
+                                pod_vecs, config, device=dev, sids=sids,
+                                catalog_version=catalog_version)
 
 
 def solve_with_packables(
@@ -163,9 +171,15 @@ def solve_with_packables(
     config: SolverConfig,
     device: DeviceLike = None,
     enc=None,
+    sids=None,
+    catalog_version: Optional[int] = None,
 ) -> SolveResult:
     """solve() after problem preparation; ``enc`` is the exact-size
-    encoding when the caller (solver/batch_solve.py) already made it."""
+    encoding when the caller (solver/batch_solve.py) already made it.
+    ``sids`` (``adapter.marshal_pods_interned``) and ``catalog_version``
+    (``adapter.build_packables_versioned``) go to the encoder: the
+    vectorized dedupe and the versioned catalog arrays, whose token lets
+    the device ring skip their copy."""
     if not packables:
         # same contract as host_ffd.pack: no viable types → every pod is
         # reported unschedulable
@@ -186,13 +200,14 @@ def solve_with_packables(
 
     # one exact encoding; None (not representable) → host oracle
     if enc is None:
-        enc = encode(pod_vecs, pod_ids, packables, pad=False)
+        enc = encode(pod_vecs, pod_ids, packables, pad=False, sids=sids,
+                     catalog_version=catalog_version)
     result = None
     if enc is not None:
         result = solve_ffd_device(
             pod_vecs, pod_ids, packables, chunk_iters=config.chunk_iters,
             prices=prices, cost_tiebreak=prices is not None, enc=enc,
-            device=device)
+            device=device, donate=config.device_donate)
     executor = "device"
     if result is None:
         result = host_ffd.pack(pod_vecs, pod_ids, packables, prices=prices,

@@ -526,6 +526,69 @@ def test_pod_affinity_window_binds_as_the_jax_controller(depth, policy):
     assert all(chunk["gang"] is None for chunk in worker.last_window["chunks"])
 
 
+def spread_window(pkg: Pkg, seed, n=90):
+    """config12_window's pods, a third of them (three apps) with a zone
+    topology spread of max skew 1 against their app's pods, the rest with a
+    hostname spread of max skew 4: the spread goes through Topology.inject
+    (the columnar allowed-domain sets)."""
+    catalog, pods = config12_window(pkg, seed, n)
+    wk = pkg.wellknown
+    for i, p in enumerate(pods):
+        app = f"app-{i % 3}"
+        p.metadata.labels = {"app": app}
+        key, skew = (wk.LABEL_TOPOLOGY_ZONE, 1) if i % 3 == 0 else (wk.LABEL_HOSTNAME, 4)
+        p.spec.topology_spread_constraints = [pkg.core.TopologySpreadConstraint(
+            max_skew=skew, topology_key=key,
+            label_selector=pkg.core.LabelSelector(match_labels={"app": app}))]
+    return catalog, pods
+
+
+def partition(binds):
+    """Binds as (type, zone, capacity type, pods), sorted: hostname domains
+    are random draws in both packages, so nodes compare as a partition."""
+    return sorted((b[0], b[2], b[3], b[1]) for b in binds)
+
+
+WINDOWS = {"config12": config12_window, "affinity": pod_affinity_window,
+           "spread": spread_window}
+
+
+@pytest.mark.parametrize("window,seed", [("config12", s) for s in SEEDS]
+                         + [("spread", s) for s in SEEDS] + [("affinity", 1)])
+def test_columnar_controller_binds_as_the_scalar_path_and_jax(window, seed, monkeypatch):
+    """The columnar engine (the port's default: the scheduler's memoized
+    schedule_entry, the topology spread's allowed_domain sets) binds what
+    the JAX controller binds and what the port's scalar path binds on the
+    same pods (compile_constraints patched to give None: validate_pod and
+    tighten per pod), at depth 2 over chunks of 40."""
+    from karpenter_tpu_torch.ops import feasibility as port_feas
+
+    make = WINDOWS[window]
+    entries = []
+    real_entry = port_feas.CompiledConstraints.schedule_entry
+
+    def counting_entry(self, pod):
+        entries.append(1)
+        return real_entry(self, pod)
+
+    monkeypatch.setattr(port_feas.CompiledConstraints, "schedule_entry", counting_entry)
+    port_feas.reset_heals()
+    kw = dict(depth=2, chunk_items=40, zones=True)
+    want, _ = run_worker(JAX, make(JAX, seed), **kw)
+    columnar, _ = run_worker(PORT, make(PORT, seed), **kw)
+    assert entries, "the scheduler did not take the columnar engine"
+    assert port_feas.heal_counts() == {}
+    monkeypatch.setattr(port_feas, "compile_constraints", lambda c: None)
+    del entries[:]
+    scalar, _ = run_worker(PORT, make(PORT, seed), **kw)
+    assert not entries
+    if window == "config12":
+        assert columnar == scalar == want
+    else:
+        assert partition(columnar) == partition(scalar) == partition(want)
+    assert sum(len(b[1]) for b in columnar) > 0
+
+
 # -- gang windows: co-pack, torus carving and preemption ----------------------------
 
 def gang_pod(pkg: Pkg, gang, size, i, slice_=None, priority=0, cpu="1", mem="1Gi"):

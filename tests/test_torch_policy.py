@@ -37,7 +37,7 @@ from karpenter_tpu.ops import policy as jax_ops_policy
 from karpenter_tpu.solver import batch_solve as jax_batch
 from karpenter_tpu.solver import policy as jax_policy
 from karpenter_tpu.solver import solve as jax_solve_mod
-from karpenter_tpu.solver.adapter import marshal_pods_interned
+from karpenter_tpu.solver.adapter import marshal_pods_interned as jax_marshal_pods
 from karpenter_tpu_torch.api import core as port_core
 from karpenter_tpu_torch.api import wellknown as port_wellknown
 from karpenter_tpu_torch.cloudprovider import spi as port_spi
@@ -50,7 +50,7 @@ from karpenter_tpu_torch.ops import policy as port_ops_policy
 from karpenter_tpu_torch.solver import batch_solve as port_batch
 from karpenter_tpu_torch.solver import policy as port_policy
 from karpenter_tpu_torch.solver import solve as port_solve_mod
-from karpenter_tpu_torch.solver.adapter import marshal_pods
+from karpenter_tpu_torch.solver.adapter import marshal_pods_interned as port_marshal_pods
 from tests.test_torch_solve import canonical
 
 SEEDS = (1, 7, 42)
@@ -146,10 +146,10 @@ def problems(pkg, cat, seed, n=4, soft=False, open_zones=False):
 def fused_of(pkg, probs):
     if pkg.name == "jax":
         cfg = pkg.config()
-        marshaled = [marshal_pods_interned(p.pods) for p in probs]
+        marshaled = [jax_marshal_pods(p.pods) for p in probs]
         return jax_df.prepare_fused(probs, marshaled, cfg,
                                     jax_solve_mod.resolved_device_max_shapes(cfg))
-    return port_df.prepare_fused(probs, [marshal_pods(p.pods) for p in probs], "cpu")
+    return port_df.prepare_fused(probs, [port_marshal_pods(p.pods) for p in probs], "cpu")
 
 
 def context_kw(name, cat_names, repack=2.0, soft_cost=0.001):
