@@ -4,7 +4,9 @@ its plain version, and drive the public solve(), the batched window, the
 provisioning controller, the global window backend, node removal
 (consolidation, termination, emptiness), pod-(anti-)affinity, the
 packing policies, gangs, torus carving and preemption, the delta-marshal
-window stream and the columnar controller at full size on one card.
+window stream and the columnar controller at full size on one card, and
+observe a window through the port's metrics, traces, SLO engine and flight
+recorder.
 
     python3 chip_smoke.py
 
@@ -84,6 +86,21 @@ nvcc each, both at once). Phases, each printing one JSON record:
    twice on the scalar path (compile_constraints patched to give None):
    the binds identical, no self-heal, 0 ring allocations in the steady
    window; reconcile_s and schedule_s both ways and the ring's counts;
+8d. observability: that window with tracing and the SLO engine on (every
+   pod bound once, the binds controller_columnar's, all five SLO stages
+   stamped, no band burning, the window's spans under one provision span
+   with marshal, dispatch, device_solve and launch_bind among them, every
+   series in the exposition with its help, the ring's series equal to
+   DeviceRing.counters()); the tracing and stamping tax by the JAX
+   package's method (spans x ns a span, SLO record calls x ns a record,
+   over the window's wall) beside tracing and stamps on and off
+   alternated over 3 windows each (p50 walls, context only); one traced
+   window and a one-schedule window under torch.profiler with the
+   tracer's annotations on: the record_function range of every entered
+   span and of the three karpenter.solve labels, with the host ms and
+   the device ms launched inside each (a session is taken only when it
+   saw every pack kernel launched); and the flight recorder's slo-burn
+   and pressure-l3 dumps (phase_observability);
 9. global_program: the relaxation program of the global window backend
    (solver/global_solve.relax_node_counts) on the encoding of the
    9,984-pod window (B = 32, SB = 32, TB = 512) on the card and on the CPU:
@@ -699,6 +716,18 @@ def phase_config4(device):
     return rec
 
 
+def device_events(prof):
+    """(start, end, name) of every device activity a torch.profiler session
+    saw: kernels, copies and sets. The GPU side of a record_function range
+    (a user annotation spanning the kernels launched inside it) is not
+    device work and is left out."""
+    from torch.autograd import DeviceType
+
+    return [(e.time_range.start, e.time_range.end, e.name) for e in prof.events()
+            if e.device_type == DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)]
+
+
 def busy_us(spans):
     """The union of the (start, end, name) device intervals, in µs."""
     busy, cur_start, cur_end = 0.0, None, None
@@ -717,7 +746,6 @@ def profile_solve(fn):
     kernel, copy and set intervals) and its idle share of the wall time;
     None where the profiler saw no device activity."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -725,8 +753,7 @@ def profile_solve(fn):
         fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    spans = sorted((e.time_range.start, e.time_range.end, e.name)
-                   for e in prof.events() if e.device_type == DeviceType.CUDA)
+    spans = sorted(device_events(prof))
     if not spans:
         return {"wall_ms": wall_us / 1e3, "pack_kernel_ms": None, "device_busy_ms": None,
                 "idle_share": None, "note": "not measured: no device activity traced"}
@@ -1492,6 +1519,305 @@ def phase_controller_columnar(device):
            "binds_identical": True,
            **{mode: [{k: r[k] for k in keep} for r in recs] for mode, recs in runs.items()}}
     emit(rec)
+    rec["binds"] = runs["columnar"][0]["binds"]  # returned for phase_observability
+    return rec
+
+
+# the retroactive spans (add_span: timed before or after the fact, never
+# entered, so they enter no profiler range) of a provisioning window
+RETROACTIVE_SPANS = ("intake", "marshal", "dispatch", "device_solve", "launch_bind")
+SOLVE_RANGES = ("karpenter.solve.batch_dispatch", "karpenter.solve.batch_device",
+                "karpenter.solve.device")
+OBS_ALTERNATIONS = 3  # windows each with tracing and SLO stamps on, and off
+
+
+def series_delta(before, after, name):
+    """Counter and gauge series of ``name`` as {labels: after - before}
+    (absent before counts as 0) from two Registry.snapshot()s."""
+    a, b = after.get(name, {}).get("series", {}), before.get(name, {}).get("series", {})
+    return {k: v - b.get(k, 0.0) for k, v in a.items() if v - b.get(k, 0.0)}
+
+
+def window_tree(spans, wid):
+    """The window's spans: (provision roots, spans whose parent is not a
+    span of the window, names present). A window is well formed when it has
+    one root and every other span parents inside it."""
+    mine = [s for s in spans if s["trace_id"] == wid]
+    ids = {s["span_id"] for s in mine}
+    roots = [s for s in mine if s["parent_id"] == 0]
+    orphans = [s["name"] for s in mine if s["parent_id"] != 0 and s["parent_id"] not in ids]
+    return mine, roots, orphans
+
+
+def direct_worker(catalog, device):
+    """A ProvisionerWorker over its own API server, driven on the calling
+    thread (add, then provision()), never started: a torch.profiler session
+    records the ranges of the thread it runs on."""
+    from karpenter_tpu_torch.api.core import ObjectMeta
+    from karpenter_tpu_torch.api.provisioner import Provisioner, ProvisionerSpec
+    from karpenter_tpu_torch.cloudprovider.fake.provider import FakeCloudProvider
+    from karpenter_tpu_torch.controllers.provisioning import ProvisionerWorker
+    from karpenter_tpu_torch.pressure import PressureConfig, PressureMonitor
+    from karpenter_tpu_torch.runtime.kubecore import KubeCore
+    from karpenter_tpu_torch.scheduling.batcher import Batcher
+    from karpenter_tpu_torch.solver.pipeline import PipelineConfig
+    from karpenter_tpu_torch.solver.solve import SolverConfig, universe_constraints
+
+    kube = KubeCore()
+    provisioner = Provisioner(metadata=ObjectMeta(name="default"),
+                              spec=ProvisionerSpec(constraints=universe_constraints(catalog)))
+    kube.create(provisioner)
+    monitor = PressureMonitor(PressureConfig(
+        rss_watermark_bytes=0, window_l1_seconds=60.0, window_l2_seconds=120.0))
+    worker = ProvisionerWorker(
+        provisioner, kube, FakeCloudProvider(catalog=catalog),
+        solver_config=SolverConfig(window_backend="ffd"),
+        batcher=Batcher(idle_seconds=0.01, max_seconds=120.0, monitor=monitor),
+        pipeline_config=PipelineConfig(chunk_items=0), device=device)
+
+    def window(pods):
+        for pod in pods:
+            kube.create(pod)
+            check(worker.add(pod, key=(pod.metadata.namespace, pod.metadata.name)) is not None,
+                  "observability: a pod was shed at intake")
+        worker.provision()
+        return sum(1 for p in pods if kube.read("Pod", p.metadata.name, p.metadata.namespace,
+                                                lambda q: bool(q.spec.node_name)))
+
+    return worker, window
+
+
+def range_record(prof, names):
+    """Per record_function range name: how many ranges the session holds,
+    their host ms (the range's own wall on its thread) and the device ms of
+    everything launched inside them (kernels, copies and sets, counted at
+    the launch: a range holds the kernels it launches, not the ones it
+    waits for)."""
+    from torch.autograd import DeviceType
+
+    out = {n: {"ranges": 0, "host_ms": 0.0, "device_ms": 0.0} for n in names}
+    for e in prof.events():
+        rec = out.get(e.name)
+        if rec is None or e.device_type != DeviceType.CPU:
+            continue
+        rec["ranges"] += 1
+        rec["host_ms"] += (e.time_range.end - e.time_range.start) / 1e3
+        rec["device_ms"] += e.device_time_total / 1e3
+    return out
+
+
+def profiled_window(catalog, device, attempts=3):
+    """One traced window (config_12's 9,984 pods, 24 schedules: the batched
+    path) and a one-schedule window (416 pods: the solo path) on a directly
+    driven worker under torch.profiler, with the tracer's annotations on.
+    A session is taken only when it saw every pack kernel the windows
+    launched (late in the script a session can miss kernels); each attempt
+    runs fresh pods. Returns (ranges, entered span names, attempts)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from karpenter_tpu_torch.obs import trace
+    from karpenter_tpu_torch.ops import pack_cuda
+
+    worker, window = direct_worker(catalog, device)
+    seen = None
+    for attempt in range(attempts):
+        batch = config12_controller_pods(catalog, 416, f"pf{attempt}")
+        solo = [p for p in config12_controller_pods(catalog, 416, f"ps{attempt}")
+                if "-g00-" in p.metadata.name]
+        trace.reset()
+        trace.enable(annotations=True)
+        launches0 = pack_cuda.LAUNCHES + pack_cuda.BATCH_LAUNCHES
+        try:
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                window(batch)
+                window(solo)
+                torch.cuda.synchronize()
+        finally:
+            trace.disable()
+        launched = pack_cuda.LAUNCHES + pack_cuda.BATCH_LAUNCHES - launches0
+        seen = sum(1 for *_, name in device_events(prof) if "pack_kernel" in name)
+        spans = trace.snapshot()
+        entered = sorted({s["name"] for s in spans if s["t1"] > s["t0"]}
+                         - set(RETROACTIVE_SPANS))
+        if seen == launched and launched > 0:
+            return range_record(prof, entered + list(SOLVE_RANGES)), entered, attempt + 1
+    check(False, f"observability: no profiler session saw every pack kernel "
+                 f"({seen} seen in the last of {attempts})")
+
+
+def trigger_dumps():
+    """The flight recorder's two triggers on the port: an SLO objective of
+    1 ms breached by every e2e sample, evaluated twice (exactly one
+    slo-burn dump), and a pressure monitor driven into L3 by its intake
+    depth (one pressure-l3 dump), each in a fresh temporary directory."""
+    from karpenter_tpu_torch.obs import flight, slo
+    from karpenter_tpu_torch.pressure import PressureConfig, PressureMonitor
+
+    out = {}
+    was = slo.enabled()
+    try:
+        with tempfile.TemporaryDirectory() as d:
+            flight.reset()
+            flight.configure(dir=d)
+            slo.reset()
+            slo.configure(enabled=True, objectives={"default": slo.Objective(0.001)})
+            for _ in range(50):
+                slo.record("default", "e2e", 0.25)
+            first, second = slo.evaluate(), slo.evaluate()
+            dumps = sorted(os.listdir(d))
+            check(len(dumps) == 1 and dumps[0].endswith("-slo-burn.json"),
+                  f"observability: slo-burn dumps {dumps}")
+            with open(os.path.join(d, dumps[0])) as f:
+                dump = json.load(f)
+            check(dump["trigger"] == "slo-burn" and dump["tags"]["band"] == "default"
+                  and dump["tags"]["stage"] == "e2e",
+                  f"observability: slo-burn dump tags {dump['tags']}")
+            check(slo.burning() == ["default"] and slo.trips_total() == 1
+                  and first["default"]["burning"] and second["default"]["burning"],
+                  f"observability: burn state {slo.burning()} trips {slo.trips_total()}")
+            out["slo_burn"] = {"dumps": dumps, "tags": dump["tags"]}
+        with tempfile.TemporaryDirectory() as d:
+            flight.reset()
+            flight.configure(dir=d)
+            monitor = PressureMonitor(PressureConfig(max_depth=1000, rss_watermark_bytes=0))
+            monitor.note_depth(1, 900)
+            check(int(monitor.level()) == 3, f"observability: monitor at L{int(monitor.level())}")
+            dumps = sorted(os.listdir(d))
+            check(len(dumps) == 1 and dumps[0].endswith("-pressure-l3.json"),
+                  f"observability: pressure-l3 dumps {dumps}")
+            with open(os.path.join(d, dumps[0])) as f:
+                dump = json.load(f)
+            check(dump["trigger"] == "pressure-l3" and dump["tags"]["from_level"] == 0
+                  and dump["tags"]["intake_depth"] == 900,
+                  f"observability: pressure-l3 dump tags {dump['tags']}")
+            out["pressure_l3"] = {"dumps": dumps, "tags": dump["tags"]}
+    finally:
+        flight.configure(dir="")
+        flight.reset()
+        slo.configure(enabled=was, objectives=slo.default_objectives())
+        slo.reset()
+    return out
+
+
+def phase_observability(device, columnar_binds):
+    """config_12's 9,984-pod window through the controller in one chunk
+    (controller_columnar's window) with tracing and the SLO engine on:
+    every pod bound once and the binds equal to controller_columnar's, all
+    five SLO stages stamped and no band burning, the window's spans under
+    one provision span with the pipeline's stage spans among them, every
+    registered series in the exposition with its help text, and the ring's
+    series equal to the ring's own counts. The tracing and stamping tax by
+    the JAX package's method (the window's spans × ns per enabled span, its
+    SLO record calls × ns per record, each over the window's wall), beside
+    a direct reading (tracing and stamps on and off, alternated over
+    OBS_ALTERNATIONS windows each, p50 walls; context only: host work
+    varies about 2x between calls). Then one profiled traced window (the
+    record_function range of every entered span and of the three
+    karpenter.solve labels, with the device ms launched inside each) and
+    the flight recorder's two triggers."""
+    from karpenter_tpu_torch.metrics import registry
+    from karpenter_tpu_torch.obs import slo, trace
+    from karpenter_tpu_torch.solver import pipeline
+    from karpenter_tpu_torch.solver.pipeline import PipelineConfig
+    from karpenter_tpu_torch.solver.solve import SolverConfig
+
+    catalog = make_catalog(WINDOW_TYPES)
+    was_slo = slo.enabled()
+    run = ControllerRun(catalog, device, SolverConfig(window_backend="ffd"),
+                        PipelineConfig(chunk_items=0))
+    try:
+        trace.reset()
+        slo.reset()
+        trace.enable()
+        slo.enable()
+        ring0, snap0 = pipeline.get_ring().counters(), registry.DEFAULT.snapshot()
+        rec = run.window(config12_controller_pods(catalog, 416, "o0"))
+        ring1, snap1 = pipeline.get_ring().counters(), registry.DEFAULT.snapshot()
+        trace.disable()
+        spans, n_spans = trace.snapshot(), trace.state()["spans_buffered"]
+        calls, stages, burning = slo.record_calls(), slo.snapshot()["stages"], slo.burning()
+        wid = run.worker.last_window["window_id"]
+        text = registry.DEFAULT.expose()
+
+        check(rec["chunks"] == 1, f"observability: {rec['chunks']} chunks")
+        binds = strip_prefix(run.binds)
+        once_each([n for _, names in binds for n in names],
+                  [n for _, names in columnar_binds for n in names], "observability")
+        check(binds == columnar_binds,
+              "observability: the traced window's binds differ from controller_columnar's")
+        check(all(stages.get(s, {}).get("n", 0) > 0 for s in slo.STAGES),
+              f"observability: SLO stages {stages}")
+        check(burning == [], f"observability: bands burning {burning}")
+        mine, roots, orphans = window_tree(spans, wid)
+        names = {s["name"] for s in mine}
+        check(len(roots) == 1 and roots[0]["name"] == "provision" and not orphans,
+              f"observability: window {wid} roots {[r['name'] for r in roots]} "
+              f"orphans {orphans}")
+        check({"intake", "feasibility", "marshal", "dispatch", "fetch", "device_solve",
+               "launch_bind", "bind"} <= names,
+              f"observability: window spans {sorted(names)}")
+        missing = [n for n in registry.DEFAULT.registered()
+                   if f"# HELP {registry.NAMESPACE}_{n} " not in text]
+        check(not missing, f"observability: series without HELP {missing}")
+        ring_series = {k: sum(series_delta(snap0, snap1, f"pipeline_ring_{k}_total").values())
+                       for k in ("allocations", "refills", "reuses")}
+        ring_counts = {k: ring1[k] - ring0[k] for k in ("allocations", "refills", "reuses")}
+        check(ring_series == ring_counts,
+              f"observability: ring series {ring_series} against counters {ring_counts}")
+
+        # the tax by the JAX package's method (its bench.py config_7)
+        over, slo_over = trace.measure_overhead(), slo.measure_overhead()
+        tax = {"spans": n_spans, "span_ns": over["enabled_ns_per_span"],
+               "disabled_span_ns": over["disabled_ns_per_span"],
+               "slo_record_calls": calls, "record_ns": slo_over["enabled_ns_per_record"],
+               "window_wall_s": rec["wall_s"],
+               "trace_pct": n_spans * over["enabled_ns_per_span"] / 1e9 / rec["wall_s"] * 100,
+               "slo_pct": calls * slo_over["enabled_ns_per_record"] / 1e9 / rec["wall_s"] * 100}
+
+        walls = {"on": [], "off": []}
+        for i in range(OBS_ALTERNATIONS):
+            for mode in (("off", "on") if i % 2 == 0 else ("on", "off")):
+                trace.reset()
+                if mode == "on":
+                    trace.enable()
+                    slo.enable()
+                else:
+                    trace.disable()
+                    slo.disable()
+                r = run.window(config12_controller_pods(catalog, 416, f"a{i}{mode}"))
+                check(r["pods_bound"] == rec["pods_bound"],
+                      f"observability: {r['pods_bound']} bound ({mode}), "
+                      f"{rec['pods_bound']} traced")
+                walls[mode].append(r["wall_s"])
+        trace.disable()
+        slo.disable()
+    finally:
+        run.stop()
+        trace.disable()
+        trace.reset()
+        slo.configure(enabled=was_slo)
+        slo.reset()
+    direct = {"alternations": OBS_ALTERNATIONS, "on_s": walls["on"], "off_s": walls["off"],
+              "on_p50_s": p50(walls["on"]), "off_p50_s": p50(walls["off"]),
+              "on_over_off": p50(walls["on"]) / p50(walls["off"])}
+
+    ranges, entered, attempts = profiled_window(catalog, device)
+    check(all(ranges[n]["ranges"] > 0 for n in entered + list(SOLVE_RANGES)),
+          f"observability: ranges missing from the profile "
+          f"{[n for n, r in ranges.items() if not r['ranges']]}")
+    triggers = trigger_dumps()
+    rec = {"phase": "observability", "pods": rec["pods"], "pods_bound": rec["pods_bound"],
+           "window_id": wid,
+           "spans": n_spans, "window_span_names": sorted(names),
+           "slo_stages": {s: stages[s]["n"] for s in slo.STAGES},
+           "series": len(registry.DEFAULT.registered()), "ring": ring_counts,
+           "tax_jax_method": tax, "direct_ab": direct,
+           "profile": {"attempts": attempts, "entered_spans": entered, "ranges": ranges,
+                       "note": "device_ms counts what was launched inside a range, not "
+                               "what it waited for"},
+           "triggers": triggers}
+    emit(rec)
     return rec
 
 
@@ -2130,7 +2456,6 @@ def device_launches(fn):
     events, and the first one after the deprovision phase's threads
     reported half the kernels of the calls after it."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
@@ -2142,8 +2467,7 @@ def device_launches(fn):
         fn()
         end.record()
         torch.cuda.synchronize()
-    spans = [(e.time_range.start, e.time_range.end, e.name)
-             for e in prof.events() if e.device_type == DeviceType.CUDA]
+    spans = device_events(prof)
     if not spans:
         return None
     copies = sum(1 for *_, n in spans if n.startswith(("Memcpy", "Memset")))
@@ -2890,7 +3214,6 @@ def profiled_kernel_ms(fn, runs, key, attempts=5, per_call=1):
     up to ``attempts`` sessions; (None, the last session's count) where
     none saw them all."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -2904,8 +3227,7 @@ def profiled_kernel_ms(fn, runs, key, attempts=5, per_call=1):
             for _ in range(runs):
                 fn()
             torch.cuda.synchronize()
-        spans = [e.time_range.end - e.time_range.start for e in prof.events()
-                 if e.device_type == DeviceType.CUDA and key in e.name]
+        spans = [end - start for start, end, name in device_events(prof) if key in name]
         if len(spans) == runs * per_call:
             return sum(spans) / len(spans) / 1e3, len(spans)
     return None, len(spans)
@@ -5150,6 +5472,7 @@ def main(argv) -> int:
     md = timed("marshal_delta", phase_marshal_delta, device)
     timed("controller", phase_controller, device)
     cc = timed("controller_columnar", phase_controller_columnar, device)
+    timed("observability", phase_observability, device, cc["binds"])
     gp = timed("global_program", phase_global_program, device)
     gw = timed("global_window", phase_global_window, device)
     timed("global_window_400", phase_global_window_400, device)

@@ -22,8 +22,10 @@ Nodes whose instance type has left the catalog price at $0 but REMAIN
 candidates; they are logged once per window.
 
 The device is resolved when the controller is made, so a missing card
-raises there. Left out: the metrics, trace spans and intent journal. The
-window's time split and counts are kept in ``last_window``.
+raises there. Each window is one ``consolidate`` window span (``gather``,
+``encode``, the what-if ``dispatch`` and ``fetch``, ``plan``) and feeds the
+JAX package's ``karpenter_consolidation_*`` series. Left out: the intent
+journal. The window's time split and counts are kept in ``last_window``.
 """
 
 from __future__ import annotations
@@ -35,8 +37,15 @@ from typing import Dict, List, Optional, Sequence, Tuple
 from karpenter_tpu_torch.api import wellknown
 from karpenter_tpu_torch.api.core import Node, Pod
 from karpenter_tpu_torch.backend import DeviceLike, resolve_device
+from karpenter_tpu_torch.metrics.consolidation import (
+    CONSOLIDATION_CANDIDATES_TOTAL, CONSOLIDATION_DRAINS_TOTAL, CONSOLIDATION_FILTERED_TOTAL,
+    CONSOLIDATION_RECLAIMED_TOTAL, CONSOLIDATION_SOLVE_SECONDS, CONSOLIDATION_UNKNOWN_TYPE_TOTAL,
+    CONSOLIDATION_WINDOW_CANDIDATES, CONSOLIDATION_WINDOW_RECLAIMED,
+)
+from karpenter_tpu_torch.metrics.policy import SOFT_AFFINITY_BLOCKED_DRAINS_TOTAL
 from karpenter_tpu_torch.models.consolidate import (
     fleet_prices, node_bin, reschedulable_pods)
+from karpenter_tpu_torch.obs import trace as obtrace
 from karpenter_tpu_torch.ops.whatif import encode_window, soft_affinity_loss
 from karpenter_tpu_torch.runtime.kubecore import KubeCore, NotFound, _scaled_int_or_percent
 from karpenter_tpu_torch.solver.whatif import dispatch_window, plan_window
@@ -165,10 +174,12 @@ class ConsolidationController:
             return None
         if provisioner.metadata.deletion_timestamp is not None:
             return None
-        return self._window(provisioner, name)
+        wid = obtrace.new_window_id()
+        with obtrace.window_span("consolidate", window_id=wid, provisioner=name):
+            return self._window(provisioner, name, wid)
 
-    def _window(self, provisioner, name: str) -> Optional[float]:
-        """One consolidation window."""
+    def _window(self, provisioner, name: str, wid: str) -> Optional[float]:
+        """One consolidation window (the traced reconcile body)."""
         t_gather = time.perf_counter()
         fleet: List[Node] = []
         pods_by_node: Dict[str, List[Pod]] = {}
@@ -189,6 +200,8 @@ class ConsolidationController:
         prices, unknown = fleet_prices(fleet, catalog,
                                        repack_cost_per_hour=self.repack_cost_per_hour)
         if unknown and catalog:
+            # once per window, not per node: the counter carries cardinality
+            CONSOLIDATION_UNKNOWN_TYPE_TOTAL.inc(len(unknown))
             log.warning(
                 "consolidation window: %d node(s) have instance types absent "
                 "from the catalog (e.g. %s=%r on %s); priced at $0/h but "
@@ -211,12 +224,14 @@ class ConsolidationController:
         for i, node in enumerate(fleet):
             movable, ok = reschedulable_pods(pods_by_node[node.metadata.name])
             if not ok:
+                CONSOLIDATION_FILTERED_TOTAL.inc(reason="do-not-evict")
                 filtered["do-not-evict"] = filtered.get("do-not-evict", 0) + 1
                 continue
             inc_targets.append((len(movable), i))
             if not movable:
                 continue  # empty nodes are the emptiness controller's job
             if pdb.blocks_drain(movable):
+                CONSOLIDATION_FILTERED_TOTAL.inc(reason="pdb")
                 filtered["pdb"] = filtered.get("pdb", 0) + 1
                 continue
             if len(cand_idx) >= WINDOW_SIZE:
@@ -226,6 +241,8 @@ class ConsolidationController:
                                       SOFT_AFFINITY_COST_PER_WEIGHT)
             if loss > 0.0 and loss >= price:
                 # scattering the co-located set costs more than the node
+                CONSOLIDATION_FILTERED_TOTAL.inc(reason="soft-affinity")
+                SOFT_AFFINITY_BLOCKED_DRAINS_TOTAL.inc()
                 filtered["soft-affinity"] = filtered.get("soft-affinity", 0) + 1
                 continue
             cand_idx.append(i)
@@ -240,20 +257,29 @@ class ConsolidationController:
                   "executor": None, "feasible": 0, "drained": [],
                   "reclaimed_per_hour": 0.0}
         self.last_window, self.last_solve = record, None
+        CONSOLIDATION_WINDOW_CANDIDATES.set(float(len(cand_idx)))
+        obtrace.add_span("gather", t_gather, time.perf_counter(),
+                         fleet=len(fleet), candidates=len(cand_idx))
         if len(cand_idx) == 0 or len(bins) < 2:
+            CONSOLIDATION_WINDOW_RECLAIMED.set(0.0)
             return self.REQUEUE_SECONDS
 
         t0 = time.perf_counter()
-        enc = encode_window(bins, cand_idx, cand_movable)
+        with obtrace.span("encode", candidates=len(cand_idx), bins=len(bins)):
+            enc = encode_window(bins, cand_idx, cand_movable)
         t1 = time.perf_counter()
         handle = dispatch_window(enc, self.device)
         t2 = time.perf_counter()
         feasible, slots, executor = handle.fetch()
         t3 = time.perf_counter()
-        plan = plan_window(enc, feasible, savings,
-                           max_drains=self.max_actions_per_pass,
-                           incremental_targets=[i for _, i in sorted(inc_targets)])
+        CONSOLIDATION_SOLVE_SECONDS.observe(t3 - t0)
+        CONSOLIDATION_CANDIDATES_TOTAL.inc(float(len(cand_idx)))
+        with obtrace.span("plan"):
+            plan = plan_window(enc, feasible, savings,
+                               max_drains=self.max_actions_per_pass,
+                               incremental_targets=[i for _, i in sorted(inc_targets)])
         t4 = time.perf_counter()
+        CONSOLIDATION_WINDOW_RECLAIMED.set(plan.reclaimed_per_hour)
         self.last_solve = (enc, feasible, slots, plan)
         record.update(encode_s=t1 - t0, dispatch_s=t2 - t1, fetch_s=t3 - t2,
                       plan_s=t4 - t3, kernel_ms=handle.kernel_ms, executor=executor,
@@ -261,24 +287,26 @@ class ConsolidationController:
         if plan.actions:
             log.info(
                 "consolidation window: %d candidates → %d feasible → "
-                "%d drains reclaiming $%.4f/h (%s, %.3fs)",
+                "%d drains reclaiming $%.4f/h (%s, %.3fs) window_id=%s",
                 plan.evaluated, plan.feasible, len(plan.actions),
-                plan.reclaimed_per_hour, executor, t3 - t0)
+                plan.reclaimed_per_hour, executor, t3 - t0, wid)
         for action in plan.actions:
             node = fleet[action.bin]
             log.info("consolidating node %s (%d pods fit on surviving "
-                     "capacity; reclaims $%.4f/h)", node.metadata.name,
-                     len(enc.cand_pods[action.cand]), action.saving)
-            if self._drain_node(node):
+                     "capacity; reclaims $%.4f/h) window_id=%s", node.metadata.name,
+                     len(enc.cand_pods[action.cand]), action.saving, wid)
+            if self._drain_node(node, action.saving):
                 record["drained"].append(node.metadata.name)
         record["drain_s"] = time.perf_counter() - t4
         return self.REQUEUE_SECONDS
 
-    def _drain_node(self, node: Node) -> bool:
+    def _drain_node(self, node: Node, saving: float) -> bool:
         """Execute one planned drain: delete the Node, whose termination
         finalizer hands it to the termination controller."""
         try:
             self.kube.delete("Node", node.metadata.name, node.metadata.namespace)
         except NotFound:
             return False
+        CONSOLIDATION_DRAINS_TOTAL.inc()
+        CONSOLIDATION_RECLAIMED_TOTAL.inc(saving)
         return True

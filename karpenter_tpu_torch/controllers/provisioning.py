@@ -42,9 +42,19 @@ fresh nodes, and ``_launch_gang`` binds it all or nothing. Bound slice
 gangs commit their carves to the occupancy ledger (``ops/topology.LEDGER``),
 whose partly carved nodes come back to the next window as seed bins.
 
+Observability is the JAX package's: each window is one ``provision``
+window span (its id, from ``obs/trace.new_window_id()``, is the
+``window_id=`` of every log line) with the ``intake``, ``feasibility`` and
+``bind`` spans and the pipeline's stage spans under it; the scheduling,
+binpacking and bind histograms (the bind's exemplar is the window's trace
+id); the window splits, gang, carve, preemption and soft-affinity
+counters; and the per-pod SLO stamps (``_stamp_chunk_slo``) from the
+pipeline's own dispatch, fetch and done stamps. A caught global-leg error
+counts the chunk's schedules in ``karpenter_global_fallback_total`` under
+``error`` (and in ``global_errors``).
+
 Left out (ROADMAP): the intent journal (with the gang-bind, carve and
-preempt intents and their recovery), SLO stamps, trace spans, histograms
-and the gang and topology metrics.
+preempt intents and their recovery).
 """
 
 from __future__ import annotations
@@ -52,7 +62,6 @@ from __future__ import annotations
 import logging
 import threading
 import time
-import uuid
 import zlib
 from dataclasses import dataclass, field, replace
 from typing import Callable, Dict, List, Optional, Tuple
@@ -67,7 +76,20 @@ from karpenter_tpu_torch.api.provisioner import Provisioner, set_condition
 from karpenter_tpu_torch.backend import DeviceLike, resolve_device
 from karpenter_tpu_torch.cloudprovider.spi import CloudProvider
 from karpenter_tpu_torch import pressure
+from karpenter_tpu_torch.metrics.gang import (
+    GANG_WINDOWS_TOTAL, GANGS_PLACED_TOTAL, GANGS_UNPLACEABLE_TOTAL,
+)
+from karpenter_tpu_torch.metrics.global_solve import GLOBAL_FALLBACK_TOTAL
+from karpenter_tpu_torch.metrics.policy import SOFT_AFFINITY_STEERED_TOTAL
+from karpenter_tpu_torch.metrics.pressure import WINDOW_SPLITS_TOTAL
+from karpenter_tpu_torch.metrics.registry import HISTOGRAMS
+from karpenter_tpu_torch.metrics.topology import (
+    PREEMPTION_DISPLACED_PODS_TOTAL, PREEMPTIONS_TOTAL, TOPOLOGY_CARVE_WINDOWS_TOTAL,
+    TOPOLOGY_CARVES_COMMITTED_TOTAL,
+)
 from karpenter_tpu_torch.models.consolidate import NANO, free_capacity_vector
+from karpenter_tpu_torch.obs import slo
+from karpenter_tpu_torch.obs import trace as obtrace
 from karpenter_tpu_torch.ops import feasibility
 from karpenter_tpu_torch.ops import policy as ops_policy
 from karpenter_tpu_torch.ops import topology as topo_ops
@@ -144,10 +166,10 @@ class ProvisionerEngine:
 
     def __init__(self, provisioner: Provisioner, kube: KubeCore,
                  pipeline_config: Optional[PipelineConfig] = None,
-                 device: DeviceLike = None):
+                 device: DeviceLike = None, shard: str = ""):
         self.provisioner = provisioner
         self.pipeline_config = pipeline_config or PipelineConfig()
-        self.pipeline = SolvePipeline(self.pipeline_config)
+        self.pipeline = SolvePipeline(self.pipeline_config, shard=shard)
         self.scheduler = Scheduler(kube, device=device)
 
 
@@ -180,6 +202,8 @@ class ProvisionerWorker:
         self.batcher = batcher or Batcher()
         self.pipeline_config = pipeline_config or PipelineConfig()
         self.shard = shard
+        if shard:
+            self.batcher.shard = shard  # per-shard intake metric labels
         # global-leg failures caught since this worker was made: each chunk
         # kept its FFD plans
         self.global_errors = 0
@@ -194,8 +218,9 @@ class ProvisionerWorker:
         # resolve through it. Only the worker thread writes it during a
         # pass; direct test calls see the default engine.
         self._current: Optional[ProvisionerEngine] = None
-        # the id of the window this worker is serving, on every
-        # window-scoped log line
+        # the id of the window this worker is serving: the trace id of the
+        # window span and the window_id= key on every window-scoped log line
+        # (present with tracing off too, so logs always join)
         self._window_id: str = "-"
         self._stop = threading.Event()
         self._thread: Optional[threading.Thread] = None
@@ -206,7 +231,7 @@ class ProvisionerWorker:
     def attach(self, provisioner: Provisioner) -> None:
         """Add (or replace, on spec change) the engine for a Provisioner."""
         eng = ProvisionerEngine(provisioner, self.kube, pipeline_config=self.pipeline_config,
-                                device=self.device)
+                                device=self.device, shard=self.shard)
         with self._engines_lock:
             engines = dict(self._engines)
             engines[provisioner.metadata.name] = eng
@@ -298,37 +323,56 @@ class ProvisionerWorker:
         try:
             if not items or self._stop.is_set():
                 return None
-            wid = self._window_id = uuid.uuid4().hex[:12]
+            # window marks: the batcher leaves per-pod (band, intake_s)
+            # aligned index for index with items; keyed by pod identity
+            # they follow the window across chunking and regrouping, and
+            # use_marks makes them reachable from every pipeline stage (and,
+            # through the BatchHandle's capture, from the fetch side)
+            meta = self.batcher.last_window_meta
+            self.batcher.last_window_meta = None
+            marks = None
+            if meta is not None and len(meta) == len(items):
+                marks = slo.WindowMarks(
+                    t_close=t_wait1, meta={id(it[1]): m for it, m in zip(items, meta)})
+            wid = self._window_id = obtrace.new_window_id()
             shard = self.shard or "0"
             level = int(self.batcher._monitor().level())
             self._chunks = []
-            log.info("batched %d pods in %.2fs window_id=%s shard=%s",
-                     len(items), window, wid, shard)
-            # dedupe within the batch: the non-blocking selection path can
-            # requeue a still-pending pod into the same window. Then group
-            # by engine, PRESERVING the window's priority order within each
-            # group (dict insertion order).
-            seen = set()
-            groups: Dict[Optional[str], List[Pod]] = {}
-            for pname, p in items:
-                key = (p.metadata.namespace, p.metadata.name)
-                if key in seen:
-                    continue
-                seen.add(key)
-                groups.setdefault(pname, []).append(p)
-            last_result = None
-            for pname, pods in groups.items():
-                eng = self._engines.get(pname) if pname is not None else self._default_engine()
-                if eng is None:
-                    # provisioner deleted while its pods sat in the window:
-                    # the pods stay Pending and the selection requeue
-                    # re-routes them to a surviving provisioner
-                    log.info("dropping %d pod(s) for detached provisioner %s "
-                             "window_id=%s shard=%s", len(pods), pname, wid, shard)
-                    continue
-                result = self._provision_group(eng, pods)
-                if result is not None:
-                    last_result = result
+            with slo.use_marks(marks), \
+                    obtrace.window_span("provision", window_id=wid, shard=shard,
+                                        pressure_level=level, pods=len(items)):
+                # the intake wait predates the window span: its first
+                # child, recorded retroactively
+                obtrace.add_span("intake", t_wait0, t_wait1, shard=shard,
+                                 window_s=round(window, 4))
+                log.info("batched %d pods in %.2fs window_id=%s shard=%s",
+                         len(items), window, wid, shard)
+                # dedupe within the batch: the non-blocking selection path
+                # can requeue a still-pending pod into the same window. Then
+                # group by engine, PRESERVING the window's priority order
+                # within each group (dict insertion order).
+                seen = set()
+                groups: Dict[Optional[str], List[Pod]] = {}
+                for pname, p in items:
+                    key = (p.metadata.namespace, p.metadata.name)
+                    if key in seen:
+                        continue
+                    seen.add(key)
+                    groups.setdefault(pname, []).append(p)
+                last_result = None
+                for pname, pods in groups.items():
+                    eng = (self._engines.get(pname) if pname is not None
+                           else self._default_engine())
+                    if eng is None:
+                        # provisioner deleted while its pods sat in the
+                        # window: the pods stay Pending and the selection
+                        # requeue re-routes them to a surviving provisioner
+                        log.info("dropping %d pod(s) for detached provisioner %s "
+                                 "window_id=%s shard=%s", len(pods), pname, wid, shard)
+                        continue
+                    result = self._provision_group(eng, pods)
+                    if result is not None:
+                        last_result = result
             self.last_window = {
                 "window_id": wid, "pods": len(items), "pressure_level": level,
                 "intake_wait_s": t_wait1 - t_wait0, "batch_window_s": window,
@@ -349,6 +393,10 @@ class ProvisionerWorker:
         split = monitor.config.split_items
         if int(monitor.level()) >= 1 and 0 < split < len(pods):
             chunks = [pods[i:i + split] for i in range(0, len(pods), split)]
+            if self.shard:
+                WINDOW_SPLITS_TOTAL.inc(amount=float(len(chunks) - 1), shard=self.shard)
+            else:
+                WINDOW_SPLITS_TOTAL.inc(amount=float(len(chunks) - 1))
             log.info("pressure L%d: split %d-pod window into %d chunks of <=%d "
                      "window_id=%s shard=%s", int(monitor.level()), len(pods),
                      len(chunks), split, self._window_id, self.shard or "0")
@@ -372,6 +420,13 @@ class ProvisionerWorker:
                 consume=self._complete_chunk, on_chunk=self._observe_chunk)
         finally:
             self._current = None
+            # tag the window span with the pipeline's measured overlap, the
+            # same ledger as solver_overlap_seconds_total
+            cur = obtrace.current_context()
+            lw = eng.pipeline.last_window
+            if cur is not None and lw:
+                cur.tag(wall_s=round(lw.get("wall_s", 0.0), 6),
+                        overlap_s=round(lw.get("overlap_s", 0.0), 6), depth=lw.get("depth"))
         last_result = None
         for result in results:
             if result is not None:
@@ -380,21 +435,26 @@ class ProvisionerWorker:
 
     # -- pipeline stages (one schedule → solve → launch pass per chunk) ------
     def _prepare_chunk(self, pods: List[Pod]) -> _ChunkPrep:
-        """Host stage: schedule the chunk and build its packing problems."""
+        """Host stage: schedule the chunk and build its packing problems
+        (timed in ``scheduling_duration_seconds``, the scheduler pass in a
+        ``feasibility`` span)."""
         t0 = time.perf_counter()
         eng = self._engine()
-        schedules = eng.scheduler.solve(eng.provisioner, pods)
-        # gang schedules peel off into the co-pack window; the rest keep the
-        # reference's per-schedule packing problems
-        gang_scheds = [s for s in schedules if s.gang is not None]
-        schedules = [s for s in schedules if s.gang is None]
-        problems = [
-            Problem(constraints=s.constraints, pods=s.pods,
-                    instance_types=self.cloud_provider.get_instance_types(s.constraints),
-                    daemons=self._get_daemons(s.constraints),
-                    soft_affinity=s.soft_affinity)
-            for s in schedules
-        ]
+        name = eng.provisioner.metadata.name
+        with HISTOGRAMS.time("scheduling_duration_seconds", provisioner=name):
+            with obtrace.span("feasibility", provisioner=name, pods=len(pods)):
+                schedules = eng.scheduler.solve(eng.provisioner, pods)
+            # gang schedules peel off into the co-pack window; the rest keep
+            # the reference's per-schedule packing problems
+            gang_scheds = [s for s in schedules if s.gang is not None]
+            schedules = [s for s in schedules if s.gang is None]
+            problems = [
+                Problem(constraints=s.constraints, pods=s.pods,
+                        instance_types=self.cloud_provider.get_instance_types(s.constraints),
+                        daemons=self._get_daemons(s.constraints),
+                        soft_affinity=s.soft_affinity)
+                for s in schedules
+            ]
         prep = _ChunkPrep(schedules=schedules, problems=problems, pods=pods)
         if gang_scheds:
             t_enc = time.perf_counter()
@@ -462,17 +522,19 @@ class ProvisionerWorker:
                 prep.global_handle = global_solve.dispatch_global_window(
                     prep.problems, cfg, device=self.device)
             except Exception:
-                self._global_failed("dispatch")
+                self._global_failed("dispatch", len(prep.problems))
         if prep.gang_enc is not None and prep.gang_enc.g > 0:
             # the gang window rides the same stage; its fetch comes at launch
             prep.gang_handle = dispatch_gang_window(prep.gang_enc, self.device)
         prep.dispatch_s = time.perf_counter() - t0
         return handle
 
-    def _global_failed(self, stage: str) -> None:
+    def _global_failed(self, stage: str, schedules: int) -> None:
         """The global leg is a filter over FFD's plans: whatever failed, the
-        chunk binds the plans dispatch_batch answered on the same device."""
+        chunk binds the plans dispatch_batch answered on the same device,
+        and each of its schedules counts as a global fallback (``error``)."""
         self.global_errors += 1
+        GLOBAL_FALLBACK_TOTAL.inc(amount=float(schedules), reason="error")
         log.exception("global window %s failed; keeping FFD plans window_id=%s shard=%s",
                       stage, self._window_id, self.shard or "0")
 
@@ -485,7 +547,7 @@ class ProvisionerWorker:
             try:
                 plan = prep.global_handle.fetch()
             except Exception:
-                self._global_failed("fetch")
+                self._global_failed("fetch", len(prep.problems))
             else:
                 global_results = plan.results
                 if plan.accepted:
@@ -600,7 +662,11 @@ class ProvisionerWorker:
         again."""
         enc = prep.gang_enc
         t0 = time.perf_counter()
+        GANG_WINDOWS_TOTAL.inc()
+        if enc.carve is not None:
+            TOPOLOGY_CARVE_WINDOWS_TOTAL.inc()
         for key, reason in enc.skipped:
+            GANGS_UNPLACEABLE_TOTAL.inc(reason="no-type")
             log.info("gang %s unplaceable: %s window_id=%s shard=%s", key, reason,
                      self._window_id, self.shard or "0")
         feasible, executor = None, None
@@ -614,6 +680,7 @@ class ProvisionerWorker:
         plan = plan_gang_window(enc, feasible, preempt)
         t_plan = time.perf_counter()
         for e, reason in plan.unplaced:
+            GANGS_UNPLACEABLE_TOTAL.inc(reason=reason)
             log.info("gang %s unplaceable: %s window_id=%s shard=%s", e.key, reason,
                      self._window_id, self.shard or "0")
         pre_of: Dict[int, List[PreemptCandidate]] = {}
@@ -626,9 +693,11 @@ class ProvisionerWorker:
             victims = pre_of.pop(placement.gang.index, [])
             err = self._launch_gang(prep, placement, victims)
             if err is None:
+                GANGS_PLACED_TOTAL.inc()
                 placed += 1
                 preempted += len(victims)
             else:
+                GANGS_UNPLACEABLE_TOTAL.inc(reason="bind-failed")
                 failed += 1
                 log.error("gang %s bind failed (unwound): %s window_id=%s shard=%s",
                           placement.gang.key, err, self._window_id, self.shard or "0")
@@ -724,6 +793,9 @@ class ProvisionerWorker:
             self.batcher.requeue_displaced(entries)
         topo_ops.LEDGER.pop_gang(cand.gang_key)
         self.preempt_budget.charge(cand.gang_key, cand.band)
+        PREEMPTIONS_TOTAL.inc(band=cand.band)
+        if entries:
+            PREEMPTION_DISPLACED_PODS_TOTAL.inc(amount=float(len(entries)))
         log.info("preempted gang %s on %s: band=%s %d pod(s) requeued displacement=$%.4f/h "
                  "window_id=%s shard=%s", cand.gang_key, cand.node, cand.band, len(entries),
                  cand.displacement_cost, self._window_id, self.shard or "0")
@@ -748,6 +820,7 @@ class ProvisionerWorker:
             topo_ops.LEDGER.commit(node, bn.grid, itype.name, sig, placement.gang.key,
                                    [int(c) for c in cells], placement.gang.band,
                                    members.get(bi, []))
+            TOPOLOGY_CARVES_COMMITTED_TOTAL.inc()
 
     def _launch_gang(self, prep: _ChunkPrep, placement: GangPlacement,
                      victims: Optional[List[PreemptCandidate]] = None) -> Optional[str]:
@@ -849,6 +922,14 @@ class ProvisionerWorker:
                 pass
 
     def _observe_chunk(self, prep: _ChunkPrep, stats: dict) -> None:
+        # binpacking = the solver wall the hot loop paid (dispatch + the
+        # blocked fetch); device time hidden behind launch/bind lands in
+        # solver_overlap_seconds_total instead
+        HISTOGRAMS.histogram("binpacking_duration_seconds").observe(
+            prep.dispatch_s + stats["device_s"],
+            provisioner=self._engine().provisioner.metadata.name)
+        if slo.enabled():
+            self._stamp_chunk_slo(prep, stats)
         self._chunks.append({
             "pods": len(prep.pods), "problems": len(prep.problems),
             "global": prep.global_handle is not None,
@@ -857,6 +938,33 @@ class ProvisionerWorker:
             "launch_bind_s": stats["launch_bind_s"], "t_dispatch": stats["t_dispatch"],
             "t_fetch": stats["t_fetch"], "t_done": stats["t_done"],
             "gang": dict(prep.gang) if prep.gang_enc is not None else None})
+
+    def _stamp_chunk_slo(self, prep: _ChunkPrep, stats: dict) -> None:
+        """Fold the chunk into the SLO digests from the pipeline's own stage
+        boundaries (its t_dispatch / t_fetch / t_done perf_counter stamps)
+        against the window marks' close stamp: nothing is timed again.
+        Stage durations are shared chunk-wide, so they fold as one weighted
+        record per band; only e2e (intake varies per pod) is per pod."""
+        marks = slo.current_marks()
+        if marks is None or not prep.pods:
+            return
+        t_dispatch, t_fetch, t_done = stats["t_dispatch"], stats["t_fetch"], stats["t_done"]
+        schedule_s = max(0.0, t_dispatch - marks.t_close)
+        solve_s = max(0.0, t_fetch - t_dispatch)
+        bind_s = max(0.0, t_done - t_fetch)
+        tail_s = max(0.0, t_done - marks.t_close)
+        band_counts: Dict[str, int] = {}
+        for p in prep.pods:
+            m = marks.meta.get(id(p))
+            if m is None:
+                continue
+            band, intake_s = m
+            band_counts[band] = band_counts.get(band, 0) + 1
+            slo.record(band, "e2e", intake_s + tail_s)
+        for band, cnt in band_counts.items():
+            slo.record(band, "schedule", schedule_s, count=cnt)
+            slo.record(band, "solve", solve_s, count=cnt)
+            slo.record(band, "bind", bind_s, count=cnt)
 
     def _is_provisionable(self, candidate: Pod) -> bool:
         """Fresh read per pod to avoid duplicate binds (provisioner.go:
@@ -897,6 +1005,7 @@ class ProvisionerWorker:
         steered = schedule.constraints.deepcopy()
         steered.requirements.items.append(NodeSelectorRequirement(
             key=wellknown.LABEL_TOPOLOGY_ZONE, operator="In", values=[zone]))
+        SOFT_AFFINITY_STEERED_TOTAL.inc()
         return steered
 
     def _launch(self, constraints: Constraints, packing) -> Optional[str]:
@@ -924,9 +1033,20 @@ class ProvisionerWorker:
 
     def _bind(self, node: Node, pods: List[Pod]) -> Optional[str]:
         """Create the node object (finalizer + not-ready taint) and bind
-        pods (provisioner.go:159-198); the JAX package's ``_bind`` and
-        ``_bind_traced`` in one, without the span and the histogram."""
+        pods (provisioner.go:159-198), in a ``bind`` span, timed in
+        ``bind_duration_seconds`` with the window's trace id as exemplar."""
         provisioner = self._engine().provisioner
+        t_bind = time.perf_counter()
+        try:
+            with obtrace.span("bind", node=node.metadata.name, pods=len(pods)):
+                return self._bind_traced(node, pods, provisioner)
+        finally:
+            HISTOGRAMS.histogram("bind_duration_seconds").observe(
+                time.perf_counter() - t_bind, exemplar=obtrace.current_trace_id(),
+                provisioner=provisioner.metadata.name)
+
+    def _bind_traced(self, node: Node, pods: List[Pod],
+                     provisioner: Provisioner) -> Optional[str]:
         node.metadata.namespace = ""
         node.metadata.finalizers.append(wellknown.TERMINATION_FINALIZER)
         node.metadata.labels.setdefault(wellknown.PROVISIONER_NAME_LABEL,

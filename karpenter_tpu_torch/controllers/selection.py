@@ -9,8 +9,9 @@ that Provisioner's worker.
 The route validates through the columnar engine
 (``feasibility.validate_pod_fast``: a memoized signature lookup per
 provisioner and pod shape, the scalar validator's verdicts and error
-strings). Left out: volume topology (the port's Pod has no volumes)
-and the SLO shed marks.
+strings). A pod shed at intake burns its band's SLO error budget
+(``slo.note_shed``). Left out: volume topology (the port's Pod has no
+volumes).
 """
 
 from __future__ import annotations
@@ -22,8 +23,9 @@ from typing import Dict, List, Optional, Tuple
 
 from karpenter_tpu_torch.api import wellknown
 from karpenter_tpu_torch.api.core import Affinity, Pod
+from karpenter_tpu_torch.obs import slo
 from karpenter_tpu_torch.ops import feasibility
-from karpenter_tpu_torch.pressure import get_monitor
+from karpenter_tpu_torch.pressure import classify, get_monitor
 from karpenter_tpu_torch.runtime.kubecore import KubeCore, NotFound
 from karpenter_tpu_torch.utils import clock
 from karpenter_tpu_torch.utils import pod as podutil
@@ -220,6 +222,10 @@ class SelectionController:
                                  provisioner=chosen.metadata.name)
         if gate is None:
             # shed at admission (pressure level or depth bound), already
-            # counted by the batcher; the requeue retries once pressure falls
+            # counted by the batcher; the requeue retries once pressure
+            # falls. It still burns the band's error budget: a shed pod
+            # produces no latency sample, which would leave the burn
+            # sentinel blind to the overload it exists to catch
+            slo.note_shed(classify(pod)[0])
             return f"shed at intake by provisioner/{chosen.metadata.name} (pressure)"
         return None

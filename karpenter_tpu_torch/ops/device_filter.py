@@ -27,9 +27,13 @@ them) and the capacity-type shift is done in int64.
 The device verdict stays a FILTER: the probe columns are re-checked against
 the scalar validator at decode, every chosen type is re-validated in the
 option walk, and a problem that diverges is solved again on the host path
-(scalar wins), counted under ``device-mask-mismatch``
-(:func:`fallback_counts`). ``KARPENTER_DEVICE_FILTER=0`` is the kill
-switch. An error from the device is not caught here.
+(scalar wins), counted under ``device-mask-mismatch``. Every retreat
+from the fused path is counted in the JAX package's
+``karpenter_filter_device_fallback_total`` by reason (and in
+:func:`fallback_counts`, the same counts as an attribute); the mask
+program, the verification, the gang column and the affinity matrix are
+timed in ``karpenter_filter_device_seconds``. ``KARPENTER_DEVICE_FILTER=0``
+is the kill switch. An error from the device is not caught here.
 
 Type-axis contract: fused problems encode against the universe packables
 (``adapter.build_universe_packables``), the whole catalog sorted by the
@@ -43,12 +47,17 @@ from __future__ import annotations
 import itertools
 import os
 import threading
+import time
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
 
 from karpenter_tpu_torch.backend import DeviceLike, resolve_device, to_device_int32
+from karpenter_tpu_torch.metrics.filter import (
+    FILTER_DEVICE_FALLBACK_TOTAL, FILTER_DEVICE_SECONDS, FILTER_FALLBACK_TOTAL,
+    FILTER_PLANE_RING_REUSES_TOTAL,
+)
 from karpenter_tpu_torch.ops.feasibility import _catalog_token
 from karpenter_tpu_torch.utils import resources as res
 
@@ -83,6 +92,7 @@ def enabled() -> bool:
 
 
 def _count(reason: str) -> None:
+    FILTER_DEVICE_FALLBACK_TOTAL.inc(reason=reason)
     with _LOCK:
         _FALLBACKS[reason] = _FALLBACKS.get(reason, 0) + 1
 
@@ -191,6 +201,18 @@ def planes_for(instance_types) -> Optional[Planes]:
             _PLANES_CACHE.pop(next(iter(_PLANES_CACHE)))
         _PLANES_CACHE[key] = planes if planes is not None else _FAILED
     return planes
+
+
+def _window_planes(planes: Planes, device: torch.device) -> tuple:
+    """:func:`resident_planes` for a mask program: a program that finds its
+    catalog's planes already on the device counts them in
+    ``karpenter_filter_plane_ring_reuses_total`` (zero plane bytes copied)."""
+    with _LOCK:
+        held = (planes.key, str(device)) in _RESIDENT
+    planes_d = resident_planes(planes, device)
+    if held:
+        FILTER_PLANE_RING_REUSES_TOTAL.inc(amount=float(len(planes_d)))
+    return planes_d
 
 
 def resident_planes(planes: Planes, device: torch.device) -> tuple:
@@ -317,7 +339,7 @@ def _pairs_mask(planes: Planes, pairs, dev: torch.device) -> torch.Tensor:
     rows."""
     rows = [schedule_row(planes, allowed, required) for allowed, required in pairs]
     stacked = _stack_rows(planes, rows, max(1, len(rows)))
-    return _mask_expr(*resident_planes(planes, dev), *to_device_int32(stacked, dev))
+    return _mask_expr(*_window_planes(planes, dev), *to_device_int32(stacked, dev))
 
 
 def compute_mask(instance_types, pairs, device: DeviceLike = None) -> Optional[np.ndarray]:
@@ -347,13 +369,16 @@ def gang_member_column(instance_types, member_keys,
     global GANG_COLUMN_RUNS
     if not enabled() or not member_keys:
         return None
+    t0 = time.perf_counter()
     planes = planes_for(instance_types)
     if planes is None:
         return None
     col = _pairs_mask(planes, member_keys, resolve_device(device)).all(0)
     with _LOCK:
         GANG_COLUMN_RUNS += 1
-    return col.cpu().numpy()[:planes.n]
+    out = col.cpu().numpy()[:planes.n]
+    FILTER_DEVICE_SECONDS.observe(time.perf_counter() - t0, stage="gang")
+    return out
 
 
 class FusedMismatch(Exception):
@@ -428,6 +453,7 @@ class FusedBatch:
         re-derived, every chosen type re-validated in the option walk. A
         member that diverges gets None (the handle solves it on the host
         path) and is counted under ``device-mask-mismatch``."""
+        t0 = time.perf_counter()
         checks = torch.cat([self.probe_d, self.any_d[:, None]], dim=1).cpu().numpy()
         probe, any_feas = checks[:, :-1], checks[:, -1]
         out: List[Optional[object]] = []
@@ -447,8 +473,10 @@ class FusedBatch:
                     continue
                 except FusedMismatch:
                     pass
+            FILTER_FALLBACK_TOTAL.inc(reason="device-mask-mismatch")
             _count("device-mask-mismatch")
             out.append(None)
+        FILTER_DEVICE_SECONDS.observe(time.perf_counter() - t0, stage="verify")
         return out
 
 
@@ -480,6 +508,7 @@ def prepare_fused(problems, marshaled,
     universe packables' versioned catalog arrays."""
     if not enabled():
         return None
+    t0 = time.perf_counter()
     from karpenter_tpu_torch.ops.encode import encode, pad_encoding
     from karpenter_tpu_torch.solver import adapter
 
@@ -539,9 +568,11 @@ def prepare_fused(problems, marshaled,
     probe_idx = _probe_indices(planes.n)
     *rows_d, probe_d = to_device_int32([*stacked, probe_idx], dev)
     mask_d, lv_d, any_d, probe_out = window_mask(
-        resident_planes(planes, dev), tuple(rows_d), probe_d.long())
-    return FusedBatch(batch_idx, encs, packables, uni_types, verify,
-                      mask_d, lv_d, any_d, probe_out, probe_idx, soft=soft)
+        _window_planes(planes, dev), tuple(rows_d), probe_d.long())
+    fused = FusedBatch(batch_idx, encs, packables, uni_types, verify,
+                       mask_d, lv_d, any_d, probe_out, probe_idx, soft=soft)
+    FILTER_DEVICE_SECONDS.observe(time.perf_counter() - t0, stage="dispatch")
+    return fused
 
 
 
@@ -671,6 +702,7 @@ def affinity_matrix(sel_sigs: tuple, peer_sigs: tuple,
         hit = _AFFINITY_MATRIX_CACHE.get(ckey)
     if hit is not None:
         return hit
+    t0 = time.perf_counter()
     dev = resolve_device(device)
     S, P = len(sel_sigs), len(peer_sigs)
     enc = affinity_planes(sel_sigs, peer_sigs)
@@ -685,6 +717,7 @@ def affinity_matrix(sel_sigs: tuple, peer_sigs: tuple,
         mat = out[:, :P].cpu().numpy()
     mat = np.asarray(mat, bool)
     mat.flags.writeable = False
+    FILTER_DEVICE_SECONDS.observe(time.perf_counter() - t0, stage="affinity")
     with _LOCK:
         if len(_AFFINITY_MATRIX_CACHE) >= _AFFINITY_MATRIX_CACHE_CAP:
             _AFFINITY_MATRIX_CACHE.pop(next(iter(_AFFINITY_MATRIX_CACHE)))

@@ -14,9 +14,11 @@ A port of the JAX package's ``ops/encode.py``, with its two window caches:
 the delta-marshal arena (:class:`MarshalArena`, which the adapter's
 ``marshal_pods_interned`` gathers a window's interned shape ids from) and
 the versioned catalog encoding (:func:`_catalog_encoding`, whose content
-token lets the device ring skip a copy it already holds). Their counters
-are attributes (``MarshalArena.stats()``, :data:`CATALOG_REBUILDS`), not
-metrics.
+token lets the device ring skip a copy it already holds). Their counts
+feed the JAX package's ``karpenter_marshal_*`` and
+``karpenter_catalog_encoding_rebuilds_total`` series (metrics/marshal.py);
+``MarshalArena.stats()`` and :data:`CATALOG_REBUILDS` keep the same counts
+as attributes.
 """
 
 from __future__ import annotations
@@ -30,6 +32,11 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from karpenter_tpu_torch.metrics.marshal import (
+    CATALOG_ENCODING_REBUILDS_TOTAL, MARSHAL_DELTA_FRACTION,
+    MARSHAL_ROW_CACHE_EVICTIONS_TOTAL, MARSHAL_ROW_CACHE_HITS_TOTAL,
+    MARSHAL_ROW_CACHE_MISSES_TOTAL,
+)
 from karpenter_tpu_torch.solver.host_ffd import NUM_RESOURCES, Packable, R_PODS, Vec
 
 INT32_LIMIT = 2**31 - 1
@@ -156,6 +163,8 @@ class MarshalArena:
         self.delta_fraction = 0.0
 
     def _reset_locked(self, adapter_gen, vocab_gen) -> None:
+        if self._n:
+            MARSHAL_ROW_CACHE_EVICTIONS_TOTAL.inc(amount=float(self._n))
         self.evictions += self._n
         self._rows.clear()
         self._n = 0
@@ -214,6 +223,12 @@ class MarshalArena:
             return sids, special, self._adapter_gen
 
     def note_window(self, hits: int, misses: int) -> None:
+        if hits:
+            MARSHAL_ROW_CACHE_HITS_TOTAL.inc(amount=float(hits))
+        if misses:
+            MARSHAL_ROW_CACHE_MISSES_TOTAL.inc(amount=float(misses))
+        if hits + misses:
+            MARSHAL_DELTA_FRACTION.set(misses / (hits + misses))
         with self._lock:
             self.hits += hits
             self.misses += misses
@@ -289,6 +304,7 @@ def _catalog_encoding(catalog_version: int, scales: Tuple[int, ...],
     for arr in arrays:
         arr.setflags(write=False)
     entry = (*arrays, ("cat", catalog_version, scales, TB))
+    CATALOG_ENCODING_REBUILDS_TOTAL.inc()
     with _CATALOG_ENC_LOCK:
         CATALOG_REBUILDS += 1
         if len(_CATALOG_ENC_CACHE) >= _CATALOG_ENC_CAP:

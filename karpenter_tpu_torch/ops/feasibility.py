@@ -27,8 +27,8 @@ presence only, Gt/Lt send the pod to the scalar path, and Go's
 ``sets.Has(nil)`` is false. When the engine says "fail" it re-runs the
 scalar validator for the exact error string; if the scalar path passes,
 the scalar answer wins. Every such self-heal and every fallback is counted
-in :data:`HEALS` under the reasons of the JAX package's
-``karpenter_filter_fallback_total``: ``verdict-mismatch``,
+in the JAX package's ``karpenter_filter_fallback_total`` series, and in
+:data:`HEALS`, under its reasons: ``verdict-mismatch``,
 ``unsupported-operator``, ``compile-error``, ``intern-reset``,
 ``os-vocab-overflow``, ``topology-mismatch``, ``gang-mismatch``,
 ``gang-unindexable`` and ``affinity-mismatch``. The engine's words stay
@@ -51,9 +51,13 @@ matrix scalar (``affinity-mismatch``). A selector with an operator outside
 {In, NotIn, Exists, DoesNotExist} sends the whole matrix to the scalar
 oracle (``unsupported-operator``).
 
-Left out: the kill switches ``KARPENTER_POLICY_COLUMNAR`` and
-``KARPENTER_TOPOLOGY_COLUMNAR``, and the metrics (the counts above are
-module attributes). A device error raises.
+Each catalog mask, gang column and affinity matrix built is timed in
+``karpenter_filter_batch_seconds`` (``stage`` catalog, gang, affinity),
+and the live intern table size is ``karpenter_filter_intern_table_size``.
+:data:`HEALS` keeps the fallback counts as an attribute (held equal to
+the series by the tests). Left out: the kill switches
+``KARPENTER_POLICY_COLUMNAR`` and ``KARPENTER_TOPOLOGY_COLUMNAR``. A
+device error raises.
 """
 
 from __future__ import annotations
@@ -62,6 +66,7 @@ import itertools
 import logging
 import os
 import threading
+import time
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
@@ -72,6 +77,9 @@ from karpenter_tpu_torch.api.core import Pod
 from karpenter_tpu_torch.api.gang import instance_slice_shape, slice_fits
 from karpenter_tpu_torch.api.requirements import IN, NOT_IN
 from karpenter_tpu_torch.backend import DeviceLike
+from karpenter_tpu_torch.metrics.filter import (
+    FILTER_BATCH_SECONDS, FILTER_FALLBACK_TOTAL, FILTER_INTERN_TABLE_SIZE,
+)
 from karpenter_tpu_torch.utils import resources as res
 
 log = logging.getLogger("karpenter.feasibility")
@@ -86,6 +94,7 @@ HEALS: Dict[str, int] = {}
 
 
 def _count(reason: str) -> None:
+    FILTER_FALLBACK_TOTAL.inc(reason=reason)
     with _LOCK:
         HEALS[reason] = HEALS.get(reason, 0) + 1
 
@@ -159,6 +168,7 @@ def reset_intern_table() -> None:
         _VOCAB = {}
         _VOCAB_SIZE = 0
         _VOCAB_GEN += 1
+    FILTER_INTERN_TABLE_SIZE.set(0)
 
 
 # -- compiled constraints ----------------------------------------------------
@@ -396,6 +406,8 @@ def _compile(c: Constraints, fp: tuple) -> CompiledConstraints:
             else:
                 kf.notin_mask |= m
                 kf.has_notin = True
+        size = _VOCAB_SIZE
+    FILTER_INTERN_TABLE_SIZE.set(size)
     for kf in filters.values():
         own = kf.in_mask
         if kf.has_notin:
@@ -668,6 +680,7 @@ def catalog_feasibility_mask(instance_types, allowed: tuple,
         idx = _INDEX_CACHE.get(tokens)
     if idx is _INDEX_FAILED:
         return None
+    t0 = time.perf_counter()
     if idx is None:
         idx = _build_catalog_index(instance_types)
         with _LOCK:
@@ -678,6 +691,7 @@ def catalog_feasibility_mask(instance_types, allowed: tuple,
             _count("os-vocab-overflow")
             return None
     mask = _compute_mask(idx, allowed, required)
+    FILTER_BATCH_SECONDS.observe(time.perf_counter() - t0, stage="catalog")
     with _LOCK:
         if len(_MASK_CACHE) >= _MASK_CACHE_CAP:
             _MASK_CACHE.pop(next(iter(_MASK_CACHE)))
@@ -757,6 +771,7 @@ def gang_feasibility_mask(instance_types, member_keys, slice_shape=None,
         hit = _GANG_MASK_CACHE.get(gkey)
     if hit is not None:
         return hit
+    t0 = time.perf_counter()
     mask: Optional[np.ndarray] = None
     if distinct:
         # the member-AND column from the catalog bit-planes in one device
@@ -783,6 +798,7 @@ def gang_feasibility_mask(instance_types, member_keys, slice_shape=None,
             mask = scalar
     mask = np.array(mask, bool)
     mask.flags.writeable = False
+    FILTER_BATCH_SECONDS.observe(time.perf_counter() - t0, stage="gang")
     with _LOCK:
         if len(_GANG_MASK_CACHE) >= _GANG_MASK_CACHE_CAP:
             _GANG_MASK_CACHE.pop(next(iter(_GANG_MASK_CACHE)))
@@ -889,6 +905,7 @@ def affinity_match_matrix(selectors, peer_sigs, device: DeviceLike = None) -> np
         return _affinity_scalar(selectors, peer_sigs)
     from karpenter_tpu_torch.ops import device_filter
 
+    t0 = time.perf_counter()
     mat = device_filter.affinity_matrix(sigs, tuple(peer_sigs), device)
     # probe self-heal: sampled cells against the scalar oracle; one
     # divergence condemns the whole matrix (scalar wins)
@@ -900,5 +917,7 @@ def affinity_match_matrix(selectors, peer_sigs, device: DeviceLike = None) -> np
         s, p = int(c) // P, int(c) % P
         if bool(mat[s, p]) != selectors[s].matches(dict(peer_sigs[p])):
             _count("affinity-mismatch")
-            return _affinity_scalar(selectors, peer_sigs)
+            mat = _affinity_scalar(selectors, peer_sigs)
+            break
+    FILTER_BATCH_SECONDS.observe(time.perf_counter() - t0, stage="affinity")
     return mat

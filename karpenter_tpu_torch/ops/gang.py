@@ -37,6 +37,7 @@ from typing import Any, List, Optional, Sequence, Tuple
 import numpy as np
 
 from karpenter_tpu_torch.api.core import Pod
+from karpenter_tpu_torch.metrics.topology import TOPOLOGY_CARVE_REJECTS_TOTAL
 from karpenter_tpu_torch.ops.topology import encode_carve, first_carve, grid_cells
 from karpenter_tpu_torch.ops.whatif import (
     MAX_WINDOW_CELLS, _gcd_scale_signed, _pow2, _reserve_vec,
@@ -321,7 +322,7 @@ def verify_and_commit_gang(
     BY CELL by :func:`ops.topology.first_carve` against the running
     plane. A bin whose resources fit but whose free chips form no
     contiguous sub-grid is REJECTED (counted once per bin per walk in
-    :data:`CARVE_REJECTS`). Committed cells land in
+    ``karpenter_topology_carve_rejects_total`` and :data:`CARVE_REJECTS`). Committed cells land in
     ``carves_out[bin] = cells`` and the planes advance with the pool.
 
     ``bin_limit`` restricts the walk to ``bins[:bin_limit]``, the seed
@@ -367,6 +368,7 @@ def verify_and_commit_gang(
                 cells = first_carve(occ, grid, e.slice_dims)
                 if cells is None:
                     carve_rejected.add(bi)
+                    TOPOLOGY_CARVE_REJECTS_TOTAL.inc()
                     with _LOCK:
                         CARVE_REJECTS += 1
                     continue  # resources fit, chips do not: phantom

@@ -36,16 +36,22 @@ over capacity types, INT32_MAX where none is viable.
 The device verdict stays a FILTER: every member's row is checked at the
 window's probe columns against :func:`_host_best`, a numpy mirror of the
 same cells written separately (the JAX package's uint32 algebra); a member
-that diverges gets its whole row from the mirror, counted in
+that diverges gets its whole row from the mirror, counted in the JAX
+package's ``karpenter_policy_fallback_total`` (``score-mismatch``, or
+``soft-affinity-mismatch`` for a member with soft votes) and in
 :data:`MISMATCHES`. A policy whose algebra does not factor into these
-tables keeps the per-cell host loop (solver/batch_solve.py). Left out: the
-``KARPENTER_POLICY_DEVICE`` kill switch and the policy metrics. A device
-error raises.
+tables keeps the per-cell host loop (solver/batch_solve.py), counted as
+``unfactorable-policy``. The program and the verification are timed in
+``karpenter_policy_score_seconds`` and the viable cells counted in
+``karpenter_policy_cells_scored_total``; :data:`RUNS` counts programs.
+Left out: the ``KARPENTER_POLICY_DEVICE`` kill switch. A device error
+raises.
 """
 
 from __future__ import annotations
 
 import threading
+import time
 from typing import List, Optional, Tuple
 
 import numpy as np
@@ -53,6 +59,9 @@ import torch
 
 from karpenter_tpu_torch.api import wellknown
 from karpenter_tpu_torch.backend import to_device_float32, to_device_int32
+from karpenter_tpu_torch.metrics.policy import (
+    POLICY_CELLS_SCORED_TOTAL, POLICY_FALLBACK_TOTAL, POLICY_SCORE_SECONDS,
+)
 from karpenter_tpu_torch.ops.device_filter import planes_for, resident_planes, schedule_row
 from karpenter_tpu_torch.scheduling.affinity import soft_enabled
 from karpenter_tpu_torch.solver.policy import (
@@ -324,7 +333,9 @@ def score_fused_window(fused, policy, cost_config, ctx
         return None
     tables = tables_for(planes, fused.uni_types, policy, cost_config, ctx)
     if tables is None:
+        POLICY_FALLBACK_TOTAL.inc(reason="unfactorable-policy")
         return None
+    t0 = time.perf_counter()
     zone_words, ct_allowed, zone_allowed = _rows_host(planes, fused.verify)
     soft_bz = _soft_rows(planes, fused.soft, ctx)
     inputs = device_inputs(planes, tables, zone_words, ct_allowed, zone_allowed, soft_bz,
@@ -332,23 +343,30 @@ def score_fused_window(fused, policy, cost_config, ctx
     best_d, ncells_d = _cells_expr(**inputs)
     best = best_d.cpu().numpy()
     ncells = int(ncells_d)
+    POLICY_CELLS_SCORED_TOTAL.inc(amount=float(ncells))
     with _LOCK:
         RUNS += 1
+    POLICY_SCORE_SECONDS.observe(time.perf_counter() - t0, stage="device")
 
     # probe verification: the window's sampled type columns, device vs the
     # numpy mirror; a diverging member's row is re-derived on the host
+    t1 = time.perf_counter()
     cols = np.unique(fused.probe_idx[fused.probe_idx < planes.n])
     ref = _host_best(tables, planes, zone_words, ct_allowed, zone_allowed,
                      cols=cols, soft_bz=soft_bz)
     got = best[:, cols]
     for b in range(len(fused.verify)):
         if not np.array_equal(got[b], ref[b]):
+            soft_member = soft_bz is not None and bool(soft_bz[b].any())
+            POLICY_FALLBACK_TOTAL.inc(
+                reason="soft-affinity-mismatch" if soft_member else "score-mismatch")
             with _LOCK:
                 MISMATCHES += 1
             best[b] = _host_best(
                 tables, planes, zone_words[b:b + 1], ct_allowed[b:b + 1],
                 zone_allowed[b:b + 1],
                 soft_bz=soft_bz[b:b + 1] if soft_bz is not None else None)[0]
+    POLICY_SCORE_SECONDS.observe(time.perf_counter() - t1, stage="verify")
 
     # gather the planes axis to each member's packable order, padded to TB
     idx = np.fromiter((p.index for p in fused.packables), np.int64, len(fused.packables))

@@ -24,9 +24,10 @@ initial planes implies carve-infeasible later and skipping is sound.
 :class:`OccupancyLedger` is the process-wide registry of committed carves
 on real nodes (:data:`LEDGER`): it feeds partly occupied pods back into
 the next window as seed bins and names the residents preemption may
-displace. Left out of the reference: the ledger gauge and the journal
-fields (``CarveRecord.intent_id``, ``sig_from_json``), which come with the
-metrics and the intent journal.
+displace; every change republishes the JAX package's
+``karpenter_topology_ledger_nodes`` gauge. Left out of the reference: the
+journal fields (``CarveRecord.intent_id``, ``sig_from_json``), which come
+with the intent journal.
 """
 
 from __future__ import annotations
@@ -39,6 +40,7 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from karpenter_tpu_torch.metrics.topology import TOPOLOGY_LEDGER_NODES
 from karpenter_tpu_torch.ops.whatif import _pow2
 
 Dims = Tuple[int, ...]
@@ -200,6 +202,7 @@ class OccupancyLedger:
             ng.occ[idx] = True
             ng.carves[gang_key] = CarveRecord(gang_key=gang_key, cells=idx, band=band,
                                               pods=list(pods))
+        self._gauge()
 
     def pop_gang(self, gang_key: Any) -> List[Tuple[str, CarveRecord]]:
         """Free every cell the gang holds anywhere; empty nodes drop out.
@@ -215,6 +218,8 @@ class OccupancyLedger:
                 removed.append((name, rec))
                 if not ng.carves:
                     del self._nodes[name]
+        if removed:
+            self._gauge()
         return removed
 
     def pop_node(self, node: str) -> List[CarveRecord]:
@@ -222,6 +227,7 @@ class OccupancyLedger:
         records: a terminated node must stop being a seed bin."""
         with self._lock:
             ng = self._nodes.pop(node, None)
+        self._gauge()
         return list(ng.carves.values()) if ng is not None else []
 
     def prune(self, live: Sequence[str]) -> List[CarveRecord]:
@@ -233,6 +239,7 @@ class OccupancyLedger:
             for name in [n for n in self._nodes if n not in keep]:
                 dropped.extend(self._nodes[name].carves.values())
                 del self._nodes[name]
+        self._gauge()
         return dropped
 
     def snapshot(self) -> List[NodeGrid]:
@@ -253,6 +260,10 @@ class OccupancyLedger:
     def reset(self) -> None:
         with self._lock:
             self._nodes.clear()
+        self._gauge()
+
+    def _gauge(self) -> None:
+        TOPOLOGY_LEDGER_NODES.set(float(self.node_count()))
 
 
 LEDGER = OccupancyLedger()

@@ -37,6 +37,10 @@ API client. Chaos hooks are left out too.
 Hysteresis: the level RISES immediately but FALLS one rung at a time, and
 only after the computed target has stayed below the held level for
 ``dwell_seconds`` continuously.
+
+The rung is the ``karpenter_pressure_level`` gauge and the summed depth
+``karpenter_intake_queue_depth``; a rise into L3 trips the flight
+recorder (``pressure-l3``) with the rung it rose from and the depth.
 """
 
 from __future__ import annotations
@@ -47,6 +51,9 @@ import time
 from dataclasses import dataclass
 from enum import IntEnum
 from typing import Callable, Dict, Optional, Tuple
+
+from karpenter_tpu_torch.metrics.pressure import INTAKE_QUEUE_DEPTH, PRESSURE_LEVEL
+from karpenter_tpu_torch.obs import flight
 
 log = logging.getLogger("karpenter.pressure")
 
@@ -131,6 +138,7 @@ class PressureMonitor:
         self._level = PressureLevel.L0
         self._below_since: Optional[float] = None
         self._last_eval: Optional[float] = None
+        PRESSURE_LEVEL.set(0)
 
     # -- signal intake -------------------------------------------------------
     def note_depth(self, source: int, depth: int) -> None:
@@ -142,6 +150,7 @@ class PressureMonitor:
             else:
                 self._depths[source] = depth
             total = sum(self._depths.values())
+            INTAKE_QUEUE_DEPTH.set(float(total))
             # burst guard: "rises immediately" must hold even when the
             # whole flood lands inside one eval_interval window — a sample
             # crossing a rung threshold forces a re-evaluation
@@ -193,8 +202,13 @@ class PressureMonitor:
             self._last_eval = now
             if target > self._level:
                 log.warning("pressure rising: L%d -> L%d", self._level, target)
+                prev = self._level
                 self._level = target
                 self._below_since = None
+                if target >= PressureLevel.L3 > prev:
+                    # brownout entry: snapshot what the system was doing
+                    flight.trip("pressure-l3", from_level=int(prev),
+                                intake_depth=sum(self._depths.values()))
             elif target < self._level:
                 if self._below_since is None:
                     self._below_since = now
@@ -205,6 +219,7 @@ class PressureMonitor:
                     self._below_since = now if target < self._level else None
             else:
                 self._below_since = None
+            PRESSURE_LEVEL.set(float(self._level))
             return self._level
 
     def level(self) -> PressureLevel:

@@ -58,6 +58,7 @@ from karpenter_tpu_torch.api.constraints import Constraints
 from karpenter_tpu_torch.api.core import NodeSelectorRequirement, Pod
 from karpenter_tpu_torch.api.requirements import pod_requirements
 from karpenter_tpu_torch.backend import DeviceLike, resolve_device
+from karpenter_tpu_torch.metrics.policy import SOFT_AFFINITY_TERMS_TOTAL
 from karpenter_tpu_torch.ops import feasibility
 
 SOFT_AFFINITY_ENV = "KARPENTER_SOFT_AFFINITY"
@@ -345,3 +346,4 @@ class AffinityGroups:
             votes = {kv: w for kv, w in votes.items() if w}
             if votes:
                 pods[i].__dict__["_soft_affinity"] = votes
+                SOFT_AFFINITY_TERMS_TOTAL.inc(len(pref[i]))

@@ -1,7 +1,9 @@
 """Windowed pod batcher with bounded, priority-ordered intake.
 
 Reference: pkg/controllers/provisioning/batcher.go. A copy of the JAX
-package's batcher without its metrics, SLO marks and trace events.
+package's batcher with its metrics (sheds, queue depth per shard, gang
+hold and gang sheds), its SLO intake stamps and window marks, and its
+``window-close`` trace event.
 Separates a stream of add() calls into windows: 1 s idle / 10 s max / item
 cap — the item cap defaults higher than the reference's 2k because the
 solver's cost is sublinear in pods (shape-deduped).
@@ -46,6 +48,9 @@ import threading
 import time
 from typing import Any, Dict, List, Optional, Tuple
 
+from karpenter_tpu_torch.metrics.gang import GANG_HOLD_SECONDS, GANGS_UNPLACEABLE_TOTAL
+from karpenter_tpu_torch.metrics.pressure import INTAKE_QUEUE_DEPTH, PODS_SHED_TOTAL
+from karpenter_tpu_torch.obs import slo, trace
 from karpenter_tpu_torch.pressure import bands as _bands
 from karpenter_tpu_torch.pressure.bands import RANK
 from karpenter_tpu_torch.pressure.monitor import AGING_STEP_SECONDS
@@ -96,6 +101,10 @@ class Batcher:
         self.max_depth = max_depth
         self.gang_ttl_seconds = gang_ttl_seconds
         self._monitor_obj = monitor
+        # shard label for intake metrics ("" = unsharded: the unlabeled
+        # series; the monitor's aggregate intake_queue_depth stays
+        # unlabeled either way)
+        self.shard = ""
         self._lock = threading.Lock()
         self._cv = threading.Condition(self._lock)
         self._entries: List[_Entry] = []
@@ -130,6 +139,11 @@ class Batcher:
         self.consumed_total = 0
         self.processed_total = 0
         self.shed: Dict[Tuple[str, str], int] = {}  # (reason, band) → count
+        # SLO side channel: (band, intake_seconds) per item of the LAST
+        # window, aligned index for index with wait()'s returned items. The
+        # worker reads it right after wait() on the same thread, before the
+        # next window can overwrite it. None while SLO stamping is off.
+        self.last_window_meta: Optional[List[Tuple[str, float]]] = None
 
     # -- pressure plumbing ---------------------------------------------------
     def _monitor(self):
@@ -141,9 +155,15 @@ class Batcher:
 
     def _count_shed_locked(self, reason: str, band: str) -> None:
         self.shed[(reason, band)] = self.shed.get((reason, band), 0) + 1
+        if self.shard:
+            PODS_SHED_TOTAL.inc(reason=reason, priority_band=band, shard=self.shard)
+        else:
+            PODS_SHED_TOTAL.inc(reason=reason, priority_band=band)
 
     def _note_depth(self, monitor, depth: int) -> None:
         monitor.note_depth(id(self), depth)
+        if self.shard:
+            INTAKE_QUEUE_DEPTH.set(float(depth), shard=self.shard)
 
     def shed_total(self, band: Optional[str] = None) -> int:
         with self._lock:
@@ -224,6 +244,9 @@ class Batcher:
             # the displaced pod, not skip it as "already pending"
             self._pending_keys.discard(worst.key)
         self._count_shed_locked("displaced", worst.band)
+        # a displaced pod's latency objective is burning without ever
+        # producing a bind sample: feed the burn sentinel directly
+        slo.note_shed(worst.band)
 
     def requeue_displaced(self, entries) -> int:
         """Atomically re-enqueue a preempted gang's members: one lock
@@ -328,7 +351,10 @@ class Batcher:
                 if m.key is not None:
                     self._pending_keys.discard(m.key)
                 self._count_shed_locked(reason, m.band)
+                slo.note_shed(m.band)
             self._gang_first.pop(gkey, None)
+            GANGS_UNPLACEABLE_TOTAL.inc(
+                reason="oversize" if reason == "gang-oversize" else "expired")
         return held
 
     def _trim_split_gangs(self, take: List[_Entry]) -> List[_Entry]:
@@ -346,6 +372,19 @@ class Batcher:
         if not cut:
             return take
         return [e for e in take if e.gang not in cut]
+
+    def _note_gangs_released_locked(self, take: List[_Entry], now: float) -> None:
+        """Observe the hold time of every gang this window carries and stop
+        its TTL clock."""
+        done: set = set()
+        for e in take:
+            if e.gang is None or e.gang in done:
+                continue
+            done.add(e.gang)
+            first = self._gang_first.pop(e.gang, None)
+            if first is None:
+                first = e.first_seen
+            GANG_HOLD_SECONDS.observe(max(0.0, now - first))
 
     # -- window assembly -----------------------------------------------------
     @staticmethod
@@ -390,9 +429,7 @@ class Batcher:
             take = ordered[:self.max_items]
             if len(take) < len(ordered):
                 take = self._trim_split_gangs(take)
-            for e in take:
-                if e.gang is not None:
-                    self._gang_first.pop(e.gang, None)  # released: stop its TTL
+            self._note_gangs_released_locked(take, now)
             if len(take) < len(self._entries):
                 taken_seqs = {e.seq for e in take}
                 self._entries = [e for e in self._entries
@@ -408,4 +445,20 @@ class Batcher:
         self._note_depth(monitor, depth)
         window = now - start
         monitor.note_window(window)
+        # SLO intake stage: enqueue (first_seen, which persists across
+        # sheds, so aging waits count) → this window close. The per-item
+        # metadata rides the side channel so the worker can stamp the
+        # later stages and e2e without re-deriving bands.
+        meta = None
+        if slo.enabled():
+            meta = []
+            for e in take:
+                intake_s = now - e.first_seen
+                slo.record(e.band, "intake", intake_s)
+                meta.append((e.band, intake_s))
+        self.last_window_meta = meta
+        # an instant event only (the caller owns the window span and
+        # records the intake child retroactively)
+        trace.event("window-close", items=len(take), depth_left=depth,
+                    window_s=round(window, 4), pressure_level=level)
         return [e.item for e in take], window

@@ -17,15 +17,24 @@ placed again and displaced again every window. Two rules guard it:
    for ``cooldown_windows`` gang windows, whatever its band's tokens.
 
 The budget is in memory and process-local: a rate guard, not correctness
-state. The reference's metrics are kept as plain attributes here:
-:attr:`declines` counts filtered candidates by reason (``cooldown``,
-``tokens``).
+state. It publishes the JAX package's series: the per-band
+``karpenter_preemption_budget_tokens`` and the cooldown gauge on every
+change, and each filtered candidate in
+``karpenter_preemption_budget_declines_total`` by reason (``cooldown``,
+``tokens``) and ``karpenter_preemption_declined_total`` as ``budget``.
+:attr:`declines` keeps the same counts as an attribute.
 """
 
 from __future__ import annotations
 
 import threading
 from typing import Dict, Iterable, List, Optional
+
+from karpenter_tpu_torch.metrics.topology import (
+    PREEMPTION_BUDGET_COOLDOWNS, PREEMPTION_BUDGET_DECLINES_TOTAL, PREEMPTION_BUDGET_TOKENS,
+    PREEMPTION_DECLINED_TOTAL,
+)
+from karpenter_tpu_torch.pressure.bands import BANDS
 
 # Per-band bucket capacity: how many displacements a band can absorb in a
 # burst. Lower bands are cheaper to displace, so their buckets are deeper.
@@ -57,6 +66,7 @@ class PreemptionBudget:
         # gang_key(str) -> window index when it was last displaced
         self._cooldown: Dict[str, int] = {}
         self.declines: Dict[str, int] = {}
+        self._publish_locked()
 
     def tick(self) -> None:
         """Advance one gang window: refill every band's bucket (up to its
@@ -69,6 +79,7 @@ class PreemptionBudget:
             # W + cooldown_windows inclusive
             horizon = self._window - self.cooldown_windows
             self._cooldown = {g: w for g, w in self._cooldown.items() if w >= horizon}
+            self._publish_locked()
 
     def admit(self, candidates: Iterable) -> List:
         """Filter a window's preemption candidates to what the budget
@@ -107,6 +118,7 @@ class PreemptionBudget:
             if band in self._tokens:
                 self._tokens[band] = max(0, self._tokens[band] - 1)
             self._cooldown[str(gang_key)] = self._window
+            self._publish_locked()
 
     def tokens(self, band: str) -> int:
         with self._lock:
@@ -117,4 +129,12 @@ class PreemptionBudget:
             return str(gang_key) in self._cooldown
 
     def _decline_locked(self, reason: str) -> None:
+        PREEMPTION_BUDGET_DECLINES_TOTAL.inc(reason=reason)
+        PREEMPTION_DECLINED_TOTAL.inc(reason="budget")
         self.declines[reason] = self.declines.get(reason, 0) + 1
+
+    def _publish_locked(self) -> None:
+        for band in BANDS:
+            if band in self.capacity:
+                PREEMPTION_BUDGET_TOKENS.set(float(self._tokens.get(band, 0)), band=band)
+        PREEMPTION_BUDGET_COOLDOWNS.set(float(len(self._cooldown)))

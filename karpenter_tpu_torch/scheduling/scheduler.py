@@ -21,6 +21,7 @@ is dropped whole with ``reason=gang`` (``_gang_unsat``).
 from __future__ import annotations
 
 import logging
+import time
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional
 
@@ -29,6 +30,7 @@ from karpenter_tpu_torch.api.core import Pod
 from karpenter_tpu_torch.api.gang import GangSpec, gang_of
 from karpenter_tpu_torch.api.provisioner import Provisioner
 from karpenter_tpu_torch.backend import DeviceLike
+from karpenter_tpu_torch.metrics.filter import FILTER_BATCH_SECONDS
 from karpenter_tpu_torch.ops import feasibility
 from karpenter_tpu_torch.runtime.kubecore import KubeCore
 from karpenter_tpu_torch.scheduling.affinity import AffinityGroups
@@ -86,7 +88,9 @@ class Scheduler:
         """scheduler.go:87-125, columnar: one tighten per distinct pod
         signature. Unschedulable pods aggregate to one summary log line per
         window (counts by reason + up to 5 sample reasons). Verdicts and
-        error strings are the scalar path's."""
+        error strings are the scalar path's. Timed in
+        ``filter_batch_seconds`` (``stage="schedule"``)."""
+        t0 = time.perf_counter()
         engine = feasibility.compile_constraints(constraints)
         schedules: Dict[tuple, Schedule] = {}
         skipped = topo_skipped = aff_skipped = gang_skipped = 0
@@ -164,4 +168,5 @@ class Scheduler:
                      skipped, len(pods), topo_skipped, aff_skipped, gang_skipped,
                      skipped - topo_skipped - aff_skipped - gang_skipped,
                      "; ".join(samples))
+        FILTER_BATCH_SECONDS.observe(time.perf_counter() - t0, stage="schedule")
         return list(schedules.values())

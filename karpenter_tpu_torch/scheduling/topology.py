@@ -95,7 +95,8 @@ class Topology:
 
         Whenever the columnar set yields no satisfiable domain (next_domain
         would return ""), the scalar algebra recomputes the set once per
-        signature; a disagreement is counted in ``feasibility.HEALS`` under
+        signature; a disagreement is counted in ``karpenter_filter_fallback_total``
+        (and ``feasibility.HEALS``) under
         ``topology-mismatch`` and the scalar answer wins, so a divergence
         can never strand a spreadable pod. Signature-less pods (unsupported
         operators) and compile failures take the scalar path outright.

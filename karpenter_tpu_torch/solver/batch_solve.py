@@ -35,10 +35,18 @@ faster than a device round trip; the port has no such ring, so every
 window of two or more problems joins the batch. An error from the mask,
 the launch or the copy is not caught: it propagates out of
 ``dispatch_batch`` or ``fetch()``.
+
+Tracing follows the JAX package: the launch runs inside the
+``karpenter.solve.batch_dispatch`` profiler range, and the handle carries
+the dispatching window's span context and SLO marks, so ``fetch()`` (a
+``fetch`` span, its device wait and decode inside the
+``karpenter.solve.batch_device`` range) joins the window's trace on
+whichever thread it runs.
 """
 
 from __future__ import annotations
 
+import time
 from dataclasses import dataclass
 from typing import List, Mapping, Optional, Sequence
 
@@ -46,7 +54,10 @@ from karpenter_tpu_torch.api.constraints import Constraints
 from karpenter_tpu_torch.api.core import Pod
 from karpenter_tpu_torch.backend import DeviceLike, resolve_device
 from karpenter_tpu_torch.cloudprovider.spi import InstanceType
+from karpenter_tpu_torch.metrics.policy import POLICY_SCORE_SECONDS
 from karpenter_tpu_torch.models.ffd import DeviceRun, _decode
+from karpenter_tpu_torch.obs import slo as obslo
+from karpenter_tpu_torch.obs import trace as obtrace
 from karpenter_tpu_torch.ops import device_filter
 from karpenter_tpu_torch.ops.encode import encode, pad_encoding
 from karpenter_tpu_torch.solver.adapter import (
@@ -58,6 +69,7 @@ from karpenter_tpu_torch.solver.policy import soft_zone_adjust, soft_zone_votes
 from karpenter_tpu_torch.solver.solve import (
     SolveResult, SolverConfig, materialize, record_executor, solve_with_packables,
 )
+from karpenter_tpu_torch.utils.profiling import trace
 
 
 @dataclass
@@ -148,21 +160,29 @@ def dispatch_batch(problems: Sequence[Problem], config: Optional[SolverConfig] =
 
     run = None
     if len(batch_idx) >= 2:
-        prices_list = [None] * len(batch_idx)
-        if tiebreak:
-            # a fused window over a priced catalog is scored in one program
-            # (ops/policy.py) and rides the prices seam as pre-encoded int32
-            # rows; any other window pays the per-cell host loop
-            scored = None
-            if fused is not None and any(it.price for it in fused.uni_types):
-                scored = ops_policy.score_fused_window(
-                    fused, policy, config.cost_config, config.policy_context)
-            prices_list = (scored[0] if scored is not None
-                           else [problem_prices(i) for i in batch_idx])
-        mask = (fused.mask_d, fused.last_valid_d) if fused is not None else None
-        run = DeviceRun(encs, prices_list, config.chunk_iters, dev, mask=mask,
-                        donate=config.device_donate)
-        run.launch()
+        with trace("karpenter.solve.batch_dispatch"):
+            prices_list = [None] * len(batch_idx)
+            if tiebreak:
+                # a fused window over a priced catalog is scored in one
+                # program (ops/policy.py) and rides the prices seam as
+                # pre-encoded int32 rows; any other window pays the
+                # per-cell host loop
+                scored = None
+                if fused is not None and any(it.price for it in fused.uni_types):
+                    scored = ops_policy.score_fused_window(
+                        fused, policy, config.cost_config, config.policy_context)
+                if scored is not None:
+                    prices_list = scored[0]
+                else:
+                    t_score = time.perf_counter()
+                    prices_list = [problem_prices(i) for i in batch_idx]
+                    if any(p is not None for p in prices_list):
+                        POLICY_SCORE_SECONDS.observe(
+                            time.perf_counter() - t_score, stage="host")
+            mask = (fused.mask_d, fused.last_valid_d) if fused is not None else None
+            run = DeviceRun(encs, prices_list, config.chunk_iters, dev, mask=mask,
+                            donate=config.device_donate)
+            run.launch()
     return BatchHandle(problems, config, dev, prepared, raw_encs, marshaled,
                        batch_idx, run, fused if run is not None else None)
 
@@ -203,6 +223,10 @@ class BatchHandle:
         self.fused = fused
         self._results: Optional[List[SolveResult]] = None
         self._error: Optional[BaseException] = None
+        # the dispatching window's span context and SLO marks: the fetch
+        # half re-enters them on whichever thread it runs
+        self._trace_ctx = obtrace.current_context()
+        self._slo_marks = obslo.current_marks()
 
     @property
     def in_flight(self) -> bool:
@@ -215,7 +239,10 @@ class BatchHandle:
         if self._error is not None:
             raise RuntimeError("an earlier fetch of this batch failed") from self._error
         try:
-            self._results = self._fetch()
+            with obtrace.use_context(self._trace_ctx), \
+                    obslo.use_marks(self._slo_marks), \
+                    obtrace.span("fetch", batched=len(self._batch_idx)):
+                self._results = self._fetch()
         except BaseException as e:
             self._error = e
             raise
@@ -226,12 +253,14 @@ class BatchHandle:
         results: List[Optional[SolveResult]] = [None] * len(problems)
         run, fused = self.device_run, self.fused
         if run is not None:
-            records, dropped = run.finish()
-            if fused is not None:
-                host_results = fused.decode_all(_decode, records, dropped)
-            else:
-                host_results = [_decode(enc, records[j], dropped[j], prepared[i][0])
-                                for j, (i, enc) in enumerate(zip(self._batch_idx, run.encs))]
+            with trace("karpenter.solve.batch_device"):
+                records, dropped = run.finish()
+                if fused is not None:
+                    host_results = fused.decode_all(_decode, records, dropped)
+                else:
+                    host_results = [
+                        _decode(enc, records[j], dropped[j], prepared[i][0])
+                        for j, (i, enc) in enumerate(zip(self._batch_idx, run.encs))]
             answered = 0
             for j, i in enumerate(self._batch_idx):
                 if host_results[j] is None:

@@ -28,15 +28,19 @@ ints against the running pool (ops/gang.verify_and_commit_gang) before
 anything binds, and prices preemption of lower-band residents against the
 gang's fresh-node cost.
 
-Left out of the reference: ``GangConfig`` (its ``device_min_cells`` gate,
-the watchdog, the breaker), the DeviceRing and mesh, the host-mirror
-fallback on a device error, and the metrics (the planner's declines are
-counted in :data:`DECLINES`).
+The planner's declined preemptions feed the JAX package's
+``karpenter_preemption_declined_total`` (and :data:`DECLINES`, the same
+counts as an attribute); dispatch is the retroactive ``gang-dispatch``
+span and the fetch a ``gang-fetch`` span under the dispatching window's
+context. Left out of the reference: ``GangConfig`` (its
+``device_min_cells`` gate, the watchdog, the breaker), the DeviceRing and
+mesh, and the host-mirror fallback on a device error.
 """
 
 from __future__ import annotations
 
 import threading
+import time
 from dataclasses import dataclass, field
 from typing import Any, Dict, List, Optional, Tuple
 
@@ -44,6 +48,8 @@ import numpy as np
 import torch
 
 from karpenter_tpu_torch.backend import DeviceLike, resolve_device, to_device_int32
+from karpenter_tpu_torch.metrics.topology import PREEMPTION_DECLINED_TOTAL
+from karpenter_tpu_torch.obs import trace as obtrace
 from karpenter_tpu_torch.ops.gang import (
     EncodedGang, GangEncoding, host_gang, verify_and_commit_gang)
 from karpenter_tpu_torch.ops.topology import grid_cells, host_carve, scalar_carve
@@ -60,6 +66,7 @@ DECLINES: Dict[str, int] = {}
 
 
 def _decline(reason: str) -> None:
+    PREEMPTION_DECLINED_TOTAL.inc(reason=reason)
     with _LOCK:
         DECLINES[reason] = DECLINES.get(reason, 0) + 1
 
@@ -105,11 +112,19 @@ class GangHandle:
     carve_ms: Optional[float] = None
     kernel_ms: Optional[float] = None
     healed: bool = False
+    # the dispatching window's span context, re-entered at fetch
+    _trace_ctx: Optional[object] = None
 
     def fetch(self) -> Tuple[np.ndarray, np.ndarray, str]:
         """(feasible (G,), slots (G, K) bin index or -1, executor)."""
         if self._result is not None:
             return self._result
+        with obtrace.use_context(self._trace_ctx), \
+                obtrace.span("gang-fetch", gangs=self.enc.g):
+            self._result = self._fetch()
+        return self._result
+
+    def _fetch(self) -> Tuple[np.ndarray, np.ndarray, str]:
         enc = self.enc
         if self._out is None:
             carve_ok = host_carve(enc.carve) if enc.carve is not None else None
@@ -132,8 +147,7 @@ class GangHandle:
             executor = "device-gang"
             self._out = self._compat0 = self._carve = self._events = None
         record_executor(executor, count=max(enc.g, 1))
-        self._result = (feas, slots, executor)
-        return self._result
+        return feas, slots, executor
 
     def _relaunch(self, trusted: np.ndarray) -> None:
         """A failed probe condemned the carve verdict: launch the kernel
@@ -155,9 +169,10 @@ def dispatch_gang_window(enc: GangEncoding, device: DeviceLike = None) -> GangHa
     waiting. A window the encoding could not give the device is answered by
     ``host_gang`` at fetch."""
     dev = resolve_device(device)
-    handle = GangHandle(enc=enc, device=dev)
+    handle = GangHandle(enc=enc, device=dev, _trace_ctx=obtrace.current_context())
     if not enc.device_ready:
         return handle
+    t0 = time.perf_counter()
     cv = enc.carve
     arrays = [enc.d_pods, enc.d_valid, enc.d_compat, enc.d_free0]
     if cv is not None:
@@ -183,6 +198,7 @@ def dispatch_gang_window(enc: GangEncoding, device: DeviceLike = None) -> GangHa
     if events is not None:
         events[2].record()
         handle._events = events
+    obtrace.add_span("gang-dispatch", t0, time.perf_counter(), gangs=enc.g)
     return handle
 
 

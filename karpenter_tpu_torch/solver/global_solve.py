@@ -20,6 +20,14 @@ accepted plan is re-verified on host nano ints
 (ops/global_solve.verify_plan). A device error raises out of dispatch or
 fetch; no path answers the window another way.
 
+The JAX package's ``karpenter_global_*`` series (metrics/global_solve.py)
+count each dispatched window, each schedule's verdict (used, or the
+fallback reason) and the widened accepts; the support threshold in force
+and the configured steps are gauges, and a fetch's wall from dispatch is
+``karpenter_global_solve_seconds``. Dispatch is recorded as the
+retroactive ``global-dispatch`` span and the fetch runs in a
+``global-fetch`` span under the dispatching window's context.
+
 The program replaces the JAX package's jitted XLA program
 (``solver/global_solve._global_jit``, a vmap of 300 projected-gradient
 steps). It is torch code, not a hand kernel: per step the two products
@@ -44,6 +52,11 @@ import numpy as np
 import torch
 
 from karpenter_tpu_torch.backend import DeviceLike, resolve_device, to_device_float32
+from karpenter_tpu_torch.metrics.global_solve import (
+    GLOBAL_FALLBACK_TOTAL, GLOBAL_ITERATIONS, GLOBAL_SOLVE_SECONDS, GLOBAL_SUPPORT_THRESHOLD,
+    GLOBAL_USED_TOTAL, GLOBAL_WIDENED_ACCEPT_TOTAL, GLOBAL_WINDOWS_TOTAL,
+)
+from karpenter_tpu_torch.obs import trace as obtrace
 from karpenter_tpu_torch.ops.global_solve import (
     SUPPORT, GlobalWindowEncoding, encode_window, plan_cost_micro, support_positions,
     verify_plan, widened_support_positions,
@@ -201,6 +214,8 @@ class GlobalHandle:
         self._t0 = t0
         self._result: Optional[GlobalPlan] = None
         self._error: Optional[BaseException] = None
+        # the dispatching window's span context, re-entered at fetch
+        self._trace_ctx = obtrace.current_context()
 
     @property
     def program_ms(self) -> Optional[float]:
@@ -216,7 +231,9 @@ class GlobalHandle:
         if self._error is not None:
             raise RuntimeError("an earlier fetch of this window failed") from self._error
         try:
-            self._result = self._fetch()
+            with obtrace.use_context(self._trace_ctx), \
+                    obtrace.span("global-fetch", schedules=len(self.win.scheds)):
+                self._result = self._fetch()
         except BaseException as e:
             self._error = e
             raise
@@ -237,6 +254,7 @@ class GlobalHandle:
             record_executor(executor, count=len(self.win.live))
         self.fetch_seconds, self.round_seconds = t1 - t0, t2 - t1
         plan.seconds = t2 - self._t0
+        GLOBAL_SOLVE_SECONDS.observe(plan.seconds)
         return plan
 
 
@@ -258,6 +276,7 @@ def _round_window(win: GlobalWindowEncoding, n_rows: Optional[np.ndarray],
             # adaptive keep rule: the acceptance EWMA slides the thresholds
             # between the strict and widened corners
             abs_thr, frac_thr = SUPPORT.thresholds()
+            GLOBAL_SUPPORT_THRESHOLD.set(abs_thr)
             keep = support_positions(n_rows[s.row], s.num_types, abs_thr, frac_thr)
             info.support = len(keep)
             ffd = host_ffd.pack(s.pod_vecs, s.pod_ids, s.packables)
@@ -293,6 +312,7 @@ def _round_window(win: GlobalWindowEncoding, n_rows: Optional[np.ndarray],
                     info.reason = "global"
                     info.widened = True
                     info.support = len(widened)
+                    GLOBAL_WIDENED_ACCEPT_TOTAL.inc()
                 else:
                     info.reason = "fallback-no-support"
             else:
@@ -302,6 +322,10 @@ def _round_window(win: GlobalWindowEncoding, n_rows: Optional[np.ndarray],
             # the controller learns from the adaptive pass only: a widened
             # rescue counts as a miss, a strict accept as a hit
             SUPPORT.note(info.used and not info.widened)
+        if info.used:
+            GLOBAL_USED_TOTAL.inc()
+        else:
+            GLOBAL_FALLBACK_TOTAL.inc(reason=info.reason.replace("fallback-", ""))
         plan.results.append(accepted)
         plan.infos.append(info)
     return plan
@@ -315,6 +339,8 @@ def dispatch_global_window(problems: Sequence, solver_config: Optional[SolverCon
     solver_config = solver_config or SolverConfig()
     dev = resolve_device(device)
     t0 = time.perf_counter()
+    GLOBAL_WINDOWS_TOTAL.inc()
+    GLOBAL_ITERATIONS.set(float(ITERS))
     win = encode_window(problems, solver_config.cost_config)
     handle = GlobalHandle(win, solver_config, t0)
     handle.encode_seconds = time.perf_counter() - t0
@@ -330,6 +356,7 @@ def dispatch_global_window(problems: Sequence, solver_config: Optional[SolverCon
             if cuda:
                 handle.event.record()
     handle.dispatch_seconds = time.perf_counter() - t0
+    obtrace.add_span("global-dispatch", t0, time.perf_counter(), schedules=len(win.scheds))
     return handle
 
 

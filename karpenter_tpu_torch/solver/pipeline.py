@@ -25,7 +25,12 @@ while the host works. A copy of the JAX package's executor
 - **Adaptive depth** (:class:`_AdaptiveDepth`): the realized overlap of
   each window steps the depth 1↔2↔3.
 
-Overlap is measured from the pipeline's own per-chunk stats.
+Overlap is measured from the pipeline's own per-chunk stats. The JAX
+package's series come with it (metrics/pipeline.py): the depth gauge, the
+per-chunk stage histograms (``marshal``, ``device``, ``launch_bind``), the
+dispatch wait and the overlap counter; and its retroactive spans
+``marshal``, ``dispatch``, ``device_solve`` (dispatch → fetch: the span
+that holds the device's time) and ``launch_bind`` under the window span.
 
 :class:`DeviceRing` is a process-wide pool of device-resident batch tensors
 keyed by bucket signature (the JAX package's ``solver/pipeline.py:93-269``).
@@ -36,8 +41,10 @@ allocating: B13, the JAX package's donated ``_refill_jit``
 the slot owns. It is a copy, not a kernel: a compute kernel would only do
 the copy engine's job more slowly. A fill whose content token matches the
 slot's copies nothing (``reuses``); ``allocations`` counts fresh device
-tensors. Left out: the hedged fetcher's scope, the metrics and the trace
-spans (the counters are attributes).
+tensors. Each count also feeds its ``karpenter_pipeline_ring_*`` series
+and a ``ring-alloc`` / ``ring-refill`` / ``ring-reuse`` trace event;
+:meth:`DeviceRing.counters` keeps them as attributes. Left out: the hedged
+fetcher's scope (the port has no hedge).
 """
 
 from __future__ import annotations
@@ -51,6 +58,13 @@ from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+
+from karpenter_tpu_torch.metrics.pipeline import (
+    PIPELINE_DEPTH, PIPELINE_DISPATCH_WAIT_SECONDS, PIPELINE_RING_ALLOCATIONS_TOTAL,
+    PIPELINE_RING_REFILLS_TOTAL, PIPELINE_RING_REUSES_TOTAL, PIPELINE_STAGE_SECONDS,
+    SOLVER_DEVICE_BYTES_IN_USE, SOLVER_OVERLAP_SECONDS_TOTAL,
+)
+from karpenter_tpu_torch.obs import trace
 
 log = logging.getLogger("karpenter.solver.pipeline")
 
@@ -160,13 +174,19 @@ class DeviceRing:
                     and old.dtype == src.dtype and old.device == device)
         if reusable and token is not None and slot.tokens.get(name) == token:
             self.reuses += 1
+            PIPELINE_RING_REUSES_TOTAL.inc()
+            trace.event("ring-reuse", buffer=name)
             return old
         if reusable:
             dst = old
             self.refills += 1
+            PIPELINE_RING_REFILLS_TOTAL.inc()
+            trace.event("ring-refill", buffer=name)
         else:
             dst = torch.empty(host.shape, dtype=src.dtype, device=device)
             self.allocations += 1
+            PIPELINE_RING_ALLOCATIONS_TOTAL.inc()
+            trace.event("ring-alloc", buffer=name)
         self._copy(slot, name, dst, src)
         slot.arrays[name] = dst
         if token is not None:
@@ -210,6 +230,7 @@ class DeviceRing:
         """Fresh device allocations off the ring that belong in the same
         ledger (the solo solve's compaction re-buckets)."""
         self.allocations += count
+        PIPELINE_RING_ALLOCATIONS_TOTAL.inc(amount=float(count))
 
     def counters(self) -> Dict[str, int]:
         return {"allocations": self.allocations, "refills": self.refills,
@@ -218,7 +239,6 @@ class DeviceRing:
 
 _RING: Optional[DeviceRing] = None
 _RING_LOCK = threading.Lock()
-DEVICE_BYTES_IN_USE = 0  # the last observe_device_bytes() reading
 
 
 def get_ring() -> DeviceRing:
@@ -239,13 +259,12 @@ def reset_ring() -> None:
 
 
 def observe_device_bytes() -> int:
-    """Bytes the caching allocator holds in tensors on the current CUDA
-    device (``torch.cuda.memory_allocated``), 0 without one; kept in
-    :data:`DEVICE_BYTES_IN_USE`."""
-    global DEVICE_BYTES_IN_USE
-    DEVICE_BYTES_IN_USE = (torch.cuda.memory_allocated()
-                           if torch.cuda.is_available() else 0)
-    return DEVICE_BYTES_IN_USE
+    """Refresh the ``solver_device_bytes_in_use`` gauge with the bytes the
+    caching allocator holds in tensors on the current CUDA device
+    (``torch.cuda.memory_allocated``), 0 without one; returns it."""
+    total = torch.cuda.memory_allocated() if torch.cuda.is_available() else 0
+    SOLVER_DEVICE_BYTES_IN_USE.set(float(total))
+    return total
 
 
 # --------------------------------------------------------------------------
@@ -328,9 +347,12 @@ class SolvePipeline:
     with at most ``depth`` handles in flight. Hold ONE instance per worker:
     the adaptive-depth state machine learns across provisioning windows."""
 
-    def __init__(self, config: Optional[PipelineConfig] = None, monitor=None):
+    def __init__(self, config: Optional[PipelineConfig] = None, monitor=None,
+                 shard: str = ""):
         self.config = config or PipelineConfig()
         self._monitor = monitor
+        # per-shard stage labels ("" = the unlabeled series, as unsharded)
+        self._slabels = {"shard": shard} if shard else {}
         self._adaptive = (_AdaptiveDepth(self.config.depth)
                           if self.config.adaptive else None)
         self._window_overlap = 0.0
@@ -370,6 +392,7 @@ class SolvePipeline:
         ``device_s`` (the blocked fetch), ``launch_bind_s``, and the
         perf_counter stamps ``t_dispatch``, ``t_fetch`` and ``t_done``."""
         depth = self.effective_depth()
+        PIPELINE_DEPTH.set(float(depth))
         self._window_overlap = 0.0
         self._window_max_depth = depth
         t0 = time.perf_counter()
@@ -381,7 +404,8 @@ class SolvePipeline:
                                 "depth": self._window_max_depth}
             collapsed = self._monitor is not None and int(self._monitor.level()) >= 1
             if self._adaptive is not None and not collapsed:
-                self._adaptive.observe(wall, self._window_overlap, self._window_max_depth)
+                PIPELINE_DEPTH.set(float(self._adaptive.observe(
+                    wall, self._window_overlap, self._window_max_depth)))
             observe_device_bytes()
 
     def _run(self, chunks, prepare, dispatch, consume, on_chunk) -> List:
@@ -393,13 +417,18 @@ class SolvePipeline:
                 # rise to L1+ must stop us running ahead immediately
                 depth = self.effective_depth()
                 self._window_max_depth = max(self._window_max_depth, depth)
+                PIPELINE_DEPTH.set(float(depth))
                 while len(inflight) >= depth:
                     self._complete(inflight.popleft(), consume, outs, on_chunk)
                 t0 = time.perf_counter()
                 prep = prepare(chunk)
+                tp = time.perf_counter()
                 handle = dispatch(prep)
                 t1 = time.perf_counter()
                 stats = {"marshal_s": t1 - t0, "t_dispatch": t1}
+                PIPELINE_STAGE_SECONDS.observe(t1 - t0, stage="marshal", **self._slabels)
+                trace.add_span("marshal", t0, tp, **self._slabels)
+                trace.add_span("dispatch", tp, t1, **self._slabels)
                 inflight.append((prep, handle, t1, stats))
             while inflight:
                 self._complete(inflight.popleft(), consume, outs, on_chunk)
@@ -414,6 +443,8 @@ class SolvePipeline:
         # the in-flight span: device time hidden behind host work (~0 when
         # serial, where every fetch immediately follows its dispatch)
         stats["inflight_s"] = t0 - t_disp
+        PIPELINE_DISPATCH_WAIT_SECONDS.observe(stats["inflight_s"])
+        SOLVER_OVERLAP_SECONDS_TOTAL.inc(amount=stats["inflight_s"])
         self._window_overlap += stats["inflight_s"]
         results = handle.fetch()
         t1 = time.perf_counter()
@@ -421,8 +452,17 @@ class SolvePipeline:
         t2 = time.perf_counter()
         stats["device_s"] = t1 - t0
         stats["launch_bind_s"] = t2 - t1
+        # absolute stage boundaries (perf_counter): the worker's SLO stamps
+        # reuse the pipeline's own measurements instead of re-timing
         stats["t_fetch"] = t1
         stats["t_done"] = t2
+        PIPELINE_STAGE_SECONDS.observe(t1 - t0, stage="device", **self._slabels)
+        PIPELINE_STAGE_SECONDS.observe(t2 - t1, stage="launch_bind", **self._slabels)
+        # retroactive spans: the device solve spans dispatch → the fetch's
+        # end (its in-flight head is the measured overlap)
+        trace.add_span("device_solve", t_disp, t1,
+                       inflight_s=round(stats["inflight_s"], 6), **self._slabels)
+        trace.add_span("launch_bind", t1, t2, **self._slabels)
         if on_chunk is not None:
             on_chunk(prep, stats)
         outs.append(out)

@@ -29,6 +29,9 @@ from karpenter_tpu_torch.api.constraints import Constraints
 from karpenter_tpu_torch.api.core import Pod
 from karpenter_tpu_torch.backend import DeviceLike, resolve_device
 from karpenter_tpu_torch.cloudprovider.spi import InstanceType
+from karpenter_tpu_torch.metrics.consolidation import (
+    CONSOLIDATION_RELAX_FALLBACKS, CONSOLIDATION_RELAX_USED,
+)
 from karpenter_tpu_torch.models.cost import CostConfig, effective_price
 from karpenter_tpu_torch.ops.encode import encode
 from karpenter_tpu_torch.ops.global_solve import (
@@ -127,7 +130,8 @@ def relax_solve(
 ) -> Tuple[SolveResult, RelaxInfo]:
     """solve() with the relaxation backend on ``device`` (default: the CUDA
     device): the exact path (the port's solve()) always runs; the rounded
-    plan replaces it only when strictly cheaper and fully feasible."""
+    plan replaces it only when strictly cheaper and fully feasible. Counts
+    the verdict either way (metrics/consolidation.py)."""
     config = config or SolverConfig()
     dev = resolve_device(device)
     exact = solve(constraints, pods, instance_types, daemons=daemons, config=config,
@@ -136,6 +140,7 @@ def relax_solve(
     packables, sorted_types = build_packables_cached(instance_types, constraints, pods,
                                                      daemons, required=required)
     if not packables:
+        CONSOLIDATION_RELAX_FALLBACKS.inc(reason="no-packables")
         return exact, RelaxInfo(used=False, reason="fallback-no-packables")
     order = sorted(range(len(pods)), key=lambda i: (-pod_vecs[i][0], -pod_vecs[i][1]))
     prices = [effective_price(it, constraints.requirements, CostConfig())[0]
@@ -144,5 +149,7 @@ def relax_solve(
     rounded, info = relax_pack([pod_vecs[i] for i in order], order, packables, prices,
                                device=dev)
     if not info.used:
+        CONSOLIDATION_RELAX_FALLBACKS.inc(reason=info.reason.replace("fallback-", ""))
         return exact, info
+    CONSOLIDATION_RELAX_USED.inc()
     return materialize(rounded, list(pods), sorted_types, constraints, config), info

@@ -20,6 +20,7 @@ from karpenter_tpu_torch.api.core import NodeSelectorRequirement, Pod
 from karpenter_tpu_torch.api.requirements import Requirements
 from karpenter_tpu_torch.backend import DeviceLike, resolve_device
 from karpenter_tpu_torch.cloudprovider.spi import InstanceType
+from karpenter_tpu_torch.metrics.policy import POLICY_SPOT_SELECTED_TOTAL
 from karpenter_tpu_torch.models.cost import CostConfig
 from karpenter_tpu_torch.models.ffd import solve_ffd_device
 from karpenter_tpu_torch.ops.encode import encode
@@ -29,6 +30,7 @@ from karpenter_tpu_torch.solver.adapter import (
 )
 from karpenter_tpu_torch.solver import policy as policy_registry
 from karpenter_tpu_torch.solver.policy import PolicyContext
+from karpenter_tpu_torch.utils.profiling import trace
 
 # -- solver health: which executor answered, and how often -------------------
 _HEALTH_LOCK = threading.Lock()
@@ -204,10 +206,11 @@ def solve_with_packables(
                      catalog_version=catalog_version)
     result = None
     if enc is not None:
-        result = solve_ffd_device(
-            pod_vecs, pod_ids, packables, chunk_iters=config.chunk_iters,
-            prices=prices, cost_tiebreak=prices is not None, enc=enc,
-            device=device, donate=config.device_donate)
+        with trace("karpenter.solve.device"):
+            result = solve_ffd_device(
+                pod_vecs, pod_ids, packables, chunk_iters=config.chunk_iters,
+                prices=prices, cost_tiebreak=prices is not None, enc=enc,
+                device=device, donate=config.device_donate)
     executor = "device"
     if result is None:
         result = host_ffd.pack(pod_vecs, pod_ids, packables, prices=prices,
@@ -220,7 +223,8 @@ def solve_with_packables(
 def materialize(result, pods, sorted_types, constraints: Constraints,
                 config: SolverConfig) -> SolveResult:
     """HostSolveResult (ids/indices) → SolveResult (objects), with the
-    cost-aware option ordering applied."""
+    cost-aware option ordering applied; a packing whose first option is
+    spot counts its nodes in ``karpenter_policy_spot_selected_total``."""
     packings = [
         Packing(
             pods=[[pods[i] for i in node] for node in hp.pod_ids],
@@ -235,6 +239,13 @@ def materialize(result, pods, sorted_types, constraints: Constraints,
             p.instance_type_options = policy.order_options(
                 p.instance_type_options, constraints.requirements,
                 config.cost_config, config.policy_context)
+            if p.instance_type_options:
+                _, ct = policy.score(
+                    p.instance_type_options[0], constraints.requirements,
+                    config.cost_config, config.policy_context)
+                if ct == wellknown.CAPACITY_TYPE_SPOT:
+                    POLICY_SPOT_SELECTED_TOTAL.inc(
+                        amount=float(p.node_quantity), policy=policy.name)
     return SolveResult(
         packings=packings,
         unschedulable=[pods[i] for i in result.unschedulable],

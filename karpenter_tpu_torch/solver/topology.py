@@ -19,7 +19,9 @@ compat rows on the device, and the host walk re-verifies every carve cell
 by cell before commit. Deterministic probe cells of the verdict are
 checked against the scalar oracle ``scalar_carve_cell``; a disagreement
 condemns the whole verdict, the scalar scan ``scalar_carve`` answers
-instead and :data:`HEALS` counts it.
+instead, counted in the JAX package's ``karpenter_filter_fallback_total``
+under ``carve-mismatch`` and in :data:`HEALS`. The standalone carve path
+records the JAX package's ``carve-dispatch`` and ``carve-fetch`` spans.
 
 ``KARPENTER_TOPOLOGY_CARVE=0`` switches carving off: the provisioning
 encoder then passes no slice or grid annotations and the gang window is
@@ -33,6 +35,7 @@ from __future__ import annotations
 
 import os
 import threading
+import time
 from dataclasses import dataclass
 from typing import List, Optional, Tuple
 
@@ -40,6 +43,8 @@ import numpy as np
 import torch
 
 from karpenter_tpu_torch.backend import DeviceLike, resolve_device, to_device_int32
+from karpenter_tpu_torch.metrics.filter import FILTER_FALLBACK_TOTAL
+from karpenter_tpu_torch.obs import trace as obtrace
 from karpenter_tpu_torch.ops.topology import (
     CarveEncoding, host_carve, scalar_carve, scalar_carve_cell)
 from karpenter_tpu_torch.solver.solve import record_executor
@@ -126,6 +131,7 @@ def probes_hold(enc, pairs: List[Tuple[int, int]], values) -> bool:
     global HEALS
     for (gi, bi), v in zip(pairs, values):
         if bool(v) != scalar_carve_cell(enc, gi, bi):
+            FILTER_FALLBACK_TOTAL.inc(reason="carve-mismatch")
             with _LOCK:
                 HEALS += 1
             return False
@@ -153,6 +159,7 @@ class CarveHandle:
     cv: CarveEncoding
     _out: Optional[torch.Tensor] = None
     _result: Optional[Tuple[np.ndarray, str]] = None
+    _trace_ctx: Optional[object] = None
 
     def fetch(self) -> Tuple[np.ndarray, str]:
         """((G, B) carve feasibility, executor): ``"device-carve"``,
@@ -160,6 +167,12 @@ class CarveHandle:
         window that carries no padded arrays."""
         if self._result is not None:
             return self._result
+        with obtrace.use_context(self._trace_ctx), \
+                obtrace.span("carve-fetch", gangs=self.cv.g):
+            self._result = self._fetch()
+        return self._result
+
+    def _fetch(self) -> Tuple[np.ndarray, str]:
         if self._out is None:
             verdict, executor = host_carve(self.cv), "host-carve"
         else:
@@ -168,8 +181,7 @@ class CarveHandle:
             executor = "device-carve" if ok else "scalar-carve"
             self._out = None
         record_executor(executor)
-        self._result = (verdict, executor)
-        return self._result
+        return verdict, executor
 
 
 def dispatch_carve_window(enc, device: DeviceLike = None) -> CarveHandle:
@@ -179,9 +191,11 @@ def dispatch_carve_window(enc, device: DeviceLike = None) -> CarveHandle:
     cv = enc.carve
     if cv is None:
         raise ValueError("gang window carries no carve encoding")
-    handle = CarveHandle(enc=enc, cv=cv)
+    handle = CarveHandle(enc=enc, cv=cv, _trace_ctx=obtrace.current_context())
     if cv.device_ready:
+        t0 = time.perf_counter()
         handle._out = carve_program(*to_device_int32(carve_arrays(cv), resolve_device(device)))
+        obtrace.add_span("carve-dispatch", t0, time.perf_counter(), gangs=cv.g)
     return handle
 
 

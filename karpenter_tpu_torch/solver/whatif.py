@@ -18,7 +18,9 @@ construction, even if the kernel were wrong.
 The one window the kernel does not answer is one the encoding cannot give
 it (not int32-encodable, past ``MAX_WINDOW_CELLS``, or no bin can
 receive): the exact host mirror ``host_whatif`` answers it, with executor
-``"host-whatif"``. A device error raises. Left out of the reference: the
+``"host-whatif"``. A device error raises. Dispatch is the retroactive
+``dispatch`` span and the fetch a ``fetch`` span under the dispatching
+window's context, as in the JAX package. Left out of the reference: the
 ``use_device`` and ``device_min_cells`` gates, the watchdog and breaker, the
 DeviceRing, the mesh and the host-mirror fallbacks on a device error.
 """
@@ -33,6 +35,7 @@ import numpy as np
 import torch
 
 from karpenter_tpu_torch.backend import DeviceLike, resolve_device
+from karpenter_tpu_torch.obs import trace as obtrace
 from karpenter_tpu_torch.ops.whatif import (
     WhatIfEncoding, host_whatif, verify_and_commit)
 from karpenter_tpu_torch.ops.whatif_cuda import whatif_scan
@@ -53,11 +56,19 @@ class WhatIfHandle:
     # the kernel's CUDA-event time, once fetched (None on the CPU or when
     # the host mirror answered)
     kernel_ms: Optional[float] = None
+    # the dispatching window's span context, re-entered at fetch
+    _trace_ctx: Optional[object] = None
 
     def fetch(self) -> Tuple[np.ndarray, np.ndarray, str]:
         """(feasible (N,), slots (N, K) bin index or -1, executor)."""
         if self._result is not None:
             return self._result
+        with obtrace.use_context(self._trace_ctx), \
+                obtrace.span("fetch", candidates=self.enc.n):
+            self._result = self._fetch()
+        return self._result
+
+    def _fetch(self) -> Tuple[np.ndarray, np.ndarray, str]:
         enc = self.enc
         if self._out is None:
             feas, slots = host_whatif(enc)
@@ -76,8 +87,7 @@ class WhatIfHandle:
             executor = "device-whatif"
             self._out = self._events = None
         record_executor(executor, count=max(enc.n, 1))
-        self._result = (feas, slots, executor)
-        return self._result
+        return feas, slots, executor
 
 
 def _to_device(enc: WhatIfEncoding, device: torch.device) -> List[torch.Tensor]:
@@ -107,7 +117,7 @@ def dispatch_window(enc: WhatIfEncoding, device: DeviceLike = None) -> WhatIfHan
     without waiting for it. A window the encoding could not give the device
     is answered by ``host_whatif`` at fetch."""
     dev = resolve_device(device)
-    handle = WhatIfHandle(enc=enc, device=dev)
+    handle = WhatIfHandle(enc=enc, device=dev, _trace_ctx=obtrace.current_context())
     if not enc.device_ready:
         return handle
     t0 = time.perf_counter()
@@ -122,6 +132,7 @@ def dispatch_window(enc: WhatIfEncoding, device: DeviceLike = None) -> WhatIfHan
     else:
         handle._out = whatif_scan(*tensors)
     handle.dispatch_seconds = time.perf_counter() - t0
+    obtrace.add_span("dispatch", t0, time.perf_counter(), candidates=enc.n)
     return handle
 
 

@@ -180,6 +180,15 @@ def merge(*resource_lists: ResourceList) -> ResourceList:
     return out
 
 
+def requests_for_pods(*pods) -> ResourceList:
+    """Sum of container requests across pods (resources.go RequestsForPods)."""
+    return merge(*[c.resources.requests for p in pods for c in p.spec.containers])
+
+
+def limits_for_pods(*pods) -> ResourceList:
+    return merge(*[c.resources.limits for p in pods for c in p.spec.containers])
+
+
 _GPU_RESOURCES = (NVIDIA_GPU, AMD_GPU, AWS_NEURON)
 
 
