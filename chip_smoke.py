@@ -101,6 +101,16 @@ nvcc each, both at once). Phases, each printing one JSON record:
    the device ms launched inside each (a session is taken only when it
    saw every pack kernel launched); and the flight recorder's slo-burn
    and pressure-l3 dumps (phase_observability);
+8e. journal: crash safety at full width (phase_journal): that window
+   through the controller with the intent journal (fsync on, on the
+   machine's disk: binds equal, the appends, bytes, µs an append and the
+   journal's tax), a crash inside it at six fleet-launch and bind kill
+   points (JOURNAL_CRASH_POINTS) with a restart (RecoveryController.run)
+   and a re-drive (no leak, no ghost Node, every pod bound once, no open
+   intent, the re-drive's pack launches equal to the plain version's),
+   config_15's recovery wall (16 replays of 72 open intents), and the 50
+   kill points on the crash-restart soak's scenario
+   (karpenter_tpu_torch/chaos/soak.py);
 9. global_program: the relaxation program of the global window backend
    (solver/global_solve.relax_node_counts) on the encoding of the
    9,984-pod window (B = 32, SB = 32, TB = 512) on the card and on the CPU:
@@ -175,6 +185,12 @@ nvcc each, both at once). Phases, each printing one JSON record:
    on the carved nodes, high-band gangs preempting low-band ones, a
    carved node terminated; each gang window's answer against
    whatif_scan_plain on the tensors it launched (phase_controller_gang);
+21b. gang_journal: controller_gang's scenario journaled, then 10 cold
+   replays that rebuild the occupancy ledger bit for bit from the open
+   carve intents (timed), and a crash at each of six gang, carve and
+   preempt kill points with recovery and re-drives: gangs whole or
+   absent, the ledger exactly the bound slice gangs' carves, no leak
+   (phase_gang_journal);
 22. each phase's seconds on a line of its own as it ends; the
    device-programs line (B7, B8, B5, B6, B11, the member column, B13), the
    kernels line (pack_chunk, pack_batch with the price-row launch beside
@@ -1549,31 +1565,47 @@ def window_tree(spans, wid):
     return mine, roots, orphans
 
 
-def direct_worker(catalog, device):
-    """A ProvisionerWorker over its own API server, driven on the calling
-    thread (add, then provision()), never started: a torch.profiler session
-    records the ranges of the thread it runs on."""
+def new_cluster(catalog):
+    """An API server holding one provisioner over ``catalog``'s universe,
+    and a fake provider."""
     from karpenter_tpu_torch.api.core import ObjectMeta
     from karpenter_tpu_torch.api.provisioner import Provisioner, ProvisionerSpec
     from karpenter_tpu_torch.cloudprovider.fake.provider import FakeCloudProvider
-    from karpenter_tpu_torch.controllers.provisioning import ProvisionerWorker
-    from karpenter_tpu_torch.pressure import PressureConfig, PressureMonitor
     from karpenter_tpu_torch.runtime.kubecore import KubeCore
-    from karpenter_tpu_torch.scheduling.batcher import Batcher
-    from karpenter_tpu_torch.solver.pipeline import PipelineConfig
-    from karpenter_tpu_torch.solver.solve import SolverConfig, universe_constraints
+    from karpenter_tpu_torch.solver.solve import universe_constraints
 
     kube = KubeCore()
     provisioner = Provisioner(metadata=ObjectMeta(name="default"),
                               spec=ProvisionerSpec(constraints=universe_constraints(catalog)))
     kube.create(provisioner)
+    return kube, FakeCloudProvider(catalog=catalog), provisioner
+
+
+def calling_thread_worker(kube, provider, provisioner, device, journal=None):
+    """A ProvisionerWorker driven on the calling thread (add, then
+    provision()), never started: a torch.profiler session records the
+    ranges of the thread it runs on, and a SimulatedCrash raised inside a
+    window reaches the caller, as a death would end the process. One chunk
+    a window, a monitor that only the depth signal moves."""
+    from karpenter_tpu_torch.controllers.provisioning import ProvisionerWorker
+    from karpenter_tpu_torch.pressure import PressureConfig, PressureMonitor
+    from karpenter_tpu_torch.scheduling.batcher import Batcher
+    from karpenter_tpu_torch.solver.pipeline import PipelineConfig
+    from karpenter_tpu_torch.solver.solve import SolverConfig
+
     monitor = PressureMonitor(PressureConfig(
         rss_watermark_bytes=0, window_l1_seconds=60.0, window_l2_seconds=120.0))
-    worker = ProvisionerWorker(
-        provisioner, kube, FakeCloudProvider(catalog=catalog),
-        solver_config=SolverConfig(window_backend="ffd"),
+    return ProvisionerWorker(
+        provisioner, kube, provider, solver_config=SolverConfig(window_backend="ffd"),
         batcher=Batcher(idle_seconds=0.01, max_seconds=120.0, monitor=monitor),
-        pipeline_config=PipelineConfig(chunk_items=0), device=device)
+        pipeline_config=PipelineConfig(chunk_items=0), device=device, journal=journal)
+
+
+def direct_worker(catalog, device):
+    """A calling-thread worker over its own API server, and a function that
+    runs one window of new pods through it."""
+    kube, provider, provisioner = new_cluster(catalog)
+    worker = calling_thread_worker(kube, provider, provisioner, device)
 
     def window(pods):
         for pod in pods:
@@ -1903,7 +1935,9 @@ class ControllerRun:
 
     ``deployed`` keeps the controller exactly as a user gets it: the
     default Batcher (1 s idle, 10 s maximum) and the process-wide pressure
-    monitor with its default config, and the collector left on. Otherwise
+    monitor with its default config, and the collector left on. ``journal``
+    is handed to the controller (every worker journals its mutations).
+    Otherwise
     the run holds the window's shape fixed for the comparisons of runs
     1-4: the batcher's maximum is 120 s, the monitor keeps only its depth
     signal (which run 3 reads; the window-assembly signal starts at a
@@ -1912,7 +1946,7 @@ class ControllerRun:
     pause it past the 1 s idle window and split the window)."""
 
     def __init__(self, catalog, device, solver_config=None, pipeline_config=None,
-                 deployed=False, nodes_become_ready=True):
+                 deployed=False, nodes_become_ready=True, journal=None):
         from karpenter_tpu_torch.api.core import ObjectMeta
         from karpenter_tpu_torch.api.provisioner import Provisioner
         from karpenter_tpu_torch.api.wellknown import LABEL_INSTANCE_TYPE
@@ -1949,7 +1983,8 @@ class ControllerRun:
         self.provisioning = ProvisioningController(
             self.kube, FakeCloudProvider(catalog=catalog, nodes_become_ready=nodes_become_ready),
             solver_config=solver_config,
-            pipeline_config=pipeline_config, device=device, batcher_factory=recording_batcher)
+            pipeline_config=pipeline_config, device=device, batcher_factory=recording_batcher,
+            journal=journal)
         self.selection = SelectionController(self.kube, self.provisioning)
         if not deployed:
             # selection's requeue backoff reads the process-wide monitor
@@ -5221,7 +5256,7 @@ def settle(run, timeout=120.0):
         time.sleep(0.05)
 
 
-def phase_controller_gang(device):
+def phase_controller_gang(device, journal=None, after=None, phase="controller_gang"):
     """The port's controller on tpu_catalog(): window 1 holds 96 slice gangs
     (32 each of v5e-2x4, v5e-4x4 and v4-2x2x2, 8-16 members of 1.5 cpu and
     3 Gi, so a torus runs out of chips before cpu or memory), 48 plain
@@ -5238,7 +5273,9 @@ def phase_controller_gang(device):
     terminated and its carves leave the ledger. Every gang window the
     controller dispatched is held against whatif_scan_plain on the tensors
     it launched (check_gang_handles), its (GB, KB, BB) recorded. One record
-    with each window's time split."""
+    with each window's time split. With ``journal`` the controller and the
+    termination controller journal every mutation, and ``after(run)`` runs
+    once the scenario is done, before the controller stops (phase_gang_journal)."""
     import torch
 
     from karpenter_tpu_torch.cloudprovider.fake.provider import tpu_catalog
@@ -5257,19 +5294,19 @@ def phase_controller_gang(device):
     feasibility.clear_gang_cache()
     catalog = tpu_catalog()
     run = ControllerRun(catalog, device, SolverConfig(window_backend="ffd"),
-                        PipelineConfig(chunk_items=0))
+                        PipelineConfig(chunk_items=0), journal=journal)
     commits, preempted = [], []
     worker = run.worker
     commit, execute = worker._commit_carves, worker._execute_preemption
 
-    def recording_commit(prep, placement):
-        commit(prep, placement)
+    def recording_commit(prep, placement, carves=None):
+        commit(prep, placement, carves)
         commits.extend((prep.gang_nodes[bi], placement.gang.key) for bi in placement.carves)
 
-    def recording_preempt(cand):
+    def recording_preempt(cand, beneficiary=None):
         preempted.append(cand)
         commits[:] = [c for c in commits if c[1] != cand.gang_key]
-        execute(cand)
+        return execute(cand, beneficiary)
 
     worker._commit_carves, worker._execute_preemption = recording_commit, recording_preempt
     dispatch, handles = provisioning.dispatch_gang_window, []
@@ -5357,7 +5394,8 @@ def phase_controller_gang(device):
         # terminate one carved node: its carves leave the ledger
         node = sorted(ng.node for ng in topo.LEDGER.snapshot())[0]
         on_node = {str(k) for k in {ng.node: ng for ng in topo.LEDGER.snapshot()}[node].carves}
-        termination = TerminationController(run.kube, run.provisioning.cloud_provider)
+        termination = TerminationController(run.kube, run.provisioning.cloud_provider,
+                                            journal=journal)
         try:
             run.kube.delete("Node", node, "")
             term_s, _ = terminate_all(run.kube, termination, [node])
@@ -5368,14 +5406,576 @@ def phase_controller_gang(device):
         windows["termination"] = {"node": node, "carves_released": len(on_node),
                                   "seconds": term_s}
         torch.cuda.synchronize()
+        if after is not None:
+            windows["after"] = after(run)
     finally:
         provisioning.dispatch_gang_window = dispatch
         run.stop()
         topo.LEDGER.reset()
-    rec = {"phase": "controller_gang", **windows, "max_abs_err": worst,
+    rec = {"phase": phase, **windows, "max_abs_err": worst,
            "seconds": time.perf_counter() - t_phase}
     emit(rec)
     return rec
+
+
+# -- crash safety: the intent journal, recovery and the kill points ------------------
+
+# the full-width deaths: the pre/post pairs of fleet-launch:open,
+# bind:node-created and bind:bound. On an NVIDIA H100 80GB HBM3 at 700 W all
+# 14 points of the two machines took 157-168 s with gang_journal's 21-23 s,
+# past the two phases' 180 s budget, and on a slower host took the whole
+# script to 1,125 s of its 1,200 s limit (PERF.md, section 6); the 14
+# still run on the CPU against the JAX package
+# (tests/test_torch_recovery.py) and all 50 on the card in soak_catalog
+JOURNAL_CRASH_POINTS = ["pre:fleet-launch:open", "fleet-launch:open", "pre:bind:node-created",
+                        "bind:node-created", "pre:bind:bound", "bind:bound"]
+GANG_CRASH_POINTS = ["gang-bind:nodes-created", "pre:gang-bind:bound", "gang-bind:unwinding",
+                     "carve:open", "preempt:victims-unbound", "preempt:beneficiary-bound"]
+# config_15's recovery leg (bench.py): 16 cold replays of 48 open fleet-launch
+# intents over leaked capacity and 24 with nothing launched
+RECOVERY_ITERS, RECOVERY_LEAKS, RECOVERY_NOOPS = 16, 48, 24
+LEDGER_REPLAYS = 10
+
+
+def journal_dir(name):
+    """A fresh journal directory on the machine's disk, inside the
+    checkout's build directory (git ignores it)."""
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "karpenter_tpu_torch",
+                        "build", "journal")
+    os.makedirs(root, exist_ok=True)
+    return tempfile.mkdtemp(prefix=f"{name}-", dir=root)
+
+
+def fs_type(path):
+    proc = subprocess.run(["stat", "-f", "-c", "%T", path], capture_output=True, text=True,
+                          timeout=30)
+    return proc.stdout.strip() if proc.returncode == 0 else None
+
+
+def journal_counters():
+    """The journal's series: records by kind, bytes, and the append
+    histogram's seconds and count."""
+    from karpenter_tpu_torch.metrics import recovery as rm
+
+    kinds = {dict(lv).get("kind", ""): v for lv, v in rm.JOURNAL_RECORDS_TOTAL.collect().items()}
+    hist = rm.JOURNAL_APPEND_SECONDS.collect().values()
+    return {"kinds": kinds, "bytes": sum(rm.JOURNAL_BYTES_TOTAL.collect().values()),
+            "append_s": sum(h[1] for h in hist), "appends": sum(h[2] for h in hist)}
+
+
+def journal_delta(before, after):
+    kinds = {k: after["kinds"][k] - before["kinds"].get(k, 0.0) for k in after["kinds"]}
+    return {"kinds": {k: int(v) for k, v in kinds.items() if v},
+            **{k: after[k] - before[k] for k in ("bytes", "append_s", "appends")}}
+
+
+class PackLaunches:
+    """Every launch of the pack kernel (batched and lone) made inside the
+    block, with clones of its inputs and its output, for holding against
+    the plain version afterwards (``held``)."""
+
+    def __enter__(self):
+        from karpenter_tpu_torch.ops import pack_cuda
+
+        self.records, self._mod = [], pack_cuda
+        self._batch, self._chunk = pack_cuda.launch_pack_batch, pack_cuda.launch_pack
+
+        def clone(args):
+            return [a.clone() if hasattr(a, "clone") else a for a in args]
+
+        def batch(*args):
+            out = self._batch(*args)
+            self.records.append(("batch", clone(args), out.clone()))
+            return out
+
+        def chunk(*args):
+            out = self._chunk(*args)
+            self.records.append(("chunk", clone(args), out.clone()))
+            return out
+
+        pack_cuda.launch_pack_batch, pack_cuda.launch_pack = batch, chunk
+        return self
+
+    def __exit__(self, *exc):
+        self._mod.launch_pack_batch, self._mod.launch_pack = self._batch, self._chunk
+
+    def held(self):
+        """The largest difference of any recorded launch from the plain
+        version on the same tensors (0: bit for bit)."""
+        import torch
+
+        from karpenter_tpu_torch.ops.pack_cuda import pack_batch_plain, pack_chunk_plain
+
+        worst = 0
+        for kind, a, out in self.records:
+            (shapes, counts, dropped, totals, reserved0, valid, last_valid, pods_unit, iters,
+             prices, cost, maxfit) = a[:12]
+            if kind == "batch":
+                want = pack_batch_plain(shapes, counts, dropped, totals, reserved0, valid,
+                                        last_valid, pods_unit, iters, prices=prices,
+                                        cost_tiebreak=cost, maxfit=maxfit)
+            else:
+                want = pack_chunk_plain(shapes, counts, dropped, totals, reserved0, valid,
+                                        int(last_valid), int(pods_unit), iters, prices=prices,
+                                        cost_tiebreak=cost, maxfit=maxfit)
+            diff = (out.to(torch.int64) - want.to(torch.int64)).abs()
+            worst = max(worst, int(diff.max()) if diff.numel() else 0)
+        self.records.clear()
+        return worst
+
+
+def drive(worker, kube, pods):
+    """Enqueue ``pods`` that are not bound yet and run one window."""
+    todo = [p for p in pods if not kube.read("Pod", p.metadata.name, p.metadata.namespace,
+                                             lambda q: bool(q.spec.node_name))]
+    for p in todo:
+        check(worker.add(p, key=(p.metadata.namespace, p.metadata.name)) is not None,
+              "journal: a pod was shed at intake")
+    if todo:
+        worker.provision()
+    return len(todo)
+
+
+def bound_once(kube, names, what):
+    """Every pod of ``names`` bound, to a live node whose pod index holds it
+    exactly once (read without copies, but for the index)."""
+    from collections import Counter
+
+    nodes = set(kube.scan("Node", lambda n: n.metadata.name))
+    on = Counter()
+    for n in nodes:
+        on.update(p.metadata.name for p in kube.pods_on_node(n))
+    pods = dict(kube.scan("Pod", lambda p: (p.metadata.name, p.spec.node_name)))
+    unbound = [n for n in names if pods.get(n) not in nodes]
+    check(not unbound, f"{what}: {len(unbound)} pods not bound to a live node ({unbound[:3]})")
+    twice = [n for n in names if on[n] != 1]
+    check(not twice, f"{what}: pods not on exactly one node's index {twice[:3]}")
+
+
+def journal_crash_cell(point, window, catalog, pods_of, names, device):
+    """One full-width crash: the window journaled (fsync on) on a direct
+    worker, a plan that kills it at ``point`` on the stream's ``window``-th
+    call or before, then the restart (a fresh journal, RecoveryController.run)
+    and the re-drive of the still-pending pods through a fresh worker, its
+    pack launches held against the plain version."""
+    import gc
+    import shutil
+    from types import SimpleNamespace
+
+    from karpenter_tpu_torch.chaos import inject, soak
+    from karpenter_tpu_torch.controllers.recovery import RecoveryController
+    from karpenter_tpu_torch.runtime.journal import IntentJournal
+
+    d = journal_dir("crash")
+    t_cell = time.perf_counter()
+    # the collector frozen over the cell, as ControllerRun's windows freeze
+    # it: a full collection over the heap the earlier phases left, or over
+    # 10k pods' objects, takes seconds
+    gc.freeze()
+    try:
+        kube, provider, provisioner = new_cluster(catalog)
+        pods = pods_of()
+        for p in pods:
+            kube.create(p)
+        build_s = time.perf_counter() - t_cell
+        t0 = time.perf_counter()
+        journal = IntentJournal(d, fsync=True)
+        worker = calling_thread_worker(kube, provider, provisioner, device, journal)
+        inject.install(inject.FaultPlan(1, [inject.FaultSpec("journal", point, "crash-point", 1)],
+                                        window=window))
+        crashed = None
+        try:
+            drive(worker, kube, pods)
+        except inject.SimulatedCrash as e:
+            crashed = e.point
+        finally:
+            calls = inject.installed().calls("journal", point)
+            inject.uninstall()
+            journal.close_journal()
+        check(crashed == point, f"journal: {point} never fired ({calls} calls of {window})")
+        crash_s = time.perf_counter() - t0
+        bound_at_death = sum(1 for p in kube.list("Pod") if p.spec.node_name)
+        t0 = time.perf_counter()
+        journal = IntentJournal(d, fsync=True)
+        stats = RecoveryController(kube, provider, journal).run()
+        recovery_s = time.perf_counter() - t0
+        check(stats["errors"] == 0, f"journal {point}: recovery errors {stats}")
+        t0 = time.perf_counter()
+        with PackLaunches() as launches:
+            redriven = drive(calling_thread_worker(kube, provider, provisioner, device, journal),
+                             kube, pods)
+            if device.type == "cuda":
+                import torch
+
+                torch.cuda.synchronize()
+        redrive_s = time.perf_counter() - t0
+        n_launches = len(launches.records)
+        check(device.type != "cuda" or n_launches > 0, f"journal {point}: no pack launch")
+        t0 = time.perf_counter()
+        err = launches.held()
+        check(err == 0, f"journal {point}: the re-drive's pack launches != plain ({err})")
+        hold_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        found = soak.leaks(SimpleNamespace(kube=kube, provider=provider))
+        check(not found["leaked"] and not found["ghosts"], f"journal {point}: {found}")
+        bound_once(kube, names, f"journal {point}")
+        check(journal.open_intents() == {}, f"journal {point}: intents left open")
+        journal.close_journal()
+        return {"point": point, "stream_calls": calls, "window": window,
+                "bound_at_death": bound_at_death, "stats": stats, "recovery_s": recovery_s,
+                "redriven_pods": redriven, "redrive_s": redrive_s,
+                "redrive_pack_launches": n_launches, "max_abs_err": err,
+                "nodes": len(kube.scan("Node", lambda n: n.metadata.name)),
+                "split_s": {"build": build_s, "crashed_window": crash_s,
+                            "recovery": recovery_s, "redrive": redrive_s, "hold": hold_s,
+                            "checks": time.perf_counter() - t0},
+                "cell_s": time.perf_counter() - t_cell}
+    finally:
+        gc.unfreeze()
+        shutil.rmtree(d, ignore_errors=True)
+
+
+def recovery_wall():
+    """config_15's recovery leg on the port: each iteration journals 48
+    fleet-launch intents whose capacity launched and leaked (the bind never
+    ran) and 24 that launched nothing, then times one cold replay."""
+    import shutil
+
+    from karpenter_tpu_torch.chaos import soak
+    from karpenter_tpu_torch.cloudprovider.fake.provider import FakeCloudProvider, instance_types
+    from karpenter_tpu_torch.controllers.recovery import RecoveryController
+    from karpenter_tpu_torch.runtime import journal as jr
+    from karpenter_tpu_torch.runtime.kubecore import KubeCore
+
+    walls, leaks, opens, errors, rolled_back = [], 0, 0, 0, 0
+    for _ in range(RECOVERY_ITERS):
+        kube, provider = KubeCore(), FakeCloudProvider(catalog=instance_types(4))
+        cons = soak.make_constraints("crash-bench")
+        itype = provider.catalog[-1]
+        d = journal_dir("recovery")
+        try:
+            journal = jr.IntentJournal(d, fsync=False)
+            for _k in range(RECOVERY_LEAKS):
+                nonce = jr.new_nonce()
+                journal.open_intent("fleet-launch", nonce=nonce, provisioner="crash-bench")
+                with jr.preassigned_nonce(nonce):
+                    provider.create(cons, [itype], 1, lambda node: "simulated crash")
+            for _k in range(RECOVERY_NOOPS):
+                journal.open_intent("fleet-launch", nonce=jr.new_nonce(),
+                                    provisioner="crash-bench")
+            journal.close_journal()
+            with jr.IntentJournal(d, fsync=False) as journal:
+                recovery = RecoveryController(kube, provider, journal)
+                t0 = time.perf_counter()
+                stats = recovery.run()
+                walls.append(time.perf_counter() - t0)
+                errors += stats["errors"]
+                rolled_back += stats["rollback"]
+                leaks += len(provider.list_instances())
+                opens += len(journal.open_intents())
+        finally:
+            shutil.rmtree(d, ignore_errors=True)
+    check(leaks == 0 and opens == 0 and errors == 0,
+          f"journal recovery wall: leaks {leaks}, open {opens}, errors {errors}")
+    check(rolled_back == RECOVERY_ITERS * RECOVERY_LEAKS,
+          f"journal recovery wall: {rolled_back} rollbacks")
+    ms = sorted(w * 1e3 for w in walls)
+    return {"iters": RECOVERY_ITERS, "open_intents_per_iter": RECOVERY_LEAKS + RECOVERY_NOOPS,
+            "leaked_instances_per_iter": RECOVERY_LEAKS, "wall_ms": ms,
+            "p50_ms": ms[len(ms) // 2], "p99_ms": ms[min(len(ms) - 1, int(0.99 * len(ms)))],
+            "rolled_back": rolled_back, "errors": errors, "leaks_after": leaks,
+            "open_after": opens}
+
+
+def soak_catalog(device):
+    """Every one of the 50 kill points at seed 1, window 1, on the soak's own
+    scenario (karpenter_tpu_torch.chaos.soak: the fleet-launch, bind,
+    gang-bind, drain and node-delete machines in the plain scenario, the
+    carve and preempt machines in the carve scenario), fsync on."""
+    import shutil
+
+    from karpenter_tpu_torch.chaos import soak
+    from karpenter_tpu_torch.pressure import PressureConfig, PressureMonitor, set_monitor
+    from karpenter_tpu_torch.runtime.journal import KILL_POINTS
+
+    reference, cells = {}, []
+    # the scenario's batchers read the process-wide monitor: hold it quiet
+    set_monitor(PressureMonitor(PressureConfig(rss_watermark_bytes=0)))
+    try:
+        for point in KILL_POINTS:
+            carve = point in soak.CARVE_KILL_POINTS
+            d = journal_dir("soak")
+            try:
+                out = soak.soak_once(d, point, seed=1, window=1, device=device,
+                                     reference=reference.get(carve), fsync=True)
+            finally:
+                shutil.rmtree(d, ignore_errors=True)
+            reference[carve] = out["reference"]
+            check(out["crashed"], f"soak: {point} never fired")
+            check(not out["leaks"]["leaked"] and not out["leaks"]["ghosts"],
+                  f"soak {point}: {out['leaks']}")
+            cells.append({k: out[k] for k in ("kill_point", "stats", "recovery_s", "redrive_s")})
+    finally:
+        set_monitor(None)
+    actions = {k: sum(c["stats"][k] for c in cells) for k in ("forward", "rollback", "noop")}
+    return {"points": len(cells), "crashed": len(cells), "actions": actions,
+            "recovery_s": sum(c["recovery_s"] for c in cells),
+            "redrive_s": sum(c["redrive_s"] for c in cells), "cells": cells}
+
+
+def phase_journal(device, columnar_binds):
+    """Crash safety at full width (config_12's 9,984 pods in one chunk,
+    controller_columnar's window):
+
+    a. the window through the controller with a journal, fsync on, in a
+       directory on the machine's disk: the binds equal controller_columnar's
+       and no intent stays open; the appends by kind, the bytes, the µs an
+       append and the journal's tax (the append histogram's seconds over
+       the window's wall, bench.py config_15's method), the filesystem type;
+    b. a crash inside that window at each of JOURNAL_CRASH_POINTS (six of
+       the fleet-launch and bind machines' 14; seed 1; the plan's window
+       is the stream's call count in (a): the launches for fleet-launch,
+       the nodes for bind), a restart and a re-drive (journal_crash_cell): no
+       leaked instance, no ghost Node, every pod bound once, no open
+       intent, no recovery error, the re-drive's pack launches equal to
+       the plain version's;
+    c. config_15's recovery wall (recovery_wall);
+    d. the 50 kill points on the soak's own scenario (soak_catalog)."""
+    import shutil
+
+    from karpenter_tpu_torch.runtime.journal import IntentJournal
+    from karpenter_tpu_torch.solver.pipeline import PipelineConfig
+    from karpenter_tpu_torch.solver.solve import SolverConfig
+
+    catalog = make_catalog(WINDOW_TYPES)
+    d = journal_dir("window")
+    fs = fs_type(d)
+    journal = IntentJournal(d, fsync=True)
+    run = ControllerRun(catalog, device, SolverConfig(window_backend="ffd"),
+                        PipelineConfig(chunk_items=0), journal=journal)
+    try:
+        before = journal_counters()
+        rec = run.window(config12_controller_pods(catalog, 416, "j0"))
+        moved = journal_delta(before, journal_counters())
+        binds = strip_prefix(run.binds)
+    finally:
+        run.stop()
+        journal.close_journal()
+    check(rec["chunks"] == 1, f"journal: {rec['chunks']} chunks")
+    check(binds == columnar_binds, "journal: the journaled window's binds differ from "
+                                   "controller_columnar's")
+    check(IntentJournal(d, fsync=False).open_intents() == {}, "journal: intents left open")
+    shutil.rmtree(d, ignore_errors=True)
+    launches, nodes = moved["kinds"]["fleet-launch"] // 3, moved["kinds"]["bind"] // 4
+    check(nodes == rec["nodes"], f"journal: {nodes} bind intents for {rec['nodes']} nodes")
+    window = {"pods": rec["pods"], "nodes": rec["nodes"], "launches": launches,
+              "wall_s": rec["wall_s"], "appends": moved["appends"], "by_kind": moved["kinds"],
+              "bytes": moved["bytes"], "append_s": moved["append_s"],
+              "us_per_append": moved["append_s"] / moved["appends"] * 1e6,
+              "tax_pct": moved["append_s"] / rec["wall_s"] * 100,
+              "pack_batch_launches": rec["pack_batch_launches"]}
+
+    names = [n for _, ns in columnar_binds for n in ns]
+    cells = []
+    for i, point in enumerate(JOURNAL_CRASH_POINTS):
+        calls = launches if point.split(":")[-2] == "fleet-launch" else nodes
+        cells.append(journal_crash_cell(
+            point, calls, catalog,
+            lambda i=i: config12_controller_pods(catalog, 416, f"k{i}"),
+            [f"k{i}-{n}" for n in names], device))
+    crash = {"points": len(cells),
+             "actions": {k: sum(c["stats"][k] for c in cells)
+                         for k in ("forward", "rollback", "noop")},
+             "recovery_s": sum(c["recovery_s"] for c in cells),
+             "redrive_s": sum(c["redrive_s"] for c in cells),
+             "max_abs_err": max(c["max_abs_err"] for c in cells),
+             "nodes_uncrashed": rec["nodes"], "cells": cells}
+    out = {"phase": "journal", "fs_type": fs, "fsync": True, "window": window,
+           "crash": crash, "recovery_wall": recovery_wall(), "soak": soak_catalog(device)}
+    emit(out)
+    return out
+
+
+def ledger_bits():
+    """The occupancy ledger, every field of every node and carve (the
+    occupancy plane as its bytes), in a canonical order."""
+    from karpenter_tpu_torch.ops import topology as topo
+
+    return sorted((ng.node, ng.type_name, tuple(ng.dims), repr(ng.labels_sig),
+                   ng.occ.tobytes(),
+                   tuple(sorted((str(k), tuple(int(c) for c in r.cells), r.band,
+                                 tuple(tuple(p) for p in r.pods), r.intent_id)
+                                for k, r in ng.carves.items())))
+                  for ng in topo.LEDGER.snapshot())
+
+
+def gang_crash_cell(point, device):
+    """controller_gang's shapes at a smaller scale on a journaled direct
+    worker: window 1 with 4 low-band v5e-4x4 gangs, 4 v5e-2x4 gangs and 2
+    plain gangs, then 2 windows of one high-band v5e-4x4 gang each, which
+    preempt. The plan kills the worker at ``point`` (for
+    gang-bind:unwinding, ChaosKube fails the gang's member bind, seed
+    chosen so the first unwind dies); then the restart, a termination
+    pass and re-drives of every unbound member. Every gang bound whole or
+    not at all, the ledger exactly the carves of the bound slice gangs
+    with their open carve intents, no leak, no ghost, no recovery error;
+    every gang window held against the plain version."""
+    import itertools
+    import shutil
+    from types import SimpleNamespace
+
+    from karpenter_tpu_torch.chaos import inject, soak
+    from karpenter_tpu_torch.cloudprovider.fake.provider import tpu_catalog
+    from karpenter_tpu_torch.controllers import provisioning
+    from karpenter_tpu_torch.controllers.recovery import RecoveryController
+    from karpenter_tpu_torch.ops import feasibility
+    from karpenter_tpu_torch.ops import topology as topo
+    from karpenter_tpu_torch.runtime.journal import IntentJournal
+
+    topo.LEDGER.reset()
+    feasibility.clear_gang_cache()
+    kube, provider, provisioner = new_cluster(tpu_catalog())
+    low = [(f"jlo-{g}", cg_gang(f"jlo-{g}", 16, "v5e-4x4", priority=-5)) for g in range(4)]
+    mid = [(f"jmid-{g}", cg_gang(f"jmid-{g}", 8, "v5e-2x4")) for g in range(4)]
+    plain = [(f"jpl-{g}", cg_gang(f"jpl-{g}", 4, cpu_m=2000, mem_mi=4096)) for g in range(2)]
+    high = [(f"jhi-{g}", cg_gang(f"jhi-{g}", 16, "v5e-4x4", priority=10)) for g in range(2)]
+    gangs = low + mid + plain + high
+    waves = [low + mid + plain, high[:1], high[1:]]
+    for _, ps in gangs:
+        for p in ps:
+            kube.create(p)
+    specs = [inject.FaultSpec("journal", point, "crash-point", 1)]
+    seed, window, worker_kube = 1, 1, kube
+    if point == "gang-bind:unwinding":
+        # every bind_pods call of the first four conflicts: a node's creation
+        # binds no pods and shrugs it off, a member bind fails and unwinds
+        window = 4
+        specs.append(inject.FaultSpec("kube", "bind_pods", "conflict", window))
+        seed = next(s for s in itertools.count(1) if inject.FaultPlan(s, specs, window).decide(
+            "journal", point) == "crash-point")
+        worker_kube = inject.ChaosKube(kube)
+    dispatch, handles = provisioning.dispatch_gang_window, []
+
+    def recording_dispatch(enc, dev):
+        handle = dispatch(enc, dev)
+        handles.append(handle)
+        return handle
+
+    provisioning.dispatch_gang_window = recording_dispatch
+    d = journal_dir("gang-crash")
+    try:
+        journal = IntentJournal(d, fsync=True)
+        worker = calling_thread_worker(worker_kube, provider, provisioner, device, journal)
+        inject.install(inject.FaultPlan(seed, specs, window=window))
+        crashed, preempted = None, 0
+        try:
+            for wave in waves:
+                drive(worker, worker_kube, [p for _, ps in wave for p in ps])
+        except inject.SimulatedCrash as e:
+            crashed = e.point
+        finally:
+            inject.uninstall()
+            journal.close_journal()
+        check(crashed == point, f"gang_journal: {point} never fired")
+        topo.LEDGER.reset()  # the in-memory ledger dies with the process
+        t0 = time.perf_counter()
+        journal = IntentJournal(d, fsync=True)
+        stats = RecoveryController(kube, provider, journal).run()
+        recovery_s = time.perf_counter() - t0
+        check(stats["errors"] == 0, f"gang_journal {point}: recovery errors {stats}")
+        cluster = SimpleNamespace(kube=kube, provider=provider)
+        soak.settle_terminations(cluster, journal)
+        worker = calling_thread_worker(kube, provider, provisioner, device, journal)
+        for _ in range(4):
+            if not drive(worker, kube, [p for _, ps in gangs for p in ps]):
+                break
+        soak.settle_terminations(cluster, journal)
+        err, _shapes = check_gang_handles(handles, f"gang_journal {point}")
+        bound = set()
+        for name, ps in gangs:
+            nodes = [kube.get("Pod", p.metadata.name, p.metadata.namespace).spec.node_name
+                     for p in ps]
+            check(all(nodes) or not any(nodes),
+                  f"gang_journal {point}: gang {name} bound {sum(map(bool, nodes))}/{len(ps)}")
+            if all(nodes):
+                bound.add(name)
+        slice_bound = {str(("default", n)) for n, _ in low + mid + high if n in bound}
+        ledger = {str(k): (ng.node, r) for ng in topo.LEDGER.snapshot()
+                  for k, r in ng.carves.items()}
+        check(set(ledger) == slice_bound, f"gang_journal {point}: ledger {sorted(ledger)} "
+                                          f"!= bound slice gangs {sorted(slice_bound)}")
+        for key, (node, r) in ledger.items():
+            on = {p.metadata.name for p in kube.pods_on_node(node)}
+            check({n for _, n in r.pods} <= on, f"gang_journal {point}: {key} not on {node}")
+        open_ = journal.open_intents()
+        check({i.kind for i in open_.values()} <= {"carve"}
+              and set(open_) == {r.intent_id for _, r in ledger.values()},
+              f"gang_journal {point}: open intents {sorted(i.kind for i in open_.values())}")
+        found = soak.leaks(cluster)
+        check(not found["leaked"] and not found["ghosts"], f"gang_journal {point}: {found}")
+        journal.close_journal()
+        return {"point": point, "seed": seed, "stats": stats, "recovery_s": recovery_s,
+                "gangs_bound": len(bound), "gangs": len(gangs), "carves": len(ledger),
+                "max_abs_err": err}
+    finally:
+        provisioning.dispatch_gang_window = dispatch
+        shutil.rmtree(d, ignore_errors=True)
+        topo.LEDGER.reset()
+
+
+def phase_gang_journal(device):
+    """controller_gang's scenario journaled (fsync on): tpu_catalog(), 96
+    slice gangs, 48 plain gangs, 4,096 pods, the second wave, the high-band
+    preemptions and the carved node terminated, every gang window held
+    against the plain version. Afterwards the only open intents are the live
+    carves; LEDGER_REPLAYS cold replays (LEDGER.reset(), a fresh journal,
+    RecoveryController.run()) each rebuild the ledger bit for bit equal to
+    the snapshot taken before (bench.py config_17's recovered_bitident),
+    timed. Then one crash at each of GANG_CRASH_POINTS (gang_crash_cell)."""
+    import shutil
+
+    from karpenter_tpu_torch.controllers.recovery import RecoveryController
+    from karpenter_tpu_torch.ops import topology as topo
+    from karpenter_tpu_torch.runtime.journal import IntentJournal
+
+    d = journal_dir("gang")
+    journal = IntentJournal(d, fsync=True)
+
+    def after(run):
+        live = {r.intent_id for ng in topo.LEDGER.snapshot() for r in ng.carves.values()}
+        opened = journal.open_intents()
+        check({i.kind for i in opened.values()} == {"carve"} and set(opened) == live
+              and "" not in live, "gang_journal: the open intents are not the live carves")
+        before = ledger_bits()
+        journal.close_journal()
+        walls = []
+        for _ in range(LEDGER_REPLAYS):
+            topo.LEDGER.reset()
+            with IntentJournal(d, fsync=True) as j2:
+                t0 = time.perf_counter()
+                stats = RecoveryController(run.kube, run.provisioning.cloud_provider, j2).run()
+                walls.append((time.perf_counter() - t0) * 1e3)
+                check(stats["errors"] == 0 and stats["rollback"] == 0,
+                      f"gang_journal: replay {stats}")
+                check(set(j2.open_intents()) == set(opened), "gang_journal: replay changed "
+                                                             "the open intents")
+            check(ledger_bits() == before, "gang_journal: the replayed ledger is not the "
+                                           "snapshot bit for bit")
+        ms = sorted(walls)
+        return {"open_carves": len(opened), "ledger_nodes": len(before),
+                "recovered_bitident": True, "replays": LEDGER_REPLAYS, "replay_ms": ms,
+                "p50_ms": ms[len(ms) // 2], "p99_ms": ms[-1]}
+
+    try:
+        rec = phase_controller_gang(device, journal=journal, after=after, phase="gang_journal")
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    cells = [gang_crash_cell(point, device) for point in GANG_CRASH_POINTS]
+    out = {"phase": "gang_journal_crashes", "cells": cells,
+           "max_abs_err": max(c["max_abs_err"] for c in cells)}
+    emit(out)
+    return {"scenario": rec, "crashes": out,
+            "max_abs_err": max(rec["max_abs_err"], out["max_abs_err"])}
 
 
 def build_all():
@@ -5473,6 +6073,7 @@ def main(argv) -> int:
     timed("controller", phase_controller, device)
     cc = timed("controller_columnar", phase_controller_columnar, device)
     timed("observability", phase_observability, device, cc["binds"])
+    jn = timed("journal", phase_journal, device, cc["binds"])
     gp = timed("global_program", phase_global_program, device)
     gw = timed("global_window", phase_global_window, device)
     timed("global_window_400", phase_global_window_400, device)
@@ -5486,6 +6087,7 @@ def main(argv) -> int:
     gw10 = timed("gang_window", phase_gang_window, device)
     timed("carve_window", phase_carve_window, device)
     cg = timed("controller_gang", phase_controller_gang, device)
+    gj = timed("gang_journal", phase_gang_journal, device)
     emit({"phase": "total", "seconds": time.perf_counter() - t_start})
     b8 = gw["relax_pack"]
     b6 = pw["config13"]["program"]
@@ -5577,7 +6179,10 @@ def main(argv) -> int:
         "source": "karpenter_tpu_torch/csrc/pack.cu",
         "replaces": "karpenter_tpu/parallel/sharded_pack.py:90",
         "launches": win["launches_per_window"]["pack_batch"],
-        "max_abs_err": max(batch_err, kw["max_abs_err"], priced["max_abs_err"]),
+        # the batched launches of phase 7 and of the policy window, and every
+        # pack launch of the journal phase's re-driven windows after a crash
+        "max_abs_err": max(batch_err, kw["max_abs_err"], priced["max_abs_err"],
+                           jn["crash"]["max_abs_err"]),
         "ms": kw["ms"], "plain_ms": kw["plain_ms"],
         "bound_ms": kw["bound_ms"], "bound_by": kw["bound_by"],
         "priced": {"ms": priced["ms"], "unpriced_ms": priced["unpriced_ms"],
@@ -5603,7 +6208,8 @@ def main(argv) -> int:
         "replaces": "karpenter_tpu/solver/gang.py:56",
         "launches": cg["window1"]["launches"]["whatif"],
         "max_abs_err": max(gf["max_abs_err"], gw10["config11"]["kernel"]["max_abs_err"],
-                           gw10["full"]["kernel"]["max_abs_err"], cg["max_abs_err"]),
+                           gw10["full"]["kernel"]["max_abs_err"], cg["max_abs_err"],
+                           gj["max_abs_err"]),
         # the times and the bound are the full-width window's; the main
         # path's launches (controller_gang window 1) were at main_path_shapes
         "main_path_shapes": cg["window1"]["gang_shapes"],

@@ -3,9 +3,10 @@
 A trimmed copy of the JAX package's object model: metadata (labels,
 annotations, finalizers, owner references, deletion timestamp), the PodSpec
 scheduling fields (node selector, tolerations, node and pod affinity,
-topology spread, priority), containers with their resource requirements,
-pod and node status, taints, the DaemonSet template and the
-PodDisruptionBudget. Everything is a plain dataclass; the in-memory API
+topology spread, priority, volumes), containers with their resource
+requirements, pod and node status, taints, the DaemonSet template, the
+PodDisruptionBudget and the volume objects (PersistentVolumeClaim,
+PersistentVolume, StorageClass) that volume topology reads. Everything is a plain dataclass; the in-memory API
 server (runtime/kubecore.py) gives them create/patch/delete/watch,
 finalizer and eviction semantics.
 """
@@ -176,6 +177,17 @@ class Container:
 
 
 @dataclass
+class PersistentVolumeClaimVolumeSource:
+    claim_name: str = ""
+
+
+@dataclass
+class Volume:
+    name: str = ""
+    persistent_volume_claim: Optional[PersistentVolumeClaimVolumeSource] = None
+
+
+@dataclass
 class PodSpec:
     node_name: str = ""
     node_selector: Dict[str, str] = field(default_factory=dict)
@@ -183,6 +195,7 @@ class PodSpec:
     tolerations: List[Toleration] = field(default_factory=list)
     affinity: Optional[Affinity] = None
     topology_spread_constraints: List[TopologySpreadConstraint] = field(default_factory=list)
+    volumes: List[Volume] = field(default_factory=list)
     priority_class_name: str = ""
     priority: int = 0  # resolved priority value (admission stamps it from the class)
     termination_grace_period_seconds: int = 30
@@ -256,6 +269,48 @@ class DaemonSet:
     metadata: ObjectMeta = field(default_factory=ObjectMeta)
     spec: DaemonSetSpec = field(default_factory=DaemonSetSpec)
     kind: str = "DaemonSet"
+
+
+@dataclass
+class PersistentVolumeClaimSpec:
+    storage_class_name: Optional[str] = None
+    volume_name: str = ""
+
+
+@dataclass
+class PersistentVolumeClaim:
+    metadata: ObjectMeta = field(default_factory=ObjectMeta)
+    spec: PersistentVolumeClaimSpec = field(default_factory=PersistentVolumeClaimSpec)
+    kind: str = "PersistentVolumeClaim"
+
+
+@dataclass
+class VolumeNodeAffinity:
+    required: Optional[List[NodeSelectorTerm]] = None
+
+
+@dataclass
+class PersistentVolumeSpec:
+    node_affinity: Optional[VolumeNodeAffinity] = None
+
+
+@dataclass
+class PersistentVolume:
+    metadata: ObjectMeta = field(default_factory=ObjectMeta)
+    spec: PersistentVolumeSpec = field(default_factory=PersistentVolumeSpec)
+    kind: str = "PersistentVolume"
+
+
+@dataclass
+class TopologySelectorTerm:
+    match_label_expressions: List[NodeSelectorRequirement] = field(default_factory=list)
+
+
+@dataclass
+class StorageClass:
+    metadata: ObjectMeta = field(default_factory=ObjectMeta)
+    allowed_topologies: List[TopologySelectorTerm] = field(default_factory=list)
+    kind: str = "StorageClass"
 
 
 @dataclass

@@ -26,6 +26,9 @@ DO_NOT_EVICT_ANNOTATION = KARPENTER_DOMAIN + "/do-not-evict"
 EMPTINESS_TIMESTAMP_ANNOTATION = KARPENTER_DOMAIN + "/emptiness-timestamp"
 TERMINATION_FINALIZER = KARPENTER_DOMAIN + "/termination"
 LABEL_CAPACITY_TYPE = KARPENTER_DOMAIN + "/capacity-type"
+# provider tag stamped at launch (before any Node exists) so a leaked
+# instance is attributable to the launch that leaked it
+LAUNCH_NONCE_TAG = KARPENTER_DOMAIN + "/launch-nonce"
 # operator-defined placement domain (a topology key for pod affinity); kept
 # well-known so tighten() keeps its pin, as in the JAX package
 LABEL_NODE_GROUP = KARPENTER_DOMAIN + "/node-group"

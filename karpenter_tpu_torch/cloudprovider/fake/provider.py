@@ -4,21 +4,32 @@ Reference: pkg/cloudprovider/fake/{cloudprovider.go,instancetype.go}. A
 trimmed copy of the JAX package's fake: nodes are fabricated as API objects
 honoring zone/capacity-type requirements; the synthetic catalog matches the
 reference fixture exactly (i-th type = (i+1) vCPU, 2(i+1) Gi, 10(i+1)
-pods). Left out: fault injection (insufficient capacity, the chaos plan)
-and the provider-side capacity ledger (the garbage collector's input),
-which no port controller reads yet.
+pods). Every launch is registered in a provider-side capacity ledger
+(:class:`~karpenter_tpu_torch.cloudprovider.spi.CapacityRecord`) before its
+bind runs, with one launch nonce per ``create`` (the journal's pre-assigned
+nonce when the caller journaled the launch), so a crash between the launch
+and the Node write leaves an enumerable, attributable orphan for the
+garbage collector and startup recovery. Faults: ``insufficient_capacity``
+pools and the chaos plan's ``provider``/``create`` kinds (``ice``,
+``crash-before-bind``, ``spot-interruption``).
 """
 
 from __future__ import annotations
 
 import itertools
 import threading
-from typing import List, Optional, Sequence
+import uuid
+from typing import Dict, List, Optional, Sequence
 
 from karpenter_tpu_torch.api import wellknown
 from karpenter_tpu_torch.api.constraints import Constraints
 from karpenter_tpu_torch.api.core import Node, NodeCondition, NodeSpec, NodeStatus, ObjectMeta
-from karpenter_tpu_torch.cloudprovider.spi import CloudProvider, InstanceType, make_instance_type
+from karpenter_tpu_torch.chaos import inject
+from karpenter_tpu_torch.cloudprovider.spi import (
+    CapacityRecord, CloudProvider, InstanceType, make_instance_type,
+)
+from karpenter_tpu_torch.runtime import journal
+from karpenter_tpu_torch.utils import clock
 from karpenter_tpu_torch.utils.resources import parse_resource_list
 
 __all__ = ["FakeCloudProvider", "default_catalog", "instance_types", "make_instance_type",
@@ -80,10 +91,21 @@ class FakeCloudProvider(CloudProvider):
         self.nodes_become_ready = nodes_become_ready
         self.created: List[Node] = []
         self.deleted: List[str] = []
+        # zero-capacity (name, zone, capacity_type) triples, the AWS fake's
+        # InsufficientCapacityPools
+        self.insufficient_capacity: set = set()
+        # provider-side capacity ledger: instance id (= node name) → record,
+        # registered BEFORE bind runs, as CreateFleet's tags are
+        self._capacity: Dict[str, CapacityRecord] = {}
         self._lock = threading.Lock()
 
     def create(self, constraints, instance_types_, quantity, bind):
         errs: List[Optional[str]] = []
+        provisioner_name = constraints.labels.get(wellknown.PROVISIONER_NAME_LABEL, "default")
+        # one nonce per create call, shared by every unit it launches; a
+        # journaled launch's pre-stamped nonce wins, so crashed launches stay
+        # attributable across a restart
+        launch_nonce = journal.current_preassigned_nonce() or uuid.uuid4().hex
         for _ in range(quantity):
             name = f"fake-node-{next(_name_counter)}"
             instance = instance_types_[0]
@@ -94,6 +116,27 @@ class FakeCloudProvider(CloudProvider):
                 if o.capacity_type in cts and o.zone in zones:
                     zone, capacity_type = o.zone, o.capacity_type
                     break
+            # one fault draw per unit: ice refuses the launch,
+            # crash-before-bind leaks it, spot-interruption reclaims the
+            # oldest running spot instance while this launch proceeds
+            fault = inject.active_fault("provider", "create")
+            if fault == "spot-interruption":
+                self.reclaim_spot(1)
+            if (instance.name, zone, capacity_type) in self.insufficient_capacity \
+                    or fault == "ice":
+                errs.append(f"insufficient capacity for {instance.name} in {zone}")
+                continue
+            # the capacity exists from here on
+            with self._lock:
+                self._capacity[name] = CapacityRecord(
+                    instance_id=name, provisioner_name=provisioner_name,
+                    launch_nonce=launch_nonce, created_unix=clock.now(), zone=zone,
+                    instance_type=instance.name, capacity_type=capacity_type)
+            if fault == "crash-before-bind":
+                # the controller dies between the launch and the Node write:
+                # the instance is leaked until GC or recovery reaps it
+                errs.append(f"injected crash before bind of {name}")
+                continue
             resources = {"pods": str(instance.pods), "cpu": str(instance.cpu),
                          "memory": str(instance.memory)}
             node = Node(
@@ -126,7 +169,36 @@ class FakeCloudProvider(CloudProvider):
     def delete(self, node: Node) -> Optional[str]:
         with self._lock:
             self.deleted.append(node.metadata.name)
+            # fake providerID is fake:///<instance-id>/<zone>; the instance
+            # id doubles as the node name
+            parts = (node.spec.provider_id or "").split("/")
+            instance_id = parts[3] if len(parts) > 3 else node.metadata.name
+            self._capacity.pop(instance_id, None)
         return None
+
+    def list_instances(self) -> List[CapacityRecord]:
+        with self._lock:
+            return list(self._capacity.values())
+
+    def delete_instance(self, instance_id: str) -> Optional[str]:
+        with self._lock:
+            if self._capacity.pop(instance_id, None) is not None:
+                self.deleted.append(instance_id)
+        return None  # not-found is success: the capacity is gone either way
+
+    def reclaim_spot(self, limit: int = 1) -> List[str]:
+        """Out-of-band termination of up to ``limit`` spot instances, the
+        fake's spot interruption: the ledger entry vanishes while any Node
+        object survives as a ghost for GC to reap. Oldest launches first."""
+        with self._lock:
+            spot = sorted((r for r in self._capacity.values()
+                           if r.capacity_type == wellknown.CAPACITY_TYPE_SPOT),
+                          key=lambda r: (r.created_unix, r.instance_id))
+            victims = [r.instance_id for r in spot[:max(0, limit)]]
+            for iid in victims:
+                self._capacity.pop(iid, None)
+                self.deleted.append(iid)
+        return victims
 
     def get_instance_types(self, constraints: Constraints) -> List[InstanceType]:
         if self.catalog is not None:

@@ -4,7 +4,10 @@ provider contract the provisioning controller launches nodes through.
 A trimmed copy of the JAX package's provider SPI
 (pkg/cloudprovider/types.go:29-76) plus the fake provider's
 ``make_instance_type`` constructor (fake.NewInstanceType defaults). Create
-is callback-based, so a provider may batch node launches.
+is callback-based, so a provider may batch node launches. Providers that
+can enumerate their capacity implement ``list_instances`` and
+``delete_instance``, the garbage collector's and startup recovery's input
+(:class:`CapacityRecord`).
 """
 
 from __future__ import annotations
@@ -28,6 +31,33 @@ class Offering:
     capacity_type: str  # "spot" | "on-demand"
     zone: str
     interruption_rate: float = 0.0
+
+
+@dataclass(frozen=True)
+class CapacityRecord:
+    """Provider-side view of one unit of live capacity, as enumerated by
+    :meth:`CloudProvider.list_instances`.
+
+    The garbage collector (controllers/gc.py) cross-references these
+    records against Node objects to find capacity the control plane paid
+    for but lost track of (a crash between create and the Node write) and
+    Nodes whose capacity was terminated out of band; startup recovery
+    (controllers/recovery.py) attributes them to journaled launches.
+
+    ``instance_id`` must appear verbatim as a path segment of the
+    providerID the provider stamps on its Nodes (``fake:///<id>/<zone>``):
+    that containment is the ownership test. ``launch_nonce`` is stamped at
+    launch time, before any Node exists, so an orphan is attributable to
+    the launch that leaked it."""
+
+    instance_id: str
+    provisioner_name: str = ""
+    launch_nonce: str = ""
+    created_unix: float = 0.0
+    zone: str = ""
+    instance_type: str = ""
+    # capacity type the launch drew from ("spot" | "on-demand")
+    capacity_type: str = ""
 
 
 @dataclass
@@ -128,6 +158,20 @@ class CloudProvider(abc.ABC):
     @abc.abstractmethod
     def get_instance_types(self, constraints: Constraints) -> List[InstanceType]:
         """The catalog viable for these constraints."""
+
+    def list_instances(self) -> List[CapacityRecord]:
+        """Enumerate the provider-side capacity this control plane launched.
+        The default returns nothing, which makes the garbage collector a
+        no-op for providers that cannot enumerate; it must never return a
+        partial view, because records missing here read as out-of-band
+        terminations and get their Nodes reaped."""
+        return []
+
+    def delete_instance(self, instance_id: str) -> Optional[str]:
+        """Terminate capacity by provider instance id, for orphans that
+        never got a Node object. Not-found is success (the capacity is gone
+        either way). None means terminated."""
+        return f"provider {self.name()} cannot terminate by instance id"
 
     @abc.abstractmethod
     def name(self) -> str:

@@ -24,8 +24,10 @@ candidates; they are logged once per window.
 The device is resolved when the controller is made, so a missing card
 raises there. Each window is one ``consolidate`` window span (``gather``,
 ``encode``, the what-if ``dispatch`` and ``fetch``, ``plan``) and feeds the
-JAX package's ``karpenter_consolidation_*`` series. Left out: the intent
-journal. The window's time split and counts are kept in ``last_window``.
+JAX package's ``karpenter_consolidation_*`` series. Given ``journal=``,
+each drain is a ``drain`` intent (open → deleting → closed), so a crash
+between the decision and the delete is re-driven by startup recovery. The
+window's time split and counts are kept in ``last_window``.
 """
 
 from __future__ import annotations
@@ -148,8 +150,9 @@ class ConsolidationController:
     def __init__(self, kube: KubeCore, provider=None,
                  max_actions_per_pass: int = 8,
                  repack_cost_per_hour: float = 0.0,
-                 device: DeviceLike = None):
+                 device: DeviceLike = None, journal=None):
         self.kube = kube
+        self.journal = journal
         self.provider = provider
         self.device = resolve_device(device)
         self.max_actions_per_pass = max_actions_per_pass
@@ -302,11 +305,22 @@ class ConsolidationController:
 
     def _drain_node(self, node: Node, saving: float) -> bool:
         """Execute one planned drain: delete the Node, whose termination
-        finalizer hands it to the termination controller."""
+        finalizer hands it to the termination controller. Journaled as a
+        ``drain`` intent."""
+        journal = self.journal
+        iid = None
+        if journal is not None:
+            iid = journal.open_intent("drain", node=node.metadata.name,
+                                      namespace=node.metadata.namespace, saving=saving)
         try:
             self.kube.delete("Node", node.metadata.name, node.metadata.namespace)
         except NotFound:
+            if iid is not None:
+                journal.close(iid, outcome="gone")
             return False
+        if iid is not None:
+            journal.advance(iid, "deleting")
+            journal.close(iid)
         CONSOLIDATION_DRAINS_TOTAL.inc()
         CONSOLIDATION_RECLAIMED_TOTAL.inc(saving)
         return True

@@ -53,8 +53,16 @@ pipeline's own dispatch, fetch and done stamps. A caught global-leg error
 counts the chunk's schedules in ``karpenter_global_fallback_total`` under
 ``error`` (and in ``global_errors``).
 
-Left out (ROADMAP): the intent journal (with the gang-bind, carve and
-preempt intents and their recovery).
+Crash safety is the JAX package's write-ahead intent journal
+(runtime/journal.py), on when the controller is given ``journal=``: each
+launch is a ``fleet-launch`` intent whose nonce is durable before the
+provider create (``jr.preassigned_nonce``), each node a ``bind`` intent,
+each gang a ``gang-bind`` intent (nonces and created nodes noted as they
+grow, the unwind bracketed by ``unwinding`` / ``unwound``), each bound
+slice gang's carve a long-lived ``carve`` intent (its payload also rides
+the gang's ``bound`` append) and each displacement a ``preempt`` intent.
+Startup recovery (controllers/recovery.py) replays what a dead process
+left open. With ``journal=None`` (the default) none of this runs.
 """
 
 from __future__ import annotations
@@ -95,6 +103,7 @@ from karpenter_tpu_torch.ops import policy as ops_policy
 from karpenter_tpu_torch.ops import topology as topo_ops
 from karpenter_tpu_torch.ops.gang import GangBin, GangEncoding, encode_gang_window
 from karpenter_tpu_torch.pressure.bands import RANK
+from karpenter_tpu_torch.runtime import journal as jr
 from karpenter_tpu_torch.runtime.kubecore import AlreadyExists, ApiError, KubeCore, NotFound
 from karpenter_tpu_torch.scheduling.batcher import Batcher
 from karpenter_tpu_torch.scheduling.preempt_budget import PreemptionBudget
@@ -181,7 +190,8 @@ class ProvisionerWorker:
     versions) is resolved here, once. After each window ``last_window``
     holds its readings: the intake wait, and per chunk the schedule,
     dispatch, in-flight, fetch and launch/bind seconds (a chunk with gangs
-    adds its gang window's, ``gang``)."""
+    adds its gang window's, ``gang``). ``journal`` (an
+    ``runtime.journal.IntentJournal``) journals every mutation."""
 
     def __init__(
         self,
@@ -193,8 +203,10 @@ class ProvisionerWorker:
         pipeline_config: Optional[PipelineConfig] = None,
         shard: str = "",
         device: DeviceLike = None,
+        journal: Optional["jr.IntentJournal"] = None,
     ):
         self.device = resolve_device(device)
+        self.journal = journal
         self.kube = kube
         self.cloud_provider = cloud_provider
         self.solver_config = solver_config or SolverConfig()
@@ -627,7 +639,13 @@ class ProvisionerWorker:
         seed only ever hosts gangs whose labels and taints the node
         already carries. Its free capacity is the node's LIVE residual
         (allocatable minus running pods)."""
-        topo_ops.LEDGER.prune([n.metadata.name for n in self.kube.list("Node")])
+        dropped = topo_ops.LEDGER.prune([n.metadata.name for n in self.kube.list("Node")])
+        if self.journal is not None:
+            # a pruned node's carves are gone for good: fold their durable
+            # intents so compaction can drop the records
+            for rec in dropped:
+                if rec.intent_id:
+                    self.journal.close(rec.intent_id, outcome="node-pruned")
         snap = topo_ops.LEDGER.snapshot()
         if not snap:
             return []
@@ -765,10 +783,25 @@ class ProvisionerWorker:
         cands = self.preempt_budget.admit(cands)
         return PreemptContext(cands) if cands else None
 
-    def _execute_preemption(self, cand: PreemptCandidate) -> None:
+    def _execute_preemption(self, cand: PreemptCandidate,
+                            beneficiary=None) -> Optional[str]:
         """Displace one resident gang: unbind its members, release its
         ledger carves, and requeue the whole group atomically through the
-        band-aware batcher (shed-proof: the members were running)."""
+        band-aware batcher (shed-proof: the members were running).
+
+        Journaled, the displacement is bracketed by a ``preempt`` intent:
+        the victim list is durable before the first unbind, and the phase
+        advances to ``victims-unbound`` once the requeue and the carve
+        release landed. Returns the intent id, which ``_launch_gang``
+        advances to ``beneficiary-bound`` once the winner's members land."""
+        journal = self.journal
+        piid = None
+        if journal is not None:
+            piid = journal.open_intent(
+                "preempt", gang=str(cand.gang_key), node=cand.node, band=cand.band,
+                pods=[f"{pns}/{pname}" for pns, pname in cand.pods],
+                beneficiary=str(beneficiary) if beneficiary else "")
+
         def clear(obj):
             if getattr(obj.spec, "node_name", ""):
                 obj.spec.node_name = ""
@@ -791,35 +824,71 @@ class ProvisionerWorker:
             entries.append(((None, p), (pns, pname), band, priority, gang))
         if entries:
             self.batcher.requeue_displaced(entries)
-        topo_ops.LEDGER.pop_gang(cand.gang_key)
+        for _node, rec in topo_ops.LEDGER.pop_gang(cand.gang_key):
+            if journal is not None and rec.intent_id:
+                # fold the victim's durable carve
+                journal.close(rec.intent_id, outcome="preempted")
         self.preempt_budget.charge(cand.gang_key, cand.band)
+        if piid is not None:
+            journal.advance(piid, "victims-unbound")
         PREEMPTIONS_TOTAL.inc(band=cand.band)
         if entries:
             PREEMPTION_DISPLACED_PODS_TOTAL.inc(amount=float(len(entries)))
         log.info("preempted gang %s on %s: band=%s %d pod(s) requeued displacement=$%.4f/h "
                  "window_id=%s shard=%s", cand.gang_key, cand.node, cand.band, len(entries),
                  cand.displacement_cost, self._window_id, self.shard or "0")
+        return piid
 
-    def _commit_carves(self, prep: _ChunkPrep, placement: GangPlacement) -> None:
-        """Record a bound slice gang's carve cells in the occupancy ledger,
-        so later windows seed its nodes' residual grids back into the pool
-        (and can price this gang as a preemption victim)."""
-        if not placement.carves:
-            return
+    def _carve_payload(self, prep: _ChunkPrep, placement: GangPlacement) -> List[dict]:
+        """JSON-ready carve records of a placement, one per carved bin: the
+        data a ``carve`` intent carries. Built before the gang-bind intent
+        advances to ``bound`` so the payload rides that append, and a crash
+        between the bind and the carve commits re-commits from it."""
+        if not getattr(placement, "carves", None):
+            return []
         enc = prep.gang_enc
         constraints = placement.gang.context.constraints
         sig = topo_ops.constraints_sig(constraints.labels, constraints.taints)
         members = {bi: [(p.metadata.namespace, p.metadata.name) for p in pods]
                    for bi, pods in placement.node_sets}
+        payload: List[dict] = []
         for bi, cells in placement.carves.items():
             node = prep.gang_nodes.get(bi)
             bn = enc.bins[bi]
             if node is None or bn.grid is None:
                 continue
             _s, itype = prep.gang_types[bn.type_index]
-            topo_ops.LEDGER.commit(node, bn.grid, itype.name, sig, placement.gang.key,
-                                   [int(c) for c in cells], placement.gang.band,
-                                   members.get(bi, []))
+            payload.append(dict(
+                gang=str(placement.gang.key), node=node, grid=[int(d) for d in bn.grid],
+                type=itype.name, sig=sig, cells=[int(c) for c in cells],
+                band=placement.gang.band,
+                pods=[f"{ns}/{nm}" for ns, nm in members.get(bi, [])]))
+        return payload
+
+    def _commit_carves(self, prep: _ChunkPrep, placement: GangPlacement,
+                       carves: Optional[List[dict]] = None) -> None:
+        """Record a bound slice gang's carve cells in the occupancy ledger,
+        so later windows seed its nodes' residual grids back into the pool
+        (and can price this gang as a preemption victim). Journaled, each
+        commit is a long-lived ``carve`` intent opened before the ledger
+        changes (an open one of the same (gang, node) is reused).
+        ``carves`` is the payload the caller already built (None: build
+        it)."""
+        journal = self.journal
+        if carves is None:
+            carves = self._carve_payload(prep, placement)
+        live: Dict[Tuple[str, str], str] = {}
+        if journal is not None and carves:
+            live = {(str(c.data.get("gang") or ""), str(c.data.get("node") or "")): c.id
+                    for c in journal.open_of_kind("carve")}
+        for rec in carves:
+            cid = ""
+            if journal is not None:
+                cid = live.get((rec["gang"], rec["node"])) or journal.open_intent("carve", **rec)
+            topo_ops.LEDGER.commit(
+                rec["node"], tuple(rec["grid"]), rec["type"], rec["sig"], placement.gang.key,
+                rec["cells"], rec["band"],
+                [tuple(str(p).partition("/")[::2]) for p in rec["pods"]], intent_id=cid)
             TOPOLOGY_CARVES_COMMITTED_TOTAL.inc()
 
     def _launch_gang(self, prep: _ChunkPrep, placement: GangPlacement,
@@ -831,7 +900,9 @@ class ProvisionerWorker:
         ``victims`` (this gang's planned preemptions) are displaced between
         the phases: only once every node exists, so a refused launch
         evicts nothing, yet before any member binds onto the freed
-        capacity."""
+        capacity. Journaled, the member set and the created-node set are
+        durable as they grow, each fresh node's launch nonce before its
+        provider create."""
         constraints = placement.gang.context.constraints
         provisioner = self._engine().provisioner
         try:
@@ -842,22 +913,45 @@ class ProvisionerWorker:
         if err is not None:
             return err
         enc = prep.gang_enc
+        journal = self.journal
+        iid = None
+        if journal is not None:
+            iid = journal.open_intent(
+                "gang-bind", gang=str(placement.gang.key),
+                members=[f"{p.metadata.namespace}/{p.metadata.name}"
+                         for p in placement.gang.pods])
         # phase 1: every node object exists before any member binds
         created: List[str] = []
+        nonces: List[str] = []
         node_of: Dict[int, str] = {}
         for bin_index, _pods in placement.node_sets:
             name = prep.gang_nodes.get(bin_index)
             if name is None:
                 _, itype = prep.gang_types[enc.bins[bin_index].type_index]
-                name = self._create_gang_node(constraints, itype)
+                if iid is not None:
+                    nonce = jr.new_nonce()
+                    nonces.append(nonce)
+                    journal.note(iid, nonces=list(nonces))
+                    with jr.preassigned_nonce(nonce):
+                        name = self._create_gang_node(constraints, itype)
+                else:
+                    name = self._create_gang_node(constraints, itype)
                 if name is None:
-                    self._unwind_gang(prep, placement, node_of, created)
+                    self._unwind_gang_journaled(iid, prep, placement, node_of, created)
                     return f"could not launch node for bin {enc.bins[bin_index].name}"
                 prep.gang_nodes[bin_index] = name
                 created.append(name)
+                if iid is not None:
+                    journal.note(iid, created=list(created))
             node_of[bin_index] = name
+        if iid is not None:
+            journal.advance(iid, "nodes-created", nodes=sorted(set(node_of.values())),
+                            created=list(created))
+        preempt_iids: List[str] = []
         for cand in victims or ():
-            self._execute_preemption(cand)
+            piid = self._execute_preemption(cand, beneficiary=placement.gang.key)
+            if piid is not None:
+                preempt_iids.append(piid)
         # phase 2: bind the members node set by node set
         for bin_index, pods in placement.node_sets:
             name = node_of[bin_index]
@@ -867,13 +961,43 @@ class ProvisionerWorker:
                 errs = [str(e)] * len(pods)
             errs = [e for e in errs if "already bound" not in e and "already exists" not in e]
             if errs:
-                self._unwind_gang(prep, placement, node_of, created)
+                self._unwind_gang_journaled(iid, prep, placement, node_of, created)
+                if journal is not None:
+                    # the victims were unbound and requeued already: the
+                    # displacement stands though the winner unwound
+                    for piid in preempt_iids:
+                        journal.close(piid, outcome="beneficiary-unwound")
                 return f"binding to {name}: " + "; ".join(errs)
-        self._commit_carves(prep, placement)
+        # the carve payload rides the bound append: one durable record
+        # covers the bind and the carve commits
+        carves = self._carve_payload(prep, placement)
+        if iid is not None:
+            journal.advance(iid, "bound", carves=carves)
+        self._commit_carves(prep, placement, carves)
+        if iid is not None:
+            for piid in preempt_iids:
+                journal.advance(piid, "beneficiary-bound")
+                journal.close(piid)
+            journal.close(iid)
         log.info("gang %s bound: %d pod(s) across %d node(s) window_id=%s shard=%s",
                  placement.gang.key, len(placement.gang.pods), len(placement.node_sets),
                  self._window_id, self.shard or "0")
         return None
+
+    def _unwind_gang_journaled(self, iid: Optional[str], prep: _ChunkPrep,
+                               placement: GangPlacement, node_of: Dict[int, str],
+                               created: List[str]) -> None:
+        """The unwind bracketed by the journal: ``unwinding`` is durable
+        before the first rollback write and ``unwound`` after the last, so
+        recovery resumes (unwinding) or skips (unwound) a crashed one."""
+        journal = self.journal
+        if journal is not None and iid is not None:
+            journal.advance(iid, "unwinding", nodes=sorted(set(node_of.values())),
+                            created=list(created))
+        self._unwind_gang(prep, placement, node_of, created)
+        if journal is not None and iid is not None:
+            journal.advance(iid, "unwound")
+            journal.close(iid, outcome="unwound")
 
     def _create_gang_node(self, constraints: Constraints, itype) -> Optional[str]:
         """Launch ONE node of ``itype`` and create its Node object
@@ -1026,9 +1150,25 @@ class ProvisionerWorker:
             node.spec.taints.extend(constraints.taints)
             return self._bind(node, pods_per_node.pop(0) if pods_per_node else [])
 
-        errs = self.cloud_provider.create(constraints, packing.instance_type_options,
-                                          packing.node_quantity, bind)
+        journal = self.journal
+        if journal is None:
+            errs = self.cloud_provider.create(constraints, packing.instance_type_options,
+                                              packing.node_quantity, bind)
+            errs = [e for e in errs if e]
+            return "; ".join(errs) if errs else None
+        # journaled fleet launch: the nonce is drawn and durable BEFORE the
+        # provider create and pre-stamped onto the capacity it launches, so
+        # a crash anywhere inside leaves instances recovery attributes
+        nonce = jr.new_nonce()
+        iid = journal.open_intent("fleet-launch", nonce=nonce,
+                                  provisioner=provisioner.metadata.name,
+                                  quantity=int(packing.node_quantity))
+        with jr.preassigned_nonce(nonce):
+            errs = self.cloud_provider.create(constraints, packing.instance_type_options,
+                                              packing.node_quantity, bind)
+        journal.advance(iid, "launched")
         errs = [e for e in errs if e]
+        journal.close(iid, outcome="error" if errs else "done")
         return "; ".join(errs) if errs else None
 
     def _bind(self, node: Node, pods: List[Pod]) -> Optional[str]:
@@ -1053,6 +1193,12 @@ class ProvisionerWorker:
                                         provisioner.metadata.name)
         # prevent the kube scheduler racing our binds (provisioner.go:164-176)
         node.spec.taints.append(Taint(key=wellknown.NOT_READY_TAINT_KEY, effect="NoSchedule"))
+        journal = self.journal
+        iid = None
+        if journal is not None:
+            iid = journal.open_intent(
+                "bind", node=node.metadata.name, provider_id=node.spec.provider_id,
+                pods=[f"{p.metadata.namespace}/{p.metadata.name}" for p in pods])
         try:
             self.kube.create(node)
         except AlreadyExists:
@@ -1060,7 +1206,11 @@ class ProvisionerWorker:
         except ApiError as e:
             # no Node object: the pods stay pending and re-enter the next
             # batch
+            if iid is not None:
+                journal.close(iid, outcome="error")
             return f"creating node object {node.metadata.name}: {e}"
+        if iid is not None:
+            journal.advance(iid, "node-created")
         # one locked pass for the node's whole pod set
         try:
             errs = self.kube.bind_pods(pods, node.metadata.name)
@@ -1079,7 +1229,12 @@ class ProvisionerWorker:
         # CloudProvider.create → _launch → the provision loop's error log,
         # and the unbound pods remain provisionable for the next batch
         if errs:
+            if iid is not None:
+                journal.close(iid, outcome="error")
             return f"binding {len(errs)} pod(s) to {node.metadata.name}: " + "; ".join(errs)
+        if iid is not None:
+            journal.advance(iid, "bound")
+            journal.close(iid)
         return None
 
 
@@ -1090,7 +1245,7 @@ class ProvisioningController:
     shape. ``shards=N``: N long-lived shard workers; each Provisioner's
     engine attaches to shard ``crc32(name) % N``. ``device`` (default: the
     CUDA device; ``"cpu"`` runs the plain versions) is resolved here, once,
-    and every worker runs on it."""
+    and every worker runs on it. ``journal`` is handed to every worker."""
 
     REQUEUE_SECONDS = 5 * 60  # catch zone/type drift (controller.go:82-83)
 
@@ -1098,8 +1253,10 @@ class ProvisioningController:
                  solver_config: Optional[SolverConfig] = None,
                  batcher_factory: Optional[Callable[[], Batcher]] = None,
                  pipeline_config: Optional[PipelineConfig] = None,
-                 shards: int = 0, device: DeviceLike = None):
+                 shards: int = 0, device: DeviceLike = None,
+                 journal: Optional["jr.IntentJournal"] = None):
         self.device = resolve_device(device)
+        self.journal = journal
         self.kube = kube
         self.cloud_provider = cloud_provider
         self.solver_config = solver_config
@@ -1124,7 +1281,7 @@ class ProvisioningController:
         worker = ProvisionerWorker(
             provisioner, self.kube, self.cloud_provider, solver_config=self.solver_config,
             batcher=self.batcher_factory(), pipeline_config=self.pipeline_config,
-            shard=shard, device=self.device)
+            shard=shard, device=self.device, journal=self.journal)
         worker.start()
         return worker
 

@@ -1,17 +1,18 @@
 """Selection controller: route provisionable pods to a Provisioner worker.
 
-Reference: pkg/controllers/selection/{controller.go,preferences.go}, and the
-JAX package's ``controllers/selection.py``. Filters to provisionable pods;
-validates supported features; relaxes preferences on retries; picks the
-first Provisioner whose constraints validate the pod and enqueues it on
-that Provisioner's worker.
+Reference: pkg/controllers/selection/{controller.go,preferences.go,
+volumetopology.go}, and the JAX package's ``controllers/selection.py``.
+Filters to provisionable pods; validates supported features; relaxes
+preferences on retries; injects volume topology (a claim's bound volume's
+node affinity, or its storage class's allowed topologies, as required node
+affinity); picks the first Provisioner whose constraints validate the pod
+and enqueues it on that Provisioner's worker.
 
 The route validates through the columnar engine
 (``feasibility.validate_pod_fast``: a memoized signature lookup per
 provisioner and pod shape, the scalar validator's verdicts and error
 strings). A pod shed at intake burns its band's SLO error budget
-(``slo.note_shed``). Left out: volume topology (the port's Pod has no
-volumes).
+(``slo.note_shed``).
 """
 
 from __future__ import annotations
@@ -22,7 +23,9 @@ import zlib
 from typing import Dict, List, Optional, Tuple
 
 from karpenter_tpu_torch.api import wellknown
-from karpenter_tpu_torch.api.core import Affinity, Pod
+from karpenter_tpu_torch.api.core import (
+    Affinity, NodeAffinity, NodeSelectorRequirement, NodeSelectorTerm, Pod,
+)
 from karpenter_tpu_torch.obs import slo
 from karpenter_tpu_torch.ops import feasibility
 from karpenter_tpu_torch.pressure import classify, get_monitor
@@ -144,6 +147,56 @@ class Preferences:
         return True
 
 
+class VolumeTopology:
+    """PVC/PV/StorageClass topology → pod node affinity
+    (volumetopology.go:37-128)."""
+
+    def __init__(self, kube: KubeCore):
+        self.kube = kube
+
+    def inject(self, pod: Pod) -> None:
+        requirements: List[NodeSelectorRequirement] = []
+        for volume in pod.spec.volumes:
+            requirements.extend(self._get_requirements(pod, volume))
+        if not requirements:
+            return
+        if pod.spec.affinity is None:
+            pod.spec.affinity = Affinity()
+        if pod.spec.affinity.node_affinity is None:
+            pod.spec.affinity.node_affinity = NodeAffinity()
+        na = pod.spec.affinity.node_affinity
+        if na.required is None:
+            na.required = []
+        if not na.required:
+            na.required.append(NodeSelectorTerm())
+        na.required[0].match_expressions.extend(requirements)
+
+    def _get_requirements(self, pod: Pod, volume) -> List[NodeSelectorRequirement]:
+        if volume.persistent_volume_claim is None:
+            return []
+        pvc = self.kube.get("PersistentVolumeClaim", volume.persistent_volume_claim.claim_name,
+                            pod.metadata.namespace)
+        if pvc.spec.volume_name:
+            return self._pv_requirements(pvc)
+        if pvc.spec.storage_class_name:
+            return self._storage_class_requirements(pvc)
+        return []
+
+    def _pv_requirements(self, pvc) -> List[NodeSelectorRequirement]:
+        pv = self.kube.get("PersistentVolume", pvc.spec.volume_name, "default")
+        if pv.spec.node_affinity is None or pv.spec.node_affinity.required is None:
+            return []
+        terms = pv.spec.node_affinity.required
+        return list(terms[0].match_expressions) if terms else []
+
+    def _storage_class_requirements(self, pvc) -> List[NodeSelectorRequirement]:
+        sc = self.kube.get("StorageClass", pvc.spec.storage_class_name, "default")
+        if not sc.allowed_topologies:
+            return []
+        return [NodeSelectorRequirement(key=r.key, operator="In", values=list(r.values))
+                for r in sc.allowed_topologies[0].match_label_expressions]
+
+
 class SelectionController:
     """controller.go:59-111.
 
@@ -159,6 +212,7 @@ class SelectionController:
         self.kube = kube
         self.provisioning = provisioning_controller
         self.preferences = Preferences()
+        self.volume_topology = VolumeTopology(kube)
 
     def reconcile(self, name: str, namespace: str = "default") -> Optional[float]:
         # no-copy provisionability probe first
@@ -202,9 +256,13 @@ class SelectionController:
         return base * requeue_jitter(key)
 
     def _select_provisioner(self, pod: Pod) -> Optional[str]:
-        """controller.go:84-111: relax → first matching provisioner →
-        enqueue."""
+        """controller.go:84-111: relax → volume topology → first matching
+        provisioner → enqueue."""
         self.preferences.relax(pod)
+        try:
+            self.volume_topology.inject(pod)
+        except NotFound as e:
+            return f"getting volume topology requirements: {e}"
         targets = self.provisioning.targets()
         if not targets:
             return None

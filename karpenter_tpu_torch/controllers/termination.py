@@ -10,8 +10,9 @@ finalizer, and the API server removes the Node.
 The EvictionQueue is a single background worker with exponential backoff
 (100 ms → 10 s) and a dedupe set (eviction.go:25-115). A terminated
 node's torus carves leave the occupancy ledger (``ops/topology.LEDGER``),
-so no later gang window offers its grid as a seed bin. Left out: the
-intent journal.
+so no later gang window offers its grid as a seed bin. Given
+``journal=``, each teardown is a ``node-delete`` intent (open →
+instance-deleted → closed) and the released carves' intents close with it.
 """
 
 from __future__ import annotations
@@ -128,9 +129,10 @@ class EvictionQueue:
 class Terminator:
     """terminate.go."""
 
-    def __init__(self, kube: KubeCore, cloud_provider: CloudProvider):
+    def __init__(self, kube: KubeCore, cloud_provider: CloudProvider, journal=None):
         self.kube = kube
         self.cloud_provider = cloud_provider
+        self.journal = journal
         self.eviction_queue = EvictionQueue(kube)
 
     def cordon(self, node: Node) -> None:
@@ -157,10 +159,22 @@ class Terminator:
         return False
 
     def terminate(self, node: Node) -> None:
-        """CloudProvider.Delete, then strip the finalizer (terminate.go)."""
+        """CloudProvider.Delete, then strip the finalizer (terminate.go).
+        Journaled as a ``node-delete`` intent: a crash between the instance
+        delete and the finalizer strip leaves a Node whose instance is gone,
+        and recovery finishes exactly this method."""
+        journal = self.journal
+        iid = None
+        if journal is not None:
+            iid = journal.open_intent("node-delete", node=node.metadata.name,
+                                      provider_id=node.spec.provider_id)
         err = self.cloud_provider.delete(node)
         if err is not None:
+            if iid is not None:
+                journal.close(iid, outcome="error")
             raise RuntimeError(f"terminating cloudprovider instance: {err}")
+        if iid is not None:
+            journal.advance(iid, "instance-deleted")
 
         def apply(live: Node):
             live.metadata.finalizers = [
@@ -169,16 +183,22 @@ class Terminator:
         try:
             self.kube.patch("Node", node.metadata.name, node.metadata.namespace, apply)
         except NotFound:
+            if iid is not None:
+                journal.close(iid)
             self._release_carves(node.metadata.name)
             return
+        if iid is not None:
+            journal.close(iid)
         self._release_carves(node.metadata.name)
         log.info("deleted node %s", node.metadata.name)
 
     def _release_carves(self, name: str) -> None:
         """A terminated node's ledger carves die with it; otherwise the next
         gang window would keep offering the dead node's residual grid as a
-        seed bin."""
-        topo_ops.LEDGER.pop_node(name)
+        seed bin. Their durable carve intents close with them."""
+        for rec in topo_ops.LEDGER.pop_node(name):
+            if self.journal is not None and rec.intent_id:
+                self.journal.close(rec.intent_id, outcome="node-terminated")
 
     def _get_evictable_pods(self, pods: List[Pod]) -> List[Pod]:
         evictable = []
@@ -208,9 +228,9 @@ class Terminator:
 class TerminationController:
     """controller.go:62-98."""
 
-    def __init__(self, kube: KubeCore, cloud_provider: CloudProvider):
+    def __init__(self, kube: KubeCore, cloud_provider: CloudProvider, journal=None):
         self.kube = kube
-        self.terminator = Terminator(kube, cloud_provider)
+        self.terminator = Terminator(kube, cloud_provider, journal=journal)
 
     def kind(self) -> str:
         return "Node"

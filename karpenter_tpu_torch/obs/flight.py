@@ -15,9 +15,14 @@ The JAX package's ``obs/flight.py``. Triggers, hooked at the source:
   the offending band, stage, burn rate, and a sample slow window's
   trace id.
 
+- ``chaos-fault`` — `FaultPlan.decide()` in ``chaos/inject.py`` firing a
+  planned fault; tagged with the kind, boundary, op, call index and seed.
+- ``recovery-rollback`` — `RecoveryController.run()` in
+  ``controllers/recovery.py`` rolling back at least one intent; tagged
+  with the rollback, forward and noop counts.
+
 The JAX package's ``watchdog-trip`` has no source here: the port has no
-device watchdog (a device error raises). Its ``chaos-fault`` and
-``recovery-rollback`` come with the intent journal.
+device watchdog (a device error raises).
 
 Dumps are rate-limited (``min_interval_s``); with no directory configured
 the recorder never touches the filesystem. ``slo-burn`` is limited on its

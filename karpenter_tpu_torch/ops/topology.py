@@ -25,9 +25,11 @@ initial planes implies carve-infeasible later and skipping is sound.
 on real nodes (:data:`LEDGER`): it feeds partly occupied pods back into
 the next window as seed bins and names the residents preemption may
 displace; every change republishes the JAX package's
-``karpenter_topology_ledger_nodes`` gauge. Left out of the reference: the
-journal fields (``CarveRecord.intent_id``, ``sig_from_json``), which come
-with the intent journal.
+``karpenter_topology_ledger_nodes`` gauge. Each record carries the id of
+the long-lived ``carve`` intent that makes it durable
+(``CarveRecord.intent_id``); startup recovery rebuilds the ledger from the
+open carve intents, re-tupling their JSON signatures with
+:func:`sig_from_json`.
 """
 
 from __future__ import annotations
@@ -151,6 +153,16 @@ def constraints_sig(labels: Optional[dict], taints: Optional[Sequence]) -> tuple
     return (lab, tnt)
 
 
+def sig_from_json(obj):
+    """Re-tuple a constraints signature that round-tripped through the
+    intent journal (JSON turns the nested tuples into lists). Recovery must
+    restore the exact tuple shape, or the rebuilt ledger's nodes would
+    never match a window's ``constraints_sig`` and stop being seed bins."""
+    if isinstance(obj, (list, tuple)):
+        return tuple(sig_from_json(x) for x in obj)
+    return obj
+
+
 # -- the process occupancy ledger -----------------------------------------
 
 @dataclass
@@ -161,6 +173,10 @@ class CarveRecord:
     cells: np.ndarray            # flat cell indices held on the node
     band: str
     pods: List[Tuple[str, str]]  # (namespace, name) of the members here
+    # the write-ahead carve intent backing this record ("" with no journal):
+    # every release seam (preemption, unwind, termination, prune) closes
+    # the durable half through it
+    intent_id: str = ""
 
 
 @dataclass
@@ -183,7 +199,9 @@ class OccupancyLedger:
     bin pool and to enumerate preemption victims. ``prune(live)`` drops
     nodes the cluster no longer has (the controller calls it every gang
     window); the termination controller drops a terminated node at once
-    (``pop_node``)."""
+    (``pop_node``). The in-memory state is the cache; the durable half is
+    the journal's open ``carve`` intents, and every seam that removes a
+    record returns it so the caller can close its intent."""
 
     def __init__(self) -> None:
         self._lock = threading.Lock()
@@ -191,7 +209,7 @@ class OccupancyLedger:
 
     def commit(self, node: str, dims: Sequence[int], type_name: str,
                labels_sig: tuple, gang_key: Any, cells: Sequence[int],
-               band: str, pods: Sequence[Tuple[str, str]]) -> None:
+               band: str, pods: Sequence[Tuple[str, str]], intent_id: str = "") -> None:
         with self._lock:
             ng = self._nodes.get(node)
             if ng is None or tuple(ng.dims) != tuple(dims):
@@ -201,12 +219,13 @@ class OccupancyLedger:
             idx = np.asarray(list(cells), np.int64)
             ng.occ[idx] = True
             ng.carves[gang_key] = CarveRecord(gang_key=gang_key, cells=idx, band=band,
-                                              pods=list(pods))
+                                              pods=list(pods), intent_id=intent_id)
         self._gauge()
 
     def pop_gang(self, gang_key: Any) -> List[Tuple[str, CarveRecord]]:
         """Free every cell the gang holds anywhere; empty nodes drop out.
-        Returns the removed ``(node, record)`` pairs."""
+        Returns the removed ``(node, record)`` pairs, whose intent ids the
+        caller closes in the journal."""
         removed: List[Tuple[str, CarveRecord]] = []
         with self._lock:
             for name in list(self._nodes):
@@ -249,7 +268,8 @@ class OccupancyLedger:
             return [NodeGrid(
                 node=ng.node, dims=ng.dims, type_name=ng.type_name,
                 labels_sig=ng.labels_sig, occ=ng.occ.copy(),
-                carves={k: CarveRecord(r.gang_key, r.cells.copy(), r.band, list(r.pods))
+                carves={k: CarveRecord(r.gang_key, r.cells.copy(), r.band, list(r.pods),
+                                       r.intent_id)
                         for k, r in ng.carves.items()})
                 for ng in self._nodes.values()]
 

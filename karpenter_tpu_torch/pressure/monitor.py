@@ -32,7 +32,10 @@ Signals (each maps to a rung; the target level is the max):
 
 The JAX package's solver-breaker and kube-throttle signals are left out:
 the port has no device breaker (a device error raises) and no rate-limited
-API client. Chaos hooks are left out too.
+API client. The chaos plan reaches both samples the port keeps: a
+``pressure``/``depth`` ``queue-flood`` adds half the depth bound and a
+``pressure``/``rss`` ``memory-pressure`` adds 87 % of the watermark, one
+decision per evaluation.
 
 Hysteresis: the level RISES immediately but FALLS one rung at a time, and
 only after the computed target has stayed below the held level for
@@ -52,6 +55,7 @@ from dataclasses import dataclass
 from enum import IntEnum
 from typing import Callable, Dict, Optional, Tuple
 
+from karpenter_tpu_torch.chaos.inject import active_fault
 from karpenter_tpu_torch.metrics.pressure import INTAKE_QUEUE_DEPTH, PRESSURE_LEVEL
 from karpenter_tpu_torch.obs import flight
 
@@ -173,11 +177,18 @@ class PressureMonitor:
         if self._rss_at is None or now - self._rss_at >= self.rss_sample_interval:
             self._rss = self._rss_fn() - self._rss_base
             self._rss_at = now
-        return self._rss
+        rss = self._rss
+        if active_fault("pressure", "rss") == "memory-pressure":
+            # synthetic memory pressure: 87% of the watermark on top of
+            # reality, the L2 band, without allocating anything
+            rss += int(0.87 * self.config.rss_watermark_bytes)
+        return rss
 
     def _target(self, now: float) -> PressureLevel:
         c = self.config
         depth = sum(self._depths.values())
+        if active_fault("pressure", "depth") == "queue-flood":
+            depth += c.max_depth // 2  # synthetic flood: at least L2 depth
         window = self._window_s
         if self._window_at is None or now - self._window_at > WINDOW_STALENESS_SECONDS:
             window = 0.0

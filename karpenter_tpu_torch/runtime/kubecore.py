@@ -3,8 +3,9 @@
 A trimmed copy of the JAX package's store (``runtime/kubecore.py``): the
 API-server semantics the provisioning path reads and writes, in process.
 
-- create, get, read (no copy), list, patch (read-modify-write under the
-  store lock) and delete, with a monotonically increasing resourceVersion.
+- create, get, read and scan (no copy), list, patch (read-modify-write
+  under the store lock) and delete, with a monotonically increasing
+  resourceVersion.
 - Delete sets deletionTimestamp when finalizers are present; the object is
   only removed once its finalizer list empties.
 - Watch: per-subscriber event queues with ADDED/MODIFIED/DELETED.
@@ -20,7 +21,7 @@ their stripes in sorted order. ``_watchers`` is copy-on-write:
 ``watch``/``unwatch`` replace it under ``_watch_lock`` and ``_notify``
 iterates a snapshot. resourceVersion is one shared ``itertools.count``.
 Left out, since no port controller calls them yet: full updates with their
-stale-version conflict, no-copy scans, delete preconditions, the one-pod
+stale-version conflict, delete preconditions, the one-pod
 binding, meta-only watches and the single-lock reference layout.
 """
 
@@ -277,6 +278,14 @@ class KubeCore:
             if obj is None:
                 raise NotFound(f"{kind} {namespace}/{name} not found")
             return deep_copy(obj)
+
+    def scan(self, kind: str, fn) -> List:
+        """Apply ``fn`` to every live object of ``kind`` under the kind's
+        stripe lock, WITHOUT copying, and return the results. ``fn`` must
+        treat the object as read-only and must not retain it."""
+        s = self._stripe(kind)
+        with s.lock:
+            return [fn(obj) for obj in s.objects.values()]
 
     def read(self, kind: str, name: str, namespace: str, fn):
         """Apply ``fn`` to one live object under the stripe lock (no copy);

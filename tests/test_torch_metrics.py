@@ -7,8 +7,9 @@ against the JAX package's, on the CPU.
   exact, the values are the sequence's own numbers.
 - **The families.** The series the port registers are the JAX package's
   ported families (``metrics/{core, filter, marshal, pipeline, policy,
-  pressure, global_solve, consolidation, gang, topology, slo}``, read from
-  the JAX package's ``DEFAULT.registered()``): the same names, types, help
+  pressure, global_solve, consolidation, gang, topology, slo, recovery}``
+  and the ``gc_*`` counters ``controllers/gc.py`` registers, read from the
+  JAX package's ``DEFAULT.registered()``): the same names, types, help
   text and buckets, and every one renders with its ``# HELP``.
 - **The metrics controllers.** The same store in each package's
   ``KubeCore`` gives the same node and pod gauge series, and a deleted
@@ -28,7 +29,9 @@ from karpenter_tpu_torch.metrics import registry as port_registry
 
 SEEDS = (1, 7, 42)
 FAMILIES = ("core", "filter", "marshal", "pipeline", "policy", "pressure", "global_solve",
-            "consolidation", "gang", "topology", "slo")
+            "consolidation", "gang", "topology", "slo", "recovery")
+# controllers that register series of their own beside their code
+CONTROLLER_SERIES = ("gc",)
 
 
 # -- the registry --------------------------------------------------------------
@@ -97,8 +100,9 @@ def jax_ported_families():
     """The JAX package's series defined by the ported family modules, from
     its DEFAULT registry: name -> metric object."""
     names = set()
-    for fam in FAMILIES:
-        mod = importlib.import_module(f"karpenter_tpu.metrics.{fam}")
+    mods = [importlib.import_module(f"karpenter_tpu.metrics.{fam}") for fam in FAMILIES]
+    mods += [importlib.import_module(f"karpenter_tpu.controllers.{c}") for c in CONTROLLER_SERIES]
+    for mod in mods:
         names |= {v.name for v in vars(mod).values()
                   if isinstance(v, (jax_registry.Gauge, jax_registry.Histogram))}
     core = importlib.import_module("karpenter_tpu.metrics.core")
@@ -116,6 +120,8 @@ def kind(metric, mod):
 def test_families_equal_the_jax_families():
     for fam in FAMILIES:
         importlib.import_module(f"karpenter_tpu_torch.metrics.{fam}")
+    for c in CONTROLLER_SERIES:
+        importlib.import_module(f"karpenter_tpu_torch.controllers.{c}")
     want = jax_ported_families()
     got = port_registry.DEFAULT.registered()
     assert sorted(got) == sorted(want)
