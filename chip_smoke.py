@@ -6,7 +6,9 @@ provisioning controller, the global window backend, node removal
 packing policies, gangs, torus carving and preemption, the delta-marshal
 window stream and the columnar controller at full size on one card, and
 observe a window through the port's metrics, traces, SLO engine and flight
-recorder.
+recorder; then the native host ring and its gate, the boot warm-up, and the
+controller process (main.build_manager under its Manager, and
+``python -m karpenter_tpu_torch.main`` as a process of its own).
 
     python3 chip_smoke.py
 
@@ -191,6 +193,28 @@ nvcc each, both at once). Phases, each printing one JSON record:
    preempt kill points with recovery and re-drives: gangs whole or
    absent, the ledger exactly the bound slice gangs' carves, no leak
    (phase_gang_journal);
+21c. native_ring: the native host ring and its gate (device_min_pods,
+   512 pods) on config_4's catalog: solve() at 16 to 9,984 pods equal to
+   the per-pod oracle, "native" below the gate and "device" at and above
+   it; the ring's and the card's median walls at each size and the
+   crossover; config_12's window batched on the card against each problem
+   alone on the ring; the per-pod ring's node counts on the 50,016-pod
+   window's problems equal to the device's (phase_native_ring);
+21d. warmup: solver/warmup.warmup_pass twice into a library directory of
+   its own, cold (three builds) then warm (three loads), and a first solve
+   at a warmed bucket that allocates no ring buffer (phase_warmup);
+21e. main: main.build_manager in process with the defaults, a journal and
+   a flight directory: config_12's 9,984-pod window through the Manager's
+   watch pumps and workqueues, every pod bound once, no leak, no open
+   intent, the binds equal controller_columnar's where one batcher window
+   took every pod, the pack launches held against the plain version; a
+   40-pod window on
+   the ring; the four HTTP endpoints; no thread left after stop
+   (phase_main);
+21f. main_process: python -m karpenter_tpu_torch.main on the card with
+   --solver-warmup --leader-elect --journal-dir: boot to /readyz 200 and
+   the warm-up's share, rc 0 on SIGTERM with the Lease released, rc 1
+   without --cluster-name (phase_main_process);
 22. each phase's seconds on a line of its own as it ends; the
    device-programs line (B7, B8, B5, B6, B11, the member column, B13), the
    kernels line (pack_chunk, pack_batch with the price-row launch beside
@@ -233,6 +257,13 @@ controller with every default, in a process that holds nothing else.
 times the public solve() on config_4 (one cold run, then the warm runs
 of phase 3), the same way in any tree it is copied into: the parent/change
 A/B of solve()'s host path.
+
+    python3 chip_smoke.py --manager-flood
+
+drives config_12's window through main.build_manager with every default
+at 2,496, 4,992 and 9,984 pods (each until bound or 240 s): the seconds,
+the pods bound, and the CPU seconds of each thread group (selection
+workers, pumps, the provisioning worker) over the flood.
 """
 
 from __future__ import annotations
@@ -251,6 +282,12 @@ HIGHCARD_PODS, HIGHCARD_SHAPES = 50_000, 8_000
 # types): 1070 in every H100 run that held the device solve against it
 # (PERF.md sections 2 and 6); the oracle takes minutes on the host
 HIGHCARD_NODES = 1070
+# node decisions of the first high-cardinality chunk held against the plain
+# version, its bound and its plain time: the plain run walks the 8192 bucket
+# in Python steps (about two minutes at the solve's 64), so it is cut to a
+# quarter to keep the whole script inside its limit; the kernel is also
+# timed at the solve's 64 (``ms_64``, the series PERF.md tracks)
+HIGHCARD_CHECK_ITERS = 16
 WARM_RUNS = 25
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3 (NVIDIA data sheet)
 # the host link of an H100 SXM: PCIe 5.0 x16, 64 GB/s each way (the data
@@ -283,6 +320,17 @@ def check(cond: bool, what: str) -> None:
 
 
 # -- workload generators (bench.py:121-164 and :724-735) ---------------------
+
+def card_config(**kw):
+    """The solver configuration of the phases written before the native
+    ring's gate came back: ``device_min_pods=0`` sends every problem and
+    window to the pack kernel, whatever its size, so those phases launch
+    what they launched before (the gate's default, 512 pods, would answer
+    their sub-512-pod problems on the ring)."""
+    from karpenter_tpu_torch.solver.solve import SolverConfig
+
+    return SolverConfig(device_min_pods=0, **kw)
+
 
 def make_catalog(n_types, zones=3, price_base=0.05, cpus_per_gpu=0, spot_rate=None):
     """The synthetic catalog; with ``cpus_per_gpu`` every type carries
@@ -810,14 +858,18 @@ def phase_highcard(device):
 
     args, maxfit, *_ = chunk_inputs(pods, catalog, constraints, device)
     check(int(args[0].shape[0]) == 8192, "high-cardinality did not reach the 8192 bucket")
-    kern = time_kernel(args, maxfit, 64, 3)
+    kern = time_kernel(args, maxfit, HIGHCARD_CHECK_ITERS, 3)
+    facts, dargs = host_facts(args), on_device_scalars(args)
+    kern["ms_64"] = cuda_ms(lambda: pack_cuda.pack_chunk(
+        *dargs, num_iters=64, maxfit=maxfit, log_bound=facts[0], resource_mask=facts[1]), 3)
     prof = profile_solve(lambda: solve(constraints, pods, catalog, device=device))
     rec = {"phase": "high_cardinality", "pods": len(pods),
            "distinct_shapes": HIGHCARD_SHAPES, "node_count": result.node_count,
            "expected_node_count": HIGHCARD_NODES,
            "unschedulable": len(result.unschedulable),
            "executor": "device", "launches_per_solve": launches,
-           "solve_ms": solve_ms, "first_chunk_bit_identical": True, "kernel": kern,
+           "solve_ms": solve_ms, "first_chunk_bit_identical": True,
+           "check_iters": HIGHCARD_CHECK_ITERS, "kernel": kern,
            "profiled_solve": prof}
     emit(rec)
     return rec
@@ -1196,7 +1248,8 @@ def phase_window(device, per, warm_runs):
     run = handle.device_run
     for b, (prob, got) in enumerate(zip(problems, results)):
         want = canonical(got, prob.pods)
-        check(want == canonical(solve(prob.constraints, prob.pods, catalog, device=device),
+        check(want == canonical(solve(prob.constraints, prob.pods, catalog, device=device,
+                                      config=card_config()),
                                 prob.pods), f"window: problem {b} != solo solve()")
         check(want == canonical(numpy_result(prob), prob.pods),
               f"window: problem {b} != solve_ffd_numpy")
@@ -1264,7 +1317,8 @@ def phase_mixed_window(device):
           f"mixed window walked the buckets {run.buckets}")
     for b, (prob, got) in enumerate(zip(problems, results)):
         check(canonical(got, prob.pods) ==
-              canonical(solve(prob.constraints, prob.pods, catalog, device=device), prob.pods),
+              canonical(solve(prob.constraints, prob.pods, catalog, device=device,
+                              config=card_config()), prob.pods),
               f"mixed window: problem {b} != solo solve()")
     rec = {"phase": "mixed_window", "schedules": len(problems),
            "pods": sum(len(p.pods) for p in problems),
@@ -1493,7 +1547,6 @@ def phase_controller_columnar(device):
     from karpenter_tpu_torch.ops import feasibility
     from karpenter_tpu_torch.solver import pipeline
     from karpenter_tpu_torch.solver.pipeline import PipelineConfig
-    from karpenter_tpu_torch.solver.solve import SolverConfig
 
     catalog = make_catalog(WINDOW_TYPES)
     real_compile = feasibility.compile_constraints
@@ -1502,7 +1555,7 @@ def phase_controller_columnar(device):
     for mode in ("columnar", "scalar"):
         if mode == "scalar":
             feasibility.compile_constraints = lambda c: None
-        run = ControllerRun(catalog, device, SolverConfig(window_backend="ffd"),
+        run = ControllerRun(catalog, device, card_config(window_backend="ffd"),
                             PipelineConfig(chunk_items=0))
         try:
             recs = []
@@ -1591,12 +1644,11 @@ def calling_thread_worker(kube, provider, provisioner, device, journal=None):
     from karpenter_tpu_torch.pressure import PressureConfig, PressureMonitor
     from karpenter_tpu_torch.scheduling.batcher import Batcher
     from karpenter_tpu_torch.solver.pipeline import PipelineConfig
-    from karpenter_tpu_torch.solver.solve import SolverConfig
 
     monitor = PressureMonitor(PressureConfig(
         rss_watermark_bytes=0, window_l1_seconds=60.0, window_l2_seconds=120.0))
     return ProvisionerWorker(
-        provisioner, kube, provider, solver_config=SolverConfig(window_backend="ffd"),
+        provisioner, kube, provider, solver_config=card_config(window_backend="ffd"),
         batcher=Batcher(idle_seconds=0.01, max_seconds=120.0, monitor=monitor),
         pipeline_config=PipelineConfig(chunk_items=0), device=device, journal=journal)
 
@@ -1752,11 +1804,10 @@ def phase_observability(device, columnar_binds):
     from karpenter_tpu_torch.obs import slo, trace
     from karpenter_tpu_torch.solver import pipeline
     from karpenter_tpu_torch.solver.pipeline import PipelineConfig
-    from karpenter_tpu_torch.solver.solve import SolverConfig
 
     catalog = make_catalog(WINDOW_TYPES)
     was_slo = slo.enabled()
-    run = ControllerRun(catalog, device, SolverConfig(window_backend="ffd"),
+    run = ControllerRun(catalog, device, card_config(window_backend="ffd"),
                         PipelineConfig(chunk_items=0))
     try:
         trace.reset()
@@ -2116,10 +2167,10 @@ def phase_controller_deployed(device):
     and pressure monitor, the collector on). Checks: every chunk at
     pressure level 0, one batcher window, every pod bound once (group 15's
     ENI pods stay Pending), the global leg run for every schedule on the
-    card with no error, every problem answered by "device-batch" or
-    "device". The process's resident set size is read at start, after the
-    controller's construction and after the window, beside the monitor's
-    watermark."""
+    card with no error, every problem answered by "device-batch", "device"
+    or (a problem solved alone under 512 pods) "native". The process's
+    resident set size is read at start, after the controller's construction
+    and after the window, beside the monitor's watermark."""
     from karpenter_tpu_torch.pressure import get_monitor, read_rss_bytes
 
     rss = {"start": read_rss_bytes()}
@@ -2146,7 +2197,9 @@ def phase_controller_deployed(device):
               f"deployed controller: the global leg ran for chunks "
               f"{[c['global'] for c in run.chunks]}, answered {counts}, "
               f"{rec['global_errors']} errors")
-        check(set(counts) <= {"device-global", "device-batch", "device"},
+        # every default, the ring's gate too: a problem a chunk solves
+        # alone under 512 pods is the native ring's
+        check(set(counts) <= {"device-global", "device-batch", "device", "native"},
               f"deployed controller answered by {counts}")
     finally:
         run.stop()
@@ -2218,22 +2271,22 @@ def phase_controller_runs(device, t_phase):
 
     import torch
 
+    from karpenter_tpu_torch import build_dir
     from karpenter_tpu_torch.ops import global_solve as gops
     from karpenter_tpu_torch.ops import pack_cuda
     from karpenter_tpu_torch.solver import global_solve as gs
     from karpenter_tpu_torch.solver.batch_solve import solve_batch
     from karpenter_tpu_torch.solver.pipeline import PipelineConfig
-    from karpenter_tpu_torch.solver.solve import SolverConfig
 
     catalog = make_catalog(WINDOW_TYPES)
-    ffd = SolverConfig(window_backend="ffd")
+    ffd = card_config(window_backend="ffd")
 
     def emit_run(rec):
         emit({"phase": "controller", **rec})
 
     # run 1, with the kernel rebuilt and every launch traced to its thread
     threads, builds = [], []
-    library, build, build_dir = pack_cuda._library, pack_cuda.build, pack_cuda.BUILD_DIR
+    library, build, lib_dir = pack_cuda._library, pack_cuda.build, build_dir.PATH
 
     def traced_library():
         threads.append(threading.current_thread().name)
@@ -2244,7 +2297,7 @@ def phase_controller_runs(device, t_phase):
         return build()
 
     pack_cuda._library, pack_cuda.build = traced_library, traced_build
-    pack_cuda.BUILD_DIR, pack_cuda._LIB = build_dir / "worker-thread", None
+    build_dir.PATH, pack_cuda._LIB = lib_dir / "worker-thread", None
     run = ControllerRun(catalog, device, ffd, PipelineConfig(chunk_items=0))
     try:
         windows = []
@@ -2267,7 +2320,7 @@ def phase_controller_runs(device, t_phase):
                 problems = run.problems[0]
                 counts = rec["executor_counts"]
                 reset_counts()
-                replay = solve_batch(problems, device=device)
+                replay = solve_batch(problems, card_config(), device=device)
                 check(executor_counts() == counts, "controller: replay answered otherwise")
                 check(node_multiset(replay) == Counter(run.binds),
                       "controller: nodes differ from solve_batch on the same problems")
@@ -2289,7 +2342,7 @@ def phase_controller_runs(device, t_phase):
             windows.append(rec)
     finally:
         pack_cuda._library, pack_cuda.build = library, build
-        pack_cuda.BUILD_DIR = build_dir
+        build_dir.PATH = lib_dir
         run.stop()
     emit_run({"run": "config12_one_chunk", "backend": "ffd", "windows": len(windows),
                     "wall_p50_s": p50([r["wall_s"] for r in windows]),
@@ -2351,7 +2404,7 @@ def phase_controller_runs(device, t_phase):
     gs.dispatch_global_window = recording_dispatch
     catalog14 = config14_catalog()
     try:
-        def global_window(dev, prefix, config=SolverConfig()):
+        def global_window(dev, prefix, config=card_config()):
             gops.SUPPORT.reset()
             plans.clear()
             r = ControllerRun(catalog14, dev, config)
@@ -2674,10 +2727,9 @@ def phase_global_window(device):
     from karpenter_tpu_torch.solver import global_solve as gs
     from karpenter_tpu_torch.solver import relax
     from karpenter_tpu_torch.solver.batch_solve import dispatch_batch
-    from karpenter_tpu_torch.solver.solve import SolverConfig
 
     problems = config14_problems()
-    config = SolverConfig()
+    config = card_config()
     win = encode_window(problems, config.cost_config)
     gops.SUPPORT.reset()
     reset_counts()
@@ -3692,13 +3744,12 @@ def phase_deprovision(device):
     from karpenter_tpu_torch.controllers.node import NodeController
     from karpenter_tpu_torch.controllers.termination import TerminationController
     from karpenter_tpu_torch.ops import whatif_cuda as wc
-    from karpenter_tpu_torch.solver.solve import SolverConfig
     from karpenter_tpu_torch.utils import clock
 
     t_phase = time.perf_counter()
     rng = np.random.default_rng(SEED)
     catalog = make_catalog(400)
-    run = ControllerRun(catalog, device, SolverConfig(window_backend="ffd"),
+    run = ControllerRun(catalog, device, card_config(window_backend="ffd"),
                         nodes_become_ready=False)
     try:
         pods = config4_pending_pods(rng)
@@ -4051,7 +4102,7 @@ def phase_policy_window(device):
     from karpenter_tpu_torch.solver.adapter import marshal_pods_interned
     from karpenter_tpu_torch.solver.batch_solve import Problem, dispatch_batch, solve_batch
     from karpenter_tpu_torch.solver.policy import PolicyContext
-    from karpenter_tpu_torch.solver.solve import SolverConfig, solve, universe_constraints
+    from karpenter_tpu_torch.solver.solve import solve, universe_constraints
 
     t_phase = time.perf_counter()
     cost = CostConfig()
@@ -4082,7 +4133,7 @@ def phase_policy_window(device):
               f"policy_window: cheapest row {b} != encode_prices of the host scores")
     taxed = sum(int((a != c).sum()) for a, c in zip(rows, rows_c))
     check(taxed > 0, "policy_window: the reclaim tax moved no cell")
-    cfg = SolverConfig(packing_policy="interruption-priced", policy_context=ctx)
+    cfg = card_config(packing_policy="interruption-priced", policy_context=ctx)
     reset_counts()
     handle = dispatch_batch(problems, cfg, device)   # the policy's window path
     results = handle.fetch()
@@ -4119,8 +4170,8 @@ def phase_policy_window(device):
         pctx = PolicyContext(repack_cost_per_hour=v)
         probs = [Problem(constraints=universe_constraints(mini), pods=make_pods(40, [(500, 512)]),
                          instance_types=mini) for _ in range(2)]
-        rs = solve_batch(probs, SolverConfig(packing_policy="interruption-priced",
-                                             policy_context=pctx), device=device)
+        rs = solve_batch(probs, card_config(packing_policy="interruption-priced",
+                                            policy_context=pctx), device=device)
         reqs = probs[0].constraints.requirements
         scalar_spot = {priced.score(p.instance_type_options[0], reqs, cost, pctx)[1]
                        == wk.CAPACITY_TYPE_SPOT for res in rs for p in res.packings}
@@ -4160,8 +4211,9 @@ def phase_policy_window(device):
         pods=p.pods, instance_types=catalog18) for p, z in zip(problems18, steers)]
     plain = [Problem(constraints=p.constraints, pods=p.pods, instance_types=catalog18)
              for p in problems18]
-    nodes_steered = sum(res.node_count for res in solve_batch(steered, device=device))
-    nodes_plain = sum(res.node_count for res in solve_batch(plain, device=device))
+    nodes_steered = sum(res.node_count for res in solve_batch(steered, card_config(),
+                                                              device=device))
+    nodes_plain = sum(res.node_count for res in solve_batch(plain, card_config(), device=device))
     check(nodes_steered <= nodes_plain * 1.01,
           f"policy_window: steering took {nodes_steered} nodes against {nodes_plain}")
     check(ops_policy.MISMATCHES == mism0,
@@ -4321,13 +4373,12 @@ def phase_controller_affinity(device):
     from karpenter_tpu_torch.ops import device_filter, pack_cuda
     from karpenter_tpu_torch.ops import policy as ops_policy
     from karpenter_tpu_torch.solver.pipeline import PipelineConfig
-    from karpenter_tpu_torch.solver.solve import SolverConfig
 
     t_phase = time.perf_counter()
     catalog = make_catalog(WINDOW_TYPES)
     runs = {}
     for policy in ("cheapest", "interruption-priced"):
-        cfg = SolverConfig(window_backend="ffd", packing_policy=policy)
+        cfg = card_config(window_backend="ffd", packing_policy=policy)
         run = ControllerRun(catalog, device, cfg, PipelineConfig(chunk_items=0))
         try:
             base = config12_controller_pods(catalog, 416, "w")
@@ -5287,13 +5338,12 @@ def phase_controller_gang(device, journal=None, after=None, phase="controller_ga
     from karpenter_tpu_torch.ops import whatif_cuda as wc
     from karpenter_tpu_torch.solver import topology as topo_solver
     from karpenter_tpu_torch.solver.pipeline import PipelineConfig
-    from karpenter_tpu_torch.solver.solve import SolverConfig
 
     t_phase = time.perf_counter()
     topo.LEDGER.reset()
     feasibility.clear_gang_cache()
     catalog = tpu_catalog()
-    run = ControllerRun(catalog, device, SolverConfig(window_backend="ffd"),
+    run = ControllerRun(catalog, device, card_config(window_backend="ffd"),
                         PipelineConfig(chunk_items=0), journal=journal)
     commits, preempted = [], []
     worker = run.worker
@@ -5707,6 +5757,7 @@ def soak_catalog(device):
             d = journal_dir("soak")
             try:
                 out = soak.soak_once(d, point, seed=1, window=1, device=device,
+                                     solver_config=card_config(),
                                      reference=reference.get(carve), fsync=True)
             finally:
                 shutil.rmtree(d, ignore_errors=True)
@@ -5745,13 +5796,12 @@ def phase_journal(device, columnar_binds):
 
     from karpenter_tpu_torch.runtime.journal import IntentJournal
     from karpenter_tpu_torch.solver.pipeline import PipelineConfig
-    from karpenter_tpu_torch.solver.solve import SolverConfig
 
     catalog = make_catalog(WINDOW_TYPES)
     d = journal_dir("window")
     fs = fs_type(d)
     journal = IntentJournal(d, fsync=True)
-    run = ControllerRun(catalog, device, SolverConfig(window_backend="ffd"),
+    run = ControllerRun(catalog, device, card_config(window_backend="ffd"),
                         PipelineConfig(chunk_items=0), journal=journal)
     try:
         before = journal_counters()
@@ -5978,6 +6028,595 @@ def phase_gang_journal(device):
             "max_abs_err": max(rec["max_abs_err"], out["max_abs_err"])}
 
 
+# -- the controller process (A7 and the process half of A8-main) -------------
+
+NATIVE_SIZES = (16, 64, 256, 511, 512, 2048, 9984)
+# above this size the oracle is the per-pod C++ ring (kt_ffd_pack_per_pod),
+# the transcription of host_ffd.pack that tests/test_torch_native_ffd.py
+# holds equal to it to the full result key: host_ffd.pack itself takes 18 s
+# at 2,048 pods and 414 s at 9,984 on config_4's catalog on one CPU core
+NATIVE_PYTHON_ORACLE_MAX = 512
+# config_12's window at 21 pods a schedule (504 pods: under the gate) with
+# WARM_RUNS timed runs, and at 416 (9,984 pods) with 5
+NATIVE_WINDOWS = ((21, WARM_RUNS), (416, 5))
+# config_12's window under the Manager: 416 pods a schedule, 9,984 pods
+MAIN_PER = 416
+MAIN_LATE_PODS = 40
+MAIN_FLOOD_DEADLINE_S = 240.0
+MAIN_PROCESS_DEADLINE_S = 120.0
+
+
+def oracle_result(pods, catalog, constraints):
+    """The per-pod oracle materialized like solve(): host_ffd.pack up to
+    NATIVE_PYTHON_ORACLE_MAX pods, its C++ transcription above."""
+    from karpenter_tpu_torch.solver import host_ffd
+    from karpenter_tpu_torch.solver.adapter import build_packables, pod_vectors
+    from karpenter_tpu_torch.solver.native_ffd import solve_ffd_per_pod_native
+    from karpenter_tpu_torch.solver.solve import SolverConfig, materialize
+
+    packables, sorted_types = build_packables(catalog, constraints, pods, [])
+    vecs, ids = pod_vectors(pods), list(range(len(pods)))
+    if len(pods) <= NATIVE_PYTHON_ORACLE_MAX:
+        host = host_ffd.pack(vecs, ids, packables)
+    else:
+        host = solve_ffd_per_pod_native(vecs, ids, packables)
+    return materialize(host, pods, sorted_types, constraints, SolverConfig())
+
+
+def ring_config():
+    """The solver configuration that answers every problem on the native
+    ring, whatever its size: the other side of card_config() in the gate's
+    timings."""
+    from karpenter_tpu_torch.solver.solve import SolverConfig
+
+    return SolverConfig(device_min_pods=sys.maxsize)
+
+
+def median_wall_ms(fn, runs):
+    """The median host wall of ``fn`` followed by a synchronize, over
+    ``runs`` calls after one warm call."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    walls = []
+    for _ in range(runs):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1000.0)
+    return p50(walls)
+
+
+def phase_native_ring(device):
+    """The native host ring and its gate (SolverConfig.device_min_pods, 512)
+    on config_4's catalog (400 types, MIXED_SHAPES):
+
+    a. solve() at each of NATIVE_SIZES: equal to the per-pod oracle
+       (oracle_result), answered "native" below 512 pods and "device" at
+       and above, the pack kernel launched exactly when "device";
+    b. the timings the gate waits for: at each size the median wall of
+       WARM_RUNS warm solves on the ring (ring_config) and on the card
+       (card_config), and the sizes where the card wins;
+       config_12's 24-schedule window (NATIVE_WINDOWS) batched on the card
+       against each problem alone on the ring, the same plans;
+    c. the per-pod ring on the 50,016-pod window's 24 problems: the node
+       counts of the batched device solve."""
+    from karpenter_tpu_torch.ops import pack_cuda
+    from karpenter_tpu_torch.solver.adapter import build_packables, pod_vectors
+    from karpenter_tpu_torch.solver.batch_solve import dispatch_batch, solve_batch
+    from karpenter_tpu_torch.solver.native_ffd import solve_ffd_per_pod_native
+    from karpenter_tpu_torch.solver.solve import solve, universe_constraints
+
+    catalog = make_catalog(400)
+    constraints = universe_constraints(catalog)
+    sizes = []
+    for n in NATIVE_SIZES:
+        pods = make_pods(n, MIXED_SHAPES)
+        reset_counts()
+        got = solve(constraints, pods, catalog, device=device)
+        launched = pack_cuda.LAUNCHES + pack_cuda.BATCH_LAUNCHES
+        executor = "native" if n < 512 else "device"
+        check(executor_counts() == {executor: 1},
+              f"native_ring: {n} pods answered by {executor_counts()}")
+        check((launched > 0) == (executor == "device"),
+              f"native_ring: {n} pods launched the pack kernel {launched} times")
+        check(canonical(got, pods) == canonical(oracle_result(pods, catalog, constraints), pods),
+              f"native_ring: {n} pods != the per-pod oracle")
+        sizes.append({
+            "pods": n, "executor": executor, "nodes": got.node_count, "launches": launched,
+            "oracle": ("host_ffd.pack" if n <= NATIVE_PYTHON_ORACLE_MAX
+                       else "kt_ffd_pack_per_pod"),
+            "native_p50_ms": median_wall_ms(
+                lambda: solve(constraints, pods, catalog, device=device,
+                              config=ring_config()), WARM_RUNS),
+            "device_p50_ms": median_wall_ms(
+                lambda: solve(constraints, pods, catalog, device=device,
+                              config=card_config()), WARM_RUNS)})
+    faster = [s["pods"] for s in sizes if s["device_p50_ms"] < s["native_p50_ms"]]
+
+    windows = []
+    wcat = make_catalog(WINDOW_TYPES)
+    for per, runs in NATIVE_WINDOWS:
+        problems = window_problems(wcat, per)
+        batched = solve_batch(problems, card_config(), device=device)
+        reset_counts()
+        alone = [solve(p.constraints, p.pods, wcat, device=device) for p in problems]
+        check(executor_counts() == {"native": len(problems)},
+              f"native_ring: the {per}-pod problems answered by {executor_counts()}")
+        check([canonical(r, p.pods) for r, p in zip(alone, problems)] ==
+              [canonical(r, p.pods) for r, p in zip(batched, problems)],
+              f"native_ring: the {per}-pod problems alone on the ring != the batch")
+        windows.append({
+            "schedules": len(problems), "pods": sum(len(p.pods) for p in problems),
+            "runs": runs, "nodes": sum(r.node_count for r in batched),
+            "batched_device_p50_ms": median_wall_ms(
+                lambda: solve_batch(problems, card_config(), device=device), runs),
+            "alone_native_p50_ms": median_wall_ms(
+                lambda: [solve(p.constraints, p.pods, wcat, device=device,
+                               config=ring_config()) for p in problems], runs)})
+
+    big = window_problems(wcat, 2084)
+    reset_counts()
+    results = dispatch_batch(big, device=device).fetch()
+    check(executor_counts() == {"device-batch": len(big)},
+          f"native_ring: the 50,016-pod window answered by {executor_counts()}")
+    t0 = time.perf_counter()
+    oracle = []
+    for prob in big:
+        packables, _ = build_packables(prob.instance_types, prob.constraints, prob.pods,
+                                       prob.daemons)
+        oracle.append(solve_ffd_per_pod_native(
+            pod_vectors(prob.pods), list(range(len(prob.pods))), packables).node_count)
+    per_pod_s = time.perf_counter() - t0
+    device_nodes = [r.node_count for r in results]
+    check(oracle == device_nodes,
+          f"native_ring: per-pod ring nodes {oracle} != the device's {device_nodes}")
+    rec = {"phase": "native_ring", "types": len(catalog), "gate_pods": 512,
+           "sizes": sizes, "device_faster_at": faster,
+           "crossover_pods": min(faster) if faster else None, "windows": windows,
+           "per_pod_oracle": {"problems": len(big), "pods": sum(len(p.pods) for p in big),
+                              "nodes": sum(oracle), "seconds": per_pod_s,
+                              "equal_to_device": True}}
+    emit(rec)
+    return rec
+
+
+def library_files(path):
+    return {p.name: p.stat().st_mtime_ns for p in path.iterdir() if p.suffix == ".so"}
+
+
+def phase_warmup(device):
+    """solver/warmup.warmup_pass on the card, twice, into a library
+    directory of its own (configure_compilation_cache): the first pass
+    builds the pack, what-if and native libraries cold, the second finds
+    all three (the same files, untouched). Each pass's seconds, runs, pack
+    launches and ring counters (the ring keeps DeviceRing.max_slots of the
+    ladder's 54 buckets resident, the smallest shape buckets); then a
+    first solve() at a bucket the ladder leaves resident, (8, 256): 600
+    pods of four shapes over 200 types, answered by the device, refills
+    the warm slot and allocates no ring buffer."""
+    import shutil
+    from pathlib import Path
+
+    from karpenter_tpu_torch import build_dir
+    from karpenter_tpu_torch.ops import pack_cuda
+    from karpenter_tpu_torch.solver import pipeline, warmup
+    from karpenter_tpu_torch.solver.solve import solve, universe_constraints
+
+    home = build_dir.PATH
+    cache = Path(tempfile.mkdtemp(prefix="warmup-libs-", dir=home))
+    passes = []
+    try:
+        check(warmup.configure_compilation_cache(str(cache)), "warmup: no library directory")
+        pipeline.reset_ring()
+        for _ in range(2):
+            before = library_files(cache)
+            reset_counts()
+            t0 = time.perf_counter()
+            runs = warmup.warmup_pass(device=device)
+            seconds = time.perf_counter() - t0
+            after = library_files(cache)
+            passes.append({"seconds": seconds, "runs": runs,
+                           "built": sorted(set(after) - set(before)),
+                           "found": sorted(k for k in before if after.get(k) == before[k]),
+                           "pack_chunk_launches": pack_cuda.LAUNCHES,
+                           "pack_batch_launches": pack_cuda.BATCH_LAUNCHES,
+                           "ring": pipeline.get_ring().counters()})
+        cold, warm = passes
+        check(len(cold["built"]) == 3 and not cold["found"],
+              f"warmup: the cold pass built {cold['built']}")
+        check(not warm["built"] and len(warm["found"]) == 3,
+              f"warmup: the warm pass built {warm['built']}")
+        catalog = make_catalog(200)
+        pods = make_pods(600, MIXED_SHAPES[:4])
+        ring_before = pipeline.get_ring().counters()
+        reset_counts()
+        solve(universe_constraints(catalog), pods, catalog, device=device)
+        ring_after = pipeline.get_ring().counters()
+        check(executor_counts() == {"device": 1}, f"warmup: solved by {executor_counts()}")
+        check(ring_after["allocations"] == ring_before["allocations"]
+              and ring_after["refills"] > ring_before["refills"],
+              f"warmup: the first solve at a warmed bucket allocated "
+              f"({ring_before} -> {ring_after})")
+    finally:
+        build_dir.PATH = home
+        shutil.rmtree(cache, ignore_errors=True)
+    shapes, types = warmup.default_ladder()
+    rec = {"phase": "warmup", "buckets": len(shapes) * len(types),
+           "shape_buckets": shapes, "type_buckets": types, "cold": cold, "warm": warm,
+           "first_solve_ring": {"before": ring_before, "after": ring_after}}
+    emit(rec)
+    return rec
+
+
+def free_port():
+    import socket
+
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+def http_get(port, path, timeout=5.0):
+    import urllib.error
+    import urllib.request
+
+    try:
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}", timeout=timeout) as r:
+            return r.status, r.read().decode()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read().decode()
+
+
+def wait_bound(kube, names, deadline_s, what):
+    """Poll the API server until every pod of ``names`` is bound."""
+    names = set(names)
+    deadline = time.monotonic() + deadline_s
+    while time.monotonic() < deadline:
+        bound = set(kube.scan("Pod", lambda p: p.metadata.name if p.spec.node_name else None))
+        if names <= bound:
+            return
+        # a scan holds the Pod stripe's lock: poll slowly
+        time.sleep(0.5)
+    check(False, f"{what}: {len(names - bound)} of {len(names)} pods never bound")
+
+
+def phase_main(device, columnar_binds):
+    """main.build_manager(kube, options) in process with the defaults,
+    --journal-dir on the machine's disk and --flight-dir, over a fake
+    provider of config_12's catalog (registered as "chip-config12"):
+
+    - config_12's window at MAIN_PER pods a schedule created, then
+      recovery.run() and manager.start(): every pod bound exactly once
+      (group 15's ENI pods stay Pending), no leaked instance or ghost node,
+      no open intent; the batcher's windows and the node count beside
+      controller_columnar's 9,984-pod window, and where the first window
+      took every pod, the same binds (the default global backend leaves
+      config_12's plans as they are);
+    - then MAIN_LATE_PODS more pods: their FFD problems answered by the
+      native ring (the global leg beside them counts "device-global"), no
+      pack launch;
+    - over HTTP on a free port: /healthz and /readyz 200, /metrics with
+      karpenter_cloudprovider_duration_seconds, /debug/vars as JSON with its
+      seven keys, 404 otherwise;
+    - every pack launch of the phase held bit for bit against the plain
+      version on the tensors it launched (PackLaunches);
+    - manager.stop() leaves none of its threads, nor the provisioning
+      worker's, alive."""
+    import shutil
+    import threading
+    from types import SimpleNamespace
+
+    import torch
+
+    from karpenter_tpu_torch import main as kmain
+    from karpenter_tpu_torch.api.core import ObjectMeta
+    from karpenter_tpu_torch.api.provisioner import Provisioner
+    from karpenter_tpu_torch.chaos import soak
+    from karpenter_tpu_torch.cloudprovider import spi
+    from karpenter_tpu_torch.cloudprovider.fake.provider import FakeCloudProvider
+    from karpenter_tpu_torch.config.options import Options
+    from karpenter_tpu_torch.ops import pack_cuda
+    from karpenter_tpu_torch.pressure import set_monitor
+    from karpenter_tpu_torch.runtime.journal import IntentJournal
+    from karpenter_tpu_torch.runtime.kubecore import KubeCore
+    from karpenter_tpu_torch.scheduling import batcher as batcher_mod
+
+    catalog = make_catalog(WINDOW_TYPES)
+    spi.register("chip-config12", lambda: FakeCloudProvider(catalog=catalog))
+    jdir, fdir = journal_dir("main"), journal_dir("flight")
+    options = Options(cluster_name="chip", cluster_endpoint="http://localhost:6443",
+                      cloud_provider="chip-config12", journal_dir=jdir, flight_dir=fdir,
+                      device=device.type)
+    check(options.validate() == [], f"main: options {options.validate()}")
+    kube = KubeCore()
+    windows, real_wait = [], batcher_mod.Batcher.wait
+
+    def recording_wait(self):
+        items, seconds = real_wait(self)
+        if items:
+            windows.append((len(items), seconds))
+        return items, seconds
+
+    t0 = time.perf_counter()
+    manager = kmain.build_manager(kube, options)
+    build_s = time.perf_counter() - t0
+    provisioning = manager.controllers()[0]
+    server = kmain.serve_observability(manager, free_port())
+    port = server.server_address[1]
+    batcher_mod.Batcher.wait = recording_wait
+    try:
+        kube.create(Provisioner(metadata=ObjectMeta(name="default")))
+        pods = config12_controller_pods(catalog, MAIN_PER, "m")
+        eni = {p.metadata.name for p in pods if "vpc.amazonaws.com/pod-eni"
+               in p.spec.containers[0].resources.requests}
+        for p in pods:
+            kube.create(p)
+        reset_counts()
+        with PackLaunches() as launches:
+            stats = manager.recovery.run()
+            cpu0, t0 = thread_cpu_s(), time.perf_counter()
+            manager.start()
+            wait_bound(kube, [p.metadata.name for p in pods if p.metadata.name not in eni],
+                       240.0, "main")
+            window_s = time.perf_counter() - t0
+            window_cpu = cpu_delta(cpu0, thread_cpu_s())
+            torch.cuda.synchronize()
+            first = {"executor_counts": executor_counts(),
+                     "pack_chunk_launches": pack_cuda.LAUNCHES,
+                     "pack_batch_launches": pack_cuda.BATCH_LAUNCHES,
+                     "batch_windows": list(windows)}
+            check(first["pack_batch_launches"] + first["pack_chunk_launches"] > 0,
+                  "main: the window launched no pack kernel")
+            check(len(launches.records) == first["pack_batch_launches"]
+                  + first["pack_chunk_launches"], "main: a pack launch went unrecorded")
+            reset_counts()
+            late = [p for p in config12_controller_pods(catalog, 2, "late")
+                    if p.metadata.name.split("-")[1] != "g15"][:MAIN_LATE_PODS]
+            for p in late:
+                kube.create(p)
+            t0 = time.perf_counter()
+            wait_bound(kube, [p.metadata.name for p in late], 60.0, "main late window")
+            late_s = time.perf_counter() - t0
+            late_rec = {"pods": len(late), "executor_counts": executor_counts(),
+                        "pack_launches": pack_cuda.LAUNCHES + pack_cuda.BATCH_LAUNCHES,
+                        "seconds": late_s}
+            # the default global backend's relaxation rides every window
+            # (as in the JAX package): its schedules count "device-global"
+            check(late_rec["executor_counts"].get("native", 0) > 0
+                  and set(late_rec["executor_counts"]) <= {"native", "device-global"}
+                  and late_rec["pack_launches"] == 0,
+                  f"main: the {len(late)}-pod window answered by "
+                  f"{late_rec['executor_counts']} with {late_rec['pack_launches']} launches")
+            http = {path: http_get(port, path) for path in
+                    ("/healthz", "/readyz", "/metrics", "/debug/vars", "/nope")}
+        held = len(launches.records)
+        err = launches.held()
+        check(err == 0, f"main: the phase's pack launches != plain ({err})")
+        check(http["/healthz"][0] == 200 and http["/readyz"][0] == 200,
+              f"main: healthz {http['/healthz']}, readyz {http['/readyz']}")
+        check(http["/metrics"][0] == 200 and "karpenter_cloudprovider_duration_seconds_bucket"
+              in http["/metrics"][1], "main: /metrics lacks the provider's durations")
+        dv = json.loads(http["/debug/vars"][1])
+        check(set(dv) == {"metrics", "pressure", "solver", "ring", "trace", "flight", "slo"},
+              f"main: /debug/vars keys {sorted(dv)}")
+        check(http["/nope"][0] == 404, "main: an unknown path answered")
+        every = [p.metadata.name for p in pods + late if p.metadata.name not in eni]
+        bound_once(kube, every, "main")
+        found = soak.leaks(SimpleNamespace(kube=kube, provider=provisioning.cloud_provider))
+        check(not found["leaked"] and not found["ghosts"], f"main: {found}")
+        worker_threads = [w._thread for w in provisioning.workers.values()]
+        t0 = time.perf_counter()
+        manager.stop()
+        stop_s = time.perf_counter() - t0
+        alive = [t.name for t in manager.threads() + worker_threads if t.is_alive()]
+        alive += [t.name for t in threading.enumerate() if t.name == "eviction-queue"]
+        check(alive == [], f"main: threads alive after stop: {alive}")
+        manager.journal.close_journal()
+        check(IntentJournal(jdir, fsync=False).open_intents() == {}, "main: intents left open")
+    finally:
+        batcher_mod.Batcher.wait = real_wait
+        manager.stop()
+        server.shutdown()
+        server.server_close()
+        set_monitor(None)
+        shutil.rmtree(jdir, ignore_errors=True)
+        shutil.rmtree(fdir, ignore_errors=True)
+    nodes = len(kube.scan("Node", lambda n: n.metadata.name))
+    # the ENI pods enter the batcher too (the solve finds no type for them)
+    one_window = first["batch_windows"][0][0] >= len(pods)
+
+    def canonical_binds(binds):
+        return sorted((t, tuple(sorted(names))) for t, names in binds)
+
+    same = canonical_binds(strip_prefix(node_binds(kube, "m-"))) == \
+        canonical_binds(columnar_binds)
+    check(same or not one_window,
+          "main: one window took every pod and its binds differ from controller_columnar's")
+    rec = {"phase": "main", "pods": len(pods), "unschedulable_eni": len(eni),
+           "build_manager_s": build_s, "controllers": [type(c).__name__
+                                                      for c in manager.controllers()],
+           "recovery": stats, "window_s": window_s, "window_cpu_s": window_cpu,
+           "first": first,
+           "nodes_first_window": len(node_binds(kube, "m-")),
+           "columnar_nodes_9984": len(columnar_binds), "one_window": one_window,
+           "binds_equal_columnar": same, "late": late_rec,
+           "nodes": nodes, "pack_launches_held": held,
+           "max_abs_err": err, "stop_s": stop_s,
+           "readyz": http["/readyz"][1], "debug_vars_keys": sorted(dv)}
+    emit(rec)
+    return rec
+
+
+def thread_cpu_s():
+    """CPU seconds so far of each group of live threads, from
+    /proc/self/task: the Manager's workers, pumps and mapped pumps by
+    controller kind (``work-Pod``, ``pump-Node``, ``map-Pod-Node``), and
+    every other thread by name."""
+    from collections import Counter
+    import threading
+
+    hz = os.sysconf("SC_CLK_TCK")
+    out = Counter()
+    for t in threading.enumerate():
+        try:
+            with open(f"/proc/self/task/{t.native_id}/stat") as f:
+                fields = f.read().rsplit(")", 1)[1].split()
+        except OSError:
+            continue
+        group = t.name.rsplit("-", 1)[0] if t.name.startswith("work-") else t.name
+        out[group] += (int(fields[11]) + int(fields[12])) / hz
+    return out
+
+
+def cpu_delta(before, after):
+    return {k: round(v - before.get(k, 0.0), 2) for k, v in
+            sorted(after.items(), key=lambda kv: -(kv[1] - before.get(kv[0], 0.0)))
+            if v - before.get(k, 0.0) > 0}
+
+
+def manager_flood(catalog, per, deadline_s, device):
+    """config_12's window at ``per`` pods a schedule under a fresh
+    main.build_manager with the defaults (no journal): seconds from
+    manager.start() until every pod but the ENI group is bound (or the
+    deadline), the pods bound, and the CPU seconds of each thread group
+    over that time."""
+    import threading
+
+    from karpenter_tpu_torch import main as kmain
+    from karpenter_tpu_torch.api.core import ObjectMeta
+    from karpenter_tpu_torch.api.provisioner import Provisioner
+    from karpenter_tpu_torch.config.options import Options
+    from karpenter_tpu_torch.pressure import set_monitor
+    from karpenter_tpu_torch.runtime.kubecore import KubeCore
+
+    kube = KubeCore()
+    manager = kmain.build_manager(kube, Options(
+        cluster_name="chip", cluster_endpoint="http://localhost:6443",
+        cloud_provider="chip-config12", device=device.type))
+    kube.create(Provisioner(metadata=ObjectMeta(name="default")))
+    pods = [p for p in config12_controller_pods(catalog, per, f"f{per}")
+            if "vpc.amazonaws.com/pod-eni" not in p.spec.containers[0].resources.requests]
+    for p in pods:
+        kube.create(p)
+    cpu0, t0 = thread_cpu_s(), time.perf_counter()
+    manager.start()
+    try:
+        bound = 0
+        while time.perf_counter() - t0 < deadline_s:
+            bound = sum(1 for b in kube.scan("Pod", lambda p: bool(p.spec.node_name)) if b)
+            if bound == len(pods):
+                break
+            time.sleep(0.5)
+        wall = time.perf_counter() - t0
+        cpu, threads = cpu_delta(cpu0, thread_cpu_s()), threading.active_count()
+    finally:
+        manager.stop()
+        set_monitor(None)
+    return {"pods": len(pods), "bound": bound, "seconds": wall, "threads": threads,
+            "cpu_s": cpu}
+
+
+def phase_manager_flood(device):
+    """``--manager-flood``: manager_flood at 104, 208 and 416 pods a
+    schedule (2,496, 4,992 and 9,984 pods less the ENI group), each within
+    MAIN_FLOOD_DEADLINE_S."""
+    from karpenter_tpu_torch.cloudprovider import spi
+    from karpenter_tpu_torch.cloudprovider.fake.provider import FakeCloudProvider
+
+    catalog = make_catalog(WINDOW_TYPES)
+    spi.register("chip-config12", lambda: FakeCloudProvider(catalog=catalog))
+    for per in (104, 208, 416):
+        emit({"phase": "manager_flood", "per": per,
+              **manager_flood(catalog, per, MAIN_FLOOD_DEADLINE_S, device)})
+
+
+def node_binds(kube, prefix):
+    """(instance type, pod names) of every node holding a pod named with
+    ``prefix``."""
+    from karpenter_tpu_torch.api.wellknown import LABEL_INSTANCE_TYPE
+
+    out = []
+    for name, itype in kube.scan("Node", lambda n: (n.metadata.name,
+                                                    n.metadata.labels[LABEL_INSTANCE_TYPE])):
+        names = [p.metadata.name for p in kube.pods_on_node(name)
+                 if p.metadata.name.startswith(prefix)]
+        if names:
+            out.append((itype, names))
+    return out
+
+
+def phase_main_process(device):
+    """``python -m karpenter_tpu_torch.main`` as a process of its own on the
+    card, as an operator starts it: --cloud-provider fake --kube-backend
+    memory --solver-warmup --leader-elect --journal-dir. The seconds from
+    spawn to the first /readyz 200 and the warm-up's share of them (the
+    pass's own log line); SIGTERM exits 0 with the Lease released (its log
+    line); without --cluster-name the process exits 1."""
+    import shutil
+    import signal
+    import threading
+
+    repo = os.path.dirname(os.path.abspath(__file__))
+    d = journal_dir("process")
+    port = free_port()
+    argv = [sys.executable, "-m", "karpenter_tpu_torch.main", "--cluster-name", "chip",
+            "--cluster-endpoint", "http://localhost:6443", "--cloud-provider", "fake",
+            "--kube-backend", "memory", "--solver-warmup", "--leader-elect",
+            "--journal-dir", d, "--metrics-port", str(port)]
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(argv, cwd=repo, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    captured = []
+    drainer = threading.Thread(target=lambda: captured.extend(proc.stdout), daemon=True)
+    drainer.start()
+    try:
+        ready_s = None
+        while time.perf_counter() - t0 < MAIN_PROCESS_DEADLINE_S and proc.poll() is None:
+            try:
+                if http_get(port, "/readyz", timeout=1.0)[0] == 200:
+                    ready_s = time.perf_counter() - t0
+                    break
+            except OSError:
+                pass
+            time.sleep(0.05)
+        check(ready_s is not None,
+              f"main_process: /readyz never answered 200 (rc {proc.poll()}):\n"
+              f"{''.join(captured)[-3000:]}")
+        metrics = http_get(port, "/metrics")[1]
+        proc.send_signal(signal.SIGTERM)
+        rc = proc.wait(timeout=60.0)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=30.0)
+        drainer.join(10.0)
+        shutil.rmtree(d, ignore_errors=True)
+    log = "".join(captured)
+    check(rc == 0, f"main_process: SIGTERM exit rc {rc}:\n{log[-3000:]}")
+    check("released lease" in log, "main_process: the Lease was not released")
+    check(log.index("journal recovery") < log.index("karpenter-tpu started"),
+          "main_process: the manager started before recovery")
+    warm = [ln for ln in log.splitlines() if "solver warmup:" in ln]
+    check(len(warm) == 1, f"main_process: warm-up lines {warm}")
+    warm_s = float(warm[0].rsplit(" in ", 1)[1].rstrip("s"))
+    bad = subprocess.run([sys.executable, "-m", "karpenter_tpu_torch.main",
+                          "--cluster-endpoint", "http://localhost:6443",
+                          "--cloud-provider", "fake", "--kube-backend", "memory"],
+                         cwd=repo, capture_output=True, text=True, timeout=120)
+    check(bad.returncode == 1, f"main_process: no --cluster-name exited {bad.returncode}")
+    rec = {"phase": "main_process", "boot_to_ready_s": ready_s, "warmup_s": warm_s,
+           "warmup_share": warm_s / ready_s, "sigterm_rc": rc, "lease_released": True,
+           "no_cluster_name_rc": bad.returncode,
+           "device": os.environ.get("KARPENTER_DEVICE", "cuda"),
+           "metrics_series": metrics.count("# TYPE ")}
+    emit(rec)
+    return rec
+
+
 def build_all():
     """Build every kernel library at once, one nvcc each, and load them."""
     import threading
@@ -6020,9 +6659,9 @@ def card_line() -> str:
 def main(argv) -> int:
     t_start = time.perf_counter()
     if argv not in ([], ["--kernel-times"], ["--solve-times"], ["--controller-deployed"],
-                    ["--whatif-times"]):
+                    ["--whatif-times"], ["--manager-flood"]):
         print("usage: chip_smoke.py [--kernel-times | --solve-times | --controller-deployed"
-              " | --whatif-times]", file=sys.stderr)
+              " | --whatif-times | --manager-flood]", file=sys.stderr)
         return 2
     import torch
 
@@ -6038,7 +6677,8 @@ def main(argv) -> int:
         emit({"phase": "card", "nvidia_smi": card})
         {"--kernel-times": phase_kernel_times, "--solve-times": phase_solve_times,
          "--controller-deployed": phase_controller_deployed,
-         "--whatif-times": phase_whatif_times}[argv[0]](device)
+         "--whatif-times": phase_whatif_times,
+         "--manager-flood": phase_manager_flood}[argv[0]](device)
         return 0
     emit({"phase": "card", "nvidia_smi": card,
           "name": torch.cuda.get_device_name(0),
@@ -6088,6 +6728,10 @@ def main(argv) -> int:
     timed("carve_window", phase_carve_window, device)
     cg = timed("controller_gang", phase_controller_gang, device)
     gj = timed("gang_journal", phase_gang_journal, device)
+    timed("native_ring", phase_native_ring, device)
+    timed("warmup", phase_warmup, device)
+    mn = timed("main", phase_main, device, cc["binds"])
+    timed("main_process", phase_main_process, device)
     emit({"phase": "total", "seconds": time.perf_counter() - t_start})
     b8 = gw["relax_pack"]
     b6 = pw["config13"]["program"]
@@ -6179,10 +6823,11 @@ def main(argv) -> int:
         "source": "karpenter_tpu_torch/csrc/pack.cu",
         "replaces": "karpenter_tpu/parallel/sharded_pack.py:90",
         "launches": win["launches_per_window"]["pack_batch"],
-        # the batched launches of phase 7 and of the policy window, and every
+        # the batched launches of phase 7 and of the policy window, every
         # pack launch of the journal phase's re-driven windows after a crash
+        # and every one of the main phase's windows under the Manager
         "max_abs_err": max(batch_err, kw["max_abs_err"], priced["max_abs_err"],
-                           jn["crash"]["max_abs_err"]),
+                           jn["crash"]["max_abs_err"], mn["max_abs_err"]),
         "ms": kw["ms"], "plain_ms": kw["plain_ms"],
         "bound_ms": kw["bound_ms"], "bound_by": kw["bound_by"],
         "priced": {"ms": priced["ms"], "unpriced_ms": priced["unpriced_ms"],

@@ -272,6 +272,30 @@ class DaemonSet:
 
 
 @dataclass
+class LeaseSpec:
+    holder_identity: str = ""
+    lease_duration_seconds: int = 15
+    acquire_time: Optional[float] = None
+    renew_time: Optional[float] = None
+
+
+@dataclass
+class Lease:
+    """coordination.k8s.io/v1 Lease — leader election's backing object."""
+
+    metadata: ObjectMeta = field(default_factory=ObjectMeta)
+    spec: LeaseSpec = field(default_factory=LeaseSpec)
+    kind: str = "Lease"
+
+
+@dataclass
+class ConfigMap:
+    metadata: ObjectMeta = field(default_factory=ObjectMeta)
+    data: Dict[str, str] = field(default_factory=dict)
+    kind: str = "ConfigMap"
+
+
+@dataclass
 class PersistentVolumeClaimSpec:
     storage_class_name: Optional[str] = None
     volume_name: str = ""

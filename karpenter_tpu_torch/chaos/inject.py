@@ -301,8 +301,8 @@ class ChaosKube:
         self._maybe_raise("evict_pod")
         return self._inner.evict_pod(name, namespace)
 
-    def watch(self, kind=None):
-        return _DroppingWatch(self._inner.watch(kind))
+    def watch(self, kind=None, meta_only=False):
+        return _DroppingWatch(self._inner.watch(kind, meta_only=meta_only))
 
     def unwatch(self, q):
         self._inner.unwatch(q._inner if isinstance(q, _DroppingWatch) else q)

@@ -53,7 +53,7 @@ from karpenter_tpu_torch.runtime.journal import KILL_POINTS, IntentJournal
 from karpenter_tpu_torch.runtime.kubecore import KubeCore, NotFound
 from karpenter_tpu_torch.scheduling.batcher import Batcher
 from karpenter_tpu_torch.solver.gang import PreemptCandidate
-from karpenter_tpu_torch.solver.solve import global_requirements
+from karpenter_tpu_torch.solver.solve import SolverConfig, global_requirements
 
 PLAIN_PODS = ["plain-0", "plain-1"]
 GANG_OK = ["gang-ok-0", "gang-ok-1"]
@@ -106,9 +106,13 @@ class Cluster:
     provider's capacity ledger and the journal directory. Workers and
     controllers belong to a "process" and are made anew on every drive."""
 
-    def __init__(self, journal_dir: str, catalog=None, device="cuda", fsync: bool = False):
+    def __init__(self, journal_dir: str, catalog=None, device="cuda", fsync: bool = False,
+                 solver_config: Optional[SolverConfig] = None):
         self.journal_dir = journal_dir
         self.device = device
+        # the workers' solver configuration (None: the defaults, under which
+        # the scenario's few-pod windows answer on the native ring)
+        self.solver_config = solver_config
         self.fsync = fsync
         self.kube = KubeCore()
         self.provider = FakeCloudProvider(catalog=catalog or instance_types(4))
@@ -144,6 +148,7 @@ def bound_node(kube, pod_name) -> Optional[str]:
 def make_worker(cluster: Cluster, journal) -> ProvisionerWorker:
     return ProvisionerWorker(cluster.prov, cluster.kube, cluster.provider,
                              batcher=Batcher(idle_seconds=0.02, max_seconds=0.2),
+                             solver_config=cluster.solver_config,
                              device=cluster.device, journal=journal)
 
 
@@ -297,8 +302,10 @@ def assert_invariants(cluster) -> None:
 
 # -- the carve / preempt scenario ----------------------------------------------
 
-def carve_cluster(journal_dir, device="cuda", fsync: bool = False) -> Cluster:
-    return Cluster(journal_dir, catalog=tpu_catalog(), device=device, fsync=fsync)
+def carve_cluster(journal_dir, device="cuda", fsync: bool = False,
+                  solver_config: Optional[SolverConfig] = None) -> Cluster:
+    return Cluster(journal_dir, catalog=tpu_catalog(), device=device, fsync=fsync,
+                   solver_config=solver_config)
 
 
 def tpu_node(cluster) -> Optional[str]:
@@ -419,7 +426,8 @@ def assert_carve_invariants(cluster, journal) -> None:
 # -- one soak cell ---------------------------------------------------------------
 
 def soak_once(root: str, kill_point: str, seed: int = 1, window: int = 1, device="cuda",
-              reference: Optional[dict] = None, fsync: bool = False) -> dict:
+              reference: Optional[dict] = None, fsync: bool = False,
+              solver_config: Optional[SolverConfig] = None) -> dict:
     """One kill point: an uncrashed reference run (unless ``reference``, an
     earlier call's ``"reference"``, is given), then a run that crashes at
     ``kill_point``, a restart and a re-drive. The carve and preempt points
@@ -431,7 +439,7 @@ def soak_once(root: str, kill_point: str, seed: int = 1, window: int = 1, device
     scenario = run_carve_scenario if carve else run_scenario
     if reference is None:
         topo_ops.LEDGER.reset()
-        ref = make(f"{root}/ref", device=device, fsync=fsync)
+        ref = make(f"{root}/ref", device=device, fsync=fsync, solver_config=solver_config)
         ref_journal = ref.open_journal()
         scenario(ref, ref_journal)
         if carve:
@@ -442,7 +450,7 @@ def soak_once(root: str, kill_point: str, seed: int = 1, window: int = 1, device
         ref_journal.close_journal()
 
     topo_ops.LEDGER.reset()
-    c = make(f"{root}/crash", device=device, fsync=fsync)
+    c = make(f"{root}/crash", device=device, fsync=fsync, solver_config=solver_config)
     journal = c.open_journal()
     inject.install(inject.FaultPlan(seed, [inject.FaultSpec("journal", kill_point,
                                                             "crash-point", 1)], window=window))

@@ -25,6 +25,7 @@ from karpenter_tpu_torch.api import wellknown
 from karpenter_tpu_torch.api.constraints import Constraints
 from karpenter_tpu_torch.api.core import Node, NodeCondition, NodeSpec, NodeStatus, ObjectMeta
 from karpenter_tpu_torch.chaos import inject
+from karpenter_tpu_torch.cloudprovider import spi
 from karpenter_tpu_torch.cloudprovider.spi import (
     CapacityRecord, CloudProvider, InstanceType, make_instance_type,
 )
@@ -207,3 +208,6 @@ class FakeCloudProvider(CloudProvider):
 
     def name(self) -> str:
         return "fake"
+
+
+spi.register("fake", FakeCloudProvider)

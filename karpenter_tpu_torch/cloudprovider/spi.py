@@ -173,6 +173,30 @@ class CloudProvider(abc.ABC):
         either way). None means terminated."""
         return f"provider {self.name()} cannot terminate by instance id"
 
+    def default(self, constraints: Constraints) -> None:
+        """Defaulting webhook hook (registry/register.go:25-31)."""
+
+    def validate(self, constraints: Constraints) -> Optional[str]:
+        """Validation webhook hook; None means valid."""
+
     @abc.abstractmethod
     def name(self) -> str:
         ...
+
+
+# ---------------------------------------------------------------------------
+# Registry: runtime provider selection by name (main.py's --cloud-provider);
+# the reference selects at compile time via build tags (registry/aws.go).
+# ---------------------------------------------------------------------------
+
+_REGISTRY = {}
+
+
+def register(name: str, factory) -> None:
+    _REGISTRY[name] = factory
+
+
+def resolve(name: str, **kwargs) -> CloudProvider:
+    if name not in _REGISTRY:
+        raise KeyError(f"unknown cloud provider {name!r}; registered: {sorted(_REGISTRY)}")
+    return _REGISTRY[name](**kwargs)

@@ -16,6 +16,10 @@ from karpenter_tpu_torch.runtime.kubecore import KubeCore, NotFound
 from karpenter_tpu_torch.utils.resources import Quantity
 
 
+class _NoChange(Exception):
+    pass
+
+
 class CounterController:
     def __init__(self, kube: KubeCore):
         self.kube = kube
@@ -45,10 +49,19 @@ class CounterController:
             cpu = cpu.add(node.status.capacity.get("cpu", Quantity(0)))
             memory = memory.add(node.status.capacity.get("memory", Quantity(0)))
 
+        resources = {"cpu": cpu, "memory": memory}
+
         def apply(p):
-            p.status.resources = {"cpu": cpu, "memory": memory}
+            if p.status.resources == resources:
+                raise _NoChange
+            p.status.resources = resources
+        # an unchanged status is not written: the write is a Provisioner
+        # event, this controller's own watch, so every reconcile would
+        # requeue itself (and the node controller's Provisioner mapping
+        # would reconcile every node of the provisioner each time), where
+        # the API server emits no event for a patch that changes nothing
         try:
             self.kube.patch("Provisioner", name, namespace, apply)
-        except NotFound:
+        except (_NoChange, NotFound):
             pass
         return None

@@ -33,8 +33,8 @@ entirely — an empty-looking provider must never read as "every node is a
 ghost". Per-item delete failures are logged and retried next interval.
 
 The controller is time-driven (``kind() -> None`` + one seeded key) and
-self-perpetuates by returning its interval from ``reconcile``; the port has
-no Manager yet, so a caller drives ``reconcile`` on its own interval.
+self-perpetuates by returning its interval from ``reconcile``; main.py
+registers it with the Manager (runtime/manager.py), which seeds the key.
 Capacity whose launch nonce an open journal intent covers is skipped:
 startup recovery owns it.
 """

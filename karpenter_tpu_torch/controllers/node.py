@@ -4,9 +4,9 @@ finalizer.
 Reference: pkg/controllers/node/ (orchestrator + 5 sub-reconcilers), and
 the JAX package's ``controllers/node.py``. The orchestrator deep-copies the
 node, runs every sub-reconciler in sequence, patches once if anything
-changed, and requeues at the minimum of the sub-results. Left out: the
-manager's watch mappings (the port has no manager; callers reconcile by
-name).
+changed, and requeues at the minimum of the sub-results. Under the
+Manager (runtime/manager.py), :meth:`NodeController.mappings` maps pod and
+provisioner events onto node reconciles.
 """
 
 from __future__ import annotations
@@ -15,7 +15,7 @@ import logging
 from typing import List, Optional
 
 from karpenter_tpu_torch.api import wellknown
-from karpenter_tpu_torch.api.core import Node
+from karpenter_tpu_torch.api.core import LabelSelector, Node
 from karpenter_tpu_torch.api.provisioner import Provisioner
 from karpenter_tpu_torch.runtime.kubecore import KubeCore, NotFound
 from karpenter_tpu_torch.utils import clock
@@ -142,6 +142,19 @@ class NodeController:
 
     def kind(self) -> str:
         return "Node"
+
+    def mappings(self):
+        """Extra watches (node/controller.go:125-149): pod events map to
+        their node; provisioner events map to all its nodes."""
+        def pod_to_node(pod):
+            return [(pod.spec.node_name, "")] if getattr(pod.spec, "node_name", "") else []
+
+        def provisioner_to_nodes(p):
+            nodes = self.kube.list("Node", label_selector=LabelSelector(
+                match_labels={wellknown.PROVISIONER_NAME_LABEL: p.metadata.name}))
+            return [(n.metadata.name, "") for n in nodes]
+
+        return [("Pod", pod_to_node), ("Provisioner", provisioner_to_nodes)]
 
     def reconcile(self, name: str, namespace: str = "") -> Optional[float]:
         try:

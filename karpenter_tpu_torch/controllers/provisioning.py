@@ -1268,6 +1268,9 @@ class ProvisioningController:
         self._hashes: Dict[str, tuple] = {}
         self._lock = threading.Lock()
 
+    def kind(self) -> str:
+        return "Provisioner"
+
     def targets(self) -> List[Tuple[Provisioner, ProvisionerWorker]]:
         """Routing snapshot for the selection controller: every hosted
         (provisioner, worker) pair, in worker-creation then engine-attach

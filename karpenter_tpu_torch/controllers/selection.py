@@ -214,6 +214,9 @@ class SelectionController:
         self.preferences = Preferences()
         self.volume_topology = VolumeTopology(kube)
 
+    def kind(self) -> str:
+        return "Pod"
+
     def reconcile(self, name: str, namespace: str = "default") -> Optional[float]:
         # no-copy provisionability probe first
         try:

@@ -72,10 +72,14 @@ class EvictionQueue:
                     self._items.append((time.monotonic(), nn))
             self._cv.notify()
 
-    def stop(self) -> None:
+    def stop(self, timeout: Optional[float] = None) -> None:
+        """Stop the worker; with ``timeout``, also wait up to that long for
+        its thread to end."""
         self._stop.set()
         with self._cv:
             self._cv.notify_all()
+        if timeout is not None:
+            self._thread.join(timeout)
 
     def _run(self) -> None:
         while not self._stop.is_set():
@@ -249,5 +253,7 @@ class TerminationController:
         self.terminator.terminate(node)
         return None
 
-    def stop_all(self) -> None:
-        self.terminator.eviction_queue.stop()
+    def stop_all(self, timeout: Optional[float] = None) -> None:
+        """Stop the eviction queue (Manager.stop); with ``timeout``, wait up
+        to that long for its thread to end."""
+        self.terminator.eviction_queue.stop(timeout)

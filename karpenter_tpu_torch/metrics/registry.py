@@ -25,34 +25,74 @@ def _lv(labels: Dict[str, str]) -> LabelValues:
     return tuple(sorted(labels.items()))
 
 
+_ABSENT = object()
+
+
+def _project(lv: LabelValues, names: Tuple[str, ...]) -> tuple:
+    """``lv``'s values of ``names``, _ABSENT where it lacks one."""
+    labels = dict(lv)
+    return tuple(labels.get(k, _ABSENT) for k in names)
+
+
 class Gauge:
     def __init__(self, name: str, help_: str = ""):
         self.name = name
         self.help = help_
         self._values: Dict[LabelValues, float] = {}
+        # the label names delete_matching was asked for -> {their values:
+        # the series holding them}: built at the first such call and kept
+        # current by every write, so a per-object cleanup costs that
+        # object's series, not the family's (pods_state has one per pod)
+        self._index: Dict[Tuple[str, ...], Dict[tuple, set]] = {}
         self._lock = threading.Lock()
 
     def set(self, value: float, **labels) -> None:
+        lv = _lv(labels)
         with self._lock:
-            self._values[_lv(labels)] = value
+            if lv not in self._values:
+                self._index_locked(lv)
+            self._values[lv] = value
 
     def inc(self, amount: float = 1.0, **labels) -> None:
+        lv = _lv(labels)
         with self._lock:
-            self._values[_lv(labels)] = self._values.get(_lv(labels), 0.0) + amount
+            if lv not in self._values:
+                self._index_locked(lv)
+            self._values[lv] = self._values.get(lv, 0.0) + amount
 
     def delete(self, **labels) -> None:
+        lv = _lv(labels)
         with self._lock:
-            self._values.pop(_lv(labels), None)
+            if self._values.pop(lv, None) is not None:
+                self._unindex_locked(lv)
 
     def delete_matching(self, **labels) -> None:
         """Drop every series whose labels include the given subset — the
         stale-series cleanup used by the node metrics controller
         (metrics/node/controller.go:196-208)."""
-        subset = set(labels.items())
+        names = tuple(sorted(labels))
         with self._lock:
-            self._values = {
-                lv: v for lv, v in self._values.items() if not subset <= set(lv)
-            }
+            index = self._index.get(names)
+            if index is None:
+                index = self._index[names] = {}
+                for lv in self._values:
+                    index.setdefault(_project(lv, names), set()).add(lv)
+            for lv in index.pop(tuple(labels[k] for k in names), ()):
+                del self._values[lv]
+                self._unindex_locked(lv)
+
+    def _index_locked(self, lv: LabelValues) -> None:
+        for names, index in self._index.items():
+            index.setdefault(_project(lv, names), set()).add(lv)
+
+    def _unindex_locked(self, lv: LabelValues) -> None:
+        for names, index in self._index.items():
+            key = _project(lv, names)
+            held = index.get(key)
+            if held is not None:
+                held.discard(lv)
+                if not held:
+                    del index[key]
 
     def collect(self) -> Dict[LabelValues, float]:
         with self._lock:

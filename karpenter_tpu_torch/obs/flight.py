@@ -24,7 +24,11 @@ The JAX package's ``obs/flight.py``. Triggers, hooked at the source:
 The JAX package's ``watchdog-trip`` has no source here: the port has no
 device watchdog (a device error raises).
 
-Dumps are rate-limited (``min_interval_s``); with no directory configured
+Dumps are rate-limited (``min_interval_s``), and the first trip of a
+process always dumps: the JAX package starts its last-dump clocks at 0.0
+against ``time.monotonic()`` (the host's uptime on Linux), so on a host up
+for less than the interval its first trip, the boot-time crash a
+recorder exists for, writes nothing. With no directory configured
 the recorder never touches the filesystem. ``slo-burn`` is limited on its
 own clock: a burn storm produces exactly one dump per interval without
 starving (or being starved by) a concurrent dump of another trigger.
@@ -51,8 +55,11 @@ _TRIPS: deque = deque(maxlen=256)          # trigger records only
 
 _DIR: Optional[str] = os.environ.get("KARPENTER_FLIGHT_DIR") or None
 _MIN_INTERVAL_S = 5.0
-_LAST_DUMP = 0.0
-_LAST_DUMP_SLO = 0.0  # independent clock for the slo-burn trigger
+# monotonic time of the last dump, None while none was written: "never
+# dumped" is its own state, so the first trip of a process dumps however
+# short the host's uptime (time.monotonic() counts from boot on Linux)
+_LAST_DUMP: Optional[float] = None
+_LAST_DUMP_SLO: Optional[float] = None  # independent clock for slo-burn
 _TRIP_COUNT = 0
 
 
@@ -97,11 +104,11 @@ def trip(trigger: str, **tags: Any) -> Optional[str]:
             return None
         now = time.monotonic()
         if trigger == "slo-burn":
-            if now - _LAST_DUMP_SLO < _MIN_INTERVAL_S:
+            if _LAST_DUMP_SLO is not None and now - _LAST_DUMP_SLO < _MIN_INTERVAL_S:
                 return None
             _LAST_DUMP_SLO = now
         else:
-            if now - _LAST_DUMP < _MIN_INTERVAL_S:
+            if _LAST_DUMP is not None and now - _LAST_DUMP < _MIN_INTERVAL_S:
                 return None
             _LAST_DUMP = now
         events = list(_EVENTS)
@@ -157,6 +164,6 @@ def reset() -> None:
         _EVENTS.clear()
         _TRIPS.clear()
         _DUMPS.clear()
-        _LAST_DUMP = 0.0
-        _LAST_DUMP_SLO = 0.0
+        _LAST_DUMP = None
+        _LAST_DUMP_SLO = None
         _TRIP_COUNT = 0

@@ -35,6 +35,7 @@ from typing import Optional, Tuple, Union
 import numpy as np
 import torch
 
+from karpenter_tpu_torch import build_dir
 from karpenter_tpu_torch.ops.pack import (
     INT32_MAX, compute_maxfit, flat_size, flatten_chunk_outputs,
 )
@@ -42,7 +43,6 @@ from karpenter_tpu_torch.solver.host_ffd import R_PODS
 
 _PKG = Path(__file__).resolve().parent.parent
 SOURCE = _PKG / "csrc" / "pack.cu"
-BUILD_DIR = _PKG / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -76,15 +76,15 @@ def _find_nvcc() -> str:
 
 
 def nvcc_build(source: Path, stem: str) -> Tuple[Path, Optional[float], str]:
-    """Compile one CUDA source into build/ as a shared library named by
-    ``stem`` and the source's digest (an edited source never loads a stale
-    library). Returns (path, seconds nvcc took, its output); seconds is None
+    """Compile one CUDA source into the library directory (``build_dir``)
+    as a shared library named by ``stem`` and the source's digest (an
+    edited source never loads a stale library). Returns (path, seconds nvcc took, its output); seconds is None
     and the output empty when the library was already there."""
     digest = hashlib.sha256(source.read_bytes()).hexdigest()[:16]
-    lib_path = BUILD_DIR / f"lib{stem}_{digest}.so"
+    lib_path = Path(build_dir.PATH) / f"lib{stem}_{digest}.so"
     if lib_path.exists():
         return lib_path, None, ""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    lib_path.parent.mkdir(parents=True, exist_ok=True)
     tmp = lib_path.with_name(f"{lib_path.name}.{os.getpid()}.{threading.get_ident()}.tmp")
     cmd = [_find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(source)]
     t0 = time.perf_counter()

@@ -9,5 +9,6 @@ from karpenter_tpu_torch.pressure.bands import (  # noqa: F401
     BANDS, RANK, classify, effective_rank, shed_reason,
 )
 from karpenter_tpu_torch.pressure.monitor import (  # noqa: F401
-    PressureConfig, PressureLevel, PressureMonitor, get_monitor, read_rss_bytes, set_monitor,
+    PressureConfig, PressureLevel, PressureMonitor, configure, get_monitor, read_rss_bytes,
+    set_monitor,
 )

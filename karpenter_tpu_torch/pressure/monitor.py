@@ -79,6 +79,8 @@ WINDOW_STALENESS_SECONDS = 120.0
 
 @dataclass
 class PressureConfig:
+    # False holds the ladder at L0 (``--no-pressure-enabled``)
+    enabled: bool = True
     # intake depth bound (the Batcher's hard cap); the depth rungs are
     # DEPTH_FRACTIONS of it
     max_depth: int = 100_000
@@ -93,6 +95,8 @@ class PressureConfig:
     dwell_seconds: float = 5.0
     # L1+ window splitting: max pods per schedule+solve chunk
     split_items: int = 4096
+    # aging: queued/shed pods are promoted one band per step (bands.py)
+    aging_step_seconds: float = AGING_STEP_SECONDS
 
     def depth_rungs(self) -> Tuple[int, int, int]:
         """The intake depths at which L1, L2 and L3 begin."""
@@ -235,11 +239,23 @@ class PressureMonitor:
 
     def level(self) -> PressureLevel:
         """Current rung, re-evaluated at most every eval_interval."""
+        if not self.config.enabled:
+            return PressureLevel.L0
         now = self._now()
         with self._lock:
             if self._last_eval is not None and now - self._last_eval < self.eval_interval:
                 return self._level
         return self.evaluate()
+
+    def signals(self) -> dict:
+        """Snapshot for the observability endpoints (/debug/vars) and tests."""
+        with self._lock:
+            return {
+                "level": int(self._level),
+                "intake_depth": sum(self._depths.values()),
+                "window_seconds": self._window_s,
+                "rss_bytes": self._rss,
+            }
 
 
 # ---------------------------------------------------------------------------
@@ -263,3 +279,11 @@ def set_monitor(monitor: Optional[PressureMonitor]) -> None:
     global _MONITOR
     with _MONITOR_LOCK:
         _MONITOR = monitor
+
+
+def configure(config: PressureConfig, **kwargs) -> PressureMonitor:
+    """Build a monitor from ``config`` and install it process-wide
+    (main.build_manager)."""
+    monitor = PressureMonitor(config, **kwargs)
+    set_monitor(monitor)
+    return monitor

@@ -92,6 +92,29 @@ class Event:
 Key = Tuple[str, str, str]  # (kind, namespace, name)
 
 
+class _Meta:
+    """Metadata stub carried by meta-only watch events."""
+
+    __slots__ = ("name", "namespace")
+
+    def __init__(self, name: str, namespace: str):
+        self.name = name
+        self.namespace = namespace
+
+
+class MetaObj:
+    """Lightweight object for meta-only watches: kind + metadata
+    (name/namespace) and nothing else. Watch pumps that only enqueue
+    reconcile keys (runtime/manager.py) read exactly these fields, so they
+    are spared a deep copy of the object per event."""
+
+    __slots__ = ("kind", "metadata")
+
+    def __init__(self, kind: str, name: str, namespace: str):
+        self.kind = kind
+        self.metadata = _Meta(name, namespace)
+
+
 def _key(obj) -> Key:
     return (obj.kind, obj.metadata.namespace, obj.metadata.name)
 
@@ -122,7 +145,7 @@ class KubeCore:
         self._rv = itertools.count(1)
         self._uid = itertools.count(1)
         self._watch_lock = threading.Lock()
-        self._watchers: List[Tuple[Optional[str], "queue.Queue[Event]"]] = []
+        self._watchers: List[Tuple[Optional[str], "queue.Queue[Event]", bool]] = []
         # the spec.nodeName field index: node name → pod keys, maintained on
         # every pod mutation so pods_on_node is O(pods on that node). Inner
         # dicts are ordered sets, so iteration keeps insertion order. Only
@@ -218,14 +241,23 @@ class KubeCore:
         # safe with or without any stripe lock held: _watchers is
         # copy-on-write, so iterating a snapshot reference cannot see a
         # resize
-        for kind, q in self._watchers:
+        meta = None
+        for kind, q, meta_only in self._watchers:
             if kind is None or kind == obj.kind:
-                q.put(Event(event_type, deep_copy(obj)))
+                if meta_only:
+                    if meta is None:
+                        meta = MetaObj(obj.kind, obj.metadata.name, obj.metadata.namespace)
+                    q.put(Event(event_type, meta))
+                else:
+                    q.put(Event(event_type, deep_copy(obj)))
 
     # -- watch --------------------------------------------------------------
-    def watch(self, kind: Optional[str] = None) -> "queue.Queue[Event]":
+    def watch(self, kind: Optional[str] = None,
+              meta_only: bool = False) -> "queue.Queue[Event]":
         """Subscribe to events for a kind (None = all). Existing objects are
         replayed as ADDED, matching informer initial-list semantics.
+        ``meta_only`` delivers :class:`MetaObj` stubs (kind + name/namespace)
+        instead of deep copies, for subscribers that only enqueue keys.
         Registration is atomic with the replay against the subject
         stripe(s), so a concurrent write lands either in the replay OR as a
         later event — never lost, never torn."""
@@ -234,20 +266,22 @@ class KubeCore:
         def _replay(objects) -> None:
             for obj in objects:
                 if kind is None or obj.kind == kind:
-                    q.put(Event("ADDED", deep_copy(obj)))
+                    stub = (MetaObj(obj.kind, obj.metadata.name, obj.metadata.namespace)
+                            if meta_only else deep_copy(obj))
+                    q.put(Event("ADDED", stub))
 
         if kind is None:
             with self._world() as stripes:
                 for s in stripes:
                     _replay(s.objects.values())
                 with self._watch_lock:
-                    self._watchers = self._watchers + [(kind, q)]
+                    self._watchers = self._watchers + [(kind, q, meta_only)]
         else:
             s = self._stripe(kind)
             with s.lock:
                 _replay(s.objects.values())
                 with self._watch_lock:
-                    self._watchers = self._watchers + [(kind, q)]
+                    self._watchers = self._watchers + [(kind, q, meta_only)]
         return q
 
     def unwatch(self, q) -> None:
@@ -349,6 +383,34 @@ class KubeCore:
                 return deep_copy(obj)
             s.objects[(kind, namespace, name)] = obj
             self._reindex((kind, namespace, name), stored, obj)
+            self._notify("MODIFIED", obj)
+            return deep_copy(obj)
+
+    def update(self, obj):
+        """Full update with optimistic concurrency (a stale resourceVersion
+        raises Conflict); finalizer-empty deleted objects are removed. The
+        leader elector's lease renewal is its caller."""
+        s = self._stripe(obj.kind)
+        with s.lock:
+            k = _key(obj)
+            stored = s.objects.get(k)
+            if stored is None:
+                raise NotFound(f"{k} not found")
+            if obj.metadata.resource_version != stored.metadata.resource_version:
+                raise Conflict(
+                    f"{k}: stale resourceVersion "
+                    f"{obj.metadata.resource_version} != {stored.metadata.resource_version}")
+            obj = deep_copy(obj)
+            # deletionTimestamp is immutable via update
+            obj.metadata.deletion_timestamp = stored.metadata.deletion_timestamp
+            obj.metadata.resource_version = self._next_rv()
+            if obj.metadata.deletion_timestamp is not None and not obj.metadata.finalizers:
+                del s.objects[k]
+                self._reindex(k, stored, None)
+                self._notify("DELETED", obj)
+                return deep_copy(obj)
+            s.objects[k] = obj
+            self._reindex(k, stored, obj)
             self._notify("MODIFIED", obj)
             return deep_copy(obj)
 

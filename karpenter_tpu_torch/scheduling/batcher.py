@@ -53,7 +53,6 @@ from karpenter_tpu_torch.metrics.pressure import INTAKE_QUEUE_DEPTH, PODS_SHED_T
 from karpenter_tpu_torch.obs import slo, trace
 from karpenter_tpu_torch.pressure import bands as _bands
 from karpenter_tpu_torch.pressure.bands import RANK
-from karpenter_tpu_torch.pressure.monitor import AGING_STEP_SECONDS
 
 # first-seen bookkeeping: entries untouched this long are assumed deleted
 # (a live shed pod re-touches its entry on every 5 s requeue)
@@ -204,7 +203,7 @@ class Batcher:
                 self._first_seen[key] = (first_seen, now)
                 self._sweep_first_seen_locked(now)
             eff = _bands.effective_rank(rank, now - first_seen,
-                                        AGING_STEP_SECONDS)
+                                        monitor.config.aging_step_seconds)
             reason = _bands.shed_reason(eff, level)
             if reason is None and len(self._entries) >= self.max_depth:
                 if rank == 0:
@@ -237,7 +236,8 @@ class Batcher:
         victims = [e for e in self._entries if e.rank != 0]
         if not victims:
             return  # all queued entries are critical too: admit over bound
-        worst = max(victims, key=lambda e: self._sort_key(e, now, AGING_STEP_SECONDS))
+        step = self._monitor().config.aging_step_seconds
+        worst = max(victims, key=lambda e: self._sort_key(e, now, step))
         self._entries.remove(worst)
         if worst.key is not None:
             # release the key NOW: selection's next requeue must re-offer
@@ -425,7 +425,8 @@ class Batcher:
             # shed here through the band-aware requeue path.
             held = self._gang_gate_locked(now)
             ordered = sorted((e for e in self._entries if e.seq not in held),
-                             key=lambda e: self._sort_key(e, now, AGING_STEP_SECONDS))
+                             key=lambda e: self._sort_key(
+                                 e, now, monitor.config.aging_step_seconds))
             take = ordered[:self.max_items]
             if len(take) < len(ordered):
                 take = self._trim_split_gangs(take)

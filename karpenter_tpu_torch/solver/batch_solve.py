@@ -29,12 +29,12 @@ Problems that cannot join the batch are solved alone
 problem (more distinct shapes than the largest bucket included), an empty
 allowed set, and a fused member whose scalar re-verification disagrees
 with the device mask (counted by ``ops.device_filter.fallback_counts``).
-The JAX package also solves a window of few pods problem by problem
-(``device_min_pods``), since its native host ring answers small problems
-faster than a device round trip; the port has no such ring, so every
-window of two or more problems joins the batch. An error from the mask,
-the launch or the copy is not caught: it propagates out of
-``dispatch_batch`` or ``fetch()``.
+As in the JAX package, a window joins the batch only when it has two or
+more problems holding ``SolverConfig.device_min_pods`` pods together;
+a smaller window is solved problem by problem, each on the native host
+ring (solver/native_ffd.py), which answers small problems faster than a
+device launch. An error from the mask, the launch or the copy is not
+caught: it propagates out of ``dispatch_batch`` or ``fetch()``.
 
 Tracing follows the JAX package: the launch runs inside the
 ``karpenter.solve.batch_dispatch`` profiler range, and the handle carries
@@ -69,6 +69,7 @@ from karpenter_tpu_torch.solver.policy import soft_zone_adjust, soft_zone_votes
 from karpenter_tpu_torch.solver.solve import (
     SolveResult, SolverConfig, materialize, record_executor, solve_with_packables,
 )
+from karpenter_tpu_torch.utils.gcguard import gc_deferred
 from karpenter_tpu_torch.utils.profiling import trace
 
 
@@ -100,8 +101,17 @@ def dispatch_batch(problems: Sequence[Problem], config: Optional[SolverConfig] =
     is ``solve_batch(p)``."""
     config = config or SolverConfig()
     dev = resolve_device(device)
+    with gc_deferred():
+        return _dispatch_batch(problems, config, dev)
+
+
+def _dispatch_batch(problems: Sequence[Problem], config: SolverConfig,
+                    dev) -> "BatchHandle":
     marshaled = [marshal_pods_interned(prob.pods) for prob in problems]
-    device_gate = len(problems) >= 2
+    # a window of few pods is faster problem by problem on the native ring
+    # than in a device launch
+    device_gate = (len(problems) >= 2
+                   and sum(len(p.pods) for p in problems) >= config.device_min_pods)
 
     # the fused filter replaces the host filter and per-constraint packables
     # of every problem it admits: they encode against the shared universe
@@ -241,7 +251,8 @@ class BatchHandle:
         try:
             with obtrace.use_context(self._trace_ctx), \
                     obslo.use_marks(self._slo_marks), \
-                    obtrace.span("fetch", batched=len(self._batch_idx)):
+                    obtrace.span("fetch", batched=len(self._batch_idx)), \
+                    gc_deferred():
                 self._results = self._fetch()
         except BaseException as e:
             self._error = e

@@ -1,11 +1,15 @@
 """Public solver entry: constraints + pods + catalog → node packings.
 
-The device path (models/ffd.py, the CUDA pack kernel) answers every problem
-the encoder can represent; a problem it cannot (exotic quantities, more
-distinct shapes than the largest shape bucket) goes to the host oracle
-(host_ffd.py): the port has no native C++ pass to hand it to. An exception
-from the device propagates to the caller. A window of many problems goes
-through solver/batch_solve.py.
+A problem of ``SolverConfig.device_min_pods`` pods or more goes to the
+device path (models/ffd.py, the CUDA pack kernel); a smaller one goes to
+the native host ring (solver/native_ffd.py, native/ffd.cc), as in the JAX
+package, where a device round trip costs more than the solve. A problem
+past the largest shape bucket goes to the ring too; one with no exact
+encoding (exotic quantities), or that overflows the ring's record buffer,
+goes to the host oracle (host_ffd.py). The ring is never a failure
+fallback: an exception from the device, or from building the ring,
+propagates to the caller. A window of many problems goes through
+solver/batch_solve.py.
 """
 
 from __future__ import annotations
@@ -29,12 +33,14 @@ from karpenter_tpu_torch.solver.adapter import (
     build_packables_versioned, marshal_pods_interned,
 )
 from karpenter_tpu_torch.solver import policy as policy_registry
+from karpenter_tpu_torch.solver.native_ffd import solve_ffd_native_auto
 from karpenter_tpu_torch.solver.policy import PolicyContext
+from karpenter_tpu_torch.utils.gcguard import gc_deferred
 from karpenter_tpu_torch.utils.profiling import trace
 
 # -- solver health: which executor answered, and how often -------------------
 _HEALTH_LOCK = threading.Lock()
-_LAST_EXECUTOR: Optional[str] = None   # "device" | "device-batch" | "host"
+_LAST_EXECUTOR: Optional[str] = None   # "device" | "device-batch" | "native" | "host"
 _EXECUTOR_COUNTS: Dict[str, int] = {}
 
 
@@ -94,6 +100,11 @@ class SolverConfig:
     # the same buckets (B13), and tensors whose content token matches copy
     # nothing; False copies every solve's inputs to fresh tensors
     device_donate: bool = True
+    # below this many pods a device launch costs more than it saves: the
+    # solo solve answers on the native host ring, and a window joins the
+    # device batch only when its problems hold this many pods together
+    # (0 sends everything to the device)
+    device_min_pods: int = 512
 
 
 @dataclass
@@ -156,12 +167,15 @@ def solve(
     versions)."""
     config = config or SolverConfig()
     dev = resolve_device(device)
-    pod_vecs, required, sids = marshal_pods_interned(pods)
-    packables, sorted_types, catalog_version = build_packables_versioned(
-        instance_types, constraints, pods, daemons, required=required)
-    return solve_with_packables(constraints, pods, packables, sorted_types,
-                                pod_vecs, config, device=dev, sids=sids,
-                                catalog_version=catalog_version)
+    # collection deferred across the public path: a generational collection
+    # landing mid-solve adds to the tail (utils/gcguard.py)
+    with gc_deferred():
+        pod_vecs, required, sids = marshal_pods_interned(pods)
+        packables, sorted_types, catalog_version = build_packables_versioned(
+            instance_types, constraints, pods, daemons, required=required)
+        return solve_with_packables(constraints, pods, packables, sorted_types,
+                                    pod_vecs, config, device=dev, sids=sids,
+                                    catalog_version=catalog_version)
 
 
 def solve_with_packables(
@@ -200,18 +214,26 @@ def solve_with_packables(
             for p in packables
         ]
 
-    # one exact encoding; None (not representable) → host oracle
+    # one exact encoding feeds every executor: the device path pads it to
+    # the buckets, the native ring takes it as it is; None (not
+    # representable) → host oracle
     if enc is None:
         enc = encode(pod_vecs, pod_ids, packables, pad=False, sids=sids,
                      catalog_version=catalog_version)
     result = None
-    if enc is not None:
+    executor = None
+    if enc is not None and len(pods) >= config.device_min_pods:
         with trace("karpenter.solve.device"):
             result = solve_ffd_device(
                 pod_vecs, pod_ids, packables, chunk_iters=config.chunk_iters,
                 prices=prices, cost_tiebreak=prices is not None, enc=enc,
                 device=device, donate=config.device_donate)
-    executor = "device"
+        executor = "device"
+    if result is None and enc is not None:
+        # under the gate, or past the device's largest shape bucket
+        result = solve_ffd_native_auto(pod_vecs, pod_ids, packables, prices=prices,
+                                       cost_tiebreak=prices is not None, enc=enc)
+        executor = "native"
     if result is None:
         result = host_ffd.pack(pod_vecs, pod_ids, packables, prices=prices,
                                cost_tiebreak=prices is not None)

@@ -64,16 +64,19 @@ def window(pkg, seed, n_problems, pods_each, n_types, n_shapes, extra=None):
 
 
 def solve_both(seed, n_problems, pods_each, n_types, n_shapes, extra=None, **cfg):
-    """Both packages' solve_batch on the same window; the JAX package's
-    batched device path is taken at any window size (device_min_pods=1),
-    as the port's is."""
+    """Both packages' solve_batch on the same window. The port's batched
+    device path is taken at any window size (device_min_pods=0) unless
+    ``device_min_pods`` is passed, which then applies to both packages; the
+    JAX package keeps its gate otherwise (its plans do not depend on the
+    executor)."""
     jprobs = window("jax", seed, n_problems, pods_each, n_types, n_shapes, extra)
     pprobs = window("port", seed, n_problems, pods_each, n_types, n_shapes, extra)
     want = jax_batch.solve_batch(jprobs, jax_solve_mod.SolverConfig(
         device_timeout_s=0, device_hedge=False, **cfg))
     port_solve_mod.reset_executor_counts()
     device_filter.reset_fallback_counts()
-    handle = batch_solve.dispatch_batch(pprobs, port_solve_mod.SolverConfig(**cfg),
+    port_cfg = {"device_min_pods": 0, **cfg}
+    handle = batch_solve.dispatch_batch(pprobs, port_solve_mod.SolverConfig(**port_cfg),
                                         device="cpu")
     got = handle.fetch()
     for b, (g, w, pp, jp) in enumerate(zip(got, want, pprobs, jprobs)):
@@ -114,12 +117,17 @@ def test_lone_problem_is_solved_alone():
     assert handle.device_run is None and executors() == {"device": 1}
 
 
-def test_small_window_joins_the_batch():
-    """135 pods: the JAX package's default would solve them one by one on
-    its native host ring (device_min_pods=512); the port has none and
-    batches every window of two or more problems."""
-    handle, _, _ = solve_both(6, 3, 40, 24, 20)
-    assert handle.device_run.launches == 1 and executors() == {"device-batch": 3}
+@pytest.mark.parametrize("gate", ["default", "off"])
+def test_small_window_joins_the_batch(gate):
+    """135 pods: under the default gate (device_min_pods=512) both packages
+    solve them one by one on the native host ring; with the gate off
+    (device_min_pods=0) the window is one batched launch."""
+    if gate == "default":
+        handle, _, _ = solve_both(6, 3, 40, 24, 20, device_min_pods=512)
+        assert handle.device_run is None and executors() == {"native": 3}
+    else:
+        handle, _, _ = solve_both(6, 3, 40, 24, 20)
+        assert handle.device_run.launches == 1 and executors() == {"device-batch": 3}
 
 
 @pytest.mark.parametrize("device_filter_on", [True, False])
@@ -140,13 +148,14 @@ def test_empty_allowed_set_member_is_solved_alone():
 def test_member_beyond_the_largest_shape_bucket_is_solved_alone(monkeypatch):
     """The encoder's own limit: a member with more distinct shapes than the
     largest bucket (cut to 64 here) cannot be padded, so it leaves the
-    batch, and the solo path hands it to the host oracle."""
+    batch, and the solo path hands it to the native host ring, which takes
+    the exact-size encoding (the JAX package's order of executors)."""
     from karpenter_tpu_torch.ops import encode as port_encode
 
     monkeypatch.setattr(port_encode, "SHAPE_BUCKETS", (8, 16, 32, 64))
     handle, _, probs = solve_both(10, 4, 120, 24, [400, 8, 8, 8])
     assert 0 not in handle.fused.batch_idx
-    assert executors() == {"device-batch": 3, "host": 1}
+    assert executors() == {"device-batch": 3, "native": 1}
 
 
 @pytest.mark.parametrize("seed", [2, 11])
@@ -192,7 +201,7 @@ def test_a_failing_launch_raises_out_of_fetch_and_dispatch(monkeypatch):
     counted; one that raises on the first chunk makes dispatch_batch
     raise."""
     probs = window("port", 14, 3, 120, 24, 60)
-    cfg = port_solve_mod.SolverConfig(chunk_iters=1)
+    cfg = port_solve_mod.SolverConfig(chunk_iters=1, device_min_pods=0)
     real, calls = batched_pack.pack_batch, []
 
     def failing(*args, **kw):
@@ -218,14 +227,15 @@ def test_a_failing_launch_raises_out_of_fetch_and_dispatch(monkeypatch):
 def test_fetch_is_idempotent():
     probs = window("port", 15, 3, 100, 24, 30)
     port_solve_mod.reset_executor_counts()
-    handle = batch_solve.dispatch_batch(probs, port_solve_mod.SolverConfig(), device="cpu")
+    cfg = port_solve_mod.SolverConfig(device_min_pods=0)
+    handle = batch_solve.dispatch_batch(probs, cfg, device="cpu")
     assert handle.in_flight
     first = handle.fetch()
     assert not handle.in_flight
     assert handle.fetch() is first
     assert executors() == {"device-batch": 3}
-    solo = [port_solve_mod.solve(p.constraints, p.pods, p.instance_types, device="cpu")
-            for p in probs]
+    solo = [port_solve_mod.solve(p.constraints, p.pods, p.instance_types, device="cpu",
+                                 config=cfg) for p in probs]
     assert [canonical(r, p.pods) for r, p in zip(first, probs)] == \
         [canonical(r, p.pods) for r, p in zip(solo, probs)]
 
@@ -234,7 +244,8 @@ def test_fused_mask_reaches_the_kernel_as_valid():
     """The fused run's valid and last_valid are the mask program's tensors
     (never rebuilt on the host), and a batch of B problems is one launch."""
     probs = window("port", 16, 4, 80, 30, 20)
-    handle = batch_solve.dispatch_batch(probs, port_solve_mod.SolverConfig(), device="cpu")
+    handle = batch_solve.dispatch_batch(probs, port_solve_mod.SolverConfig(device_min_pods=0),
+                                        device="cpu")
     run = handle.device_run
     assert run.valid_d is handle.fused.mask_d and run.last_valid_d is handle.fused.last_valid_d
     assert run.valid_d.shape == (4, 32) and run.launches == 1

@@ -291,7 +291,7 @@ def run_worker(pkg: Pkg, window, backend="ffd", depth=1, chunk_items=0, monitor=
     else:
         worker = port_prov.ProvisionerWorker(
             provisioner, kube, provider, batcher=batcher, pipeline_config=pipeline_config,
-            solver_config=port_solve_mod.SolverConfig(window_backend=backend,
+            solver_config=port_solve_mod.SolverConfig(window_backend=backend, device_min_pods=0,
                                                       packing_policy=policy), device="cpu")
     binds = []
     orig_bind = worker._bind
@@ -651,7 +651,8 @@ def run_gang_worker(pkg: Pkg, waves, carve=True):
     else:
         worker = port_prov.ProvisionerWorker(
             provisioner, kube, provider, batcher=batcher, pipeline_config=pipeline_config,
-            solver_config=port_solve_mod.SolverConfig(window_backend="ffd"), device="cpu")
+            solver_config=port_solve_mod.SolverConfig(window_backend="ffd", device_min_pods=0),
+            device="cpu")
     try:
         for wave in waves:
             for pod in wave:
@@ -1008,7 +1009,9 @@ def test_status_conditions_set_and_name_the_executor(env):
     expect_provisioned(kube, selection, provisioning, [unschedulable_pod() for _ in range(3)])
     provisioning.reconcile("default")
     solver = get_condition(kube.get("Provisioner", "default").status.conditions, "SolverHealthy")
-    assert solver.message == "last solve: executor=device"
+    # three pods are under the default gate (device_min_pods=512): the
+    # native host ring answers them, as in the JAX package
+    assert solver.message == "last solve: executor=native"
 
 
 def test_condition_refresh_does_not_loop(env):

@@ -152,6 +152,40 @@ def counter_run(pkg, monkeypatch, count):
                        counter.mappings()[0][1](env.kube.get("Node", "n1", "")))}
 
 
+def test_counter_writes_status_only_when_it_changes(monkeypatch):
+    """An unchanged count is not written: no resourceVersion bump and no
+    Provisioner event (the counter's own watch, which would requeue it at
+    once). A new node still writes what the JAX counter writes."""
+    envs = {pkg.name: setup(pkg, monkeypatch) for pkg in (JAX, PORT)}
+    for pkg in (JAX, PORT):
+        envs[pkg.name].kube.create(node(pkg, "n1", "4"))
+    watch = envs["port"].kube.watch("Provisioner")
+    counters = {pkg.name: pkg.counter.CounterController(envs[pkg.name].kube)
+                for pkg in (JAX, PORT)}
+
+    def status(name):
+        return {k: str(v) for k, v in
+                envs[name].kube.get("Provisioner", "default").status.resources.items()}
+
+    def port_rv():
+        return envs["port"].kube.get("Provisioner", "default").metadata.resource_version
+
+    for c in counters.values():
+        c.reconcile("default")
+    assert status("port") == status("jax") and status("port")["cpu"] == "4"
+    rv = port_rv()
+    while not watch.empty():
+        watch.get_nowait()
+    counters["port"].reconcile("default")
+    assert port_rv() == rv and watch.empty()
+    for pkg in (JAX, PORT):
+        envs[pkg.name].kube.create(node(pkg, "n2", "2"))
+        counters[pkg.name].reconcile("default")
+    assert status("port") == status("jax") and status("port")["cpu"] == "6"
+    assert port_rv() != rv and watch.get_nowait().type == "MODIFIED"
+    envs["port"].kube.unwatch(watch)
+
+
 @pytest.mark.parametrize("count", [True, False])
 def test_counter_limits_equal_the_jax_package(count, monkeypatch):
     j = counter_run(JAX, monkeypatch, count)

@@ -74,7 +74,19 @@ def test_port_imports_without_jax_or_the_jax_package():
                 "karpenter_tpu_torch.ops.topology",
                 "karpenter_tpu_torch.solver.gang",
                 "karpenter_tpu_torch.solver.topology",
-                "karpenter_tpu_torch.scheduling.preempt_budget"}
+                "karpenter_tpu_torch.scheduling.preempt_budget",
+                "karpenter_tpu_torch.main",
+                "karpenter_tpu_torch.native",
+                "karpenter_tpu_torch.solver.native_ffd",
+                "karpenter_tpu_torch.solver.warmup",
+                "karpenter_tpu_torch.runtime.manager",
+                "karpenter_tpu_torch.runtime.leaderelection",
+                "karpenter_tpu_torch.config.options",
+                "karpenter_tpu_torch.controllers.logging_config",
+                "karpenter_tpu_torch.cloudprovider.metrics",
+                "karpenter_tpu_torch.utils.workers",
+                "karpenter_tpu_torch.utils.gcguard",
+                "karpenter_tpu_torch.build_dir"}
     assert expected <= set(report["imported"])
 
 

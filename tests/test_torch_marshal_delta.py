@@ -82,12 +82,13 @@ class Pkg:
             return jax_solve_mod.solve(constraints, pods, catalog, daemons=daemons,
                                        config=jax_config(**cfg))
         return solve_mod.solve(constraints, pods, catalog, daemons=daemons, device="cpu",
-                               config=solve_mod.SolverConfig(**cfg))
+                               config=solve_mod.SolverConfig(**{"device_min_pods": 0, **cfg}))
 
     def solve_batch(self, problems, **cfg):
         if self.name == "jax":
             return jax_batch.solve_batch(problems, jax_config(**cfg))
-        return batch_solve.solve_batch(problems, solve_mod.SolverConfig(**cfg), device="cpu")
+        return batch_solve.solve_batch(problems, solve_mod.SolverConfig(
+            **{"device_min_pods": 0, **cfg}), device="cpu")
 
 
 def jax_config(**cfg):
@@ -439,7 +440,8 @@ class TestDeviceRing:
         serial = [[canonical(r, p.pods) for r, p in zip(PORT.solve_batch(w), w)]
                   for w in windows]
         ring = pipeline.get_ring()
-        handles = [batch_solve.dispatch_batch(w, solve_mod.SolverConfig(), device=dev)
+        handles = [batch_solve.dispatch_batch(w, solve_mod.SolverConfig(device_min_pods=0),
+                                              device=dev)
                    for w in windows]
         slots = [h.device_run._slot for h in handles]
         assert len({id(s) for s in slots}) == 3 and all(s.in_use for s in slots)
@@ -464,7 +466,8 @@ class TestDeviceRing:
         of a donated buffer raises the same way)."""
         dev = solve_mod.resolve_device("cpu")
         probs = batch_window(PORT, 42)
-        handle = batch_solve.dispatch_batch(probs, solve_mod.SolverConfig(), device=dev)
+        handle = batch_solve.dispatch_batch(probs, solve_mod.SolverConfig(device_min_pods=0),
+                                            device=dev)
         run = handle.device_run
         shapes_ptr = run.shapes_d.data_ptr()
         handle.fetch()
@@ -473,7 +476,8 @@ class TestDeviceRing:
             with pytest.raises(RuntimeError, match="released"):
                 getattr(run, name)
         # the next window of the same buckets refills the same memory
-        again = batch_solve.dispatch_batch(probs, solve_mod.SolverConfig(), device=dev)
+        again = batch_solve.dispatch_batch(probs, solve_mod.SolverConfig(device_min_pods=0),
+                                           device=dev)
         assert again.device_run.shapes_d.data_ptr() == shapes_ptr
         again.fetch()
 

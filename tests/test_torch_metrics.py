@@ -68,6 +68,40 @@ def drive(reg, seed):
     return reg
 
 
+def drive_cleanup(reg, seed):
+    """A seeded sequence of per-object series writes and ``delete_matching``
+    by one or two label names, in any order, on one gauge of ``reg``."""
+    rng = np.random.default_rng(seed)
+    g = reg.gauge("pods", "per-object series")
+    queries = (("name",), ("name", "namespace"), ("node",), ("namespace", "node"))
+    for step in range(600):
+        labels = {"name": f"p{rng.integers(12)}", "namespace": f"ns{rng.integers(2)}",
+                  "node": f"n{rng.integers(4)}" if rng.random() < 0.8 else ""}
+        if rng.random() < 0.3:
+            labels.pop("node")
+        op = rng.integers(4)
+        if op == 0:
+            g.set(float(step), **labels)
+        elif op == 1:
+            g.inc(1.0, **labels)
+        elif op == 2:
+            g.delete(**labels)
+        else:
+            names = queries[rng.integers(len(queries))]
+            g.delete_matching(**{k: labels.get(k, "n0") for k in names})
+    return reg
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+def test_delete_matching_equals_the_jax_registry(seed):
+    """The port indexes a gauge's series by the label names delete_matching
+    is asked for; what survives, and in what order, is the JAX scan's."""
+    j = drive_cleanup(jax_registry.Registry(), seed)
+    p = drive_cleanup(port_registry.Registry(), seed)
+    assert p.expose() == j.expose()
+    assert p.snapshot() == j.snapshot()
+
+
 @pytest.mark.parametrize("seed", SEEDS)
 def test_registry_equals_the_jax_registry(seed):
     j = drive(jax_registry.Registry(), seed)
@@ -372,12 +406,14 @@ def test_ring_counters_equal_their_series():
     from karpenter_tpu_torch.solver.solve import solve
     from tests.test_torch_solve import build
 
+    from karpenter_tpu_torch.solver.solve import SolverConfig
+
     pipeline.reset_ring()
     constraints, pods, catalog = build("port", 5, 200, 10, 5)
     before = {k: counts(f"pipeline_ring_{k}_total").get("", 0.0)
               for k in ("allocations", "refills", "reuses")}
     for _ in range(3):
-        solve(constraints, pods, catalog, device="cpu")
+        solve(constraints, pods, catalog, device="cpu", config=SolverConfig(device_min_pods=0))
     ring = pipeline.get_ring().counters()
     moved = {k: counts(f"pipeline_ring_{k}_total").get("", 0.0) - before[k] for k in before}
     assert moved == {k: float(ring[k]) for k in before}

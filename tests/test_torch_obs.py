@@ -500,6 +500,10 @@ def test_gang_waves_observe_as_the_jax_controller(monkeypatch, jax_device_gates)
 
 
 def test_consolidation_window_observes_as_the_jax_controller(monkeypatch, jax_device_gates):
+    # a float counter's delta depends on its base: both start at 0, so the
+    # same increments give the same sums whatever earlier tests added
+    for reg in (jax_registry, port_registry):
+        reg.DEFAULT.registered()["consolidation_reclaimed_dollars_total"].delete()
     oj, op, (jr, jorder, _), (pr, porder, ctl) = differential(
         monkeypatch,
         lambda: consolidation.drained_in_order(consolidation.JAX, 7, "mixed", 8),

@@ -76,7 +76,7 @@ class Pkg:
     def config(self, **kw):
         if self.name == "jax":
             return jax_solve_mod.SolverConfig(device_min_pods=1, device_timeout_s=0, **kw)
-        return port_solve_mod.SolverConfig(**kw)
+        return port_solve_mod.SolverConfig(device_min_pods=0, **kw)
 
     def context(self, **kw):
         return self.policy.PolicyContext(**kw)

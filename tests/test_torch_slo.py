@@ -271,6 +271,23 @@ class TestFlightRecorder:
         assert [r["tags"].get("from_level") for r in port_flight.recent()] == [0, 1, None]
         assert len(os.listdir(tmp_path)) == 2
 
+    @pytest.mark.parametrize("uptime", [0.5, 30.0])
+    def test_first_trip_dumps_on_a_freshly_booted_host(self, tmp_path, monkeypatch, uptime):
+        """time.monotonic() is the host's uptime on Linux: with the clock
+        pinned under the interval, the first trip of each trigger still
+        dumps and the next one inside the interval does not; reset()
+        restores the never-dumped state."""
+        monkeypatch.setattr(port_flight.time, "monotonic", lambda: uptime)
+        port_flight.configure(dir=str(tmp_path), min_interval_s=60.0)
+        assert port_flight.trip("pressure-l3", from_level=0) is not None
+        assert port_flight.trip("slo-burn", band="default") is not None
+        assert port_flight.trip("pressure-l3", from_level=1) is None
+        port_flight.reset()
+        # the trip count restarts too, so the dump reuses the first name
+        assert port_flight.trip("pressure-l3", from_level=2) is not None
+        assert sorted(os.listdir(tmp_path)) == ["flight-00001-pressure-l3.json",
+                                                "flight-00002-slo-burn.json"]
+
     def test_a_failed_write_keeps_the_trip(self, tmp_path):
         blocker = tmp_path / "file"
         blocker.write_text("not a directory")

@@ -164,11 +164,13 @@ def test_chunk_loop_that_does_not_finish_raises(monkeypatch):
     port_solve_mod.reset_executor_counts()
     with pytest.raises(RuntimeError, match="did not converge in 2 chunks"):
         port_solve_mod.solve(pc, ppods, pcat, device="cpu",
-                             config=port_solve_mod.SolverConfig(chunk_iters=1))
+                             config=port_solve_mod.SolverConfig(chunk_iters=1,
+                                                                device_min_pods=0))
     assert port_solve_mod.solver_health()["executor_counts"] == {}
     # the same problem with room to finish is answered by the device
     got = port_solve_mod.solve(pc, ppods, pcat, device="cpu",
-                               config=port_solve_mod.SolverConfig(chunk_iters=64))
+                               config=port_solve_mod.SolverConfig(chunk_iters=64,
+                                                                  device_min_pods=0))
     assert port_solve_mod.solver_health()["executor_counts"] == {"device": 1}
     assert got.node_count > 2
 
