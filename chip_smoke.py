@@ -6,9 +6,11 @@ provisioning controller, the global window backend, node removal
 packing policies, gangs, torus carving and preemption, the delta-marshal
 window stream and the columnar controller at full size on one card, and
 observe a window through the port's metrics, traces, SLO engine and flight
-recorder; then the native host ring and its gate, the boot warm-up, and the
+recorder; then the native host ring and its gate, the boot warm-up, the
 controller process (main.build_manager under its Manager, and
-``python -m karpenter_tpu_torch.main`` as a process of its own).
+``python -m karpenter_tpu_torch.main`` as a process of its own), the
+Manager over HTTP against a stub API server through the API client, and
+the admission webhook server.
 
     python3 chip_smoke.py
 
@@ -133,8 +135,8 @@ nvcc each, both at once). Phases, each printing one JSON record:
    (B8) on one schedule on the card and on the CPU, with its program's
    time, launches, device-busy time and bound;
 11. global_window_400: the 9,984-pod window through the global backend
-   twice, the time split (encode, program on the card, host rounding,
-   total) and the verdicts by reason;
+   once (a run is ~30 s of host rounding), the time split (encode,
+   program on the card, host rounding, total) and the verdicts by reason;
 12. whatif_window: config_5's 2,000-node consolidation window
    (bench.py:417-560) encoded and answered by one launch of the what-if
    kernel: equal to its plain version and to host_whatif, executor
@@ -204,10 +206,10 @@ nvcc each, both at once). Phases, each printing one JSON record:
    its own, cold (three builds) then warm (three loads), and a first solve
    at a warmed bucket that allocates no ring buffer (phase_warmup);
 21e. main: main.build_manager in process with the defaults, a journal and
-   a flight directory: config_12's 9,984-pod window through the Manager's
+   a flight directory: config_12's window at 104 pods a schedule (2,496
+   pods; the full width runs over the wire in 21g) through the Manager's
    watch pumps and workqueues, every pod bound once, no leak, no open
-   intent, the binds equal controller_columnar's where one batcher window
-   took every pod, the pack launches held against the plain version; a
+   intent, the pack launches held against the plain version; a
    40-pod window on
    the ring; the four HTTP endpoints; no thread left after stop
    (phase_main);
@@ -215,6 +217,20 @@ nvcc each, both at once). Phases, each printing one JSON record:
    --solver-warmup --leader-elect --journal-dir: boot to /readyz 200 and
    the warm-up's share, rc 0 on SIGTERM with the Lease released, rc 1
    without --cluster-name (phase_main_process);
+21g. wire: the Manager over HTTP at full width: the stub API server
+   (runtime/stubserver.py) in a child process, config_12's 9,984-pod
+   window created through a second client, main.build_manager over
+   KubeApiClient at the default 200 QPS / 300 burst; a 410 Expired on the
+   Pod watch after the first window; every pod but the ENI group bound
+   once and read back over the wire, nodes within capacity, no leak, no
+   open intent, the pack launches held against the plain version, an
+   expired relist counted, no thread left, the stub's process exits 0;
+   the requests by verb and resource, the limiter's waits, the pressure
+   level and each thread group's CPU seconds (phase_wire);
+21h. webhook: webhooks.server.serve over plain HTTP with the fake
+   provider: a defaulting review (its JSON patch), a valid and a denied
+   validating review, a logging-config review, /healthz, and the shutdown
+   (phase_webhook);
 22. each phase's seconds on a line of its own as it ends; the
    device-programs line (B7, B8, B5, B6, B11, the member column, B13), the
    kernels line (pack_chunk, pack_batch with the price-row launch beside
@@ -257,6 +273,10 @@ controller with every default, in a process that holds nothing else.
 times the public solve() on config_4 (one cold run, then the warm runs
 of phase 3), the same way in any tree it is copied into: the parent/change
 A/B of solve()'s host path.
+
+     python3 chip_smoke.py --wire
+
+builds the kernels and runs the wire and webhook phases alone.
 
     python3 chip_smoke.py --manager-flood
 
@@ -2831,7 +2851,7 @@ def relax_program_record(s, device):
             **rec, **program_bound(one)}
 
 
-def phase_global_window_400(device, runs=2):
+def phase_global_window_400(device, runs=1):
     """config_12's 9,984-pod window (24 schedules over 400 types) through
     the global backend: the time split (encode, program on the card, wait
     and copy back, host rounding, total) and the verdicts by reason. The
@@ -6040,7 +6060,12 @@ NATIVE_PYTHON_ORACLE_MAX = 512
 # WARM_RUNS timed runs, and at 416 (9,984 pods) with 5
 NATIVE_WINDOWS = ((21, WARM_RUNS), (416, 5))
 # config_12's window under the Manager: 416 pods a schedule, 9,984 pods
+# (the wire phase; manager_flood's largest)
 MAIN_PER = 416
+# the in-memory main phase's depth: 104 pods a schedule (2,496 pods), since
+# the wire phase drives the full width through the same Manager and the
+# script's total must stay inside its limit
+MAIN_MEMORY_PER = 104
 MAIN_LATE_PODS = 40
 MAIN_FLOOD_DEADLINE_S = 240.0
 MAIN_PROCESS_DEADLINE_S = 120.0
@@ -6284,18 +6309,19 @@ def wait_bound(kube, names, deadline_s, what):
     check(False, f"{what}: {len(names - bound)} of {len(names)} pods never bound")
 
 
-def phase_main(device, columnar_binds):
+def phase_main(device, columnar_binds, per=MAIN_MEMORY_PER):
     """main.build_manager(kube, options) in process with the defaults,
     --journal-dir on the machine's disk and --flight-dir, over a fake
     provider of config_12's catalog (registered as "chip-config12"):
 
-    - config_12's window at MAIN_PER pods a schedule created, then
+    - config_12's window at ``per`` pods a schedule (MAIN_MEMORY_PER, 104:
+      2,496 pods; the wire phase runs the full width) created, then
       recovery.run() and manager.start(): every pod bound exactly once
       (group 15's ENI pods stay Pending), no leaked instance or ghost node,
       no open intent; the batcher's windows and the node count beside
-      controller_columnar's 9,984-pod window, and where the first window
-      took every pod, the same binds (the default global backend leaves
-      config_12's plans as they are);
+      controller_columnar's 9,984-pod window, and at MAIN_PER where the
+      first window took every pod, the same binds (the default global
+      backend leaves config_12's plans as they are);
     - then MAIN_LATE_PODS more pods: their FFD problems answered by the
       native ring (the global leg beside them counts "device-global"), no
       pack launch;
@@ -6350,7 +6376,7 @@ def phase_main(device, columnar_binds):
     batcher_mod.Batcher.wait = recording_wait
     try:
         kube.create(Provisioner(metadata=ObjectMeta(name="default")))
-        pods = config12_controller_pods(catalog, MAIN_PER, "m")
+        pods = config12_controller_pods(catalog, per, "m")
         eni = {p.metadata.name for p in pods if "vpc.amazonaws.com/pod-eni"
                in p.spec.containers[0].resources.requests}
         for p in pods:
@@ -6434,9 +6460,9 @@ def phase_main(device, columnar_binds):
 
     same = canonical_binds(strip_prefix(node_binds(kube, "m-"))) == \
         canonical_binds(columnar_binds)
-    check(same or not one_window,
+    check(same or not one_window or per != MAIN_PER,
           "main: one window took every pod and its binds differ from controller_columnar's")
-    rec = {"phase": "main", "pods": len(pods), "unschedulable_eni": len(eni),
+    rec = {"phase": "main", "per": per, "pods": len(pods), "unschedulable_eni": len(eni),
            "build_manager_s": build_s, "controllers": [type(c).__name__
                                                       for c in manager.controllers()],
            "recovery": stats, "window_s": window_s, "window_cpu_s": window_cpu,
@@ -6617,6 +6643,400 @@ def phase_main_process(device):
     return rec
 
 
+WIRE_WATCH_IDLE_S = 60.0
+WIRE_WRITERS = 8
+WIRE_SETTLE_DEADLINE_S = 120.0
+WIRE_STOP_TIMEOUT_S = 120.0
+
+
+def process_cpu_s(pid="self"):
+    """User + system CPU seconds of a process so far, from /proc."""
+    with open(f"/proc/{pid}/stat") as f:
+        fields = f.read().rsplit(")", 1)[1].split()
+    return (int(fields[11]) + int(fields[12])) / os.sysconf("SC_CLK_TCK")
+
+
+def stub_state(url):
+    import urllib.request
+
+    with urllib.request.urlopen(f"{url}/stub/state", timeout=30.0) as r:
+        return json.loads(r.read())
+
+
+def stub_behavior(url, update):
+    import urllib.request
+
+    req = urllib.request.Request(f"{url}/stub/behavior", data=json.dumps(update).encode(),
+                                 headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=30.0) as r:
+        r.read()
+
+
+def start_stub():
+    """runtime/stubserver.py in a child process of its own (its threads and
+    GIL apart from the controller's) on a free port over plain HTTP: the
+    process and its URL."""
+    repo = os.path.dirname(os.path.abspath(__file__))
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "karpenter_tpu_torch.runtime.stubserver",
+         "--watch-idle-seconds", str(WIRE_WATCH_IDLE_S)],
+        cwd=repo, env={**os.environ, "PYTHONPATH": repo}, stdout=subprocess.PIPE, text=True)
+    line = proc.stdout.readline()
+    if not line:
+        proc.wait(timeout=30.0)
+        check(False, f"wire: the stub API server did not start (rc {proc.returncode})")
+    return proc, json.loads(line)["url"]
+
+
+def writes_settled(url, deadline_s, hold_s=5.0):
+    """Seconds until the stub has seen no binding POST and no node create
+    for ``hold_s``: the selection controller requeues a pod until its bind
+    reaches the informer cache, so windows of pods already bound run (their
+    binds answer 409) until the cache has caught up. The ENI group's pods
+    stay Pending and keep coming back in windows of their own, which
+    launch and bind nothing."""
+    t0 = quiet = time.perf_counter()
+    last = None
+    while time.perf_counter() - t0 < deadline_s:
+        counts = stub_state(url)["counts"]
+        now = time.perf_counter()
+        seen = (counts.get("create pods/binding", 0), counts.get("create nodes", 0))
+        if seen != last:
+            last, quiet = seen, now
+        elif now - quiet >= hold_s:
+            return now - t0
+        time.sleep(0.25)
+    check(False, f"wire: binds and node creates still coming after {deadline_s} s")
+
+
+def wire_binds(kube, every, eni):
+    """One LIST of the pods and one of the nodes, read over the wire: the
+    pods of ``every`` not bound to a node that exists, the ENI pods that
+    were bound, and the nodes whose pods' summed requests exceed their
+    capacity. A pod has one spec.nodeName and the binding subresource
+    refuses a second bind, so a pod bound is bound once."""
+    from collections import defaultdict
+
+    cap = {n.metadata.name: n.status.capacity for n in kube.list("Node", namespace=None)}
+    node_of = {}
+    used = defaultdict(dict)
+    for p in kube.list("Pod"):
+        node_of[p.metadata.name] = p.spec.node_name
+        if p.spec.node_name not in cap:
+            continue
+        u = used[p.spec.node_name]
+        for c in p.spec.containers:
+            for k, q in c.resources.requests.items():
+                u[k] = u[k].add(q) if k in u else q
+    unbound = [n for n in every if node_of.get(n) not in cap]
+    over = [name for name, u in used.items()
+            if any(k not in cap[name] or q.cmp(cap[name][k]) > 0 for k, q in u.items())]
+    return unbound, [n for n in eni if node_of.get(n)], over
+
+
+def phase_wire(device, per=MAIN_PER):
+    """The Manager over HTTP at full width: runtime/stubserver.py in a child
+    process, a second client (its own generous limiter) creating
+    Provisioner("default") and config_12's window at ``per`` pods a schedule
+    (9,984 at MAIN_PER, the ENI group among them), then
+    main.build_manager(KubeApiClient(url), Options(defaults)) with the
+    default 200 QPS / 300 burst, --journal-dir and --flight-dir on the
+    machine's disk, recovery.run() and manager.start(); once the batcher
+    has taken its first window the stub ends the next Pod watch stream
+    with a 410 Expired. Checks, each read back from the stub over the wire:
+
+    - every pod but the ENI group bound exactly once within
+      MAIN_FLOOD_DEADLINE_S, each bound pod's node exists and its pods'
+      summed requests fit its capacity;
+    - no leaked instance, no ghost Node, no open intent;
+    - at least one pack_batch launch on the card, every pack launch of the
+      phase held bit for bit against the plain version (PackLaunches);
+    - karpenter_watch_relist_total{reason="expired"} rose, no pod was lost
+      across the relist (the stub holds every pod created);
+    - once the re-offered windows have run out (the selection controller
+      requeues a pod until its bind reaches the informer cache;
+      writes_settled), manager.stop() and the client's stop_watches()
+      leave no thread alive, and the stub's process exits 0 on SIGTERM.
+
+    Records the seconds to all bound, the batcher's windows and the nodes,
+    the requests by verb and resource as the stub counted them, the count
+    and sum of karpenter_kube_client_throttle_seconds, the highest pressure
+    level and throttle signal seen, and each thread group's CPU seconds."""
+    import shutil
+    import threading
+    from concurrent.futures import ThreadPoolExecutor
+    from types import SimpleNamespace
+
+    import torch
+
+    from karpenter_tpu_torch import main as kmain
+    from karpenter_tpu_torch.api.core import ObjectMeta
+    from karpenter_tpu_torch.api.provisioner import Provisioner
+    from karpenter_tpu_torch.chaos import soak
+    from karpenter_tpu_torch.cloudprovider import spi
+    from karpenter_tpu_torch.cloudprovider.fake.provider import FakeCloudProvider
+    from karpenter_tpu_torch.config.options import Options
+    from karpenter_tpu_torch.metrics.pressure import KUBE_CLIENT_THROTTLE_SECONDS
+    from karpenter_tpu_torch.metrics.recovery import WATCH_RELIST_TOTAL
+    from karpenter_tpu_torch.ops import pack_cuda
+    from karpenter_tpu_torch.pressure import get_monitor, set_monitor
+    from karpenter_tpu_torch.runtime.journal import IntentJournal
+    from karpenter_tpu_torch.runtime.kubeclient import KubeApiClient
+    from karpenter_tpu_torch.scheduling import batcher as batcher_mod
+
+    def relists():
+        return {dict(lv).get("reason"): v for lv, v in WATCH_RELIST_TOTAL.collect().items()
+                if dict(lv).get("kind") == "Pod"}
+
+    def throttle():
+        _, total, count = KUBE_CLIENT_THROTTLE_SECONDS.collect().get((), ([], 0.0, 0))
+        return total, count
+
+    catalog = make_catalog(WINDOW_TYPES)
+    spi.register("chip-config12", lambda: FakeCloudProvider(catalog=catalog))
+    jdir, fdir = journal_dir("wire"), journal_dir("wire-flight")
+    proc, url = start_stub()
+    windows, real_wait = [], batcher_mod.Batcher.wait
+
+    def recording_wait(self):
+        items, seconds = real_wait(self)
+        if items:
+            windows.append((len(items), seconds))
+        return items, seconds
+
+    manager = kube = None
+    try:
+        writer = KubeApiClient(url, qps=1e6, burst=1_000_000)
+        pods = config12_controller_pods(catalog, per, "w")
+        eni = {p.metadata.name for p in pods if "vpc.amazonaws.com/pod-eni"
+               in p.spec.containers[0].resources.requests}
+        t0 = time.perf_counter()
+        writer.create(Provisioner(metadata=ObjectMeta(name="default")))
+        with ThreadPoolExecutor(WIRE_WRITERS) as pool:
+            list(pool.map(writer.create, pods))
+        create_s = time.perf_counter() - t0
+        check(stub_state(url)["pods"] == len(pods), "wire: the stub holds fewer pods than made")
+        options = Options(cluster_name="chip", cluster_endpoint=url,
+                          cloud_provider="chip-config12", journal_dir=jdir, flight_dir=fdir,
+                          device=device.type)
+        check(options.validate() == [], f"wire: options {options.validate()}")
+        kube = KubeApiClient(url, qps=options.kube_client_qps, burst=options.kube_client_burst)
+        t0 = time.perf_counter()
+        manager = kmain.build_manager(kube, options)
+        build_s = time.perf_counter() - t0
+        provisioning = manager.controllers()[0]
+        monitor = get_monitor()
+        relist0, throttle0 = relists(), throttle()
+        batcher_mod.Batcher.wait = recording_wait
+        reset_counts()
+        want = len(pods) - len(eni)
+        with PackLaunches() as launches:
+            stats = manager.recovery.run()
+            cpu0, t0 = thread_cpu_s(), time.perf_counter()
+            manager.start()
+            armed_at, level, signal_max, state, progress = None, 0, 0.0, {}, []
+            while time.perf_counter() - t0 < MAIN_FLOOD_DEADLINE_S:
+                if armed_at is None and windows:
+                    stub_behavior(url, {"watch_410_next": "Pod"})
+                    armed_at = time.perf_counter() - t0
+                level = max(level, int(monitor.level()))
+                signal_max = max(signal_max, monitor.signals()["throttle_seconds"])
+                state = stub_state(url)
+                now = time.perf_counter() - t0
+                if not progress or now - progress[-1][0] >= 10.0:
+                    # (s, pods bound, binding POSTs, windows, level, limiter
+                    # waits, CPU s of this process and of the stub's)
+                    progress.append((round(now, 1), state["pods_bound"],
+                                     state["counts"].get("create pods/binding", 0),
+                                     len(windows), int(monitor.level()), throttle()[1],
+                                     round(process_cpu_s(), 1),
+                                     round(process_cpu_s(proc.pid), 1)))
+                if state["pods_bound"] >= want:
+                    break
+                time.sleep(0.25)
+            bound_s = time.perf_counter() - t0
+            cpu = cpu_delta(cpu0, thread_cpu_s())
+            settle_s = None
+            if state.get("pods_bound") == want:
+                # every launch of the phase is held, the re-offered windows' too
+                settle_s = writes_settled(url, WIRE_SETTLE_DEADLINE_S)
+            if device.type == "cuda":
+                torch.cuda.synchronize()
+            launched = {"pack_chunk": pack_cuda.LAUNCHES, "pack_batch": pack_cuda.BATCH_LAUNCHES}
+        check(state.get("pods_bound") == want,
+              f"wire: {state.get('pods_bound')} of {want} pods bound in "
+              f"{MAIN_FLOOD_DEADLINE_S} s; windows {windows}; (s, bound, binding POSTs, "
+              f"windows, level, limiter waits, CPU s, stub CPU s) {progress}; requests "
+              f"{state.get('counts')}; CPU s by thread group {cpu}")
+        check(state["pods"] == len(pods), f"wire: pods lost: {state['pods']} of {len(pods)}")
+        relisted = {k: v - relist0.get(k, 0.0) for k, v in relists().items()}
+        check(armed_at is not None and relisted.get("expired", 0) >= 1,
+              f"wire: no expired relist of the Pod watch ({relisted})")
+        if device.type == "cuda":
+            check(launched["pack_batch"] >= 1, "wire: the window launched no pack_batch")
+        check(len(launches.records) == launched["pack_batch"] + launched["pack_chunk"],
+              "wire: a pack launch went unrecorded")
+        held = len(launches.records)
+        err = launches.held()
+        check(err == 0, f"wire: the phase's pack launches != plain ({err})")
+        every = [p.metadata.name for p in pods if p.metadata.name not in eni]
+        unbound, eni_bound, over = wire_binds(writer, every, eni)
+        check(not unbound and not eni_bound and not over,
+              f"wire: pods not on a live node {unbound[:3]}, ENI pods bound {eni_bound[:3]}, "
+              f"nodes over capacity {over[:3]}")
+        found = soak.leaks(SimpleNamespace(kube=writer, provider=provisioning.cloud_provider))
+        check(not found["leaked"] and not found["ghosts"], f"wire: {found}")
+        throttled = throttle()
+        worker_threads = [w._thread for w in provisioning.workers.values()]
+        t0 = time.perf_counter()
+        manager.stop(timeout=WIRE_STOP_TIMEOUT_S)
+        kube.stop_watches()
+        for t in kube._watch_threads:
+            t.join(10.0)
+        stop_s = time.perf_counter() - t0
+        alive = [t.name for t in manager.threads() + worker_threads + kube._watch_threads
+                 if t.is_alive()]
+        alive += [t.name for t in threading.enumerate() if t.name == "eviction-queue"]
+        check(alive == [], f"wire: threads alive after stop: {alive}")
+        manager.journal.close_journal()
+        check(IntentJournal(jdir, fsync=False).open_intents() == {}, "wire: intents left open")
+        nodes = len(writer.list("Node", namespace=None))
+        requests = stub_state(url)["counts"]
+    finally:
+        batcher_mod.Batcher.wait = real_wait
+        if manager is not None:
+            manager.stop()
+        if kube is not None:
+            kube.stop_watches()
+        set_monitor(None)
+        proc.terminate()
+        try:
+            stub_rc = proc.wait(timeout=30.0)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            stub_rc = proc.wait(timeout=30.0)
+        shutil.rmtree(jdir, ignore_errors=True)
+        shutil.rmtree(fdir, ignore_errors=True)
+    check(stub_rc == 0, f"wire: the stub process exited {stub_rc}")
+    rec = {"phase": "wire", "pods": len(pods), "unschedulable_eni": len(eni),
+           "create_s": create_s, "build_manager_s": build_s, "recovery": stats,
+           "seconds_to_all_bound": bound_s, "expired_armed_at_s": armed_at,
+           "progress": progress,
+           "batch_windows": windows, "nodes": nodes, "main_nodes": 161,
+           "launches": launched, "pack_launches_held": held, "max_abs_err": err,
+           "settle_s": settle_s,
+           "bind_conflicts": requests.get("create pods/binding", 0) - (len(pods) - len(eni)),
+           "relists": relisted, "requests": dict(sorted(requests.items())),
+           "throttle_seconds": {"count": throttled[1] - throttle0[1],
+                                "sum": throttled[0] - throttle0[0]},
+           "pressure": {"highest_level": level, "throttle_signal_max": signal_max},
+           "cpu_s": cpu, "stop_s": stop_s, "stub_rc": stub_rc}
+    emit(rec)
+    return rec
+
+
+def phase_webhook(device):
+    """webhooks.server.serve on the card's host over plain HTTP, with the
+    port's fake provider and no CertManager: a defaulting review (its JSON
+    patch the capacity-type requirement's, as the CPU tests hold against the
+    JAX package), two validating reviews (one valid, one denied with its
+    reasons) and a logging-config review; /healthz; the server shuts down
+    and its thread ends."""
+    import base64
+    import threading
+    import urllib.request
+
+    from karpenter_tpu_torch.cloudprovider import spi
+    from karpenter_tpu_torch.cloudprovider.fake import provider as _fake  # noqa: F401 — "fake"
+    from karpenter_tpu_torch.webhooks import server as wserver
+
+    manifest = {"apiVersion": "karpenter.sh/v1alpha5", "kind": "Provisioner",
+                "metadata": {"name": "default"},
+                "spec": {"labels": {"team": "ml"},
+                         "requirements": [{"key": "topology.kubernetes.io/zone",
+                                           "operator": "In", "values": ["test-zone-1"]}],
+                         "ttlSecondsAfterEmpty": 30}}
+    bad = json.loads(json.dumps(manifest))
+    bad["spec"]["labels"] = {"kubernetes.io/hostname": "x"}
+    bad["spec"]["requirements"][0]["operator"] = "Exists"
+
+    class CapacityTypeDefault:
+        """The fake provider, defaulting an on-demand capacity type."""
+
+        def __init__(self, provider):
+            self.provider = provider
+
+        def default(self, constraints):
+            from karpenter_tpu_torch.api.core import NodeSelectorRequirement
+
+            if constraints.requirements.capacity_types() is None:
+                constraints.requirements = constraints.requirements.add(NodeSelectorRequirement(
+                    key="karpenter.sh/capacity-type", operator="In", values=["on-demand"]))
+
+        def validate(self, constraints):
+            return self.provider.validate(constraints)
+
+    server = wserver.serve(port=0, cloud_provider=CapacityTypeDefault(spi.resolve("fake")),
+                           host="127.0.0.1")
+    thread = threading.Thread(target=server.serve_forever, daemon=True, name="webhook")
+    thread.start()
+    base = f"http://127.0.0.1:{server.server_address[1]}"
+
+    def review(path, obj, uid):
+        req = urllib.request.Request(base + path, data=json.dumps(
+            {"apiVersion": "admission.k8s.io/v1", "kind": "AdmissionReview",
+             "request": {"uid": uid, "object": obj}}).encode(),
+            headers={"Content-Type": "application/json"})
+        t0 = time.perf_counter()
+        with urllib.request.urlopen(req, timeout=30.0) as r:
+            body = json.loads(r.read())
+        return body, (time.perf_counter() - t0) * 1e3
+
+    try:
+        ms = {}
+        d, ms["default"] = review("/default-resource", manifest, "u-default")
+        ok, ms["validate_ok"] = review("/validate-resource", manifest, "u-ok")
+        no, ms["validate_denied"] = review("/validate-resource", bad, "u-bad")
+        cfg, ms["config"] = review("/config-validation", {
+            "metadata": {"name": "config-logging"},
+            "data": {"zap-logger-config": '{"level": "info"}'}}, "u-cfg")
+        health = http_get(server.server_address[1], "/healthz")
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(10.0)
+    for body, uid in ((d, "u-default"), (ok, "u-ok"), (no, "u-bad"), (cfg, "u-cfg")):
+        check(body.get("apiVersion") == "admission.k8s.io/v1"
+              and body.get("kind") == "AdmissionReview"
+              and body["response"]["uid"] == uid, f"webhook: reply {body}")
+    patch = json.loads(base64.b64decode(d["response"]["patch"]))
+    # _json_patch replaces a list whole: the requirements with the default added
+    want_patch = [{"op": "replace", "path": "/spec/requirements",
+                   "value": manifest["spec"]["requirements"] + [{
+                       "key": "karpenter.sh/capacity-type", "operator": "In",
+                       "values": ["on-demand"]}]}]
+    check(d["response"]["allowed"] is True and d["response"]["patchType"] == "JSONPatch"
+          and patch == want_patch, f"webhook: defaulting patch {patch}")
+    check(ok["response"]["allowed"] is True, f"webhook: a valid manifest denied {ok}")
+    message = no["response"].get("status", {}).get("message", "")
+    check(no["response"]["allowed"] is False and "operator Exists" in message
+          and "kubernetes.io/hostname" in message, f"webhook: the bad manifest {no}")
+    check(cfg["response"]["allowed"] is True, f"webhook: config review {cfg}")
+    check(health == (200, "ok"), f"webhook: /healthz {health}")
+    check(not thread.is_alive(), "webhook: the server thread is alive after shutdown")
+    rec = {"phase": "webhook", "reviews_ms": ms, "patch": patch,
+           "denied": message, "healthz": health[1]}
+    emit(rec)
+    return rec
+
+
+def phase_wire_alone(device):
+    """``--wire``: the kernels built, then the wire and webhook phases."""
+    build_all()
+    phase_wire(device)
+    phase_webhook(device)
+
+
 def build_all():
     """Build every kernel library at once, one nvcc each, and load them."""
     import threading
@@ -6659,9 +7079,9 @@ def card_line() -> str:
 def main(argv) -> int:
     t_start = time.perf_counter()
     if argv not in ([], ["--kernel-times"], ["--solve-times"], ["--controller-deployed"],
-                    ["--whatif-times"], ["--manager-flood"]):
+                    ["--whatif-times"], ["--manager-flood"], ["--wire"]):
         print("usage: chip_smoke.py [--kernel-times | --solve-times | --controller-deployed"
-              " | --whatif-times | --manager-flood]", file=sys.stderr)
+              " | --whatif-times | --manager-flood | --wire]", file=sys.stderr)
         return 2
     import torch
 
@@ -6678,7 +7098,8 @@ def main(argv) -> int:
         {"--kernel-times": phase_kernel_times, "--solve-times": phase_solve_times,
          "--controller-deployed": phase_controller_deployed,
          "--whatif-times": phase_whatif_times,
-         "--manager-flood": phase_manager_flood}[argv[0]](device)
+         "--manager-flood": phase_manager_flood,
+         "--wire": phase_wire_alone}[argv[0]](device)
         return 0
     emit({"phase": "card", "nvidia_smi": card,
           "name": torch.cuda.get_device_name(0),
@@ -6732,6 +7153,8 @@ def main(argv) -> int:
     timed("warmup", phase_warmup, device)
     mn = timed("main", phase_main, device, cc["binds"])
     timed("main_process", phase_main_process, device)
+    wr = timed("wire", phase_wire, device)
+    timed("webhook", phase_webhook, device)
     emit({"phase": "total", "seconds": time.perf_counter() - t_start})
     b8 = gw["relax_pack"]
     b6 = pw["config13"]["program"]
@@ -6825,9 +7248,9 @@ def main(argv) -> int:
         "launches": win["launches_per_window"]["pack_batch"],
         # the batched launches of phase 7 and of the policy window, every
         # pack launch of the journal phase's re-driven windows after a crash
-        # and every one of the main phase's windows under the Manager
+        # and every one of the main and wire phases' windows under the Manager
         "max_abs_err": max(batch_err, kw["max_abs_err"], priced["max_abs_err"],
-                           jn["crash"]["max_abs_err"], mn["max_abs_err"]),
+                           jn["crash"]["max_abs_err"], mn["max_abs_err"], wr["max_abs_err"]),
         "ms": kw["ms"], "plain_ms": kw["plain_ms"],
         "bound_ms": kw["bound_ms"], "bound_by": kw["bound_by"],
         "priced": {"ms": priced["ms"], "unpriced_ms": priced["unpriced_ms"],

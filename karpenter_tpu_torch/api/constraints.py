@@ -4,14 +4,16 @@ Reference: pkg/apis/provisioning/v1alpha5/{constraints.go,taints.go,limits.go}.
 A trimmed copy of the JAX package's module: the solver reads the
 requirements (the viability validators); the scheduler and the selection
 controller validate and tighten pods against them; the provisioning
-controller checks the limits before a launch.
+controller checks the limits before a launch; the Provisioner codec
+(api/codec.py) and the admission webhook carry the kubelet configuration
+and the provider block.
 """
 
 from __future__ import annotations
 
 import copy
 from dataclasses import dataclass, field
-from typing import Dict, List, Optional
+from typing import Any, Dict, List, Optional
 
 from karpenter_tpu_torch.api.core import Pod
 from karpenter_tpu_torch.api.requirements import IN, Requirements, pod_requirements
@@ -48,12 +50,20 @@ class Limits:
 
 
 @dataclass
+class KubeletConfiguration:
+    cluster_dns: List[str] = field(default_factory=list)
+
+
+@dataclass
 class Constraints:
     """Node constraints applied by a Provisioner (constraints.go:24-43)."""
 
     labels: Dict[str, str] = field(default_factory=dict)
     taints: Taints = field(default_factory=Taints)
     requirements: Requirements = field(default_factory=Requirements)
+    kubelet_configuration: KubeletConfiguration = field(default_factory=KubeletConfiguration)
+    # the cloud provider's block (spec.provider), opaque to the core
+    provider: Optional[Dict[str, Any]] = None
 
     def validate_pod(self, pod: Pod) -> Optional[str]:
         """Error if pod requirements are unmet (constraints.go:46-66)."""
@@ -95,6 +105,8 @@ class Constraints:
             taints=self.taints,
             requirements=self.requirements.add(
                 *pod_requirements(pod).items).consolidate().well_known(),
+            kubelet_configuration=self.kubelet_configuration,
+            provider=self.provider,
         )
 
     def deepcopy(self) -> "Constraints":

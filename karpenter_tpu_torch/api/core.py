@@ -198,6 +198,7 @@ class PodSpec:
     volumes: List[Volume] = field(default_factory=list)
     priority_class_name: str = ""
     priority: int = 0  # resolved priority value (admission stamps it from the class)
+    preemption_policy: str = "PreemptLowerPriority"
     termination_grace_period_seconds: int = 30
 
 
@@ -293,6 +294,18 @@ class ConfigMap:
     metadata: ObjectMeta = field(default_factory=ObjectMeta)
     data: Dict[str, str] = field(default_factory=dict)
     kind: str = "ConfigMap"
+
+
+@dataclass
+class Secret:
+    """v1 Secret; ``data`` values are base64-encoded strings (wire form).
+    Holds the admission webhook's CA and serving certificate
+    (webhooks/certs.py)."""
+
+    metadata: ObjectMeta = field(default_factory=ObjectMeta)
+    data: Dict[str, str] = field(default_factory=dict)
+    type: str = "Opaque"
+    kind: str = "Secret"
 
 
 @dataclass

@@ -60,3 +60,9 @@ NORMALIZED_LABELS = {
     LABEL_BETA_OS: LABEL_OS,
     LABEL_BETA_INSTANCE_TYPE: LABEL_INSTANCE_TYPE,
 }
+
+# restricted label machinery (requirements.go:29-50), read by the admission
+# webhook's label checks (webhooks/admission.py)
+RESTRICTED_LABELS = frozenset({EMPTINESS_TIMESTAMP_ANNOTATION, LABEL_HOSTNAME})
+ALLOWED_LABEL_DOMAINS = frozenset({"kops.k8s.io"})
+RESTRICTED_LABEL_DOMAINS = frozenset({"kubernetes.io", "k8s.io", KARPENTER_DOMAIN})

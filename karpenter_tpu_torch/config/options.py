@@ -15,9 +15,10 @@ these differences:
   above ``SolverConfig.device_min_pods`` on the device;
 - ``--solver-compile-cache-dir`` names the directory the kernel libraries
   are built into and loaded from (solver/warmup.py);
-- ``--kube-backend in-cluster`` and ``--cloud-provider aws`` fail
-  :meth:`Options.validate`: the API client and the AWS provider are not
-  yet ported.
+- ``--cloud-provider aws`` fails :meth:`Options.validate`: the AWS
+  provider is not yet ported. ``--kube-backend in-cluster`` builds the API
+  client (runtime/kubeclient.py) from the pod's service account, with
+  ``--kube-client-qps`` / ``--kube-client-burst`` as its budget.
 """
 
 from __future__ import annotations
@@ -153,9 +154,6 @@ class Options:
                 errs.append(f"{name} out of range: {port}")
         if self.kube_backend not in ("memory", "in-cluster"):
             errs.append(f"kube-backend invalid: {self.kube_backend}")
-        elif self.kube_backend == "in-cluster":
-            errs.append("kube-backend in-cluster: not yet ported (the API client "
-                        "comes with the next slice); use memory")
         if self.cloud_provider == "aws":
             errs.append("cloud-provider aws: not yet ported; use fake")
         if self.device not in ("cuda", "cpu"):

@@ -219,6 +219,8 @@ class ProvisionerWorker:
         # global-leg failures caught since this worker was made: each chunk
         # kept its FFD plans
         self.global_errors = 0
+        # (namespace, name) of the pods in the window being provisioned
+        self._inflight: frozenset = frozenset()
         self.last_window: dict = {}
         self._chunks: List[dict] = []
         # engine map is copy-on-write (REPLACED under _engines_lock, never
@@ -324,8 +326,13 @@ class ProvisionerWorker:
 
     def pending(self, key) -> bool:
         """True while a pod with this (namespace, name) key awaits a batch
-        window — the selection requeue loop skips re-adding it."""
-        return self.batcher.contains(key)
+        window or is in the window being provisioned — the selection
+        requeue loop skips re-adding it. The JAX package answers for queued
+        pods only, so a window that outlasts the requeue interval has its
+        pods re-offered; over the wire the next window's provisionability
+        check reads an informer cache that lags this worker's own binds,
+        and solves, launches and binds them again (each bind a 409)."""
+        return key in self._inflight or self.batcher.contains(key)
 
     # -- the hot loop (provisioner.go:84-120) --------------------------------
     def provision(self) -> Optional[SolveResult]:
@@ -335,6 +342,8 @@ class ProvisionerWorker:
         try:
             if not items or self._stop.is_set():
                 return None
+            self._inflight = frozenset((p.metadata.namespace, p.metadata.name)
+                                       for _, p in items)
             # window marks: the batcher leaves per-pod (band, intake_s)
             # aligned index for index with items; keyed by pod identity
             # they follow the window across chunking and regrouping, and
@@ -392,6 +401,7 @@ class ProvisionerWorker:
             }
             return last_result
         finally:
+            self._inflight = frozenset()
             self.batcher.flush()
 
     def _provision_group(self, eng: ProvisionerEngine,

@@ -9,10 +9,14 @@ The JAX package's ``karpenter_tpu/main.py``, with the same eleven
 controllers (the reference's eight, plus consolidation, capacity GC and
 logging-config), the journal replayed before the manager starts, and the
 same exit codes: 0 on SIGTERM, 1 on bad options, on a failed boot and on
-lost leadership. Differences: the solver runs on ``--device`` (the card by
+lost leadership. ``--kube-backend memory`` (the default) runs against the
+in-memory store; ``in-cluster`` against the API server named by
+``KUBERNETES_SERVICE_HOST`` / ``KUBERNETES_SERVICE_PORT``, with the service
+account's token and CA (runtime/kubeclient.py): without that environment
+the boot fails. Differences: the solver runs on ``--device`` (the card by
 default); ``--solver-warmup`` runs before any controller starts and a
-warm-up failure fails the boot; the in-cluster API client, the AWS
-provider and the jax.profiler server are not part of this process.
+warm-up failure fails the boot; the AWS provider and the jax.profiler
+server are not part of this process.
 """
 
 from __future__ import annotations
@@ -25,7 +29,7 @@ import sys
 import threading
 import uuid
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
-from typing import Optional
+from typing import Optional, Union
 
 from karpenter_tpu_torch import pressure
 from karpenter_tpu_torch.cloudprovider import spi
@@ -48,6 +52,7 @@ from karpenter_tpu_torch.controllers.termination import TerminationController
 from karpenter_tpu_torch.metrics import registry
 from karpenter_tpu_torch.obs import flight, slo, trace
 from karpenter_tpu_torch.runtime.journal import IntentJournal
+from karpenter_tpu_torch.runtime.kubeclient import KubeApiClient
 from karpenter_tpu_torch.runtime.kubecore import KubeCore
 from karpenter_tpu_torch.runtime.leaderelection import LeaderElector
 from karpenter_tpu_torch.runtime.manager import Manager
@@ -69,7 +74,7 @@ def build_cloud_provider(options: Options):
     return decorate(spi.resolve(options.cloud_provider))
 
 
-def build_manager(kube: KubeCore, options: Options) -> Manager:
+def build_manager(kube: Union[KubeCore, KubeApiClient], options: Options) -> Manager:
     """Register the controllers: the reference's eight
     (cmd/controller/main.go:89-98) plus consolidation, GC and
     logging-config. With ``--solver-warmup`` the libraries are built and
@@ -227,7 +232,15 @@ def main(argv=None, terminate: Optional[threading.Event] = None) -> int:
         for e in errs:
             log.error("invalid options: %s", e)
         return 1
-    kube = KubeCore()
+    if options.kube_backend == "in-cluster":
+        try:
+            kube = KubeApiClient.in_cluster(qps=options.kube_client_qps,
+                                            burst=options.kube_client_burst)
+        except (KeyError, OSError) as e:  # no service account environment
+            log.error("boot failed: no in-cluster API server: %r", e)
+            return 1
+    else:
+        kube = KubeCore()
     # observability before any controller runs: the tracer and the flight
     # recorder must see the first window
     if options.trace_enabled:
@@ -293,6 +306,8 @@ def main(argv=None, terminate: Optional[threading.Event] = None) -> int:
         manager.stop()
         if elector is not None:
             elector.stop()
+        if isinstance(kube, KubeApiClient):
+            kube.stop_watches()
         server.shutdown()
         server.server_close()
         if options.trace_dump:

@@ -22,6 +22,8 @@ Signals (each maps to a rung; the target level is the max):
   registered batchers (L1/L2/L3 at 20 / 50 / 85 % of the depth bound)
 - **window assembly wall time** — a slow batcher wait means the loop is
   falling behind its own intake (L1/L2)
+- **kube throttle** — time-decayed accumulation of the API client's
+  TokenBucket waits (runtime/kubeclient.py) on its request path (L1/L2)
 - **process RSS** — the growth of /proc/self/status VmRSS since the
   monitor was made, against a watermark (L2 at 85 %, L3 at 100 %). The
   JAX package reads the RSS itself; here the footprint the process had
@@ -30,12 +32,11 @@ Signals (each maps to a rung; the target level is the max):
   4.4 GiB with PyTorch 2.11 built for CUDA 12.8 on an H100 host, past the
   4 GiB watermark, which would hold every controller at L3
 
-The JAX package's solver-breaker and kube-throttle signals are left out:
-the port has no device breaker (a device error raises) and no rate-limited
-API client. The chaos plan reaches both samples the port keeps: a
-``pressure``/``depth`` ``queue-flood`` adds half the depth bound and a
-``pressure``/``rss`` ``memory-pressure`` adds 87 % of the watermark, one
-decision per evaluation.
+The JAX package's solver-breaker signal is left out: the port has no
+device breaker (a device error raises). The chaos plan reaches two
+samples: a ``pressure``/``depth`` ``queue-flood`` adds half the depth
+bound and a ``pressure``/``rss`` ``memory-pressure`` adds 87 % of the
+watermark, one decision per evaluation.
 
 Hysteresis: the level RISES immediately but FALLS one rung at a time, and
 only after the computed target has stayed below the held level for
@@ -49,6 +50,7 @@ recorder (``pressure-l3``) with the rung it rose from and the depth.
 from __future__ import annotations
 
 import logging
+import math
 import threading
 import time
 from dataclasses import dataclass
@@ -87,6 +89,11 @@ class PressureConfig:
     # window assembly wall time (seconds)
     window_l1_seconds: float = 5.0
     window_l2_seconds: float = 30.0
+    # decayed kube-client throttle accumulation (seconds); decays with the
+    # throttle_tau_seconds time constant between samples
+    throttle_l1_seconds: float = 0.5
+    throttle_l2_seconds: float = 2.0
+    throttle_tau_seconds: float = 30.0
     # watermark of the RSS's growth since the monitor was made; 0 disables
     # the signal
     rss_watermark_bytes: int = 4 * 1024 ** 3
@@ -139,6 +146,8 @@ class PressureMonitor:
         self._depths: Dict[int, int] = {}
         self._window_s = 0.0
         self._window_at: Optional[float] = None
+        self._throttle = 0.0
+        self._throttle_at: Optional[float] = None
         self._rss = 0
         self._rss_at: Optional[float] = None
         self._rss_base = self._rss_fn() if self.config.rss_watermark_bytes else 0
@@ -176,7 +185,21 @@ class PressureMonitor:
             self._window_s = seconds
             self._window_at = self._now()
 
+    def note_throttle(self, waited: float) -> None:
+        """Accumulate a TokenBucket wait with exponential time decay: a
+        saturated budget piles waits faster than tau drains them."""
+        now = self._now()
+        with self._lock:
+            self._throttle = self._decayed_throttle(now) + waited
+            self._throttle_at = now
+
     # -- evaluation ----------------------------------------------------------
+    def _decayed_throttle(self, now: float) -> float:
+        if self._throttle_at is None or self._throttle <= 0:
+            return 0.0
+        tau = max(1e-6, self.config.throttle_tau_seconds)
+        return self._throttle * math.exp(-(now - self._throttle_at) / tau)
+
     def _sample_rss(self, now: float) -> int:
         if self._rss_at is None or now - self._rss_at >= self.rss_sample_interval:
             self._rss = self._rss_fn() - self._rss_base
@@ -196,15 +219,18 @@ class PressureMonitor:
         window = self._window_s
         if self._window_at is None or now - self._window_at > WINDOW_STALENESS_SECONDS:
             window = 0.0
+        throttle = self._decayed_throttle(now)
         rss = self._sample_rss(now)
         watermark = c.rss_watermark_bytes
         depth_l1, depth_l2, depth_l3 = self._depth_rungs
         if depth >= depth_l3 or (watermark and rss >= watermark):
             return PressureLevel.L3
         if (depth >= depth_l2 or window >= c.window_l2_seconds
+                or throttle >= c.throttle_l2_seconds
                 or (watermark and rss >= 0.85 * watermark)):
             return PressureLevel.L2
-        if depth >= depth_l1 or window >= c.window_l1_seconds:
+        if (depth >= depth_l1 or window >= c.window_l1_seconds
+                or throttle >= c.throttle_l1_seconds):
             return PressureLevel.L1
         return PressureLevel.L0
 
@@ -238,22 +264,26 @@ class PressureMonitor:
             return self._level
 
     def level(self) -> PressureLevel:
-        """Current rung, re-evaluated at most every eval_interval."""
+        """Current rung, re-evaluated at most every eval_interval. The
+        cached read takes no lock (two attribute reads): the selection
+        workers ask once a requeue, and under the lock they convoy on it
+        (the JAX package locks here)."""
         if not self.config.enabled:
             return PressureLevel.L0
-        now = self._now()
-        with self._lock:
-            if self._last_eval is not None and now - self._last_eval < self.eval_interval:
-                return self._level
+        last = self._last_eval
+        if last is not None and self._now() - last < self.eval_interval:
+            return self._level
         return self.evaluate()
 
     def signals(self) -> dict:
         """Snapshot for the observability endpoints (/debug/vars) and tests."""
+        now = self._now()
         with self._lock:
             return {
                 "level": int(self._level),
                 "intake_depth": sum(self._depths.values()),
                 "window_seconds": self._window_s,
+                "throttle_seconds": round(self._decayed_throttle(now), 4),
                 "rss_bytes": self._rss,
             }
 

@@ -10,7 +10,8 @@ API-server semantics the provisioning path reads and writes, in process.
   only removed once its finalizer list empties.
 - Watch: per-subscriber event queues with ADDED/MODIFIED/DELETED.
 - Field index on pod spec.nodeName for O(1) pods-on-node lookups.
-- Binding subresource for pods, a node's worth under one lock.
+- Binding subresource for pods: one pod (``bind_pod``, the stub API
+  server's binding POST), or a node's worth under one lock.
 - Eviction subresource with PodDisruptionBudget semantics (``evict_pod``),
   over namespace indexes of pods and PDBs.
 
@@ -20,9 +21,9 @@ stripe lock is held; an operation over two kinds (the eviction) takes
 their stripes in sorted order. ``_watchers`` is copy-on-write:
 ``watch``/``unwatch`` replace it under ``_watch_lock`` and ``_notify``
 iterates a snapshot. resourceVersion is one shared ``itertools.count``.
-Left out, since no port controller calls them yet: full updates with their
-stale-version conflict, delete preconditions, the one-pod
-binding, meta-only watches and the single-lock reference layout.
+Delete takes the resourceVersion precondition (the stub API server's
+DeleteOptions). Left out, since no port controller calls them yet:
+meta-only watches and the single-lock reference layout.
 """
 
 from __future__ import annotations
@@ -252,10 +253,12 @@ class KubeCore:
                     q.put(Event(event_type, deep_copy(obj)))
 
     # -- watch --------------------------------------------------------------
-    def watch(self, kind: Optional[str] = None,
-              meta_only: bool = False) -> "queue.Queue[Event]":
+    def watch(self, kind: Optional[str] = None, meta_only: bool = False,
+              since_rv: Optional[int] = None) -> "queue.Queue[Event]":
         """Subscribe to events for a kind (None = all). Existing objects are
-        replayed as ADDED, matching informer initial-list semantics.
+        replayed as ADDED, matching informer initial-list semantics; with
+        ``since_rv`` only those changed after that resourceVersion (a watch
+        that resumes from a LIST, as the stub API server's does).
         ``meta_only`` delivers :class:`MetaObj` stubs (kind + name/namespace)
         instead of deep copies, for subscribers that only enqueue keys.
         Registration is atomic with the replay against the subject
@@ -265,6 +268,8 @@ class KubeCore:
 
         def _replay(objects) -> None:
             for obj in objects:
+                if since_rv is not None and obj.metadata.resource_version <= since_rv:
+                    continue
                 if kind is None or obj.kind == kind:
                     stub = (MetaObj(obj.kind, obj.metadata.name, obj.metadata.namespace)
                             if meta_only else deep_copy(obj))
@@ -414,19 +419,30 @@ class KubeCore:
             self._notify("MODIFIED", obj)
             return deep_copy(obj)
 
-    def delete(self, kind: str, name: str, namespace: str = "default"):
-        """Delete; with finalizers present, only stamps deletionTimestamp."""
+    def delete(self, kind: str, name: str, namespace: str = "default",
+               precondition_rv=None):
+        """Delete; with finalizers present, only stamps deletionTimestamp.
+        ``precondition_rv``: DeleteOptions.preconditions.resourceVersion —
+        the delete conflicts unless the live object still carries exactly
+        this resourceVersion."""
         s = self._stripe(kind)
         with s.lock:
-            return self._delete_locked(s, kind, name, namespace)
+            return self._delete_locked(s, kind, name, namespace, precondition_rv)
 
-    def _delete_locked(self, s: _Stripe, kind: str, name: str, namespace: str):
+    def _delete_locked(self, s: _Stripe, kind: str, name: str, namespace: str,
+                       precondition_rv=None):
         """Delete body; the caller holds ``s``'s lock (the eviction holds
         the Pod and PDB stripes, so its check-then-delete is one step)."""
         k = (kind, namespace, name)
         stored = s.objects.get(k)
         if stored is None:
             raise NotFound(f"{kind} {namespace}/{name} not found")
+        if precondition_rv is not None and \
+                str(stored.metadata.resource_version) != str(precondition_rv):
+            raise Conflict(
+                f"{kind} {namespace}/{name}: delete precondition failed "
+                f"(resourceVersion {stored.metadata.resource_version} "
+                f"!= {precondition_rv})")
         if stored.metadata.finalizers:
             if stored.metadata.deletion_timestamp is None:
                 # k8s semantics: deletionTimestamp = request time + the
@@ -443,6 +459,22 @@ class KubeCore:
         return deep_copy(stored)
 
     # -- subresources -------------------------------------------------------
+    def bind_pod(self, pod: Pod, node_name: str) -> None:
+        """Binding subresource: sets spec.nodeName exactly once (a bound
+        pod conflicts)."""
+        s = self._stripe("Pod")
+        with s.lock:
+            k = ("Pod", pod.metadata.namespace, pod.metadata.name)
+            stored = s.objects.get(k)
+            if stored is None:
+                raise NotFound(f"pod {k} not found")
+            if stored.spec.node_name:
+                raise Conflict(f"pod {pod.metadata.name} already bound to {stored.spec.node_name}")
+            stored.spec.node_name = node_name
+            stored.metadata.resource_version = self._next_rv()
+            self._reindex(k, None, stored)  # was unbound: nothing to remove
+        self._notify("MODIFIED", stored)
+
     def bind_pods(self, pods: List[Pod], node_name: str) -> List[str]:
         """Bulk binding: bind every pod to ``node_name`` under ONE lock
         acquisition (a node's worth of binds — the provisioning hot loop

@@ -86,7 +86,16 @@ def test_port_imports_without_jax_or_the_jax_package():
                 "karpenter_tpu_torch.cloudprovider.metrics",
                 "karpenter_tpu_torch.utils.workers",
                 "karpenter_tpu_torch.utils.gcguard",
-                "karpenter_tpu_torch.build_dir"}
+                "karpenter_tpu_torch.build_dir",
+                "karpenter_tpu_torch.api.codec",
+                "karpenter_tpu_torch.api.codec_core",
+                "karpenter_tpu_torch.utils.ratelimit",
+                "karpenter_tpu_torch.runtime.kubeclient",
+                "karpenter_tpu_torch.runtime.stubserver",
+                "karpenter_tpu_torch.webhooks",
+                "karpenter_tpu_torch.webhooks.admission",
+                "karpenter_tpu_torch.webhooks.certs",
+                "karpenter_tpu_torch.webhooks.server"}
     assert expected <= set(report["imported"])
 
 

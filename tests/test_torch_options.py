@@ -5,8 +5,8 @@ validate() the same errors, except for the recorded differences:
 - ``--device`` (port only) takes the place of ``JAX_PLATFORMS``;
 - ``--trace-annotations`` (port) replaces ``--trace-jax`` (JAX);
 - ``--solver-use-device`` (JAX only) is gone;
-- ``--kube-backend in-cluster`` and ``--cloud-provider aws`` fail the
-  port's validate() as not yet ported.
+- ``--cloud-provider aws`` fails the port's validate() as not yet ported;
+  ``--kube-backend in-cluster`` validates in both packages.
 """
 
 import dataclasses
@@ -116,13 +116,17 @@ def test_validate_gives_the_same_errors(fields):
 
 
 @pytest.mark.parametrize("fields,error", [
-    ({"kube_backend": "in-cluster"}, "kube-backend in-cluster: not yet ported"),
+    # the API client is ported: in-cluster validates, as in the JAX package
+    ({"kube_backend": "in-cluster"}, None),
     ({"cloud_provider": "aws"}, "cloud-provider aws: not yet ported"),
     ({"device": "tpu"}, "device invalid: tpu"),
 ])
 def test_port_refuses_what_it_has_not_ported(fields, error):
     errs = port_options.Options(cluster_name="c", cluster_endpoint="e", **fields).validate()
-    assert len(errs) == 1 and errs[0].startswith(error)
+    if error is None:
+        assert errs == []
+    else:
+        assert len(errs) == 1 and errs[0].startswith(error)
     assert jax_options.Options(cluster_name="c", cluster_endpoint="e",
                                **{k: v for k, v in fields.items()
                                   if k != "device"}).validate() == []
