@@ -8,9 +8,10 @@ window stream and the columnar controller at full size on one card, and
 observe a window through the port's metrics, traces, SLO engine and flight
 recorder; then the native host ring and its gate, the boot warm-up, the
 controller process (main.build_manager under its Manager, and
-``python -m karpenter_tpu_torch.main`` as a process of its own), the
-Manager over HTTP against a stub API server through the API client, and
-the admission webhook server.
+``python -m karpenter_tpu_torch.main`` as a process of its own), the AWS
+provider over signed HTTP against a stub EC2/SSM endpoint, the Manager
+over HTTP against a stub API server through the API client, and the
+admission webhook server.
 
     python3 chip_smoke.py
 
@@ -213,6 +214,19 @@ nvcc each, both at once). Phases, each printing one JSON record:
    40-pod window on
    the ring; the four HTTP endpoints; no thread left after stop
    (phase_main);
+21e'. aws: main.build_manager with --cloud-provider aws against the AWS
+   stub endpoint (cloudprovider/aws/fake/stubserver.py) in a child
+   process, the EC2 and SSM clients pointed at it from this script:
+   config_12's 400 types discovered over signed HTTP in 4 pages and
+   adapted into the pack kernel's type axis; config_12's window at 52
+   pods a schedule, then again (steady: no catalog rebuild, no ring
+   allocation); every Node the stub's instance, tagged with the cluster
+   and the journal's launch nonce; ChaosEC2's ice (pools poisoned, one
+   catalog rebuild after it, the retry elsewhere) and crash-before-bind
+   (the leak reaped by GC after its grace period); the pack launches held
+   against the plain version; the CreateFleet calls and their HTTP p50,
+   the fleet limiter's waits and the stub's requests by action
+   (phase_aws);
 21f. main_process: python -m karpenter_tpu_torch.main on the card with
    --solver-warmup --leader-elect --journal-dir: boot to /readyz 200 and
    the warm-up's share, rc 0 on SIGTERM with the Lease released, rc 1
@@ -277,6 +291,10 @@ A/B of solve()'s host path.
      python3 chip_smoke.py --wire
 
 builds the kernels and runs the wire and webhook phases alone.
+
+    python3 chip_smoke.py --aws
+
+builds the kernels and runs the aws phase alone.
 
     python3 chip_smoke.py --manager-flood
 
@@ -3524,14 +3542,29 @@ def fleet_cost(kube, catalog):
     return len(nodes), sum(prices.values())
 
 
+def pod_nodes(kube):
+    """Each pod's node by name, read in place (a copy of every pod took
+    seconds at the deprovision phase's 50,000)."""
+    return dict(kube.scan("Pod", lambda p: (p.metadata.name, p.spec.node_name)))
+
+
+def db_nodes_of(kube):
+    """The nodes that hold an app=db pod."""
+    return {node for node, app in kube.scan(
+        "Pod", lambda p: (p.spec.node_name, p.metadata.labels.get("app"))) if app == "db"}
+
+
 def pdb_breaches(kube):
     """The PDBs whose healthy selected pods are fewer than they require."""
     from karpenter_tpu_torch.runtime.kubecore import _scaled_int_or_percent
 
     out = []
     for pdb in kube.list("PodDisruptionBudget"):
-        sel = kube.list("Pod", namespace=pdb.metadata.namespace, label_selector=pdb.selector)
-        healthy = sum(1 for p in sel if p.spec.node_name and p.metadata.deletion_timestamp is None)
+        ns, selector = pdb.metadata.namespace, pdb.selector
+        sel = [ok for chosen, ok in kube.scan("Pod", lambda p: (
+            p.metadata.namespace == ns and selector.matches(p.metadata.labels),
+            bool(p.spec.node_name) and p.metadata.deletion_timestamp is None)) if chosen]
+        healthy = sum(sel)
         if pdb.min_available is not None:
             desired = _scaled_int_or_percent(pdb.min_available, len(sel), pdb.metadata.name)
         else:
@@ -3591,7 +3624,7 @@ def check_removed(kube, provider, names, pods_before, events, what):
             check(False, f"{what}: node {name} is still there")
         except NotFound:
             pass
-    now = {p.metadata.name: p.spec.node_name for p in kube.list("Pod")}
+    now = pod_nodes(kube)
     evicted = [p for p, n in pods_before.items() if n in names and p in now]
     lost = [p for p, n in pods_before.items() if n not in names and p not in now]
     check(not evicted, f"{what}: pods of removed nodes still there: {evicted[:3]}")
@@ -3654,7 +3687,7 @@ def budget_drains(kube, termination, provider, watch, outcomes, timeout=60.0):
 
     t0 = time.perf_counter()
     live = {n.metadata.name for n in kube.list("Node") if n.metadata.deletion_timestamp is None}
-    db_nodes = {p.spec.node_name for p in kube.list("Pod") if p.metadata.labels.get("app") == "db"}
+    db_nodes = db_nodes_of(kube)
     web, healthy = web_pods(kube)
     per_node = Counter(p.spec.node_name for p in web if p.spec.node_name in live - db_nodes)
     ranked = sorted(per_node.items(), key=lambda t: (-t[1], t[0]))
@@ -3671,7 +3704,7 @@ def budget_drains(kube, termination, provider, watch, outcomes, timeout=60.0):
     b_web = {p.metadata.name for p in web if p.spec.node_name == node_b}
 
     drain_events(watch)
-    pods_before = {p.metadata.name: p.spec.node_name for p in kube.list("Pod")}
+    pods_before = pod_nodes(kube)
     kube.delete("Node", node_a, "")
     term_a, _ = terminate_all(kube, termination, [node_a])
     check_removed(kube, provider, [node_a], pods_before, drain_events(watch), "budget node A")
@@ -3684,7 +3717,7 @@ def budget_drains(kube, termination, provider, watch, outcomes, timeout=60.0):
         replacements.append(kube.create(r))
 
     mark = len(outcomes)
-    pods_before = {p.metadata.name: p.spec.node_name for p in kube.list("Pod")}
+    pods_before = pod_nodes(kube)
     kube.delete("Node", node_b, "")
     t_refused, passes = time.perf_counter(), 0
     while True:
@@ -3804,12 +3837,12 @@ def phase_deprovision(device):
     # the scale-down
     emptied = {str(n) for n in rng.choice(nodes, size=round(SCALE_DOWN_NODES * len(nodes)),
                                           replace=False)}
-    bound = sorted((p.metadata.name, p.spec.node_name) for p in kube.list("Pod"))
+    bound = sorted(pod_nodes(kube).items())
     drop = rng.random(len(bound)) < SCALE_DOWN_PODS
     for (name, node), d in zip(bound, drop):
         if d or node in emptied:
             kube.delete("Pod", name, "default")
-    remaining = len(kube.list("Pod"))
+    remaining = len(pod_nodes(kube))
 
     def set_spec(fn):
         kube.patch("Provisioner", "default", "default", lambda p: fn(p.spec))
@@ -3823,9 +3856,8 @@ def phase_deprovision(device):
         for w in range(CONSOLIDATION_WINDOWS):
             drain_events(watch)
             nodes_before, cost_before = fleet_cost(kube, catalog)
-            pods_before = {p.metadata.name: p.spec.node_name for p in kube.list("Pod")}
-            db_nodes = {p.spec.node_name for p in kube.list("Pod")
-                        if p.metadata.labels.get("app") == "db"}
+            pods_before = pod_nodes(kube)
+            db_nodes = db_nodes_of(kube)
             reset_counts()
             consolidation.reconcile("default")
             lw = dict(consolidation.last_window)
@@ -3880,7 +3912,7 @@ def phase_deprovision(device):
         check(not any(n.metadata.deletion_timestamp for n in kube.list("Node")),
               "emptiness: a node was deleted before its TTL")
         drain_events(watch)
-        pods_before = {p.metadata.name: p.spec.node_name for p in kube.list("Pod")}
+        pods_before = pod_nodes(kube)
         nodes_before, cost_before = fleet_cost(kube, catalog)
         clock.DEFAULT.set(t0 + EMPTY_TTL + 1)
         for n in empty:
@@ -7030,6 +7062,469 @@ def phase_webhook(device):
     return rec
 
 
+# config_12's window at 52 pods a schedule (1,248 pods, less the ENI group's
+# 52): cut from 104 for the whole script's 1,200 s limit
+AWS_PER = 52
+AWS_LEG_PODS = 16      # pods of each ChaosEC2 leg
+AWS_DEADLINE_S = 120.0
+AWS_SELECTOR = {"karpenter.sh/discovery": "chip"}
+
+
+def aws_catalog_infos():
+    """config_12's 400 types (make_catalog(WINDOW_TYPES)) as EC2 describes
+    them: the same vCPUs, memory, pod caps (one ENI of pods - 1 addresses)
+    and prices, named into EC2's compute, general and memory families by
+    their memory ratio (2, 4 and 8 GiB a vCPU); every 50th type carries
+    NVIDIA GPUs (its own AMI class) and every 16th pod-ENI trunking. What
+    EC2 does not describe (prices, trunking) stays in the stub."""
+    from karpenter_tpu_torch.cloudprovider.aws import sdk
+
+    infos = []
+    for i, it in enumerate(make_catalog(WINDOW_TYPES)):
+        cpu, mem_mib = it.cpu.value(), it.memory.value() // 2**20
+        family = {2: "c", 4: "m", 8: "r"}[mem_mib // 1024 // cpu]
+        gpu = i % 50 == 49
+        infos.append(sdk.InstanceTypeInfo(
+            instance_type=f"{'g' if gpu else family}{cpu}.{it.name}", vcpus=cpu,
+            memory_mib=mem_mib, maximum_network_interfaces=1,
+            ipv4_addresses_per_interface=it.pods.value() - 1,
+            gpus=[sdk.GPUInfo("NVIDIA", max(1, cpu // 8))] if gpu else [],
+            pod_eni_trunking_compatible=i % 16 == 15, pod_eni_branch_interfaces=9,
+            price_per_hour=it.price))
+    return infos
+
+
+def aws_stub_behavior():
+    """The stub's EC2 state: the catalog in 4 pages of 100, offered in
+    bench-zone-1..3; three subnets and three security groups tagged for
+    discovery, one a zone."""
+    from karpenter_tpu_torch.cloudprovider.aws import sdk
+    from karpenter_tpu_torch.cloudprovider.aws.fake.ec2api import EC2Behavior
+
+    infos = aws_catalog_infos()
+    zones = [f"bench-zone-{z}" for z in (1, 2, 3)]
+    return EC2Behavior(
+        describe_instance_types_output=infos,
+        describe_instance_type_offerings_output=[
+            sdk.InstanceTypeOffering(i.instance_type, z) for i in infos for z in zones],
+        describe_subnets_output=[sdk.Subnet(f"subnet-chip-{k}", z, {
+            **AWS_SELECTOR, "Name": f"chip-{z}"}) for k, z in enumerate(zones)],
+        describe_security_groups_output=[sdk.SecurityGroup(f"sg-chip-{k}", f"chip-{k}", {
+            **AWS_SELECTOR, "Name": f"chip-sg-{k}"}) for k in range(3)])
+
+
+def start_aws_stub(behavior_path):
+    """cloudprovider/aws/fake/stubserver.py in a child process on a free
+    port over the behavior file: the process and its URL."""
+    repo = os.path.dirname(os.path.abspath(__file__))
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "karpenter_tpu_torch.cloudprovider.aws.fake.stubserver",
+         "--behavior", behavior_path],
+        cwd=repo, env={**os.environ, "PYTHONPATH": repo}, stdout=subprocess.PIPE, text=True)
+    line = proc.stdout.readline()
+    if not line:
+        proc.wait(timeout=30.0)
+        check(False, f"aws: the stub endpoint did not start (rc {proc.returncode})")
+    return proc, json.loads(line)["url"]
+
+
+class FleetLog:
+    """Every CreateFleet the provider sends through ChaosEC2: the request,
+    its answer (instance ids and error codes, or the raised code) and
+    ops/encode's catalog rebuild count as it returned, and the milliseconds
+    of the HTTP call when it reached the stub."""
+
+    def __init__(self):
+        self.calls, self.http_ms = [], []
+
+    def wrap_http(self, ec2):
+        real = ec2.create_fleet
+
+        def timed(request):
+            t0 = time.perf_counter()
+            try:
+                return real(request)
+            finally:
+                self.http_ms.append((time.perf_counter() - t0) * 1e3)
+
+        ec2.create_fleet = timed
+
+    def wrap_chaos(self, chaos):
+        from karpenter_tpu_torch.ops import encode
+
+        real = chaos.create_fleet
+
+        def logged(request):
+            try:
+                response = real(request)
+            except Exception as e:
+                self.calls.append((request, None, getattr(e, "code", type(e).__name__),
+                                   encode.CATALOG_REBUILDS))
+                raise
+            self.calls.append((request, list(response.instance_ids),
+                               sorted({x.error_code for x in response.errors}),
+                               encode.CATALOG_REBUILDS))
+            return response
+
+        chaos.create_fleet = logged
+
+
+def aws_leg_pods(prefix, n):
+    """``n`` pods of one shape allowed everywhere (both capacity types, the
+    three zones): a leg of its own, one schedule."""
+    from karpenter_tpu_torch.api import wellknown as wk
+
+    return [pending_pod(f"{prefix}-{j:02d}", 1000, 2048, [
+        (wk.LABEL_CAPACITY_TYPE, ["on-demand", "spot"]),
+        (wk.LABEL_TOPOLOGY_ZONE, [f"bench-zone-{z}" for z in (1, 2, 3)])]) for j in range(n)]
+
+
+def phase_aws(device, per=AWS_PER):
+    """main.build_manager(KubeCore(), Options(--cloud-provider aws,
+    --cluster-name, --cluster-endpoint, --journal-dir)) against the AWS stub
+    endpoint (cloudprovider/aws/fake/stubserver.py) in a child process:
+    AWS_REGION, static credentials and AWS_EC2_METADATA_SERVICE_ENDPOINT in
+    the environment, and awsclient.default_clients pointed at the stub from
+    this script (the program has no such flag), its EC2 client wrapped in
+    chaos.inject.ChaosEC2. The stub holds config_12's 400 types
+    (aws_catalog_infos), discovered over HTTP in 4 pages of 100 and adapted
+    (adapt: ENI-limited pods, the kubelet and system overhead) into the
+    pack kernel's type axis.
+
+    - A Provisioner allowing both capacity types, with the AWS block,
+      through the webhook's defaulting and validation (admission).
+    - config_12's window at ``per`` pods a schedule (AWS_PER, 52: 1,248
+      pods, less the ENI group's 52: EC2 does not describe pod-ENI
+      trunking, so no type over the wire could take them), then the same
+      window again (steady): every pod bound exactly once;
+      every Node's instance type, zone and capacity type those of the
+      stub's instance behind its providerID; every instance tagged with
+      the cluster and a launch nonce the journal's fleet-launch intent
+      drew; list_instances() the Nodes; no describe retry; the steady
+      window rebuilt no catalog encoding and allocated no ring slot.
+    - ChaosEC2 ``ice`` on the next CreateFleet (AWS_LEG_PODS pods): the
+      pools poisoned in the ICE cache, one catalog rebuild, the retry
+      launched on offerings the fault did not poison.
+    - ChaosEC2 ``crash-before-bind`` (AWS_LEG_PODS pods): the instance
+      launched and its answer lost; the pods bound by a later launch; the
+      GC controller spares the leak inside its grace period and terminates
+      it after, on the port's clock.
+    - Every pack launch of the phase held bit for bit against the plain
+      version (PackLaunches); no leak, no ghost, no open intent;
+      manager.stop() leaves no thread alive; the stub exits 0.
+
+    Records the wall, the seconds until each wave is bound, the CreateFleet
+    calls and their p50 ms over HTTP, the fleet limiter's waits, the stub's
+    requests by action and the pack launches."""
+    import shutil
+    import statistics
+    import threading
+    from types import SimpleNamespace
+
+    import torch
+
+    from karpenter_tpu_torch import main as kmain
+    from karpenter_tpu_torch.api import wellknown as wk
+    from karpenter_tpu_torch.api.constraints import Constraints
+    from karpenter_tpu_torch.api.core import NodeSelectorRequirement, ObjectMeta
+    from karpenter_tpu_torch.api.provisioner import Provisioner, ProvisionerSpec
+    from karpenter_tpu_torch.api.requirements import Requirements
+    from karpenter_tpu_torch.chaos import inject, soak
+    from karpenter_tpu_torch.cloudprovider.aws import awsclient
+    from karpenter_tpu_torch.cloudprovider.aws.fake import stubserver
+    from karpenter_tpu_torch.cloudprovider.aws.instance import get_instance_id
+    from karpenter_tpu_torch.config.options import Options
+    from karpenter_tpu_torch.controllers.gc import GarbageCollection
+    from karpenter_tpu_torch.ops import encode, pack_cuda
+    from karpenter_tpu_torch.pressure import set_monitor
+    from karpenter_tpu_torch.runtime.journal import IntentJournal
+    from karpenter_tpu_torch.runtime.kubecore import KubeCore
+    from karpenter_tpu_torch.solver.pipeline import get_ring
+    from karpenter_tpu_torch.utils import clock
+    from karpenter_tpu_torch.webhooks import admission
+
+    t_phase = time.perf_counter()
+    jdir, sdir = journal_dir("aws"), journal_dir("aws-stub")
+    behavior_path = os.path.join(sdir, "behavior.json")
+    with open(behavior_path, "w") as f:
+        f.write(stubserver.behavior_to_json(aws_stub_behavior()))
+    t0 = time.perf_counter()
+    proc, url = start_aws_stub(behavior_path)
+    splits = {"stub_start_s": time.perf_counter() - t0}
+    env = {"AWS_REGION": stubserver.REGION, "AWS_ACCESS_KEY_ID": "chip-access-key",
+           "AWS_SECRET_ACCESS_KEY": "chip-secret-key",
+           "AWS_EC2_METADATA_SERVICE_ENDPOINT": url}
+    saved_env = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    fleets, chaos_ref = FleetLog(), []
+    real_default_clients = awsclient.default_clients
+
+    def pointed(region=None, ec2_endpoint=None, ssm_endpoint=None):
+        ec2, ssm = real_default_clients(region, ec2_endpoint=url, ssm_endpoint=url)
+        fleets.wrap_http(ec2)
+        chaos = inject.ChaosEC2(ec2)
+        fleets.wrap_chaos(chaos)
+        chaos_ref.append(chaos)
+        return chaos, ssm
+
+    nonces, real_open = [], IntentJournal.open_intent
+
+    def recording_open(self, kind, **data):
+        if kind == "fleet-launch":
+            nonces.append(data["nonce"])
+        return real_open(self, kind, **data)
+
+    awsclient.default_clients = pointed
+    IntentJournal.open_intent = recording_open
+    manager = None
+    try:
+        options = Options(cluster_name="chip", cluster_endpoint="http://localhost:6443",
+                          cloud_provider="aws", journal_dir=jdir, device=device.type)
+        check(options.validate() == [], f"aws: options {options.validate()}")
+        kube = KubeCore()
+        t0 = time.perf_counter()
+        manager = kmain.build_manager(kube, options)
+        build_s = time.perf_counter() - t0
+        provisioning = manager.controllers()[0]
+        metered = provisioning.cloud_provider
+        aws = metered._inner
+        check(type(metered).__name__ == "MeteredCloudProvider"
+              and type(aws).__name__ == "AWSCloudProvider" and len(chaos_ref) == 1,
+              f"aws: the provider resolved to {type(metered).__name__}({type(aws).__name__})")
+        gc = next(c for c in manager.controllers() if isinstance(c, GarbageCollection))
+        instances = aws.instance_provider
+        waits, real_acquire = [], instances.fleet_limiter.acquire
+
+        def recording_acquire(n=1.0):
+            waited = real_acquire(n)
+            waits.append(waited)
+            return waited
+
+        instances.fleet_limiter.acquire = recording_acquire
+        provisioner = Provisioner(metadata=ObjectMeta(name="default"), spec=ProvisionerSpec(
+            constraints=Constraints(requirements=Requirements([NodeSelectorRequirement(
+                key=wk.LABEL_CAPACITY_TYPE, operator="In", values=["on-demand", "spot"])]),
+                provider={"instanceProfile": "KarpenterNodeInstanceProfile-chip",
+                          "subnetSelector": dict(AWS_SELECTOR),
+                          "securityGroupSelector": dict(AWS_SELECTOR)})))
+        admission.default_provisioner(provisioner, metered)
+        errs = admission.validate_provisioner(provisioner, metered)
+        check(errs == [], f"aws: the webhook refused the Provisioner: {errs}")
+        reqs = provisioner.spec.constraints.requirements
+        check(reqs.capacity_types() == {"on-demand", "spot"}
+              and reqs.architectures() == {"amd64"},
+              f"aws: defaulting left capacity types {reqs.capacity_types()}, "
+              f"architectures {reqs.architectures()}")
+        kube.create(provisioner)
+        t0 = time.perf_counter()
+        catalog = aws.get_instance_types(provisioner.spec.constraints)
+        discover_s = time.perf_counter() - t0
+        check(len(catalog) == WINDOW_TYPES, f"aws: {len(catalog)} types discovered")
+        discovered = dict(stub_state(url)["counts"])
+        check(discovered.get("DescribeInstanceTypes") == 4,
+              f"aws: the catalog took {discovered.get('DescribeInstanceTypes')} pages")
+        t0 = time.perf_counter()
+        # EC2 does not describe pod-ENI trunking, so no type discovered over
+        # the wire offers it and the ENI group could never bind (in either
+        # package): it is left out, so no unschedulable re-offer runs beside
+        # the measured windows
+        first, steady = ([p for p in config12_controller_pods(catalog, per, prefix)
+                          if "vpc.amazonaws.com/pod-eni"
+                          not in p.spec.containers[0].resources.requests]
+                         for prefix in ("a", "s"))
+        splits["pods_s"] = time.perf_counter() - t0
+
+        def wave(pods, what):
+            for p in pods:
+                kube.create(p)
+            t0 = time.perf_counter()
+            wait_bound(kube, [p.metadata.name for p in pods], AWS_DEADLINE_S, f"aws {what}")
+            if device.type == "cuda":
+                torch.cuda.synchronize()
+            return time.perf_counter() - t0
+
+        reset_counts()
+        waves = {}
+        with PackLaunches() as launches:
+            stats = manager.recovery.run()
+            manager.start()
+            waves["first_s"] = wave(first, "first window")
+            first_launches = {"pack_chunk": pack_cuda.LAUNCHES,
+                              "pack_batch": pack_cuda.BATCH_LAUNCHES}
+            rebuilds0, ring0 = encode.CATALOG_REBUILDS, dict(get_ring().counters())
+            waves["steady_s"] = wave(steady, "steady window")
+            steady_rec = {"catalog_rebuilds": encode.CATALOG_REBUILDS - rebuilds0,
+                          "ring": {k: v - ring0.get(k, 0) for k, v in
+                                   get_ring().counters().items()},
+                          "pack_batch": pack_cuda.BATCH_LAUNCHES
+                          - first_launches["pack_batch"]}
+            # an ICE on the next CreateFleet: the pools poisoned, one catalog
+            # rebuild, the retry launched on offerings the fault left
+            n_calls = len(fleets.calls)
+            plan = inject.FaultPlan(16, [inject.FaultSpec("ec2", "create_fleet", "ice", 1)],
+                                    window=1)
+            inject.install(plan)
+            try:
+                waves["ice_s"] = wave(aws_leg_pods("ice", AWS_LEG_PODS), "ice leg")
+            finally:
+                inject.uninstall()
+            iced_request, _, iced_codes, rebuilds0 = fleets.calls[n_calls]
+            iced = {(o.instance_type, o.availability_zone,
+                     iced_request.default_target_capacity_type)
+                    for c in iced_request.launch_template_configs for o in c.overrides}
+            poisoned = set(aws.instance_type_provider._unavailable.keys())
+            ice_nodes = [(n.metadata.labels[wk.LABEL_INSTANCE_TYPE],
+                          n.metadata.labels[wk.LABEL_TOPOLOGY_ZONE],
+                          n.metadata.labels[wk.LABEL_CAPACITY_TYPE])
+                         for n in kube.list("Node", namespace=None)
+                         if any(p.metadata.name.startswith("ice-")
+                                for p in kube.pods_on_node(n.metadata.name))]
+            ice_rec = {"fired": len(plan.fired()), "errors": iced_codes,
+                       "iced_pools": len(iced), "poisoned": len(poisoned),
+                       "catalog_rebuilds": encode.CATALOG_REBUILDS - rebuilds0,
+                       "retry_nodes": len(ice_nodes)}
+            check(plan.fired() and iced_codes == ["InsufficientInstanceCapacity"]
+                  and {f"{ct}:{t}:{z}" for t, z, ct in iced} <= poisoned,
+                  f"aws: the ice leg did not poison its pools ({ice_rec})")
+            check(ice_rec["catalog_rebuilds"] == 1,
+                  f"aws: {ice_rec['catalog_rebuilds']} catalog rebuilds after the ICE")
+            check(ice_nodes and not set(ice_nodes) & iced,
+                  f"aws: the retry launched on a poisoned offering ({ice_nodes})")
+            # crash-before-bind: the instance launched, its answer lost; GC
+            # spares the leak inside the grace period and reaps it after
+            n_calls = len(fleets.calls)
+            plan = inject.FaultPlan(17, [inject.FaultSpec(
+                "ec2", "create_fleet", "crash-before-bind", 1)], window=1)
+            inject.install(plan)
+            try:
+                waves["crash_s"] = wave(aws_leg_pods("crash", AWS_LEG_PODS), "crash leg")
+            finally:
+                inject.uninstall()
+            crashed_request, crashed_ids, crashed_code, _ = fleets.calls[n_calls]
+            check(crashed_ids is None and crashed_code == "RequestTimeout",
+                  f"aws: the crash leg's CreateFleet answered {crashed_ids} {crashed_code}")
+            node_ids = {get_instance_id(n) for n in kube.list("Node", namespace=None)}
+            leaked = sorted({r.instance_id for r in metered.list_instances()} - node_ids)
+            check(len(leaked) >= 1 and {i["tags"].get(wk.LAUNCH_NONCE_TAG) for i in
+                                       stub_state(url)["instances"]
+                                       if i["instance_id"] in leaked}
+                  == {crashed_request.tags[wk.LAUNCH_NONCE_TAG]},
+                  f"aws: the crash leg leaked {leaked}")
+            gc.reconcile("capacity-gc", "")
+            spared = [i for i in leaked if i not in stub_state(url)["terminated"]]
+            clock.DEFAULT.set(clock.now() + options.gc_grace_seconds + 1.0)
+            try:
+                gc.reconcile("capacity-gc", "")
+            finally:
+                clock.DEFAULT.reset()
+            terminated = stub_state(url)["terminated"]
+            check(spared == leaked and set(leaked) <= set(terminated),
+                  f"aws: GC spared {spared} of {leaked} and terminated {terminated}")
+            crash_rec = {"leaked": len(leaked), "reaped": len(set(leaked) & set(terminated))}
+            if device.type == "cuda":
+                torch.cuda.synchronize()
+            launched = {"pack_chunk": pack_cuda.LAUNCHES, "pack_batch": pack_cuda.BATCH_LAUNCHES}
+        t_checks = time.perf_counter()
+        check(len(launches.records) == launched["pack_batch"] + launched["pack_chunk"],
+              "aws: a pack launch went unrecorded")
+        if device.type == "cuda":
+            check(first_launches["pack_batch"] >= 1 and steady_rec["pack_batch"] >= 1,
+                  f"aws: a window launched no pack_batch ({first_launches}, {steady_rec})")
+        held = len(launches.records)
+        err = launches.held()
+        check(err == 0, f"aws: the phase's pack launches != plain ({err})")
+        check(steady_rec["catalog_rebuilds"] == 0 and steady_rec["ring"].get("allocations", 0)
+              == 0, f"aws: the steady window rebuilt or allocated ({steady_rec})")
+        every = [p.metadata.name for p in first + steady]
+        every += [f"{leg}-{j:02d}" for leg in ("ice", "crash") for j in range(AWS_LEG_PODS)]
+        bound_once(kube, every, "aws")
+        state = stub_state(url)
+        live = {i["instance_id"]: i for i in state["instances"]}
+        nodes = kube.list("Node", namespace=None)
+        wrong = []
+        for n in nodes:
+            inst = live.get(get_instance_id(n))
+            labels = n.metadata.labels
+            if inst is None or (labels[wk.LABEL_INSTANCE_TYPE], labels[wk.LABEL_TOPOLOGY_ZONE],
+                                labels[wk.LABEL_CAPACITY_TYPE]) != (
+                    inst["instance_type"], inst["availability_zone"],
+                    "spot" if inst["spot_instance_request_id"] else "on-demand"):
+                wrong.append(n.metadata.name)
+        check(not wrong, f"aws: nodes unlike their instances {wrong[:3]}")
+        untagged = [i for i, inst in live.items()
+                    if inst["tags"].get("kubernetes.io/cluster/chip") != "owned"
+                    or inst["tags"].get(wk.LAUNCH_NONCE_TAG) not in nonces]
+        check(not untagged, f"aws: instances without the cluster tag or a journal nonce "
+                            f"{untagged[:3]}")
+        check(sorted(live) == sorted(get_instance_id(n) for n in nodes)
+              == sorted(r.instance_id for r in metered.list_instances()),
+              "aws: the instances, the Nodes and list_instances() differ")
+        check(instances.describe_retries == 0,
+              f"aws: {instances.describe_retries} describe retries")
+        found = soak.leaks(SimpleNamespace(kube=kube, provider=metered))
+        check(not found["leaked"] and not found["ghosts"], f"aws: {found}")
+        worker_threads = [w._thread for w in provisioning.workers.values()]
+        t0 = time.perf_counter()
+        splits["checks_s"] = t0 - t_checks
+        manager.stop()
+        splits["stop_s"] = time.perf_counter() - t0
+        alive = [t.name for t in manager.threads() + worker_threads if t.is_alive()]
+        alive += [t.name for t in threading.enumerate() if t.name == "eviction-queue"]
+        check(alive == [], f"aws: threads alive after stop: {alive}")
+        manager.journal.close_journal()
+        check(IntentJournal(jdir, fsync=False).open_intents() == {}, "aws: intents left open")
+    finally:
+        awsclient.default_clients = real_default_clients
+        IntentJournal.open_intent = real_open
+        inject.uninstall()
+        clock.DEFAULT.reset()
+        for k, v in saved_env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        if manager is not None:
+            manager.stop()
+        set_monitor(None)
+        proc.terminate()
+        try:
+            stub_rc = proc.wait(timeout=30.0)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            stub_rc = proc.wait(timeout=30.0)
+        shutil.rmtree(jdir, ignore_errors=True)
+        shutil.rmtree(sdir, ignore_errors=True)
+    check(stub_rc == 0, f"aws: the stub process exited {stub_rc}")
+    kinds = {}
+    for request, _, _, _ in fleets.calls:
+        key = request.default_target_capacity_type
+        kinds[key] = kinds.get(key, 0) + 1
+    rec = {"phase": "aws", "per": per, "pods": len(first) + len(steady) + 2 * AWS_LEG_PODS,
+           "eni_group_left_out": 2 * per, "types": len(catalog),
+           "build_manager_s": build_s, "discover_s": discover_s, "recovery": stats,
+           "seconds_to_bound": waves, "first_window_launches": first_launches,
+           "steady": steady_rec, "ice": ice_rec, "crash_before_bind": crash_rec,
+           "nodes": len(nodes), "create_fleet": {
+               "calls": len(fleets.calls), "by_capacity_type": kinds,
+               "http_calls": len(fleets.http_ms),
+               "http_p50_ms": statistics.median(fleets.http_ms) if fleets.http_ms else None,
+               "http_max_ms": max(fleets.http_ms) if fleets.http_ms else None},
+           "fleet_limiter": {"acquires": len(waits), "waits": sum(1 for w in waits if w > 0),
+                             "waited_s": sum(waits)},
+           "describe_retries": instances.describe_retries,
+           "journal_nonces": len(nonces), "stub_requests": dict(sorted(state["counts"].items())),
+           "launches": launched, "pack_launches_held": held, "max_abs_err": err,
+           "stub_rc": stub_rc, "splits": splits, "wall_s": time.perf_counter() - t_phase}
+    emit(rec)
+    return rec
+
+
+def phase_aws_alone(device):
+    """``--aws``: the kernels built, then the aws phase."""
+    build_all()
+    phase_aws(device)
+
+
 def phase_wire_alone(device):
     """``--wire``: the kernels built, then the wire and webhook phases."""
     build_all()
@@ -7079,9 +7574,9 @@ def card_line() -> str:
 def main(argv) -> int:
     t_start = time.perf_counter()
     if argv not in ([], ["--kernel-times"], ["--solve-times"], ["--controller-deployed"],
-                    ["--whatif-times"], ["--manager-flood"], ["--wire"]):
+                    ["--whatif-times"], ["--manager-flood"], ["--wire"], ["--aws"]):
         print("usage: chip_smoke.py [--kernel-times | --solve-times | --controller-deployed"
-              " | --whatif-times | --manager-flood | --wire]", file=sys.stderr)
+              " | --whatif-times | --manager-flood | --wire | --aws]", file=sys.stderr)
         return 2
     import torch
 
@@ -7099,7 +7594,7 @@ def main(argv) -> int:
          "--controller-deployed": phase_controller_deployed,
          "--whatif-times": phase_whatif_times,
          "--manager-flood": phase_manager_flood,
-         "--wire": phase_wire_alone}[argv[0]](device)
+         "--wire": phase_wire_alone, "--aws": phase_aws_alone}[argv[0]](device)
         return 0
     emit({"phase": "card", "nvidia_smi": card,
           "name": torch.cuda.get_device_name(0),
@@ -7152,6 +7647,7 @@ def main(argv) -> int:
     timed("native_ring", phase_native_ring, device)
     timed("warmup", phase_warmup, device)
     mn = timed("main", phase_main, device, cc["binds"])
+    ah = timed("aws", phase_aws, device)
     timed("main_process", phase_main_process, device)
     wr = timed("wire", phase_wire, device)
     timed("webhook", phase_webhook, device)
@@ -7248,9 +7744,11 @@ def main(argv) -> int:
         "launches": win["launches_per_window"]["pack_batch"],
         # the batched launches of phase 7 and of the policy window, every
         # pack launch of the journal phase's re-driven windows after a crash
-        # and every one of the main and wire phases' windows under the Manager
+        # and every one of the main, aws and wire phases' windows under the
+        # Manager
         "max_abs_err": max(batch_err, kw["max_abs_err"], priced["max_abs_err"],
-                           jn["crash"]["max_abs_err"], mn["max_abs_err"], wr["max_abs_err"]),
+                           jn["crash"]["max_abs_err"], mn["max_abs_err"], ah["max_abs_err"],
+                           wr["max_abs_err"]),
         "ms": kw["ms"], "plain_ms": kw["plain_ms"],
         "bound_ms": kw["bound_ms"], "bound_by": kw["bound_by"],
         "priced": {"ms": priced["ms"], "unpriced_ms": priced["unpriced_ms"],

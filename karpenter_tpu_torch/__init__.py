@@ -8,6 +8,14 @@ version beside it that the CPU runs. Entry points run on the card unless
 the caller passes ``device="cpu"``.
 """
 
-from karpenter_tpu_torch.backend import resolve_device
-
 __all__ = ["resolve_device"]
+
+
+def __getattr__(name):
+    # torch comes with the first module that needs it, not with the
+    # package: the stub servers' processes never load it
+    if name == "resolve_device":
+        from karpenter_tpu_torch.backend import resolve_device
+
+        return resolve_device
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -16,7 +16,7 @@ from dataclasses import dataclass, field
 from typing import Any, Dict, List, Optional
 
 from karpenter_tpu_torch.api.core import Pod
-from karpenter_tpu_torch.api.requirements import IN, Requirements, pod_requirements
+from karpenter_tpu_torch.api.requirements import IN, NOT_IN, Requirements, pod_requirements
 from karpenter_tpu_torch.utils.resources import ResourceList
 
 
@@ -79,7 +79,8 @@ class Constraints:
                         f"{sorted(podreqs.requirement(key) or [])} not in {sorted(own or [])}")
         # own holds an In for every key, so the provisioner's requirements
         # with the pod's added evaluate, per key, to own narrowed by the
-        # pod's In and NotIn sets (pod_requirements normalized the keys)
+        # pod's In and NotIn sets (pod_requirements normalized the keys);
+        # Requirements.requirement reads no other operator
         for key, own in zip(keys, owns):
             mine = [r for r in podreqs.items if r.key == key]
             if len(mine) == 1 and mine[0].operator == IN:
@@ -89,7 +90,7 @@ class Constraints:
                 for r in mine:
                     if r.operator == IN:
                         narrowed.intersection_update(r.values)
-                    else:
+                    elif r.operator == NOT_IN:
                         narrowed.difference_update(r.values)
                 allowed = bool(narrowed)
             if not allowed:

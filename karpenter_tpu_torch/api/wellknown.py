@@ -36,6 +36,10 @@ LABEL_NODE_GROUP = KARPENTER_DOMAIN + "/node-group"
 CAPACITY_TYPE_SPOT = "spot"
 CAPACITY_TYPE_ON_DEMAND = "on-demand"
 
+ARCHITECTURE_AMD64 = "amd64"
+ARCHITECTURE_ARM64 = "arm64"
+OPERATING_SYSTEM_LINUX = "linux"
+
 # gang (pod-group) labels: pods carrying the same pod-group value (within one
 # namespace) bind all-or-nothing; pod-group-size is the full membership
 # count, pod-group-slice an optional TPU slice shape (api/gang.py)

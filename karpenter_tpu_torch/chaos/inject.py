@@ -34,6 +34,10 @@ provider   create         ``ice`` (launch refused), ``crash-before-
                           running spot instance is reclaimed through
                           the capacity ledger while this launch
                           proceeds)
+ec2        create_fleet   ``ice``, ``throttle``, ``partial`` (one
+                          unit ICEs, the rest launch),
+                          ``crash-before-bind`` (the fleet launched,
+                          its response lost); see :class:`ChaosEC2`
 pressure   depth          ``queue-flood`` (the monitor's intake-depth
                           sample is inflated by max_depth/2)
 pressure   rss            ``memory-pressure`` (the RSS sample is
@@ -48,8 +52,7 @@ journal    <transition>   ``crash-point`` (simulated process death at
                           runtime/journal.py KILL_POINTS)
 ========== ============== ==========================================
 
-Left out of the reference: the ``ec2`` boundary's ``ChaosEC2`` (the port
-has no AWS provider) and the ``device``/``solve`` ``watchdog-trip`` kind
+Left out of the reference: the ``device``/``solve`` ``watchdog-trip`` kind
 (the port has no device watchdog: a device error raises).
 
 Production call sites consult :func:`active_fault`; with no plan installed
@@ -58,6 +61,7 @@ that is one global read and a ``None`` return.
 
 from __future__ import annotations
 
+import copy
 import logging
 import queue
 import random
@@ -306,6 +310,87 @@ class ChaosKube:
 
     def unwatch(self, q):
         self._inner.unwatch(q._inner if isinstance(q, _DroppingWatch) else q)
+
+    def __getattr__(self, item):
+        if item.startswith("_"):
+            raise AttributeError(item)
+        return getattr(self._inner, item)
+
+
+# ---------------------------------------------------------------------------
+# EC2 boundary shim
+# ---------------------------------------------------------------------------
+
+
+class ChaosEC2:
+    """EC2API wrapper injecting CreateFleet failure modes against the fake
+    (or any) EC2 implementation. Every other API passes through.
+
+    - ``ice``: the whole fleet is refused — the inner call never happens,
+      every override reports InsufficientInstanceCapacity, and the
+      provider's offering cache gets poisoned for all of them.
+    - ``throttle``: RequestLimitExceeded before the inner call — transient,
+      retried by the Retryer on the real client and surfaced as a launch
+      error on the fake.
+    - ``partial``: one unit of target capacity ICEs (first override), the
+      rest launch for real — the partial-fulfillment path end to end.
+    - ``crash-before-bind``: the inner CreateFleet RUNS — capacity exists
+      provider-side, tagged and attributable — then the response is lost.
+      The caller sees a failed launch; the instances are leaked until the
+      GC controller reaps them. This is the crash window the launch-nonce
+      tag exists for.
+    """
+
+    def __init__(self, inner):
+        self._inner = inner
+
+    def create_fleet(self, request):
+        # imported here: the AWS provider imports the journal, which
+        # imports this module
+        from karpenter_tpu_torch.cloudprovider.aws import sdk
+
+        kind = active_fault("ec2", "create_fleet")
+        if kind == "throttle":
+            raise sdk.EC2Error("RequestLimitExceeded",
+                               "injected CreateFleet throttle")
+        if kind == "ice":
+            return self._full_ice(request)
+        if kind == "partial":
+            first = next(
+                (o for c in request.launch_template_configs
+                 for o in c.overrides), None)
+            if first is not None and request.total_target_capacity > 1:
+                shrunk = copy.deepcopy(request)
+                shrunk.total_target_capacity -= 1
+                response = self._inner.create_fleet(shrunk)
+                response.errors.append(sdk.CreateFleetError(
+                    error_code=sdk.INSUFFICIENT_CAPACITY_ERROR_CODE,
+                    error_message="injected partial ICE",
+                    instance_type=first.instance_type,
+                    availability_zone=first.availability_zone))
+                return response
+            # single-unit fleet: a partial IS a full ICE
+            return self._full_ice(request)
+        if kind == "crash-before-bind":
+            self._inner.create_fleet(request)
+            raise sdk.EC2Error(
+                "RequestTimeout",
+                "injected connection loss after CreateFleet launched")
+        return self._inner.create_fleet(request)
+
+    @staticmethod
+    def _full_ice(request):
+        from karpenter_tpu_torch.cloudprovider.aws import sdk
+
+        errors = [
+            sdk.CreateFleetError(
+                error_code=sdk.INSUFFICIENT_CAPACITY_ERROR_CODE,
+                error_message="injected full ICE",
+                instance_type=o.instance_type,
+                availability_zone=o.availability_zone)
+            for c in request.launch_template_configs for o in c.overrides
+        ]
+        return sdk.CreateFleetResponse(instance_ids=[], errors=errors)
 
     def __getattr__(self, item):
         if item.startswith("_"):

@@ -15,9 +15,8 @@ these differences:
   above ``SolverConfig.device_min_pods`` on the device;
 - ``--solver-compile-cache-dir`` names the directory the kernel libraries
   are built into and loaded from (solver/warmup.py);
-- ``--cloud-provider aws`` fails :meth:`Options.validate`: the AWS
-  provider is not yet ported. ``--kube-backend in-cluster`` builds the API
-  client (runtime/kubeclient.py) from the pod's service account, with
+- ``--kube-backend in-cluster`` builds the API client
+  (runtime/kubeclient.py) from the pod's service account, with
   ``--kube-client-qps`` / ``--kube-client-burst`` as its budget.
 """
 
@@ -154,8 +153,6 @@ class Options:
                 errs.append(f"{name} out of range: {port}")
         if self.kube_backend not in ("memory", "in-cluster"):
             errs.append(f"kube-backend invalid: {self.kube_backend}")
-        if self.cloud_provider == "aws":
-            errs.append("cloud-provider aws: not yet ported; use fake")
         if self.device not in ("cuda", "cpu"):
             errs.append(f"device invalid: {self.device} (available: cuda | cpu)")
         if self.gc_interval_seconds < 0 or self.gc_grace_seconds < 0:

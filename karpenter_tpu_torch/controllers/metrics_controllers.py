@@ -18,7 +18,7 @@ from karpenter_tpu_torch.metrics import registry
 from karpenter_tpu_torch.runtime.kubecore import KubeCore, NotFound
 from karpenter_tpu_torch.utils import pod as podutil
 from karpenter_tpu_torch.utils.resources import (
-    Quantity, limits_for_pods, requests_for_pods,
+    Quantity, limits_for_pods, merge, requests_for_pods,
 )
 
 _GAUGES = {
@@ -82,14 +82,17 @@ class NodeMetricsController:
         for g in gauges.values():
             g.delete_matching(node_name=name)
 
-        pods = self.kube.pods_on_node(name)
-        daemons = [p for p in pods if podutil.is_owned_by_daemonset(p)]
+        # each pod's sums, read in place: a copy of every pod on the node
+        # per pod event was the controller's whole cost at 10k pods
+        pods = self.kube.scan_pods_on_node(name, lambda p: (
+            podutil.is_owned_by_daemonset(p), requests_for_pods(p), limits_for_pods(p)))
+        daemons = [(r, lim) for daemon, r, lim in pods if daemon]
         series = {
             "allocatable": node.status.allocatable,
-            "pod_requests": requests_for_pods(*pods),
-            "pod_limits": limits_for_pods(*pods),
-            "daemon_requests": requests_for_pods(*daemons),
-            "daemon_limits": limits_for_pods(*daemons),
+            "pod_requests": merge(*[r for _, r, _ in pods]),
+            "pod_limits": merge(*[lim for _, _, lim in pods]),
+            "daemon_requests": merge(*[r for r, _ in daemons]),
+            "daemon_limits": merge(*[lim for _, lim in daemons]),
             "overhead": _overhead(node),
         }
         for kind, resource_list in series.items():
@@ -121,24 +124,26 @@ class PodMetricsController:
     def reconcile(self, name: str, namespace: str = "default") -> Optional[float]:
         gauge = self.registry.gauge("pods_state")
         try:
-            pod = self.kube.get("Pod", name, namespace)
+            # read in place: the gauge's labels are all this needs of them
+            node_name, phase = self.kube.read(
+                "Pod", name, namespace, lambda p: (p.spec.node_name, p.status.phase))
         except NotFound:
             gauge.delete_matching(name=name, namespace=namespace)
             return None
         gauge.delete_matching(name=name, namespace=namespace)
         node_labels: Dict[str, str] = {}
-        if pod.spec.node_name:
+        if node_name:
             try:
-                node = self.kube.get("Node", pod.spec.node_name, "")
-                node_labels = node.metadata.labels
+                node_labels = self.kube.read("Node", node_name, "",
+                                             lambda n: dict(n.metadata.labels))
             except NotFound:
                 pass
         gauge.set(1.0,
-                  name=name, namespace=namespace, node=pod.spec.node_name,
+                  name=name, namespace=namespace, node=node_name,
                   provisioner=node_labels.get(wellknown.PROVISIONER_NAME_LABEL, ""),
                   zone=node_labels.get(wellknown.LABEL_TOPOLOGY_ZONE, ""),
                   arch=node_labels.get(wellknown.LABEL_ARCH, ""),
                   capacity_type=node_labels.get(wellknown.LABEL_CAPACITY_TYPE, ""),
                   instance_type=node_labels.get(wellknown.LABEL_INSTANCE_TYPE, ""),
-                  phase=pod.status.phase)
+                  phase=phase)
         return None

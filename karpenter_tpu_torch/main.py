@@ -15,8 +15,10 @@ in-memory store; ``in-cluster`` against the API server named by
 account's token and CA (runtime/kubeclient.py): without that environment
 the boot fails. Differences: the solver runs on ``--device`` (the card by
 default); ``--solver-warmup`` runs before any controller starts and a
-warm-up failure fails the boot; the AWS provider and the jax.profiler
-server are not part of this process.
+warm-up failure fails the boot; the jax.profiler server is not part of
+this process. ``--cloud-provider aws`` builds the EC2 and SSM clients from
+the ambient environment (cloudprovider/aws/awsclient.py: region from
+``AWS_REGION`` or IMDS, the credential chain).
 """
 
 from __future__ import annotations
@@ -70,7 +72,19 @@ log = logging.getLogger("karpenter")
 def build_cloud_provider(options: Options):
     """Resolve the provider from the registry and wrap it in the metrics
     decorator, so every SPI call feeds ``cloudprovider_duration_seconds``
-    (cmd/controller/main.go:76-77)."""
+    (cmd/controller/main.go:76-77). The AWS provider needs its EC2 and SSM
+    clients built first."""
+    if options.cloud_provider == "aws":
+        import karpenter_tpu_torch.cloudprovider.aws  # noqa: F401 — registers "aws"
+        from karpenter_tpu_torch.cloudprovider.aws import sdk as aws_sdk
+
+        ec2api, ssmapi = aws_sdk.default_clients()
+        return decorate(spi.resolve(
+            "aws", ec2api=ec2api, ssmapi=ssmapi,
+            cluster_name=options.cluster_name,
+            cluster_endpoint=options.cluster_endpoint,
+            eni_limited_pod_density=options.aws_eni_limited_pod_density,
+            node_name_convention=options.aws_node_name_convention))
     return decorate(spi.resolve(options.cloud_provider))
 
 

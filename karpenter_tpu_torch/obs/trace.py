@@ -43,7 +43,6 @@ import time
 from collections import deque
 from typing import Any, Dict, List, Optional
 
-import torch
 
 _N_STRIPES = 8
 _RING_PER_STRIPE = 4096
@@ -53,6 +52,8 @@ _RING_PER_STRIPE = 4096
 # path at tens of nanoseconds.
 _ENABLED = False
 _ANNOTATIONS = False
+# torch.profiler.record_function, bound by the first enable(annotations=True)
+_RECORD_FUNCTION: Any = None
 _EPOCH = time.perf_counter()  # ts base for the chrome dump (µs since import)
 
 
@@ -146,7 +147,7 @@ class Span:
         _TLS.span = self
         self.t0 = time.perf_counter()
         if _ANNOTATIONS:
-            self._range = torch.profiler.record_function(self.name)
+            self._range = _RECORD_FUNCTION(self.name)
             self._range.__enter__()
         return self
 
@@ -265,8 +266,14 @@ class use_context:
 
 def enable(annotations: bool = False) -> None:
     """Turn tracing on; ``annotations`` also enters a
-    ``torch.profiler.record_function`` range with every entered span."""
-    global _ENABLED, _ANNOTATIONS
+    ``torch.profiler.record_function`` range with every entered span (torch
+    is imported here, not with the module: the stub servers' processes
+    trace nothing and never load it)."""
+    global _ENABLED, _ANNOTATIONS, _RECORD_FUNCTION
+    if annotations and _RECORD_FUNCTION is None:
+        from torch.profiler import record_function
+
+        _RECORD_FUNCTION = record_function
     _ANNOTATIONS = bool(annotations)
     _ENABLED = True
 

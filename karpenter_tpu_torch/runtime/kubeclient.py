@@ -14,10 +14,10 @@ Semantics matched to KubeCore:
 - optimistic concurrency: update PUTs the caller's resourceVersion, 409 is
   Conflict; patch() is read-modify-write with bounded conflict retries;
 - finalizer-aware delete (the server itself stamps deletionTimestamp);
-- watch(kind) returns a queue of Event(type, obj) fed by a background
-  streaming thread (the LIST replayed as ADDED, then ?watch=true from that
-  resourceVersion, a relist on every reconnect and on 410 expiry, counted
-  in ``karpenter_watch_relist_total``);
+- watch(kind) returns a queue of Event(type, obj) fed by the kind's one
+  background streaming thread (the LIST replayed as ADDED, then
+  ?watch=true from that resourceVersion, a relist on every reconnect and
+  on 410 expiry, counted in ``karpenter_watch_relist_total``);
 - pods_on_node uses the server-side spec.nodeName fieldSelector;
 - watched kinds are read from a watch-fed informer cache with a staleness
   bound;
@@ -25,9 +25,12 @@ Semantics matched to KubeCore:
   is observed in ``karpenter_kube_client_throttle_seconds`` and fed to the
   pressure monitor's throttle signal.
 
-One difference from the JAX package's client: a pod this client binds
+Two differences from the JAX package's client: a pod this client binds
 takes its node in the informer cache at once (``_cache_bound``), where the
-JAX package's cache waits for the watch event.
+JAX package's cache waits for the watch event; and every watch of a kind
+shares one stream and its decoded objects (controller-runtime's shared
+informer), where the JAX package's client opens a LIST and a stream, and
+decodes every object, once for each watch.
 """
 
 from __future__ import annotations
@@ -192,10 +195,15 @@ class KubeApiClient:
             self._ssl = None
         self._watch_threads: List[threading.Thread] = []
         self._watch_stop = threading.Event()
-        self._watch_queues: List["queue.Queue[Event]"] = []
-        # live streaming connection per watch queue, so unwatch() can close
-        # it and unblock the thread's read immediately (not after the 300 s
-        # socket timeout)
+        # the queues each kind's stream delivers to, swapped whole on a
+        # change; the stream's cache writes and deliveries, and a watch
+        # joining a running stream with its snapshot, take _fanout_lock, so
+        # a late watch misses no event
+        self._subscribers: Dict[str, List["queue.Queue[Event]"]] = {}
+        self._fanout_lock = threading.Lock()
+        # live streaming connection per kind's stream (keyed by its feeder
+        # queue's id), so unwatch() can close it and unblock the thread's
+        # read immediately (not after the 300 s socket timeout)
         self._watch_conns: Dict[int, "_WatchStream"] = {}
         # one persistent keep-alive connection PER THREAD: the controller
         # plane issues thousands of small requests per provisioning pass,
@@ -227,16 +235,15 @@ class KubeApiClient:
         self._read_cache: Dict[str, Dict[Tuple[str, str], object]] = {}
         # the cached pods of each node (the spec.nodeName field selector)
         self._pods_by_node: Dict[str, set] = {}
-        # SINGLE-WRITER cache: exactly one watch per kind (the "feeder",
-        # the first watch opened for it) writes the cache — its LIST and
-        # stream run sequentially in one thread, so snapshot replaces can
-        # never race a concurrent stream's deletes (the classic informer
-        # resync hazard). Other watches of the same kind are read-only
-        # passengers. A kind serves reads only after its feeder's first
+        # SINGLE-WRITER cache: one stream per kind writes it, keyed by its
+        # "feeder" (the queue of the first watch opened for the kind) — its
+        # LIST and stream run sequentially in one thread, so snapshot
+        # replaces can never race a concurrent stream's deletes (the
+        # classic informer resync hazard). Later watches of the kind share
+        # that stream. A kind serves reads only after its stream's first
         # LIST lands (_cached_kinds).
         self._cache_feeder: Dict[str, int] = {}   # kind → id(feeder queue)
         self._cached_kinds: set = set()           # kinds safe to serve
-        self._watch_kind_by_queue: Dict[int, str] = {}
         # staleness bound (controller-runtime informers resync; this client
         # instead stops SERVING a kind whose feeder stream has been down
         # longer than this — reads fall through live until the reconnect
@@ -477,12 +484,13 @@ class KubeApiClient:
             self._pods_by_node = {}
 
     def _cache_store(self, kind: str, obj, qid: int) -> None:
-        copy = deep_copy(obj)
+        """Store the stream's decoded object itself: the watches' events
+        carry the same object, and neither is ever changed in place."""
         key = self._cache_key(kind, obj.metadata.name, obj.metadata.namespace)
         with self._cache_lock:
             if self._cache_feeder.get(kind) != qid:
-                return  # not the feeder: read-only passenger
-            self._cache_put(kind, key, copy)
+                return  # a stream the kind no longer has
+            self._cache_put(kind, key, obj)
 
     def _cache_delete(self, kind: str, obj, qid: int) -> None:
         key = self._cache_key(kind, obj.metadata.name, obj.metadata.namespace)
@@ -496,7 +504,7 @@ class KubeApiClient:
         during a watch gap) and mark the kind cache-served. A non-feeder or
         already-unwatched queue (stop_watches raced the LIST) writes
         nothing — stale threads can never re-seed a purged cache."""
-        fresh = {self._cache_key(kind, o.metadata.name, o.metadata.namespace): deep_copy(o)
+        fresh = {self._cache_key(kind, o.metadata.name, o.metadata.namespace): o
                  for o in objs}
         by_node: Dict[str, set] = {}
         if kind == "Pod":
@@ -721,6 +729,20 @@ class KubeApiClient:
         return self.list("Pod", namespace=None,
                          field=("spec.nodeName", node_name))
 
+    def scan_pods_on_node(self, node_name: str, fn) -> List:
+        """KubeCore.scan_pods_on_node analog: ``fn`` on the cached pods of
+        the node's index, outside the lock and without copying (see scan);
+        a kind not cache-served lists live."""
+        with self._cache_lock:
+            if self._cache_is_serving("Pod"):
+                objs = self._read_cache.get("Pod", {})
+                pods = [objs[k] for k in self._pods_by_node.get(node_name, ())]
+            else:
+                pods = None
+        if pods is None:
+            pods = self.pods_on_node(node_name)
+        return [fn(p) for p in pods]
+
     # -- watch ---------------------------------------------------------------
     def watch(self, kind: Optional[str] = None,
               meta_only: bool = False) -> "queue.Queue[Event]":
@@ -730,16 +752,28 @@ class KubeApiClient:
         nothing, so events from the disconnect gap would otherwise be lost
         (controllers are level-triggered, so duplicate ADDEDs are safe).
 
-        ``meta_only`` is accepted for kubecore.watch signature parity and
-        ignored: wire events are freshly decoded objects, never shared with
-        a store, so there is no copy to skip."""
+        The first watch of a kind starts its stream; a later one joins it
+        and gets the cached snapshot as ADDED (or the first LIST, if it has
+        not landed yet): a stream for each watch would decode every pod
+        once a watch, five times for the Manager's five Pod watches, the
+        controller's largest GIL cost at 10k pods. Events carry the stream's
+        decoded objects, shared by every watch of the kind and the read
+        cache: read-only, as scan's are (``meta_only`` is accepted for
+        kubecore.watch signature parity and has nothing left to skip)."""
         assert kind is not None, "the API client watches one kind at a time"
         q: "queue.Queue[Event]" = queue.Queue()
-        self._watch_queues.append(q)
-        self._watch_kind_by_queue[id(q)] = kind
-        with self._cache_lock:
-            # first watch for the kind becomes the cache feeder
-            self._cache_feeder.setdefault(kind, id(q))
+        with self._fanout_lock:
+            subscribers = self._subscribers.get(kind)
+            if subscribers:
+                if kind in self._cached_kinds:
+                    for obj in list(self._read_cache.get(kind, {}).values()):
+                        q.put(Event("ADDED", obj))
+                self._subscribers[kind] = subscribers + [q]
+                return q
+            self._subscribers[kind] = [q]
+            with self._cache_lock:
+                # the first watch for the kind keys its stream and cache
+                self._cache_feeder[kind] = id(q)
         t = threading.Thread(target=self._watch_loop, args=(kind, q),
                              daemon=True, name=f"watch-{kind}")
         t.start()
@@ -769,22 +803,26 @@ class KubeApiClient:
             pass
 
     def unwatch(self, q) -> None:
-        """Stop delivery AND the backing thread/stream (KubeCore parity):
-        dropping the queue stops delivery; severing the live connection
-        unblocks the thread from its streaming read so it exits now."""
-        self._watch_queues = [w for w in self._watch_queues if w is not q]
-        kind = self._watch_kind_by_queue.pop(id(q), None)
-        if kind is not None:
+        """Stop delivery (KubeCore parity); the last watch of a kind also
+        ends its stream: severing the live connection unblocks the thread
+        from its streaming read so it exits now, and the kind's reads go
+        live again."""
+        with self._fanout_lock:
+            kind = next((k for k, subscribers in self._subscribers.items()
+                         if any(w is q for w in subscribers)), None)
+            if kind is None:
+                return
+            rest = [w for w in self._subscribers[kind] if w is not q]
+            if rest:
+                self._subscribers[kind] = rest
+                return
+            self._subscribers.pop(kind, None)
             with self._cache_lock:
-                if self._cache_feeder.get(kind) == id(q):
-                    # the feeder is gone: stop serving and purge — remaining
-                    # watches (if any) stay read-only passengers, so reads
-                    # simply go live again for this kind
-                    self._cache_feeder.pop(kind, None)
-                    self._cached_kinds.discard(kind)
-                    self._cache_down_since.pop(kind, None)
-                    self._cache_drop_kind(kind)
-        conn = self._watch_conns.pop(id(q), None)
+                qid = self._cache_feeder.pop(kind, None)
+                self._cached_kinds.discard(kind)
+                self._cache_down_since.pop(kind, None)
+                self._cache_drop_kind(kind)
+        conn = self._watch_conns.pop(qid, None) if qid is not None else None
         if conn is not None:
             self._sever(conn)
 
@@ -796,13 +834,14 @@ class KubeApiClient:
             binder, self._binder = self._binder, None
         if binder is not None:
             binder.shutdown(wait=True)
-        with self._cache_lock:
-            self._cache_feeder.clear()
-            self._cached_kinds.clear()
-            self._cache_down_since.clear()
-            self._read_cache.clear()
-            self._pods_by_node.clear()
-        self._watch_kind_by_queue.clear()
+        with self._fanout_lock:
+            self._subscribers.clear()
+            with self._cache_lock:
+                self._cache_feeder.clear()
+                self._cached_kinds.clear()
+                self._cache_down_since.clear()
+                self._read_cache.clear()
+                self._pods_by_node.clear()
         for key in list(self._watch_conns):
             conn = self._watch_conns.pop(key, None)
             if conn is not None:
@@ -813,11 +852,14 @@ class KubeApiClient:
             if self._cache_feeder.get(kind) == qid:
                 self._cache_down_since.setdefault(kind, time.monotonic())
 
-    def _watch_active(self, q) -> bool:
-        return not self._watch_stop.is_set() and any(
-            w is q for w in self._watch_queues)
+    def _watch_active(self, kind: str, qid: int) -> bool:
+        """Whether the stream keyed ``qid`` is still the kind's."""
+        return not self._watch_stop.is_set() and self._cache_feeder.get(kind) == qid
 
-    def _watch_loop(self, kind: str, q: "queue.Queue[Event]") -> None:
+    def _watch_loop(self, kind: str, feeder: "queue.Queue[Event]") -> None:
+        # the stream is keyed by its feeder's id; the thread holds the
+        # feeder, so the id is not reused while the stream can still run
+        qid = id(feeder)
         path = self._collection(kind, None)
         attempt = 0
         # None until the first snapshot lands; after that every further
@@ -825,28 +867,33 @@ class KubeApiClient:
         # reason: "expired" (410, resourceVersion aged out of the watch
         # cache) vs "reconnect" (stream ended or errored)
         relist_reason: Optional[str] = None
-        while self._watch_active(q):
+        while self._watch_active(kind, qid):
             try:
                 raw_items, rv = self._list_pages(path, {})
                 attempt = 0  # fresh snapshot landed: the server is back
                 objs = [_decode(kind, item) for item in raw_items]
-                # feeder only: seed/refresh the read cache from the LIST
-                # snapshot and mark the kind cache-served (readers never
-                # see a partial snapshot); a re-list after a watch gap
-                # purges deletions
-                self._cache_replace_kind(kind, objs, id(q))
-                if relist_reason is not None:
-                    WATCH_RELIST_TOTAL.inc(kind=kind, reason=relist_reason)
+                with self._fanout_lock:
+                    if not self._watch_active(kind, qid):
+                        return
+                    # seed/refresh the read cache from the LIST snapshot and
+                    # mark the kind cache-served (readers never see a
+                    # partial snapshot); a re-list after a watch gap purges
+                    # deletions
+                    self._cache_replace_kind(kind, objs, qid)
+                    if relist_reason is not None:
+                        WATCH_RELIST_TOTAL.inc(kind=kind, reason=relist_reason)
+                    events = [Event("ADDED", obj) for obj in objs]
+                    for q in self._subscribers.get(kind, ()):
+                        for event in events:
+                            q.put(event)
                 relist_reason = "reconnect"
-                for obj in objs:
-                    q.put(Event("ADDED", obj))
                 try:
-                    self._stream(kind, path, rv, q)
+                    self._stream(kind, path, rv, qid)
                 finally:
                     # stream ended (server close, outage, unwatch): start
                     # the staleness clock — reads go live once it exceeds
                     # cache_staleness_s, until the reconnect re-list lands
-                    self._mark_feeder_down(kind, id(q))
+                    self._mark_feeder_down(kind, qid)
             except ResourceExpired as e:
                 # 410/Expired means our resourceVersion aged out of the
                 # watch cache — a full re-list is REQUIRED and sufficient.
@@ -854,7 +901,7 @@ class KubeApiClient:
                 # against a server that answers 410 persistently: without
                 # it the loop would re-list at the full QPS budget and
                 # flood the queue with duplicate ADDEDs
-                if not self._watch_active(q):
+                if not self._watch_active(kind, qid):
                     return
                 log.info("watch %s expired, resyncing: %s", kind, e)
                 relist_reason = "expired"
@@ -866,7 +913,7 @@ class KubeApiClient:
                 # mid-handshake) — an uncaught one would kill this thread
                 # while the queue stays registered, silently ending all
                 # events for the kind
-                if not self._watch_active(q):
+                if not self._watch_active(kind, qid):
                     return
                 attempt += 1
                 delay = _reconnect_delay(attempt)
@@ -874,8 +921,7 @@ class KubeApiClient:
                           kind, delay, attempt, e)
                 self._watch_stop.wait(delay)
 
-    def _stream(self, kind: str, path: str, rv: str,
-                q: "queue.Queue[Event]") -> None:
+    def _stream(self, kind: str, path: str, rv: str, qid: int) -> None:
         # bookmarks are requested as keepalive traffic only: this client
         # DELIBERATELY does not resume from a bookmark rv — every reconnect
         # re-lists (watch loop above), which doubles as the informer-cache
@@ -887,9 +933,9 @@ class KubeApiClient:
             params["resourceVersion"] = rv
         conn = self._conn(timeout=300.0)
         entry = _WatchStream(conn)
-        self._watch_conns[id(q)] = entry
+        self._watch_conns[qid] = entry
         try:
-            if not self._watch_active(q):
+            if not self._watch_active(kind, qid):
                 return  # unwatch raced the re-list; never open the stream
             conn.request("GET", path + "?" + urlencode(params),
                          headers=self._headers())
@@ -897,7 +943,7 @@ class KubeApiClient:
             # the connection (close-delimited response), after which only
             # this reference lets unwatch() interrupt the blocking read
             entry.sock = conn.sock
-            if not self._watch_active(q):
+            if not self._watch_active(kind, qid):
                 return  # unwatch raced between registration and connect
             resp = conn.getresponse()
             if resp.status == 410:
@@ -905,7 +951,7 @@ class KubeApiClient:
             if resp.status >= 300:
                 raise ApiError(f"watch {kind}: HTTP {resp.status}")
             buf = b""
-            while self._watch_active(q):
+            while self._watch_active(kind, qid):
                 chunk = resp.read1(65536)
                 if not chunk:
                     return  # server closed; reconnect (re-list first)
@@ -932,14 +978,20 @@ class KubeApiClient:
                         # empty shell whose "" name would reconcile junk)
                         continue
                     obj = _decode(kind, event.get("object") or {})
-                    if etype == "DELETED":
-                        self._cache_delete(kind, obj, id(q))
-                    elif etype in ("ADDED", "MODIFIED"):
-                        self._cache_store(kind, obj, id(q))
-                    q.put(Event(etype, obj))
+                    with self._fanout_lock:
+                        if not self._watch_active(kind, qid):
+                            return
+                        if etype == "DELETED":
+                            self._cache_delete(kind, obj, qid)
+                        elif etype in ("ADDED", "MODIFIED"):
+                            self._cache_store(kind, obj, qid)
+                        out = Event(etype, obj)
+                        for q in self._subscribers.get(kind, ()):
+                            q.put(out)
         finally:
             # sever the entry itself (not just whatever is still in the
             # dict): if unwatch already popped it, the pop here is a no-op
             # but the socket still needs closing from this side
-            self._watch_conns.pop(id(q), None)
+            if self._watch_conns.get(qid) is entry:
+                del self._watch_conns[qid]
             self._sever(entry)

@@ -572,3 +572,11 @@ class KubeCore:
     # -- convenience indexes -------------------------------------------------
     def pods_on_node(self, node_name: str) -> List[Pod]:
         return self.list("Pod", namespace=None, field=("spec.nodeName", node_name))
+
+    def scan_pods_on_node(self, node_name: str, fn) -> List:
+        """Apply ``fn`` to every pod bound to ``node_name`` (the index, no
+        copy) under the Pod stripe's lock. Same read-only contract as
+        :meth:`scan`."""
+        s = self._stripe("Pod")
+        with s.lock:
+            return [fn(s.objects[key]) for key in self._pods_by_node.get(node_name, ())]

@@ -9,9 +9,10 @@ spec.nodeName field selector and equality label selectors, limit/continue
 paging, the binding and eviction subresources (with KubeCore's PDB
 semantics), the Provisioner CRD's status subresource, DeleteOptions
 preconditions and ``?watch=true`` streams. A LIST reports the newest
-resourceVersion it listed and a watch from a resourceVersion replays only
-the objects changed since (a deletion in between is not replayed: the
-client relists on every reconnect).
+resourceVersion it listed (a paged one, the version of its first page, as
+an API server's snapshot would) and a watch from a resourceVersion
+replays only the objects changed since (a deletion in between is not
+replayed: the client relists on every reconnect).
 
 Faults, set in ``behavior`` (or over HTTP, ``POST /stub/behavior``):
 
@@ -52,6 +53,8 @@ from karpenter_tpu_torch.runtime.kubecore import (
 )
 
 PLURALS = {plural: kind for kind, (_, plural, _c) in ROUTES.items()}
+# a LIST whose next page has not come for this long is abandoned
+LIST_CHAIN_TTL_S = 30.0
 
 
 class StubHandler(BaseHTTPRequestHandler):
@@ -65,6 +68,9 @@ class StubHandler(BaseHTTPRequestHandler):
     counts: Counter = None
     log: Optional[list] = None
     lock: threading.Lock = None
+    # per LIST query paging now: [the earliest first page's version, the
+    # LISTs paging, the last page's time]
+    list_starts: dict = None
     stopping: threading.Event = None
     # a watch stream with no event for this long ends (the client relists)
     watch_idle_s: float = 5.0
@@ -188,9 +194,36 @@ class StubHandler(BaseHTTPRequestHandler):
         offset = int(qs.get("continue", ["0"])[0] or 0)
         # the newest object listed: a watch from it sees every later change
         # (a LIST that left an object out reports an older version, so the
-        # watch delivers what it missed)
-        meta = {"resourceVersion": str(newest[0])}
-        if limit and offset + limit < len(keys):
+        # watch delivers what it missed). The pages of a LIST are served at
+        # different times, so while any LIST of the same query is paging
+        # every page reports the version its earliest first page saw: a
+        # watch from it replays each change made while the pages were read
+        # (more than one LIST's changes at worst, which a level-triggered
+        # client reads twice). From its last page alone, a change made
+        # after an object's page was served would be in no page and in no
+        # watch, and an informer cache swapped to the LIST would keep the
+        # object's stale copy. A paging abandoned for LIST_CHAIN_TTL_S
+        # lapses.
+        chain = (kind, namespace, limit, tuple(qs.get("labelSelector", [])),
+                 tuple(qs.get("fieldSelector", [])))
+        more = bool(limit) and offset + limit < len(keys)
+        now = time.monotonic()
+        with self.lock:
+            start = self.list_starts.get(chain)
+            if start is not None and now - start[2] > LIST_CHAIN_TTL_S:
+                del self.list_starts[chain]
+                start = None
+            version = newest[0] if start is None else min(newest[0], start[0])
+            if offset == 0 and more:
+                self.list_starts[chain] = [version, (start[1] if start else 0) + 1, now]
+            elif start is not None:
+                start[2] = now
+                if offset and not more:
+                    start[1] -= 1
+                    if start[1] <= 0:
+                        del self.list_starts[chain]
+        meta = {"resourceVersion": str(version)}
+        if more:
             page = keys[offset:offset + limit]
             meta["continue"] = str(offset + limit)
         else:
@@ -348,7 +381,8 @@ class StubServer:
         self._stopping = threading.Event()
         handler = type("BoundStub", (StubHandler,), {
             "core": self.core, "behavior": self.behavior, "counts": self.counts,
-            "log": self.log, "lock": threading.Lock(), "stopping": self._stopping,
+            "log": self.log, "lock": threading.Lock(), "list_starts": {},
+            "stopping": self._stopping,
             "watch_idle_s": watch_idle_s})
         # an API server accepts far more than the stdlib backlog of 5; the
         # Manager's worker pools overrun it (ECONNRESET under load)

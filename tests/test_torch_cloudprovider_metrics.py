@@ -92,11 +92,27 @@ def test_exposed_with_labels():
     assert 'method="GetInstanceTypes"' in text and 'provider="fake"' in text
 
 
-def test_main_installs_the_decorator():
+def test_main_installs_the_decorator(monkeypatch):
+    """The fake and the AWS provider resolve through the registry inside
+    the decorator (the AWS one from a region in the environment: building
+    its clients sends no request; the metadata service is a closed local
+    port, so nothing leaves the host); an unregistered name raises."""
+    import socket
+
+    from karpenter_tpu_torch.cloudprovider.aws.provider import AWSCloudProvider
     from karpenter_tpu_torch.config.options import Options
     from karpenter_tpu_torch.main import build_cloud_provider
 
     provider = build_cloud_provider(Options(cloud_provider="fake"))
     assert isinstance(provider, MeteredCloudProvider)
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        closed = s.getsockname()[1]
+    monkeypatch.setenv("AWS_REGION", "us-stub-1")
+    monkeypatch.setenv("AWS_EC2_METADATA_SERVICE_ENDPOINT", f"http://127.0.0.1:{closed}")
+    aws = build_cloud_provider(Options(cloud_provider="aws", cluster_name="c",
+                                       cluster_endpoint="https://c"))
+    assert isinstance(aws, MeteredCloudProvider) and isinstance(aws._inner, AWSCloudProvider)
+    assert aws.name() == "aws"
     with pytest.raises(KeyError, match="unknown cloud provider"):
-        build_cloud_provider(Options(cloud_provider="aws"))
+        build_cloud_provider(Options(cloud_provider="nope"))

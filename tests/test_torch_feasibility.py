@@ -21,6 +21,7 @@ from karpenter_tpu.api import requirements as jax_requirements
 from karpenter_tpu.api import wellknown as jax_wellknown
 from karpenter_tpu.api.constraints import Constraints as JaxConstraints
 from karpenter_tpu.api.constraints import Taints as JaxTaints
+from karpenter_tpu.cloudprovider import aws as _jax_aws  # noqa: F401 — the EBS CSI alias
 from karpenter_tpu.cloudprovider import spi as jax_spi
 from karpenter_tpu.ops import feasibility as jax_feas
 from karpenter_tpu.runtime.kubecore import KubeCore as JaxKubeCore
@@ -32,6 +33,7 @@ from karpenter_tpu_torch.api import requirements as port_requirements
 from karpenter_tpu_torch.api import wellknown as port_wellknown
 from karpenter_tpu_torch.api.constraints import Constraints as PortConstraints
 from karpenter_tpu_torch.api.constraints import Taints as PortTaints
+from karpenter_tpu_torch.cloudprovider import aws as _port_aws  # noqa: F401 — the alias
 from karpenter_tpu_torch.cloudprovider import spi as port_spi
 from karpenter_tpu_torch.ops import feasibility as feas
 from karpenter_tpu_torch.runtime.kubecore import KubeCore as PortKubeCore
@@ -96,9 +98,10 @@ def pools(pkg):
 
 def aliases(pkg):
     """Alias keys by canonical key, from the port's table for both
-    packages: importing the JAX package's AWS provider adds an EBS CSI zone
-    alias to its table (the port has no AWS provider yet), and the draws
-    must not depend on which modules a test process has imported."""
+    packages: importing either package's AWS provider adds an EBS CSI zone
+    alias to that package's table, so this module imports both (the draws
+    must not depend on which modules a test process imported first), and
+    the alias is drawn and normalized in both."""
     out = {}
     for alias, canon in port_wellknown.NORMALIZED_LABELS.items():
         out.setdefault(canon, []).append(alias)
@@ -197,6 +200,30 @@ def fresh_heals():
 
 def port_key(c, pod):
     return port_scheduler._constraints_key(c, res.gpu_limits_for(pod))
+
+
+@pytest.mark.parametrize("operator", ["Exists", "DoesNotExist", "Gt", "Lt"])
+def test_validate_pod_reads_only_in_and_notin(operator):
+    """A pod requirement with another operator (here carrying values, as
+    the fuzz draws them: seed 1's case 101 was Exists with three
+    instance types) narrows nothing, as Requirements.requirement reads only
+    In and NotIn: the port's scalar validate_pod, its columnar verdict and
+    the JAX package's agree."""
+    out = []
+    for pkg in (JAX, PORT):
+        c = pkg.core
+        wk = pkg.wk
+        cons = pkg.Constraints(requirements=pkg.Requirements([
+            c.NodeSelectorRequirement(key=wk.LABEL_INSTANCE_TYPE, operator="In",
+                                      values=["c5.large", "m5.large"])]))
+        pod = c.Pod(spec=c.PodSpec(affinity=c.Affinity(node_affinity=c.NodeAffinity(
+            required=[c.NodeSelectorTerm(match_expressions=[c.NodeSelectorRequirement(
+                key=wk.LABEL_INSTANCE_TYPE, operator=operator,
+                values=["m5.large", "c5.large", "m5.xlarge"])])]))))
+        out.append(cons.validate_pod(pod))
+        if pkg is PORT:
+            out.append(feas.validate_pod_fast(cons, pod))
+    assert out == [None, None, None]
 
 
 class TestFuzzValidate:

@@ -95,7 +95,23 @@ def test_port_imports_without_jax_or_the_jax_package():
                 "karpenter_tpu_torch.webhooks",
                 "karpenter_tpu_torch.webhooks.admission",
                 "karpenter_tpu_torch.webhooks.certs",
-                "karpenter_tpu_torch.webhooks.server"}
+                "karpenter_tpu_torch.webhooks.server",
+                "karpenter_tpu_torch.utils.cache",
+                "karpenter_tpu_torch.cloudprovider.aws",
+                "karpenter_tpu_torch.cloudprovider.aws.sdk",
+                "karpenter_tpu_torch.cloudprovider.aws.sigv4",
+                "karpenter_tpu_torch.cloudprovider.aws.awsclient",
+                "karpenter_tpu_torch.cloudprovider.aws.vendor",
+                "karpenter_tpu_torch.cloudprovider.aws.discovery",
+                "karpenter_tpu_torch.cloudprovider.aws.instancetype",
+                "karpenter_tpu_torch.cloudprovider.aws.instancetypes",
+                "karpenter_tpu_torch.cloudprovider.aws.launchtemplate",
+                "karpenter_tpu_torch.cloudprovider.aws.instance",
+                "karpenter_tpu_torch.cloudprovider.aws.provider",
+                "karpenter_tpu_torch.cloudprovider.aws.fake",
+                "karpenter_tpu_torch.cloudprovider.aws.fake.ec2api",
+                "karpenter_tpu_torch.cloudprovider.aws.fake.ssmapi",
+                "karpenter_tpu_torch.cloudprovider.aws.fake.stubserver"}
     assert expected <= set(report["imported"])
 
 

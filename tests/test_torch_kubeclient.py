@@ -655,6 +655,82 @@ class TestWatchRelistMetric:
                                      "create pods/binding": 1, "delete pods": 1}
 
 
+class TestSharedStream:
+    """Every watch of a kind shares one LIST and one stream, and their
+    decoded objects; pods_on_node read in place."""
+
+    def events(self, q, want, deadline_s=10.0):
+        """Events from ``q`` until ``want(names seen)`` holds."""
+        out = []
+        deadline = time.time() + deadline_s
+        while time.time() < deadline and not want({e.obj.metadata.name for e in out}):
+            try:
+                out.append(q.get(timeout=0.2))
+            except queue_mod.Empty:
+                continue
+        return out
+
+    def test_watches_of_a_kind_share_one_list_and_stream(self):
+        stub = StubServer()
+        client = KubeApiClient(stub.url)
+        try:
+            for i in range(3):
+                stub.core.create(unschedulable_pod(name=f"s-{i}"))
+            early = [client.watch("Pod") for _ in range(2)]
+            wait_cached(client, "Pod")
+            late = client.watch("Pod")  # joins with the cached snapshot
+            stub.core.create(unschedulable_pod(name="s-3"))
+            every = {f"s-{i}" for i in range(4)}
+            got = [self.events(q, lambda names: names >= every) for q in early + [late]]
+            assert [{e.obj.metadata.name for e in evs} for evs in got] == [every] * 3
+            # one decoded object for all three watches and the read cache
+            last = [next(e.obj for e in evs if e.obj.metadata.name == "s-3") for evs in got]
+            assert last[0] is last[1] is last[2]
+            assert last[0] is client._cache_ref("Pod", "s-3", "default")
+            assert stub.counts["list pods"] == 1 and stub.counts["watch pods"] == 1
+            assert len(client._watch_threads) == 1
+        finally:
+            client.stop_watches()
+            stub.stop()
+
+    def test_unwatching_the_first_watch_keeps_the_stream_for_the_rest(self, api):
+        core, client, _ = api
+        core.create(unschedulable_pod(name="kept-0"))
+        first, second = client.watch("Pod"), client.watch("Pod")
+        wait_cached(client, "Pod")
+        client.unwatch(first)
+        core.create(unschedulable_pod(name="kept-1"))
+        assert "kept-1" in drain(second, lambda s: "kept-1" in s)
+        assert first.empty() or all(e.obj.metadata.name == "kept-0"
+                                    for e in list(first.queue))
+        with client._cache_lock:
+            assert "Pod" in client._cached_kinds
+        threads = list(client._watch_threads)
+        client.unwatch(second)  # the last: the stream ends, reads go live
+        for t in threads:
+            t.join(5.0)
+        assert not any(t.is_alive() for t in threads)
+        with client._cache_lock:
+            assert "Pod" not in client._cached_kinds and not client._read_cache.get("Pod")
+
+    def test_scan_pods_on_node_reads_what_pods_on_node_lists(self, api):
+        core, client, _ = api
+        for i in range(5):
+            core.create(unschedulable_pod(name=f"on-{i}"))
+        core.bind_pods([core.get("Pod", f"on-{i}") for i in range(3)], "a")
+
+        def both(kube, node):
+            return (sorted(kube.scan_pods_on_node(node, lambda p: p.metadata.name)),
+                    sorted(p.metadata.name for p in kube.pods_on_node(node)))
+
+        want = (["on-0", "on-1", "on-2"], ["on-0", "on-1", "on-2"])
+        assert both(core, "a") == both(client, "a") == want  # the client live
+        client.watch("Pod")
+        wait_cached(client, "Pod")
+        assert both(client, "a") == want  # from the cache's node index
+        assert both(core, "none") == both(client, "none") == ([], [])
+
+
 # -- the differential: one script through both packages' pairs ------------------------
 
 class LoggingJaxStub(JaxStubHandler):

@@ -154,15 +154,29 @@ class TestSubprocess:
         # in-cluster without KUBERNETES_SERVICE_HOST fails the boot, as the
         # JAX package's does; it never falls back to the in-memory store
         ([*BASE, "--kube-backend", "in-cluster"], "boot failed: no in-cluster API server"),
-        ([*BASE, "--cloud-provider", "aws"], "invalid options"),
+        # the AWS provider validates; with no region and no instance
+        # metadata service (a closed local port) building its clients fails
+        # the boot with the JAX main's rc and exception
+        ([*BASE, "--cloud-provider", "aws"], "ConnectionRefusedError"),
     ])
     def test_bad_options_exit_one(self, argv, said):
-        env = {k: v for k, v in os.environ.items() if k != "KUBERNETES_SERVICE_HOST"}
-        proc = subprocess.run([sys.executable, "-m", "karpenter_tpu_torch.main", *argv],
-                              cwd=REPO, env={**env, "PYTHONPATH": REPO},
-                              capture_output=True, text=True, timeout=60)
+        drop = {"KUBERNETES_SERVICE_HOST", "AWS_REGION", "AWS_DEFAULT_REGION"}
+        env = {k: v for k, v in os.environ.items() if k not in drop}
+        env.update(PYTHONPATH=REPO,
+                   AWS_EC2_METADATA_SERVICE_ENDPOINT=f"http://127.0.0.1:{free_port()}")
+
+        def run(package):
+            return subprocess.run([sys.executable, "-m", f"{package}.main", *argv],
+                                  cwd=REPO, env=env, capture_output=True, text=True,
+                                  timeout=60)
+
+        proc = run("karpenter_tpu_torch")
         assert proc.returncode == 1
         assert said in proc.stderr
+        if "aws" in argv:
+            ref = run("karpenter_tpu")
+            assert ref.returncode == proc.returncode
+            assert ref.stderr.strip().splitlines()[-1] in proc.stderr
 
 
 def run_main(argv, monkeypatch, kube=None):

@@ -5,8 +5,8 @@ validate() the same errors, except for the recorded differences:
 - ``--device`` (port only) takes the place of ``JAX_PLATFORMS``;
 - ``--trace-annotations`` (port) replaces ``--trace-jax`` (JAX);
 - ``--solver-use-device`` (JAX only) is gone;
-- ``--cloud-provider aws`` fails the port's validate() as not yet ported;
-  ``--kube-backend in-cluster`` validates in both packages.
+- ``--cloud-provider aws`` and ``--kube-backend in-cluster`` validate in
+  both packages.
 """
 
 import dataclasses
@@ -116,9 +116,10 @@ def test_validate_gives_the_same_errors(fields):
 
 
 @pytest.mark.parametrize("fields,error", [
-    # the API client is ported: in-cluster validates, as in the JAX package
+    # the API client and the AWS provider are ported: both validate, as in
+    # the JAX package
     ({"kube_backend": "in-cluster"}, None),
-    ({"cloud_provider": "aws"}, "cloud-provider aws: not yet ported"),
+    ({"cloud_provider": "aws"}, None),
     ({"device": "tpu"}, "device invalid: tpu"),
 ])
 def test_port_refuses_what_it_has_not_ported(fields, error):

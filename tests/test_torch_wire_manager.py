@@ -288,3 +288,125 @@ def test_the_window_in_flight_keeps_its_pods_pending():
         seen[pkg.name] = (before, during[0], after)
     assert seen["port"] == ([True] * 12, [True] * 12, [False] * 12)
     assert seen["jax"] == ([True] * 12, [False] * 12, [False] * 12)
+
+
+# -- a relist while binds land ------------------------------------------------------------
+
+def test_a_paged_list_reports_its_first_page_version():
+    """The stub's pages are served at different times: a bind that lands
+    after its pod's page was served must reach a watch from the LIST's
+    version (else an informer cache swapped to the LIST keeps the unbound
+    copy, and the selection controller re-offers a bound pod)."""
+    import json
+    import urllib.request
+
+    stub = StubServer()
+    try:
+        core = stub.core
+        catalog, pods = config12_window(PORT, 3, 6)
+        for p in pods:
+            core.create(p)
+        url = f"{stub.url}/api/v1/namespaces/default/pods?limit=2"
+        with urllib.request.urlopen(url) as r:
+            first = json.loads(r.read())
+        version, token = first["metadata"]["resourceVersion"], first["metadata"]["continue"]
+        core.bind_pod(core.get("Pod", first["items"][0]["metadata"]["name"]), "n-1")
+        while token:
+            with urllib.request.urlopen(f"{url}&continue={token}") as r:
+                page = json.loads(r.read())
+            assert page["metadata"]["resourceVersion"] == version
+            token = page["metadata"].get("continue")
+        q = core.watch("Pod", since_rv=int(version))
+        replayed = []
+        while not q.empty():
+            replayed.append((q.get().obj.metadata.name))
+        core.unwatch(q)
+        assert first["items"][0]["metadata"]["name"] in replayed
+    finally:
+        stub.stop()
+
+
+def relist_during_binds(pkg, monkeypatch, n=300, delay_s=0.01, page=50):
+    """config_12's window of ``n`` pods under ``pkg``'s build_manager over
+    the port's stub, each binding POST slowed by ``delay_s`` and a node's
+    pods bound one at a time, the client's LIST pages of ``page`` pods, and
+    a 410 on the Pod watch at the first binding POST (a relist while binds
+    land): the pods a later batcher window took again after they were
+    bound, and the binding POSTs."""
+    seeded_draws(monkeypatch, pkg)
+    catalog, pods = config12_window(pkg, 3, n)
+    pkg.spi.register(PROVIDER, lambda: pkg.fake.FakeCloudProvider(catalog=config12_catalog(pkg)))
+    jax = pkg.name == "jax"
+    opts = (jax_options if jax else port_options).Options(
+        cluster_name="c", cluster_endpoint="e", cloud_provider=PROVIDER, window_backend="ffd",
+        pressure_rss_watermark_mb=0, batch_idle_seconds=1.0, batch_max_seconds=10.0,
+        **({} if jax else {"device": "cpu"}))
+    client_mod = jax_client if jax else port_client
+    monkeypatch.setattr(port_client, "BIND_WORKERS", 1)
+    stub = StubServer()
+    handler = stub.server.RequestHandlerClass
+    real_post = handler.do_POST
+
+    def slow_post(self):
+        if self.path.endswith("/binding"):
+            time.sleep(delay_s)
+        return real_post(self)
+
+    monkeypatch.setattr(handler, "do_POST", slow_post)
+    bound_at = {}
+    real_bind = stub.core.bind_pod
+
+    def bind_pod(pod, node):
+        out = real_bind(pod, node)
+        bound_at.setdefault(pod.metadata.name, time.monotonic())
+        return out
+
+    stub.core.bind_pod = bind_pod
+    batcher_mod = pkg.batcher
+    windows, real_wait = [], batcher_mod.Batcher.wait
+
+    def wait(self):
+        items, seconds = real_wait(self)
+        if items:
+            windows.append((time.monotonic(), [
+                next(x for x in (i if isinstance(i, tuple) else (i,))
+                     if hasattr(x, "metadata")).metadata.name for i in items]))
+        return items, seconds
+
+    monkeypatch.setattr(batcher_mod.Batcher, "wait", wait)
+    kube, writer = client_mod.KubeApiClient(stub.url), client_mod.KubeApiClient(stub.url)
+    kube.list_page_size = page
+    manager = (jax_main if jax else port_main).build_manager(kube, opts)
+    try:
+        writer.create(pkg.Provisioner(metadata=pkg.core.ObjectMeta(name="default",
+                                                                   namespace="default"),
+                                      spec=pkg.ProvisionerSpec()))
+        for p in pods:
+            writer.create(p)
+        manager.start()
+        armed, deadline = False, time.monotonic() + 120.0
+        while time.monotonic() < deadline:
+            if not armed and stub.counts.get("create pods/binding", 0):
+                stub.behavior["watch_410_next"] = "Pod"
+                armed = True
+            if all(stub.core.scan("Pod", lambda p: bool(p.spec.node_name))):
+                break
+            time.sleep(0.1)
+        time.sleep(6.0)  # a selection re-verify (5 s) after the last bind
+    finally:
+        manager.stop()
+        for c in (kube, writer):
+            c.stop_watches()
+        stub.stop()
+    again = {name for t, names in windows for name in names
+             if name in bound_at and bound_at[name] < t}
+    return again, stub.counts.get("create pods/binding", 0), armed
+
+
+def test_a_relist_during_binds_posts_each_bind_once(monkeypatch):
+    """A relist while binds land (the 410 at the first binding POST) and a
+    node's pods bound one at a time, as in the card's wire phase before
+    binds went 8 at once: every pod bound, each binding POST once (a
+    second would be a 409)."""
+    again, posts, armed = relist_during_binds(PORT, monkeypatch, n=200)
+    assert armed and posts == 200
