@@ -10,8 +10,10 @@ recorder; then the native host ring and its gate, the boot warm-up, the
 controller process (main.build_manager under its Manager, and
 ``python -m karpenter_tpu_torch.main`` as a process of its own), the AWS
 provider over signed HTTP against a stub EC2/SSM endpoint, the Manager
-over HTTP against a stub API server through the API client, and the
-admission webhook server.
+over HTTP against a stub API server through the API client, the
+admission webhook server, and the million-pod replay over the sharded
+control plane with its store A/B, chaos SLO probe and spot, journal and
+carve legs.
 
     python3 chip_smoke.py
 
@@ -99,7 +101,7 @@ nvcc each, both at once). Phases, each printing one JSON record:
    DeviceRing.counters()); the tracing and stamping tax by the JAX
    package's method (spans x ns a span, SLO record calls x ns a record,
    over the window's wall) beside tracing and stamps on and off
-   alternated over 3 windows each (p50 walls, context only); one traced
+   one window each (OBS_ALTERNATIONS; context only); one traced
    window and a one-schedule window under torch.profiler with the
    tracer's annotations on: the record_function range of every entered
    span and of the three karpenter.solve labels, with the host ms and
@@ -142,8 +144,8 @@ nvcc each, both at once). Phases, each printing one JSON record:
    (bench.py:417-560) encoded and answered by one launch of the what-if
    kernel: equal to its plain version and to host_whatif, executor
    "device-whatif", every drain replayed on the surviving bins; the
-   kernel's time (median of 25), the plain version's, the bound and the
-   host seconds of encode_window, host_whatif and plan_window; config_5's
+   kernel's time (median of WARM_RUNS), the plain version's, the bound and
+   the host seconds of encode_window, host_whatif and plan_window; config_5's
    repack_plan on 2,000 fragmented nodes equal to the host oracle;
 13. deprovision: config_4's 50,000 pods provisioned through the
    controller, the nodes made Ready and reconciled by NodeController, two
@@ -245,6 +247,17 @@ nvcc each, both at once). Phases, each printing one JSON record:
    provider: a defaulting review (its JSON patch), a valid and a denied
    validating review, a logging-config review, /healthz, and the shutdown
    (phase_webhook);
+21i. replay: the port's cluster-in-a-box replay (replay.py) at the JAX
+   package's config_9 shapes: the store A/B at 100,000 objects (scan
+   speedup >= 5), the million-pod leg (ReplayConfig(gang_fraction=0.2): 4
+   shard workers, 8 tenants, 100 gangs, chaos on; traced, the chrome dump
+   in the build directory) with its verdict PASS and 0 SLO trips, the
+   seeded-chaos probe (a trip, default burning), the spot leg and a
+   40-tick twin (pods displaced by reclaims, every one rebound),
+   config_15's journaled leg (the journal's tax)
+   and config_17's carve leg (carves committed, 0 partial gangs); each
+   leg's launches by kernel and answers by executor, every pack launch and
+   gang window held against its plain version (phase_replay);
 22. each phase's seconds on a line of its own as it ends; the
    device-programs line (B7, B8, B5, B6, B11, the member column, B13), the
    kernels line (pack_chunk, pack_batch with the price-row launch beside
@@ -296,6 +309,10 @@ builds the kernels and runs the wire and webhook phases alone.
 
 builds the kernels and runs the aws phase alone.
 
+    python3 chip_smoke.py --replay
+
+builds the kernels and runs the replay phase alone.
+
     python3 chip_smoke.py --manager-flood
 
 drives config_12's window through main.build_manager with every default
@@ -326,7 +343,7 @@ HIGHCARD_NODES = 1070
 # quarter to keep the whole script inside its limit; the kernel is also
 # timed at the solve's 64 (``ms_64``, the series PERF.md tracks)
 HIGHCARD_CHECK_ITERS = 16
-WARM_RUNS = 25
+WARM_RUNS = 10  # warm runs of each timing
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3 (NVIDIA data sheet)
 # the host link of an H100 SXM: PCIe 5.0 x16, 64 GB/s each way (the data
 # sheet's 128 GB/s counts both directions); the bound of a host→device copy
@@ -632,11 +649,13 @@ def launch_at(args, L, prices, cost, maxfit, facts, cluster):
     return launch_pack(*args, L, prices, cost, maxfit, *facts, cluster)
 
 
-def compare(args, L, prices, cost, maxfit, all_clusters=False):
+def compare(args, L, prices, cost, maxfit, all_clusters=False, with_stats=True):
     """One pack_chunk launch and one plain run on the same inputs, and with
     ``all_clusters`` one launch at every cluster size the kernel takes:
     returns (equal, max_abs_err, kernel flat, plain stats with the plain
-    run's milliseconds under "ms")."""
+    run's milliseconds under "ms"). ``with_stats=False`` skips the plain
+    run's work counts (a sum over the types at every shape step), which
+    only a bound reads."""
     import torch
 
     from karpenter_tpu_torch.ops.pack_cuda import pack_chunk, pack_chunk_plain
@@ -646,7 +665,7 @@ def compare(args, L, prices, cost, maxfit, all_clusters=False):
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     want = pack_chunk_plain(*args, num_iters=L, prices=prices, cost_tiebreak=cost,
-                            maxfit=maxfit, stats=stats)
+                            maxfit=maxfit, stats=stats if with_stats else None)
     torch.cuda.synchronize()
     stats["ms"] = (time.perf_counter() - t0) * 1000.0
     outs = [got]
@@ -669,7 +688,8 @@ def phase_fuzz(device):
     def run(args, L, prices, cost, what):
         nonlocal cases, launches, worst
         maxfit = compute_maxfit(args[0], args[3], args[4], args[5])
-        ok, err, got, _ = compare(args, L, prices, cost, maxfit, all_clusters=True)
+        ok, err, got, _ = compare(args, L, prices, cost, maxfit, all_clusters=True,
+                                  with_stats=False)
         worst = max(worst, err)
         cases += 1
         launches += 1 + len(kernel_clusters(args[3].shape[0]))
@@ -1635,7 +1655,9 @@ def phase_controller_columnar(device):
 RETROACTIVE_SPANS = ("intake", "marshal", "dispatch", "device_solve", "launch_bind")
 SOLVE_RANGES = ("karpenter.solve.batch_dispatch", "karpenter.solve.batch_device",
                 "karpenter.solve.device")
-OBS_ALTERNATIONS = 3  # windows each with tracing and SLO stamps on, and off
+# windows each with tracing and SLO stamps on, and off: the direct A/B is
+# context only (the tax is read by the JAX package's method)
+OBS_ALTERNATIONS = 1
 
 
 def series_delta(before, after, name):
@@ -1943,7 +1965,10 @@ def phase_observability(device, columnar_binds):
 
 
 CONTROLLER_GROUPS = 24
-CONTROLLER_WINDOWS = 3
+# windows of run 1: the first rebuilds the kernel on the worker thread and
+# holds every check, the second is the steady wall
+CONTROLLER_WINDOWS = 2
+GLOBAL_CONTROLLER_WINDOWS = 1  # windows of run 4
 
 
 def pending_pod(name, cpu_m, mem_mi, exprs, eni=False):
@@ -2255,10 +2280,10 @@ def phase_controller(device):
        is milliseconds, each process's host work holds one core); its
        record is checked and printed after run 4.
     1. config_12's window, 24 groups × 416 pods (9,984), backend "ffd",
-       PipelineConfig(chunk_items=0) so one chunk holds the window; three
-       windows. The first: every pod bound once (group 15's pods ask for a
-       pod ENI no type offers: the solve leaves them unschedulable and they
-       stay Pending), the nodes' (type, pods) multiset equal to solve_batch
+       PipelineConfig(chunk_items=0) so one chunk holds the window;
+       CONTROLLER_WINDOWS windows. The first: every pod bound once (group
+       15's pods ask for a pod ENI no type offers: the solve leaves them
+       unschedulable and they stay Pending), the nodes' (type, pods) multiset equal to solve_batch
        on the chunk's problems, each problem equal to solve_ffd_numpy, one
        pack_batch launch per chunk, every answered problem "device-batch";
        the kernel is rebuilt and launched on the worker thread.
@@ -2268,14 +2293,15 @@ def phase_controller(device):
     3. 2,084 pods a group (50,016), the default config, once: every pod
        bound once.
     4. config_14's priced window (config14_controller_pods), backend
-       "global", three windows: the accepted count and the composed fleet
-       $/h equal the port's CPU controller on the same window, at least one
-       schedule accepted, no global error, "device-global" counted; then
+       "global", GLOBAL_CONTROLLER_WINDOWS windows: the accepted count and
+       the composed fleet $/h equal the port's CPU controller on the same
+       window, at least one schedule accepted, no global error, "device-global" counted; then
        KARPENTER_GLOBAL_SOLVE=0 gives the "ffd" backend's binds.
 
     One record a run: the window wall time (first reconcile → last bind;
-    p50 over the windows) and its split, nodes, pods bound, chunks,
-    launches per chunk, executor counts and the pressure level seen."""
+    run 1's steady window, run 4's p50 over its windows) and its split,
+    nodes, pods bound, chunks, launches per chunk, executor counts and the
+    pressure level seen."""
     from karpenter_tpu_torch.pressure import read_rss_bytes
 
     t_phase = time.perf_counter()
@@ -2383,11 +2409,11 @@ def phase_controller_runs(device, t_phase):
         build_dir.PATH = lib_dir
         run.stop()
     emit_run({"run": "config12_one_chunk", "backend": "ffd", "windows": len(windows),
-                    "wall_p50_s": p50([r["wall_s"] for r in windows]),
+                    "steady_wall_s": windows[-1]["wall_s"],
                     "walls_s": [r["wall_s"] for r in windows], "first": first,
-                    "split_p50_s": {k: p50([r[k] for r in windows]) for k in
-                                    ("reconcile_s", "batch_window_s", "schedule_s", "dispatch_s",
-                                     "fetch_s", "launch_bind_s")},
+                    "steady_split_s": {k: windows[-1][k] for k in
+                                       ("reconcile_s", "batch_window_s", "schedule_s",
+                                        "dispatch_s", "fetch_s", "launch_bind_s")},
                     "equal_to_solve_batch_and_numpy": True})
 
     # run 2: the default pipeline, and a depth-1 run of the same first window
@@ -2466,7 +2492,7 @@ def phase_controller_runs(device, t_phase):
         check(cpu_plan is not None and cpu_plan.accepted >= 1,
               "controller run 4: the CPU run accepted no schedule")
         windows = []
-        for w in range(CONTROLLER_WINDOWS):
+        for w in range(GLOBAL_CONTROLLER_WINDOWS):
             rec, plan, _ = global_window(device, f"g{w}")
             check(plan is not None and plan.executor == "device-global",
                   "controller run 4: the global leg did not run on the card")
@@ -2506,7 +2532,7 @@ PROGRAM_ATOL = PROGRAM_RTOL = 1e-4
 # H100 SXM float32 outside the tensor cores, an FMA as two operations
 # (the card's published peak)
 FLOAT32_FLOPS = 67e12
-GLOBAL_WARM_RUNS = 25
+GLOBAL_WARM_RUNS = 10
 
 
 def config14_catalog():
@@ -5640,13 +5666,13 @@ def drive(worker, kube, pods):
 
 def bound_once(kube, names, what):
     """Every pod of ``names`` bound, to a live node whose pod index holds it
-    exactly once (read without copies, but for the index)."""
+    exactly once (read without copies)."""
     from collections import Counter
 
     nodes = set(kube.scan("Node", lambda n: n.metadata.name))
     on = Counter()
     for n in nodes:
-        on.update(p.metadata.name for p in kube.pods_on_node(n))
+        on.update(kube.scan_pods_on_node(n, lambda p: p.metadata.name))
     pods = dict(kube.scan("Pod", lambda p: (p.metadata.name, p.spec.node_name)))
     unbound = [n for n in names if pods.get(n) not in nodes]
     check(not unbound, f"{what}: {len(unbound)} pods not bound to a live node ({unbound[:3]})")
@@ -5696,7 +5722,7 @@ def journal_crash_cell(point, window, catalog, pods_of, names, device):
             journal.close_journal()
         check(crashed == point, f"journal: {point} never fired ({calls} calls of {window})")
         crash_s = time.perf_counter() - t0
-        bound_at_death = sum(1 for p in kube.list("Pod") if p.spec.node_name)
+        bound_at_death = sum(kube.scan("Pod", lambda p: bool(p.spec.node_name)))
         t0 = time.perf_counter()
         journal = IntentJournal(d, fsync=True)
         stats = RecoveryController(kube, provider, journal).run()
@@ -6676,7 +6702,6 @@ def phase_main_process(device):
 
 
 WIRE_WATCH_IDLE_S = 60.0
-WIRE_WRITERS = 8
 WIRE_SETTLE_DEADLINE_S = 120.0
 WIRE_STOP_TIMEOUT_S = 120.0
 
@@ -6704,14 +6729,15 @@ def stub_behavior(url, update):
         r.read()
 
 
-def start_stub():
+def start_stub(objects):
     """runtime/stubserver.py in a child process of its own (its threads and
-    GIL apart from the controller's) on a free port over plain HTTP: the
-    process and its URL."""
+    GIL apart from the controller's) on a free port over plain HTTP, with
+    the objects of the file ``objects`` stored first: the process and its
+    URL."""
     repo = os.path.dirname(os.path.abspath(__file__))
     proc = subprocess.Popen(
         [sys.executable, "-m", "karpenter_tpu_torch.runtime.stubserver",
-         "--watch-idle-seconds", str(WIRE_WATCH_IDLE_S)],
+         "--watch-idle-seconds", str(WIRE_WATCH_IDLE_S), "--objects", objects],
         cwd=repo, env={**os.environ, "PYTHONPATH": repo}, stdout=subprocess.PIPE, text=True)
     line = proc.stdout.readline()
     if not line:
@@ -6768,9 +6794,12 @@ def wire_binds(kube, every, eni):
 
 def phase_wire(device, per=MAIN_PER):
     """The Manager over HTTP at full width: runtime/stubserver.py in a child
-    process, a second client (its own generous limiter) creating
-    Provisioner("default") and config_12's window at ``per`` pods a schedule
-    (9,984 at MAIN_PER, the ENI group among them), then
+    process started with config_12's window at ``per`` pods a schedule in
+    its store (9,984 at MAIN_PER, the ENI group among them; stored from a
+    file of one object per group and shape with its pods' names, as if
+    created, so the phase times the controller and not its set-up), a
+    second client (its own generous limiter) creating
+    Provisioner("default"), then
     main.build_manager(KubeApiClient(url), Options(defaults)) with the
     default 200 QPS / 300 burst, --journal-dir and --flight-dir on the
     machine's disk, recovery.run() and manager.start(); once the batcher
@@ -6796,7 +6825,6 @@ def phase_wire(device, per=MAIN_PER):
     level and throttle signal seen, and each thread group's CPU seconds."""
     import shutil
     import threading
-    from concurrent.futures import ThreadPoolExecutor
     from types import SimpleNamespace
 
     import torch
@@ -6814,6 +6842,7 @@ def phase_wire(device, per=MAIN_PER):
     from karpenter_tpu_torch.pressure import get_monitor, set_monitor
     from karpenter_tpu_torch.runtime.journal import IntentJournal
     from karpenter_tpu_torch.runtime.kubeclient import KubeApiClient
+    from karpenter_tpu_torch.runtime.kubeclient import _encode as wire_encode
     from karpenter_tpu_torch.scheduling import batcher as batcher_mod
 
     def relists():
@@ -6827,7 +6856,25 @@ def phase_wire(device, per=MAIN_PER):
     catalog = make_catalog(WINDOW_TYPES)
     spi.register("chip-config12", lambda: FakeCloudProvider(catalog=catalog))
     jdir, fdir = journal_dir("wire"), journal_dir("wire-flight")
-    proc, url = start_stub()
+    pods = config12_controller_pods(catalog, per, "w")
+    eni = {p.metadata.name for p in pods if "vpc.amazonaws.com/pod-eni"
+           in p.spec.containers[0].resources.requests}
+    t0 = time.perf_counter()
+    # the window's pods as one object per (group, shape) and its pods' names
+    # (config12_controller_pods names pod j of group g "w-g<g>-<j>")
+    by_template = {}
+    for p in pods:
+        _, g, j = p.metadata.name.split("-")
+        by_template.setdefault((g, int(j) % len(MIXED_SHAPES)), []).append(p)
+    fd, seed = tempfile.mkstemp(suffix=".json")
+    try:
+        with os.fdopen(fd, "w") as f:
+            json.dump([{"kind": "Pod", "object": wire_encode(group[0]),
+                        "names": [p.metadata.name for p in group]}
+                       for group in by_template.values()], f)
+        proc, url = start_stub(seed)
+    finally:
+        os.remove(seed)
     windows, real_wait = [], batcher_mod.Batcher.wait
 
     def recording_wait(self):
@@ -6839,14 +6886,8 @@ def phase_wire(device, per=MAIN_PER):
     manager = kube = None
     try:
         writer = KubeApiClient(url, qps=1e6, burst=1_000_000)
-        pods = config12_controller_pods(catalog, per, "w")
-        eni = {p.metadata.name for p in pods if "vpc.amazonaws.com/pod-eni"
-               in p.spec.containers[0].resources.requests}
-        t0 = time.perf_counter()
         writer.create(Provisioner(metadata=ObjectMeta(name="default")))
-        with ThreadPoolExecutor(WIRE_WRITERS) as pool:
-            list(pool.map(writer.create, pods))
-        create_s = time.perf_counter() - t0
+        seed_s = time.perf_counter() - t0
         check(stub_state(url)["pods"] == len(pods), "wire: the stub holds fewer pods than made")
         options = Options(cluster_name="chip", cluster_endpoint=url,
                           cloud_provider="chip-config12", journal_dir=jdir, flight_dir=fdir,
@@ -6951,7 +6992,7 @@ def phase_wire(device, per=MAIN_PER):
         shutil.rmtree(fdir, ignore_errors=True)
     check(stub_rc == 0, f"wire: the stub process exited {stub_rc}")
     rec = {"phase": "wire", "pods": len(pods), "unschedulable_eni": len(eni),
-           "create_s": create_s, "build_manager_s": build_s, "recovery": stats,
+           "seed_s": seed_s, "build_manager_s": build_s, "recovery": stats,
            "seconds_to_all_bound": bound_s, "expired_armed_at_s": armed_at,
            "progress": progress,
            "batch_windows": windows, "nodes": nodes, "main_nodes": 161,
@@ -7519,10 +7560,228 @@ def phase_aws(device, per=AWS_PER):
     return rec
 
 
+# -- the million-pod replay (A8-main, item 2) ---------------------------------
+
+# the legs of the JAX package's bench, each at its own shape: config_9's
+# seeded-chaos SLO probe (bench.py:922-926), the spot leg of
+# tests/test_replay.py:96-100, config_15's journaled leg (bench.py:1825-1829)
+# and config_17's carve-journal leg (bench.py:2288-2294); the main leg is
+# config_9's ReplayConfig(gang_fraction=0.2) and the store A/B its
+# store_ab(100_000, 2_000)
+REPLAY_PROBE = dict(pods_total=1_200, shards=1, tenants=1, seed=7, bound_cohort=80,
+                    churn_pods=40, max_depth=600, ticks=3, tick_sleep_s=0.1, burst_ticks=1,
+                    chaos=True, settle_s=30.0, flood_pool=32, slo_objectives={"default": 0.001})
+REPLAY_SPOT = dict(pods_total=1_500, shards=2, tenants=2, seed=7, bound_cohort=60,
+                   churn_pods=120, max_depth=400, ticks=6, tick_sleep_s=0.1, burst_ticks=2,
+                   chaos=True, settle_s=45.0, flood_pool=64, spot_fraction=0.5)
+# the same leg over 40 ticks: at 6 the port binds the cohort and reaches L0
+# within ~2 s, before capacity GC's 2 s grace reaps a reclaimed instance's
+# ghost Node, so no pod is displaced; over 4 s the reclaimed nodes'
+# pods are evicted, re-offered and bound again
+REPLAY_SPOT_REBIND = dict(REPLAY_SPOT, ticks=40)
+REPLAY_JOURNAL = dict(pods_total=4_000, shards=1, tenants=1, seed=7, bound_cohort=400,
+                      churn_pods=0, max_depth=2_000, ticks=8, tick_sleep_s=0.6, burst_ticks=1,
+                      chaos=False, settle_s=60.0, flood_pool=96, journal_fsync=True)
+REPLAY_CARVE = dict(pods_total=3_000, shards=1, tenants=1, seed=7, bound_cohort=320,
+                    gang_fraction=0.5, gang_size=4, gang_slice="v5e-2x2", churn_pods=0,
+                    max_depth=2_000, ticks=6, tick_sleep_s=0.5, burst_ticks=1, chaos=False,
+                    settle_s=60.0, flood_pool=96, journal_fsync=True)
+
+
+def replay_counts():
+    """The launches of each kernel and device program since reset_counts(),
+    and the answers by executor."""
+    from karpenter_tpu_torch.ops import pack_cuda, whatif_cuda
+    from karpenter_tpu_torch.solver import global_solve, topology
+
+    return {"launches": {"pack_batch": pack_cuda.BATCH_LAUNCHES, "pack_chunk": pack_cuda.LAUNCHES,
+                         "whatif_gang": whatif_cuda.LAUNCHES, "carve_program": topology.RUNS,
+                         "relaxation": global_solve.RUNS},
+            "executors": executor_counts()}
+
+
+def replay_leg(name, cfg, device, packs, handles):
+    """One run_replay on ``device`` with the counts set to 0 just before and
+    read just after; every pack launch it made held against the plain
+    version (``packs``, a PackLaunches) and every gang window against
+    whatif_scan_plain (``handles``, filled by the patched dispatch)."""
+    from karpenter_tpu_torch import replay as rp
+    from karpenter_tpu_torch.ops import feasibility
+    from karpenter_tpu_torch.ops import topology as topo
+
+    topo.LEDGER.reset()
+    feasibility.clear_gang_cache()
+    packs.records.clear()
+    handles.clear()
+    reset_counts()
+    report = rp.run_replay(rp.ReplayConfig(**cfg), device=device)
+    counts = replay_counts()
+    held = len(packs.records)
+    pack_err = packs.held()
+    gang_err, shapes = check_gang_handles(handles, f"replay {name}")
+    check(report["completed"], f"replay {name}: incomplete ({report['cohort_unbound']} "
+                               f"unbound, healthy {report['workers_healthy']}, recovery "
+                               f"{report['recovery_to_l0_s']})")
+    check(report["gangs"]["partial_gangs"] == 0, f"replay {name}: partial gangs")
+    check(pack_err == 0, f"replay {name}: a pack launch != plain")
+    return report, {**counts, "pack_launches_held": held, "gang_windows_held": len(shapes),
+                    "gang_shapes": sorted(set(map(tuple, shapes))),
+                    "pack_max_abs_err": pack_err, "gang_max_abs_err": gang_err}
+
+
+def phase_replay(device):
+    """The port's replay on the card (replay.py, the JAX package's config_9
+    and its legs): (a) the store A/B at 100,000 objects (2,000 Nodes), every
+    scan and list giving 2,000 Nodes, the scan speedup >= 5; (b) the
+    million-pod leg, ReplayConfig(gang_fraction=0.2) (4 shards, 8 tenants, a
+    2,000-pod cohort with 100 gangs of 4, 2,000 churn pods, 24 ticks of 0.2 s,
+    3 burst ticks, chaos on), traced (the chrome dump in the build
+    directory): the verdict PASS, the SLO engine bounded with 0 trips; (c)
+    the seeded-chaos probe (1,200 pods, objective 0.001 s on default): a
+    trip with default burning; (d) the spot leg (displaced == rebound, an
+    interruption fired, the verdict's spot cell passing; and over 40 ticks,
+    pods displaced by the reclaims and every one rebound), config_15's
+    journaled leg (fsync on, on the machine's disk: the appends and their
+    share of the wall) and config_17's carve leg (gang_slice v5e-2x2, 0
+    partial gangs, carves committed). Each leg's launches by kernel and
+    answers by executor are read around it; every pack launch and every gang
+    window of the phase is held against its plain version."""
+    import shutil
+
+    from karpenter_tpu_torch import replay as rp
+    from karpenter_tpu_torch.build_dir import PATH as BUILD
+    from karpenter_tpu_torch.controllers import provisioning
+    from karpenter_tpu_torch.metrics.topology import TOPOLOGY_CARVES_COMMITTED_TOTAL
+    from karpenter_tpu_torch.obs import trace
+    from karpenter_tpu_torch.replay_verdict import GATE_SCAN_SPEEDUP, verdict
+
+    t_phase = time.perf_counter()
+    ab = rp.store_ab(objects=100_000, minority=2_000)
+    check(ab["scan_speedup"] >= GATE_SCAN_SPEEDUP,
+          f"replay: store scan speedup {ab['scan_speedup']} < {GATE_SCAN_SPEEDUP}")
+    emit({"phase": "replay_store_ab", **ab})
+
+    dispatch, handles = provisioning.dispatch_gang_window, []
+
+    def recording_dispatch(enc, dev):
+        handle = dispatch(enc, dev)
+        handles.append(handle)
+        return handle
+
+    provisioning.dispatch_gang_window = recording_dispatch
+    legs = {}
+    try:
+        with PackLaunches() as packs:
+            trace.reset()
+            trace.enable()
+            try:
+                big, counts = replay_leg("million", {"gang_fraction": 0.2}, device, packs,
+                                         handles)
+            finally:
+                trace.disable()
+            dump = trace.dump_chrome(str(BUILD / "TRACE_replay.json"))
+            line = verdict({"replay": big, "store_ab": ab})
+            check(line.endswith("objects)") and "PASS" in line and "FAIL" not in line,
+                  f"replay: {line}")
+            check(big["system_critical_shed"] == 0, "replay: system-critical sheds")
+            check(big["offered_total"] >= 0.99 * big["config"]["pods_total"],
+                  "replay: fewer than 99 % of the pods offered")
+            check(big["slo"]["bounded"] and big["slo"]["trips"] == 0,
+                  f"replay: SLO engine {big['slo']['trips']} trips, bounded "
+                  f"{big['slo']['bounded']}")
+            check(device.type != "cuda" or counts["launches"]["whatif_gang"] > 0,
+                  "replay: no gang window on the card")
+            legs["million"] = {
+                "verdict": line, "offered_total": big["offered_total"],
+                "offered": big["offered"], "bound": big["bound"],
+                "pending_to_bound_s": big["pending_to_bound_s"], "shed": big["shed"],
+                "peak_level": big["peak_level"], "recovery_to_l0_s": big["recovery_to_l0_s"],
+                "gangs": big["gangs"], "chaos_fired": big["chaos_fired"],
+                "store_ops": big["store_ops"], "slo": {k: big["slo"][k] for k in
+                                                        ("records", "cells", "total_bins",
+                                                         "bounded", "trips", "burning")},
+                "rss_growth_mib": big["rss_growth_mib"], "nproc": big["nproc"],
+                "wall_s": big["wall_s"], "trace_dump": os.path.relpath(dump),
+                "spans": trace.state(), **counts}
+            emit({"phase": "replay_million", **legs["million"]})
+
+            probe, counts = replay_leg("probe", REPLAY_PROBE, device, packs, handles)
+            check(probe["slo"]["trips"] >= 1 and "default" in probe["slo"]["burning"],
+                  f"replay probe: no trip with default burning ({probe['slo']['trips']}, "
+                  f"{probe['slo']['burning']})")
+            legs["probe"] = {"trips": probe["slo"]["trips"], "burning": probe["slo"]["burning"],
+                             "last_trip": probe["slo"]["burn"]["last_trip"],
+                             "wall_s": probe["wall_s"], **counts}
+
+            spot, counts = replay_leg("spot", REPLAY_SPOT, device, packs, handles)
+            line = verdict({"replay": spot, "store_ab": None})
+            s = spot["spot"]
+            check(s["interruptions"] >= 1 and s["displaced"] == s["rebound"]
+                  and line.endswith("replay PASS"), f"replay spot: {line}")
+            legs["spot"] = {"verdict": line, "spot": s, "wall_s": spot["wall_s"], **counts}
+
+            spot, counts = replay_leg("spot_rebind", REPLAY_SPOT_REBIND, device, packs, handles)
+            line = verdict({"replay": spot, "store_ab": None})
+            s = spot["spot"]
+            check(s["displaced"] >= 1 and s["displaced"] == s["rebound"]
+                  and line.endswith("replay PASS"), f"replay spot_rebind: {line}")
+            legs["spot_rebind"] = {"verdict": line, "spot": s, "wall_s": spot["wall_s"],
+                                   **counts}
+
+            d = journal_dir("replay")
+            try:
+                before = journal_counters()
+                jr, counts = replay_leg("journal", dict(REPLAY_JOURNAL, journal_dir=d), device,
+                                        packs, handles)
+                jd = journal_delta(before, journal_counters())
+            finally:
+                shutil.rmtree(d, ignore_errors=True)
+            check(jd["appends"] > 0, "replay journal: no append")
+            legs["journal"] = {"fs": fs_type(os.path.dirname(d)), "appends": jd["appends"],
+                               "kinds": jd["kinds"], "bytes": jd["bytes"],
+                               "append_s": jd["append_s"], "wall_s": jr["wall_s"],
+                               "tax_pct": 100.0 * jd["append_s"] / jr["wall_s"],
+                               "journal": jr["journal"], "bound": jr["bound"], **counts}
+
+            d = journal_dir("replay-carve")
+            try:
+                carves0 = sum(TOPOLOGY_CARVES_COMMITTED_TOTAL.collect().values())
+                before = journal_counters()
+                cr, counts = replay_leg("carve", dict(REPLAY_CARVE, journal_dir=d), device,
+                                        packs, handles)
+                jd = journal_delta(before, journal_counters())
+                carves = sum(TOPOLOGY_CARVES_COMMITTED_TOTAL.collect().values()) - carves0
+            finally:
+                shutil.rmtree(d, ignore_errors=True)
+            check(carves > 0 and counts["launches"]["carve_program"] > 0,
+                  f"replay carve: {carves} carves, {counts['launches']['carve_program']} "
+                  "carve programs")
+            legs["carve"] = {"gangs": cr["gangs"], "carves_committed": int(carves),
+                             "appends": jd["appends"], "append_s": jd["append_s"],
+                             "wall_s": cr["wall_s"],
+                             "tax_pct": 100.0 * jd["append_s"] / cr["wall_s"], **counts}
+    finally:
+        provisioning.dispatch_gang_window = dispatch
+    rec = {"phase": "replay", "store_ab": {k: ab[k] for k in ("striped", "naive", "scan_speedup",
+                                                              "list_speedup")},
+           **{k: v for k, v in legs.items() if k != "million"},
+           **{f"{k}_max_abs_err": max(leg[f"{k}_max_abs_err"] for leg in legs.values())
+              for k in ("pack", "gang")},
+           "seconds": time.perf_counter() - t_phase}
+    emit(rec)
+    return {"million": legs["million"], **rec}
+
+
 def phase_aws_alone(device):
     """``--aws``: the kernels built, then the aws phase."""
     build_all()
     phase_aws(device)
+
+
+def phase_replay_alone(device):
+    """``--replay``: the kernels built, then the replay phase."""
+    build_all()
+    phase_replay(device)
 
 
 def phase_wire_alone(device):
@@ -7574,9 +7833,11 @@ def card_line() -> str:
 def main(argv) -> int:
     t_start = time.perf_counter()
     if argv not in ([], ["--kernel-times"], ["--solve-times"], ["--controller-deployed"],
-                    ["--whatif-times"], ["--manager-flood"], ["--wire"], ["--aws"]):
+                    ["--whatif-times"], ["--manager-flood"], ["--wire"], ["--aws"],
+                    ["--replay"]):
         print("usage: chip_smoke.py [--kernel-times | --solve-times | --controller-deployed"
-              " | --whatif-times | --manager-flood | --wire | --aws]", file=sys.stderr)
+              " | --whatif-times | --manager-flood | --wire | --aws | --replay]",
+              file=sys.stderr)
         return 2
     import torch
 
@@ -7594,7 +7855,8 @@ def main(argv) -> int:
          "--controller-deployed": phase_controller_deployed,
          "--whatif-times": phase_whatif_times,
          "--manager-flood": phase_manager_flood,
-         "--wire": phase_wire_alone, "--aws": phase_aws_alone}[argv[0]](device)
+         "--wire": phase_wire_alone, "--aws": phase_aws_alone,
+         "--replay": phase_replay_alone}[argv[0]](device)
         return 0
     emit({"phase": "card", "nvidia_smi": card,
           "name": torch.cuda.get_device_name(0),
@@ -7651,6 +7913,7 @@ def main(argv) -> int:
     timed("main_process", phase_main_process, device)
     wr = timed("wire", phase_wire, device)
     timed("webhook", phase_webhook, device)
+    rp = timed("replay", phase_replay, device)
     emit({"phase": "total", "seconds": time.perf_counter() - t_start})
     b8 = gw["relax_pack"]
     b6 = pw["config13"]["program"]
@@ -7743,12 +8006,15 @@ def main(argv) -> int:
         "replaces": "karpenter_tpu/parallel/sharded_pack.py:90",
         "launches": win["launches_per_window"]["pack_batch"],
         # the batched launches of phase 7 and of the policy window, every
-        # pack launch of the journal phase's re-driven windows after a crash
-        # and every one of the main, aws and wire phases' windows under the
-        # Manager
+        # pack launch of the journal phase's re-driven windows after a crash,
+        # every one of the main, aws and wire phases' windows under the
+        # Manager and every one of the replay's legs
         "max_abs_err": max(batch_err, kw["max_abs_err"], priced["max_abs_err"],
                            jn["crash"]["max_abs_err"], mn["max_abs_err"], ah["max_abs_err"],
-                           wr["max_abs_err"]),
+                           wr["max_abs_err"], rp["pack_max_abs_err"]),
+        # the million-pod replay's windows of 512 pods or more (smaller ones
+        # answer on the native ring)
+        "replay_launches": rp["million"]["launches"]["pack_batch"],
         "ms": kw["ms"], "plain_ms": kw["plain_ms"],
         "bound_ms": kw["bound_ms"], "bound_by": kw["bound_by"],
         "priced": {"ms": priced["ms"], "unpriced_ms": priced["unpriced_ms"],
@@ -7775,7 +8041,9 @@ def main(argv) -> int:
         "launches": cg["window1"]["launches"]["whatif"],
         "max_abs_err": max(gf["max_abs_err"], gw10["config11"]["kernel"]["max_abs_err"],
                            gw10["full"]["kernel"]["max_abs_err"], cg["max_abs_err"],
-                           gj["max_abs_err"]),
+                           gj["max_abs_err"], rp["gang_max_abs_err"]),
+        # the million-pod replay's gang windows, on four shard workers
+        "replay_launches": rp["million"]["launches"]["whatif_gang"],
         # the times and the bound are the full-width window's; the main
         # path's launches (controller_gang window 1) were at main_path_shapes
         "main_path_shapes": cg["window1"]["gang_shapes"],

@@ -22,8 +22,12 @@ their stripes in sorted order. ``_watchers`` is copy-on-write:
 ``watch``/``unwatch`` replace it under ``_watch_lock`` and ``_notify``
 iterates a snapshot. resourceVersion is one shared ``itertools.count``.
 Delete takes the resourceVersion precondition (the stub API server's
-DeleteOptions). Left out, since no port controller calls them yet:
-meta-only watches and the single-lock reference layout.
+DeleteOptions).
+
+:class:`NaiveKubeCore` keeps the single-lock layout (every kind in one
+stripe, list and scan by kind a filter over every object) with the same
+API semantics: the reference of the store differential and the naive leg
+of the replay's store A/B (``replay.store_ab``).
 """
 
 from __future__ import annotations
@@ -134,7 +138,10 @@ class _Stripe:
 
 class KubeCore:
     """Threadsafe in-memory object store with API-server semantics, striped
-    by kind (see the module docstring)."""
+    by kind (see the module docstring). ``STRIPED = False``
+    (:class:`NaiveKubeCore`) puts every kind in one stripe."""
+
+    STRIPED = True
 
     def __init__(self):
         # stripe map: created on first touch of a kind, never removed.
@@ -167,12 +174,17 @@ class KubeCore:
                 s = self._stripes.setdefault(kind, _Stripe(kind))
         return s
 
+    def _kind_objects(self, s: _Stripe, kind: str) -> List:
+        """The live objects of ``kind``; the caller holds ``s``'s lock."""
+        return list(s.objects.values())
+
     @contextmanager
     def _multi_stripe(self, *kinds: str):
-        """The stripes of ``kinds``, locked in sorted order. Every stripe is
-        resolved before any lock is taken, so the creation guard is never
-        acquired under a stripe lock."""
-        ordered = [self._stripe(k) for k in sorted(set(kinds))]
+        """The stripes of ``kinds``, deduplicated and locked in sorted key
+        order. Every stripe is resolved before any lock is taken, so the
+        creation guard is never acquired under a stripe lock."""
+        by_key = {s.key: s for s in map(self._stripe, kinds)}
+        ordered = [by_key[k] for k in sorted(by_key)]
         for s in ordered:
             s.lock.acquire()
         try:
@@ -356,10 +368,10 @@ class KubeCore:
                     candidates = [s.objects[key] for key in
                                   self._pods_by_node.get(fval, ())]
                 else:
-                    candidates = [o for o in s.objects.values()
+                    candidates = [o for o in self._kind_objects(s, kind)
                                   if getattr(o.spec, "node_name", None) == fval]
             else:
-                candidates = list(s.objects.values())
+                candidates = self._kind_objects(s, kind)
             out = []
             for obj in candidates:
                 if namespace is not None and obj.metadata.namespace != namespace:
@@ -580,3 +592,23 @@ class KubeCore:
         s = self._stripe("Pod")
         with s.lock:
             return [fn(s.objects[key]) for key in self._pods_by_node.get(node_name, ())]
+
+
+class NaiveKubeCore(KubeCore):
+    """The single-lock store layout: every kind in ONE stripe behind one
+    RLock, list and scan by kind an O(all-objects) filter. Identical API
+    semantics; the reference the store differential holds the striped
+    store against, and the naive leg of the replay's store A/B."""
+
+    STRIPED = False
+
+    def _stripe(self, kind: str) -> _Stripe:
+        return super()._stripe("")
+
+    def _kind_objects(self, s: _Stripe, kind: str) -> List:
+        return [o for (k, _, _), o in s.objects.items() if k == kind]
+
+    def scan(self, kind: str, fn) -> List:
+        s = self._stripe(kind)
+        with s.lock:
+            return [fn(obj) for (k, _, _), obj in s.objects.items() if k == kind]

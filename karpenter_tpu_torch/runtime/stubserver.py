@@ -29,8 +29,11 @@ Faults, set in ``behavior`` (or over HTTP, ``POST /stub/behavior``):
 every request by verb and resource (``"create pods/binding"``);
 ``GET /stub/state`` returns both with the pods stored and bound; with
 ``log=True`` every request is kept as (method, path, query, body). Run ``python -m karpenter_tpu_torch.runtime.stubserver
-[--port N]`` for a server of its own process: it prints ``{"url": ...}``
-and serves until SIGTERM.
+[--port N] [--objects FILE]`` for a server of its own process: it stores the
+objects of FILE as if each had been created, then prints ``{"url": ...}``
+and serves until SIGTERM. FILE is a JSON list of ``{"kind": ..., "object":
+<its wire form>, "names": [...]}``, one copy of the object a name, each
+with a fresh uid.
 """
 
 from __future__ import annotations
@@ -412,10 +415,21 @@ def main(argv=None) -> int:
     parser.add_argument("--host", default="127.0.0.1")
     parser.add_argument("--port", type=int, default=0)
     parser.add_argument("--watch-idle-seconds", type=float, default=5.0)
+    parser.add_argument("--objects", help="a JSON list of {kind, object, names} to store first")
     args = parser.parse_args(argv)
     stop = threading.Event()
     signal.signal(signal.SIGTERM, lambda *_: stop.set())
-    stub = StubServer(host=args.host, port=args.port, watch_idle_s=args.watch_idle_seconds)
+    core = KubeCore()
+    if args.objects:
+        with open(args.objects) as f:
+            for item in json.load(f):
+                obj = _decode(item["kind"], item["object"])
+                obj.metadata.uid = ""
+                for name in item["names"]:
+                    obj.metadata.name = name
+                    core.create(obj)
+    stub = StubServer(core=core, host=args.host, port=args.port,
+                      watch_idle_s=args.watch_idle_seconds)
     print(json.dumps({"url": stub.url}), flush=True)
     try:
         while not stop.wait(0.5):

@@ -35,6 +35,7 @@ from karpenter_tpu_torch.cloudprovider.aws import awsclient as port_ac
 from karpenter_tpu_torch.cloudprovider.aws import sdk as port_sdk
 from karpenter_tpu_torch.cloudprovider.aws import sigv4 as port_sigv4
 from karpenter_tpu_torch.cloudprovider.aws.fake import ec2api as port_ec2api
+from karpenter_tpu_torch.utils import clock as port_clock
 from karpenter_tpu_torch.cloudprovider.aws.fake.stubserver import (
     AwsStubServer, REGION, error_xml, fleet_request, tag_filters,
 )
@@ -235,7 +236,13 @@ def run_script(pkg, server, monkeypatch):
     server.ssm.reset()
     server.log.clear()
     server.counts.clear()
-    out = script(pkg, server.url)
+    # the fake stamps launch times on the port's clock, to the second: a
+    # wall clock would give the two runs different times across a second
+    port_clock.DEFAULT.set(NOW)
+    try:
+        out = script(pkg, server.url)
+    finally:
+        port_clock.DEFAULT.reset()
     return out, list(server.log), dict(server.counts)
 
 

@@ -654,6 +654,38 @@ class TestWatchRelistMetric:
         assert dict(stub.counts) == {"create pods": 1, "get pods": 1, "list pods": 1,
                                      "create pods/binding": 1, "delete pods": 1}
 
+    def test_stub_process_stores_its_objects_file_first(self, tmp_path):
+        """``--objects FILE``: the stub's own process stores one copy of each
+        object of the file a name, as if each had been created, before it
+        prints its URL."""
+        import subprocess
+        import sys
+        import urllib.request
+
+        seed = tmp_path / "objects.json"
+        seed.write_text(json.dumps([
+            {"kind": "Pod", "object": port_client._encode(unschedulable_pod(name="a")),
+             "names": ["seeded-0", "seeded-1"]},
+            {"kind": "Pod", "object": port_client._encode(unschedulable_pod(
+                name="b", requests={"cpu": "250m"})), "names": ["copy-0", "copy-1"]}]))
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "karpenter_tpu_torch.runtime.stubserver",
+             "--objects", str(seed)], stdout=subprocess.PIPE, text=True)
+        try:
+            url = json.loads(proc.stdout.readline())["url"]
+            client = KubeApiClient(url)
+            got = {p.metadata.name: p for p in client.list("Pod")}
+            assert sorted(got) == ["copy-0", "copy-1", "seeded-0", "seeded-1"]
+            assert got["seeded-1"].metadata.resource_version == 2
+            assert len({p.metadata.uid for p in got.values()}) == 4
+            assert str(got["copy-1"].spec.containers[0].resources.requests["cpu"]) == "250m"
+            with urllib.request.urlopen(f"{url}/stub/state", timeout=30.0) as r:
+                state = json.loads(r.read())
+            assert state["counts"].get("create pods", 0) == 0 and state["pods"] == 4
+        finally:
+            proc.terminate()
+            assert proc.wait(timeout=30) == 0
+
 
 class TestSharedStream:
     """Every watch of a kind shares one LIST and one stream, and their
