@@ -1,14 +1,16 @@
 #!/usr/bin/env python3
 """Chip smoke for the PyTorch/CUDA port: build the kernels, hold each against
 its plain version, and drive the public solve(), the batched window, the
-provisioning controller, the global window backend, node removal
-(consolidation, termination, emptiness), pod-(anti-)affinity, the
-packing policies, gangs, torus carving and preemption, the delta-marshal
-window stream and the columnar controller at full size on one card, and
-observe a window through the port's metrics, traces, SLO engine and flight
-recorder; then the native host ring and its gate, the boot warm-up, the
-controller process (main.build_manager under its Manager, and
-``python -m karpenter_tpu_torch.main`` as a process of its own), the AWS
+type-axis SPMD chunk over a device mesh, the provisioning controller, the
+global window backend, node removal (consolidation, termination,
+emptiness), pod-(anti-)affinity, the packing policies, gangs, torus
+carving and preemption, the delta-marshal window stream and the columnar
+controller at full size on one card, and observe a window through the
+port's metrics, traces, SLO engine and flight recorder; then the native
+host ring and its gate, the boot warm-up, the controller process
+(main.build_manager under its Manager, and ``python -m
+karpenter_tpu_torch.main`` as a process of its own, booted from the
+port's chart with its webhook beside it), the AWS
 provider over signed HTTP against a stub EC2/SSM endpoint, the Manager
 over HTTP against a stub API server through the API client, the
 admission webhook server, and the million-pod replay over the sharded
@@ -18,9 +20,10 @@ carve legs.
     python3 chip_smoke.py
 
 Needs one CUDA device (exits non-zero without one, printing no result) and
-nvcc (the pack kernel is built from karpenter_tpu_torch/csrc/pack.cu and the
-what-if kernel from karpenter_tpu_torch/csrc/whatif.cu at first use, one
-nvcc each, both at once). Phases, each printing one JSON record:
+nvcc (the pack kernel is built from karpenter_tpu_torch/csrc/pack.cu, the
+what-if kernel from karpenter_tpu_torch/csrc/whatif.cu and the type-shard
+fill walk from karpenter_tpu_torch/csrc/type_shard.cu at first use, one
+nvcc each, all at once). Phases, each printing one JSON record:
 
 1. the card (nvidia-smi name and power limit) and the kernels' builds,
    with ptxas's registers and spills and the cluster size and threads the
@@ -52,6 +55,15 @@ nvcc each, both at once). Phases, each printing one JSON record:
    version's, every pod appears exactly once; the same cluster-size table;
    one solve under torch.profiler for the kernel's device time and the
    device's idle share;
+4b. type_spmd (B12, A9): config_8 (bench.py:815-875: 50,000 pods of
+   MIXED_SHAPES over the fake provider's 2,000 types, the 2048 bucket),
+   one chunk of L = 256 by pack_chunk and by pack_chunk_type_sharded on a
+   1-device mesh and on a virtual mesh of 8 shards on the card: the
+   meshes' buffers equal, the rows with q > 0 equal to pack_chunk's, the
+   node count the native ring's and solve_ffd_device(mesh=)'s; the fill
+   walk's kernel against type_fill_plain bit for bit over a seeded fuzz,
+   and the sharded chunk over meshes of 1, 2, 4 and 8 against pack_chunk;
+   the times, launches, bound and plain time (phase_type_spmd);
 5. batch fuzz (before phase 3): the batched launch (a cluster per problem)
    against pack_batch_plain bit for bit at B = 1, 2, 5 and 24, S <= 512,
    random valid subsets, an all-zero row and a row with no valid type,
@@ -100,9 +112,8 @@ nvcc each, both at once). Phases, each printing one JSON record:
    series in the exposition with its help, the ring's series equal to
    DeviceRing.counters()); the tracing and stamping tax by the JAX
    package's method (spans x ns a span, SLO record calls x ns a record,
-   over the window's wall) beside tracing and stamps on and off
-   one window each (OBS_ALTERNATIONS; context only); one traced
-   window and a one-schedule window under torch.profiler with the
+   over the window's wall); one traced window and a one-schedule
+   window under torch.profiler with the
    tracer's annotations on: the record_function range of every entered
    span and of the three karpenter.solve labels, with the host ms and
    the device ms launched inside each (a session is taken only when it
@@ -229,10 +240,16 @@ nvcc each, both at once). Phases, each printing one JSON record:
    against the plain version; the CreateFleet calls and their HTTP p50,
    the fleet limiter's waits and the stub's requests by action
    (phase_aws);
-21f. main_process: python -m karpenter_tpu_torch.main on the card with
-   --solver-warmup --leader-elect --journal-dir: boot to /readyz 200 and
-   the warm-up's share, rc 0 on SIGTERM with the Lease released, rc 1
-   without --cluster-name (phase_main_process);
+21f. main_process: python -m karpenter_tpu_torch.main on the card as the
+   port's chart (charts/karpenter-tpu-torch) runs it: the controller
+   container's command and args rendered by the port's helmlite, $(VAR)
+   expanded from its env, the required cluster values, and host overrides
+   listed in the record (memory kube backend, fake provider, free port,
+   library directory, --journal-dir): boot to /readyz 200 and the
+   warm-up's share, peak RSS under the chart's memory limit, rc 0 on
+   SIGTERM with the Lease released, rc 1 with the chart's defaults (no
+   cluster name); the chart's webhook command answers a review over
+   HTTPS and exits 0 on SIGTERM (phase_main_process);
 21g. wire: the Manager over HTTP at full width: the stub API server
    (runtime/stubserver.py) in a child process, config_12's 9,984-pod
    window created through a second client, main.build_manager over
@@ -262,10 +279,10 @@ nvcc each, both at once). Phases, each printing one JSON record:
    device-programs line (B7, B8, B5, B6, B11, the member column, B13), the
    kernels line (pack_chunk, pack_batch with the price-row launch beside
    it, whatif_scan with its times from the deprovision window 0, the shape
-   the main path gives it, and whatif_scan for gang co-pack with its times
+   the main path gives it, whatif_scan for gang co-pack with its times
    from the full-width gang window and config_11's and the controller
-   window's shapes beside them), the card line, and
-   the final ok line.
+   window's shapes beside them, and type_fill with config_8's times), the
+   card line, and the final ok line.
 
 Any failed check exits non-zero.
 
@@ -326,6 +343,7 @@ from __future__ import annotations
 import json
 import os
 import random
+import re
 import subprocess
 import sys
 import tempfile
@@ -1179,7 +1197,7 @@ def numpy_result(prob):
 
 
 def reset_counts():
-    from karpenter_tpu_torch.ops import device_filter, pack_cuda, whatif_cuda
+    from karpenter_tpu_torch.ops import device_filter, pack_cuda, type_shard_cuda, whatif_cuda
     from karpenter_tpu_torch.ops import policy as ops_policy
     from karpenter_tpu_torch.solver import global_solve, topology
     from karpenter_tpu_torch.solver.solve import reset_executor_counts
@@ -1187,6 +1205,7 @@ def reset_counts():
     pack_cuda.LAUNCHES = 0
     pack_cuda.BATCH_LAUNCHES = 0
     whatif_cuda.LAUNCHES = 0
+    type_shard_cuda.LAUNCHES = 0
     global_solve.RUNS = 0
     topology.RUNS = 0
     device_filter.AFFINITY_RUNS = 0
@@ -1597,11 +1616,12 @@ def phase_controller_columnar(device):
     """config_12's 9,984-pod window through the controller (backend "ffd",
     one chunk), two windows on the columnar path (the default: the
     selection controller's validate_pod_fast, the scheduler's memoized
-    schedule_entry, the ring) and two on the scalar path
-    (feasibility.compile_constraints patched to give None: validate_pod and
-    tighten per pod). The binds must be identical, window for window, and
-    no engine self-heal may fire. Reports reconcile_s and schedule_s both
-    ways and the ring's counts of each window (B13's refills a window)."""
+    schedule_entry, the ring; the second the steady window) and two on the
+    scalar path (feasibility.compile_constraints patched to give None:
+    validate_pod and tighten per pod). The binds must be identical, window
+    for window, and no engine self-heal may fire. Reports reconcile_s and
+    schedule_s both ways and the ring's counts of each window (B13's
+    refills a window)."""
     from karpenter_tpu_torch.ops import feasibility
     from karpenter_tpu_torch.solver import pipeline
     from karpenter_tpu_torch.solver.pipeline import PipelineConfig
@@ -1633,6 +1653,9 @@ def phase_controller_columnar(device):
             feasibility.compile_constraints = real_compile
             run.stop()
         runs[mode] = recs
+    check(len(runs["columnar"]) == len(runs["scalar"]) == 2,
+          f"controller_columnar: {len(runs['columnar'])} columnar and "
+          f"{len(runs['scalar'])} scalar windows")
     for w, (c, s) in enumerate(zip(runs["columnar"], runs["scalar"])):
         check(c["binds"] == s["binds"],
               f"controller_columnar: window {w} binds differ columnar and scalar")
@@ -1655,9 +1678,6 @@ def phase_controller_columnar(device):
 RETROACTIVE_SPANS = ("intake", "marshal", "dispatch", "device_solve", "launch_bind")
 SOLVE_RANGES = ("karpenter.solve.batch_dispatch", "karpenter.solve.batch_device",
                 "karpenter.solve.device")
-# windows each with tracing and SLO stamps on, and off: the direct A/B is
-# context only (the tax is read by the JAX package's method)
-OBS_ALTERNATIONS = 1
 
 
 def series_delta(before, after, name):
@@ -1853,10 +1873,8 @@ def phase_observability(device, columnar_binds):
     registered series in the exposition with its help text, and the ring's
     series equal to the ring's own counts. The tracing and stamping tax by
     the JAX package's method (the window's spans × ns per enabled span, its
-    SLO record calls × ns per record, each over the window's wall), beside
-    a direct reading (tracing and stamps on and off, alternated over
-    OBS_ALTERNATIONS windows each, p50 walls; context only: host work
-    varies about 2x between calls). Then one profiled traced window (the
+    SLO record calls × ns per record, each over the window's wall). Then
+    one profiled traced window (the
     record_function range of every entered span and of the three
     karpenter.solve labels, with the device ms launched inside each) and
     the flight recorder's two triggers."""
@@ -1917,22 +1935,6 @@ def phase_observability(device, columnar_binds):
                "window_wall_s": rec["wall_s"],
                "trace_pct": n_spans * over["enabled_ns_per_span"] / 1e9 / rec["wall_s"] * 100,
                "slo_pct": calls * slo_over["enabled_ns_per_record"] / 1e9 / rec["wall_s"] * 100}
-
-        walls = {"on": [], "off": []}
-        for i in range(OBS_ALTERNATIONS):
-            for mode in (("off", "on") if i % 2 == 0 else ("on", "off")):
-                trace.reset()
-                if mode == "on":
-                    trace.enable()
-                    slo.enable()
-                else:
-                    trace.disable()
-                    slo.disable()
-                r = run.window(config12_controller_pods(catalog, 416, f"a{i}{mode}"))
-                check(r["pods_bound"] == rec["pods_bound"],
-                      f"observability: {r['pods_bound']} bound ({mode}), "
-                      f"{rec['pods_bound']} traced")
-                walls[mode].append(r["wall_s"])
         trace.disable()
         slo.disable()
     finally:
@@ -1941,10 +1943,6 @@ def phase_observability(device, columnar_binds):
         trace.reset()
         slo.configure(enabled=was_slo)
         slo.reset()
-    direct = {"alternations": OBS_ALTERNATIONS, "on_s": walls["on"], "off_s": walls["off"],
-              "on_p50_s": p50(walls["on"]), "off_p50_s": p50(walls["off"]),
-              "on_over_off": p50(walls["on"]) / p50(walls["off"])}
-
     ranges, entered, attempts = profiled_window(catalog, device)
     check(all(ranges[n]["ranges"] > 0 for n in entered + list(SOLVE_RANGES)),
           f"observability: ranges missing from the profile "
@@ -1955,7 +1953,7 @@ def phase_observability(device, columnar_binds):
            "spans": n_spans, "window_span_names": sorted(names),
            "slo_stages": {s: stages[s]["n"] for s in slo.STAGES},
            "series": len(registry.DEFAULT.registered()), "ring": ring_counts,
-           "tax_jax_method": tax, "direct_ab": direct,
+           "tax_jax_method": tax,
            "profile": {"attempts": attempts, "entered_spans": entered, "ranges": ranges,
                        "note": "device_ms counts what was launched inside a range, not "
                                "what it waited for"},
@@ -6272,8 +6270,9 @@ def library_files(path):
 def phase_warmup(device):
     """solver/warmup.warmup_pass on the card, twice, into a library
     directory of its own (configure_compilation_cache): the first pass
-    builds the pack, what-if and native libraries cold, the second finds
-    all three (the same files, untouched). Each pass's seconds, runs, pack
+    builds the pack, what-if, type-shard and native libraries cold, the
+    second finds all four (the same files, untouched). Each pass's
+    seconds, runs, pack
     launches and ring counters (the ring keeps DeviceRing.max_slots of the
     ladder's 54 buckets resident, the smallest shape buckets); then a
     first solve() at a bucket the ladder leaves resident, (8, 256): 600
@@ -6307,9 +6306,9 @@ def phase_warmup(device):
                            "pack_batch_launches": pack_cuda.BATCH_LAUNCHES,
                            "ring": pipeline.get_ring().counters()})
         cold, warm = passes
-        check(len(cold["built"]) == 3 and not cold["found"],
+        check(len(cold["built"]) == 4 and not cold["found"],
               f"warmup: the cold pass built {cold['built']}")
-        check(not warm["built"] and len(warm["found"]) == 3,
+        check(not warm["built"] and len(warm["found"]) == 4,
               f"warmup: the warm pass built {warm['built']}")
         catalog = make_catalog(200)
         pods = make_pods(600, MIXED_SHAPES[:4])
@@ -6633,27 +6632,187 @@ def node_binds(kube, prefix):
     return out
 
 
+CHART = "charts/karpenter-tpu-torch"
+# the values an operator must give the chart (its defaults leave them empty)
+CHART_REQUIRED = {"clusterName": "chip", "clusterEndpoint": "http://localhost:6443"}
+_QUANTITY_BYTES = {"Ki": 1 << 10, "Mi": 1 << 20, "Gi": 1 << 30, "Ti": 1 << 40}
+
+
+def quantity_bytes(q):
+    """A Kubernetes memory quantity with a binary suffix → bytes."""
+    q = str(q)
+    return int(q[:-2]) * _QUANTITY_BYTES[q[-2:]] if q[-2:] in _QUANTITY_BYTES else int(q)
+
+
+_ENV_REF = re.compile(r"\$\$|\$\(([A-Za-z_][A-Za-z0-9_]*)\)")
+_CHART_INT = re.compile(r"[-+]?(0|[1-9][0-9]*)")
+
+
+def _chart_item(text, where):
+    """A sequence item or map value as the charts write them: a JSON-style
+    double-quoted string, or a plain word."""
+    if text.startswith('"'):
+        return json.loads(text)
+    if not text or text[0] in "[{'&*!|>":
+        raise ValueError(f"{where}: {text!r} is not a layout deployment_container reads")
+    return text
+
+
+def deployment_container(rendered, name):
+    """The first container of the Deployment ``name`` in a chart rendered
+    by helmlite.render_chart, in the layout the charts write: ``command``
+    and ``args`` (lists of strings), ``env`` (name → value; an entry that
+    reads the pod's namespace through a ``fieldRef`` → the Deployment's
+    namespace, as the kubelet resolves it), ``namespace`` and
+    ``resources`` (``requests`` and ``limits``: resource name → its
+    string or int). Raises ValueError on a layout it does not read. It
+    needs no PyYAML, on which this script does not depend."""
+    for doc in rendered.split("\n---\n"):
+        lines = doc.splitlines()
+        if "kind: Deployment" not in lines or f"  name: {name}" not in lines:
+            continue
+        namespace = json.loads(lines[lines.index(f"  name: {name}") + 1].split(": ", 1)[1])
+        out = {"namespace": namespace, "env": {}, "resources": {"requests": {}, "limits": {}}}
+        block = sub = pending = None
+        for i, line in enumerate(lines):
+            where = f"Deployment {name}, line {i + 1}"
+            body = line.strip()
+            indent = len(line) - len(line.lstrip(" "))
+            if body.startswith("command: "):
+                out["command"] = json.loads(body.split(": ", 1)[1])
+            elif body in ("args:", "env:", "resources:", "volumeMounts:"):
+                block, block_indent = body[:-1], indent
+                if block == "args":
+                    out["args"] = []
+            elif block and body and indent <= block_indent and not body.startswith("- "):
+                block = None
+            elif block == "args" and body.startswith("- "):
+                out["args"].append(_chart_item(body[2:], where))
+            elif block == "env":
+                m = re.fullmatch(r'- \{name: (\w+), value: (".*")\}', body)
+                if m:
+                    out["env"][m.group(1)] = json.loads(m.group(2))
+                elif body.startswith("- name: "):
+                    pending = body[len("- name: "):]
+                elif body == "fieldRef: {fieldPath: metadata.namespace}":
+                    out["env"][pending] = namespace
+                elif body != "valueFrom:":
+                    raise ValueError(f"{where}: env entry {body!r} is not read")
+            elif block == "resources":
+                if body in ("requests:", "limits:"):
+                    sub = body[:-1]
+                else:
+                    key, value = body.split(": ", 1)
+                    key = json.loads(key) if key.startswith('"') else key
+                    out["resources"][sub][key] = (int(value) if _CHART_INT.fullmatch(value)
+                                                  else _chart_item(value, where))
+        if "command" not in out:
+            raise ValueError(f"Deployment {name}: no container command")
+        return out
+    raise ValueError(f"no Deployment {name!r} in the rendered chart")
+
+
+def kubelet_argv(container):
+    """The container's ``command`` + ``args`` with ``$(VAR)`` expanded from
+    its ``env`` as the kubelet expands them: a defined variable is
+    replaced, an undefined reference is left as written, ``$$`` is ``$``."""
+    env = container["env"]
+
+    def expand(arg):
+        return _ENV_REF.sub(lambda m: "$" if m.group(0) == "$$" else
+                            str(env.get(m.group(1), m.group(0))), arg)
+
+    return [expand(a) for a in container["command"] + container.get("args", [])]
+
+
+def chart_command(deployment, values, host_values):
+    """The argv the kubelet runs for ``deployment``'s container of the
+    port's chart, rendered by the port's helmlite with ``values`` (what an
+    operator gives) and ``host_values`` (what a host process cannot take
+    from a pod), ``$(VAR)`` expanded from the container's env; ``python``
+    is this interpreter. Returns (argv, container)."""
+    from karpenter_tpu_torch.utils import helmlite
+
+    repo = os.path.dirname(os.path.abspath(__file__))
+    rendered = helmlite.render_chart(os.path.join(repo, CHART), {**values, **host_values})
+    container = deployment_container(rendered, deployment)
+    argv = kubelet_argv(container)
+    check(argv[0] == "python", f"{deployment}: the chart's command is {argv[:3]}")
+    return [sys.executable] + argv[1:], container
+
+
+class PeakRss:
+    """A child process's peak resident set: VmRSS in /proc/<pid>/status
+    sampled every 50 ms while it runs. The card's machine reports no VmHWM
+    there, and a child's ``ru_maxrss`` starts from the parent's resident
+    set (the exec keeps the high-water mark of the memory it replaced), so
+    neither reads the child alone."""
+
+    def __init__(self, proc):
+        import threading
+
+        self.proc, self.peak, self.samples = proc, 0, 0
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._sample, daemon=True)
+        self._thread.start()
+
+    def _sample(self):
+        while not self._stop.is_set():
+            try:
+                with open(f"/proc/{self.proc.pid}/status") as f:
+                    for line in f:
+                        if line.startswith("VmRSS:"):
+                            self.peak = max(self.peak, int(line.split()[1]) * 1024)
+                            self.samples += 1
+            except OSError:
+                return
+            self._stop.wait(0.05)
+
+    def wait(self, timeout):
+        """Wait for the process (already signalled); its exit code."""
+        rc = self.proc.wait(timeout=timeout)
+        self._stop.set()
+        self._thread.join(5.0)
+        return rc
+
+    def record(self):
+        return {"peak_rss_bytes": self.peak, "rss_samples": self.samples}
+
+
 def phase_main_process(device):
     """``python -m karpenter_tpu_torch.main`` as a process of its own on the
-    card, as an operator starts it: --cloud-provider fake --kube-backend
-    memory --solver-warmup --leader-elect --journal-dir. The seconds from
-    spawn to the first /readyz 200 and the warm-up's share of them (the
-    pass's own log line); SIGTERM exits 0 with the Lease released (its log
-    line); without --cluster-name the process exits 1."""
+    card, booted from the port's chart (charts/karpenter-tpu-torch): the
+    controller container's command and args rendered by the port's
+    helmlite, ``$(VAR)`` expanded from its env, with the required cluster
+    values and, as host overrides, the memory kube backend, the fake
+    provider, a free metrics port and a library directory in place of the
+    pod's emptyDir (this script's, built), then ``--journal-dir``. The seconds from spawn to the
+    first /readyz 200 and the warm-up's share of them (the pass's own log
+    line); the peak RSS (PeakRss) under the chart's memory limit; SIGTERM
+    exits 0 with the Lease released (its log line); the chart's default
+    values (no cluster name) exit 1. Then the webhook Deployment's command
+    from the same chart (TLS from a CertManager on the memory store)
+    answers an admission review and exits 0 on SIGTERM."""
     import shutil
     import signal
     import threading
 
+    from karpenter_tpu_torch import build_dir
+
     repo = os.path.dirname(os.path.abspath(__file__))
     d = journal_dir("process")
     port = free_port()
-    argv = [sys.executable, "-m", "karpenter_tpu_torch.main", "--cluster-name", "chip",
-            "--cluster-endpoint", "http://localhost:6443", "--cloud-provider", "fake",
-            "--kube-backend", "memory", "--solver-warmup", "--leader-elect",
-            "--journal-dir", d, "--metrics-port", str(port)]
+    # the libraries this script built stand in for the pod's emptyDir after
+    # a container restart (the warmup phase times a cold first boot's builds)
+    host = {"kubeBackend": "memory", "cloudProvider": "fake",
+            "controller.ports.metrics": port, "controller.compileCache.path": str(build_dir.PATH)}
+    argv, container = chart_command("karpenter-controller", CHART_REQUIRED, host)
+    argv += ["--journal-dir", d]
+    limit = quantity_bytes(container["resources"]["limits"]["memory"])
     t0 = time.perf_counter()
     proc = subprocess.Popen(argv, cwd=repo, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True)
+    rss = PeakRss(proc)
     captured = []
     drainer = threading.Thread(target=lambda: captured.extend(proc.stdout), daemon=True)
     drainer.start()
@@ -6672,7 +6831,7 @@ def phase_main_process(device):
               f"{''.join(captured)[-3000:]}")
         metrics = http_get(port, "/metrics")[1]
         proc.send_signal(signal.SIGTERM)
-        rc = proc.wait(timeout=60.0)
+        rc = rss.wait(60.0)
     finally:
         if proc.poll() is None:
             proc.kill()
@@ -6684,21 +6843,97 @@ def phase_main_process(device):
     check("released lease" in log, "main_process: the Lease was not released")
     check(log.index("journal recovery") < log.index("karpenter-tpu started"),
           "main_process: the manager started before recovery")
+    peak = rss.record()
+    check(peak["peak_rss_bytes"] < limit,
+          f"main_process: peak RSS {peak} over the chart's limit {limit} B")
     warm = [ln for ln in log.splitlines() if "solver warmup:" in ln]
     check(len(warm) == 1, f"main_process: warm-up lines {warm}")
     warm_s = float(warm[0].rsplit(" in ", 1)[1].rstrip("s"))
-    bad = subprocess.run([sys.executable, "-m", "karpenter_tpu_torch.main",
-                          "--cluster-endpoint", "http://localhost:6443",
-                          "--cloud-provider", "fake", "--kube-backend", "memory"],
-                         cwd=repo, capture_output=True, text=True, timeout=120)
-    check(bad.returncode == 1, f"main_process: no --cluster-name exited {bad.returncode}")
-    rec = {"phase": "main_process", "boot_to_ready_s": ready_s, "warmup_s": warm_s,
-           "warmup_share": warm_s / ready_s, "sigterm_rc": rc, "lease_released": True,
-           "no_cluster_name_rc": bad.returncode,
-           "device": os.environ.get("KARPENTER_DEVICE", "cuda"),
-           "metrics_series": metrics.count("# TYPE ")}
+    default_argv, _ = chart_command("karpenter-controller", {}, host)
+    bad = subprocess.run(default_argv, cwd=repo, capture_output=True, text=True, timeout=120)
+    check(bad.returncode == 1, f"main_process: the chart's defaults exited {bad.returncode}")
+    check("cluster-name is required" in bad.stderr + bad.stdout,
+          "main_process: the chart's defaults did not fail on the cluster name")
+    rec = {"phase": "main_process", "argv": argv, "chart": CHART,
+           "required_values": CHART_REQUIRED,
+           "host_overrides": {**host, "python": sys.executable, "--journal-dir": "appended"},
+           "boot_to_ready_s": ready_s, "warmup_s": warm_s,
+           "warmup_share": warm_s / ready_s, **peak,
+           "peak_rss_gib": peak["peak_rss_bytes"] / 2**30,
+           "memory_limit": container["resources"]["limits"],
+           "memory_request": container["resources"]["requests"],
+           "sigterm_rc": rc, "lease_released": True,
+           "defaults_rc": bad.returncode, "metrics_series": metrics.count("# TYPE "),
+           "webhook": webhook_process(repo)}
     emit(rec)
     return rec
+
+
+def webhook_process(repo):
+    """The chart's webhook Deployment as a process: its command and args
+    with the memory kube backend, the fake provider and a free port as host
+    overrides; TLS on (the server's default) from a CertManager on the
+    memory store. One validating review over HTTPS (the server's
+    self-signed serving certificate, not verified), /healthz, SIGTERM →
+    rc 0; its peak RSS under the chart's webhook limit."""
+    import signal
+    import ssl
+    import threading
+    import urllib.request
+
+    port = free_port()
+    host = {"kubeBackend": "memory", "cloudProvider": "fake", "webhook.port": port}
+    argv, container = chart_command("karpenter-webhook", {}, host)
+    limit = quantity_bytes(container["resources"]["limits"]["memory"])
+    proc = subprocess.Popen(argv, cwd=repo, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    rss = PeakRss(proc)
+    captured = []
+    drainer = threading.Thread(target=lambda: captured.extend(proc.stdout), daemon=True)
+    drainer.start()
+    ctx = ssl.create_default_context()
+    ctx.check_hostname = False
+    ctx.verify_mode = ssl.CERT_NONE
+    base = f"https://127.0.0.1:{port}"
+    manifest = {"apiVersion": "karpenter.sh/v1alpha5", "kind": "Provisioner",
+                "metadata": {"name": "default"},
+                "spec": {"requirements": [{"key": "topology.kubernetes.io/zone",
+                                           "operator": "In", "values": ["test-zone-1"]}]}}
+    t0 = time.perf_counter()
+    try:
+        health = None
+        while time.perf_counter() - t0 < 60.0 and proc.poll() is None:
+            try:
+                with urllib.request.urlopen(base + "/healthz", timeout=2.0, context=ctx) as r:
+                    health = (r.status, r.read().decode())
+                break
+            except OSError:
+                time.sleep(0.1)
+        ready_s = time.perf_counter() - t0
+        check(health == (200, "ok"), f"webhook process: /healthz {health} (rc {proc.poll()}):"
+              f"\n{''.join(captured)[-3000:]}")
+        req = urllib.request.Request(base + "/validate-resource", data=json.dumps(
+            {"apiVersion": "admission.k8s.io/v1", "kind": "AdmissionReview",
+             "request": {"uid": "u-chart", "object": manifest}}).encode(),
+            headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=30.0, context=ctx) as r:
+            body = json.loads(r.read())
+        proc.send_signal(signal.SIGTERM)
+        rc = rss.wait(60.0)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=30.0)
+        drainer.join(10.0)
+    check(body["response"]["uid"] == "u-chart" and body["response"]["allowed"] is True,
+          f"webhook process: review {body}")
+    check(rc == 0, f"webhook process: SIGTERM exit rc {rc}:\n{''.join(captured)[-3000:]}")
+    peak = rss.record()
+    check(peak["peak_rss_bytes"] < limit,
+          f"webhook process: peak RSS {peak} over the chart's limit {limit} B")
+    return {"argv": argv, "host_overrides": {**host, "python": sys.executable},
+            "ready_s": ready_s, "review": body["response"], "sigterm_rc": rc, **peak,
+            "memory_limit": container["resources"]["limits"]}
 
 
 WIRE_WATCH_IDLE_S = 60.0
@@ -7791,11 +8026,272 @@ def phase_wire_alone(device):
     phase_webhook(device)
 
 
+# -- type-axis SPMD (B12, A9): config_8 (bench.py:815-875) -------------------
+
+TYPE_SPMD_L = 256          # one chunk of config_8 reaches done
+TYPE_SPMD_MESH = 8         # the virtual mesh's shards on one card
+TYPE_SPMD_RUNS = 10        # CUDA-event runs of each timing
+# (S, T_l) of the fill walk's fuzz: T_l past a multiple of 32, one thread
+# block and several, the shape buckets of a real solve
+TYPE_FILL_FUZZ = [(8, 8), (32, 37), (64, 100), (512, 255), (32, 2048), (8192, 64),
+                  (32768, 33)]
+
+
+def config8_problem():
+    """config_8: 50,000 pods of MIXED_SHAPES over the fake provider's 2,000
+    incrementing types (the 2048 type bucket), the universe constraints;
+    the packables, vectors, the exact encoding and its padded twin."""
+    from karpenter_tpu_torch.cloudprovider.fake.provider import instance_types
+    from karpenter_tpu_torch.ops.encode import encode, pad_encoding
+    from karpenter_tpu_torch.solver.adapter import build_packables, pod_vectors
+    from karpenter_tpu_torch.solver.solve import universe_constraints
+
+    catalog = instance_types(2_000)
+    pods = make_pods(50_000, MIXED_SHAPES)
+    packables, _ = build_packables(catalog, universe_constraints(catalog), pods, [])
+    vecs, ids = pod_vectors(pods), list(range(len(pods)))
+    enc = encode(vecs, ids, packables, pad=False)
+    padded = pad_encoding(enc)
+    check(padded.totals.shape[0] == 2048, f"config_8: type bucket {padded.totals.shape[0]}")
+    return vecs, ids, packables, enc, padded
+
+
+def type_fill_bound(args, stats):
+    """Least time of one type_fill call: the larger of its bytes (shapes,
+    counts, totals, reserved0, valid read once; npacked and the (S, T_l)
+    fills written once) over HBM bandwidth and its operations (the
+    type-steps this input needs, at work_bound's count a step) over the op
+    rate."""
+    shapes, counts, totals, reserved0, valid = args[:5]
+    S, T = shapes.shape[0], totals.shape[0]
+    nbytes = sum(t.numel() * t.element_size() for t in (shapes, counts, totals, reserved0, valid))
+    nbytes += T * 4 + S * T * 4
+    resources = int((shapes > 0).any(dim=0).sum())
+    ops = ops_per_type_step(resources) * stats["type_steps"]
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / OPS_PER_S
+    return {"bytes": nbytes, "ops": ops, "type_steps": stats["type_steps"],
+            "shape_steps": stats["shape_steps"], "resources": resources,
+            "bound_ms": max(t_bytes, t_ops) * 1e3,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def type_fill_equal(args, what):
+    """type_fill (the kernel) against type_fill_plain on the same card
+    tensors, bit for bit; returns the plain version's stats and the largest
+    |kernel - plain| over both outputs (0 when bit for bit)."""
+    import torch
+
+    from karpenter_tpu_torch.ops.type_shard_cuda import type_fill, type_fill_plain
+
+    got = type_fill(*args)
+    stats = {}
+    want = type_fill_plain(*args, stats=stats)
+    torch.cuda.synchronize()
+    err = max(int((g.long() - w.long()).abs().max()) if g.numel() else 0
+              for g, w in zip(got, want))
+    check(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
+          f"type_fill != type_fill_plain ({what}): max abs err {err}")
+    return stats, err
+
+
+def type_fill_reading(fill_args, what):
+    """type_fill at one shape: held against type_fill_plain, then its
+    CUDA-event median, profiler device ms and queued ms over TYPE_SPMD_RUNS
+    calls, the plain version's event ms once, and its bound."""
+    import torch
+
+    from karpenter_tpu_torch.ops.type_shard_cuda import type_fill, type_fill_plain
+
+    stats, err = type_fill_equal(fill_args, what)
+    fill_ms = median_event_ms(lambda: type_fill(*fill_args), TYPE_SPMD_RUNS)
+    device_ms, seen = profiled_fill_ms(lambda: type_fill(*fill_args), TYPE_SPMD_RUNS)
+    queued_ms = queued_event_ms(lambda: type_fill(*fill_args), TYPE_SPMD_RUNS)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    type_fill_plain(*fill_args)
+    end.record()
+    torch.cuda.synchronize()
+    return {"ms": fill_ms, "device_ms": device_ms, "device_kernels_seen": seen,
+            "queued_ms": queued_ms, "plain_ms": start.elapsed_time(end),
+            "shape": [fill_args[0].shape[0], fill_args[2].shape[0]], "max_abs_err": err,
+            **type_fill_bound(fill_args, stats)}
+
+
+def sharded_vs_kernel(args, prices, cost, L, mesh, what):
+    """pack_chunk_type_sharded over ``mesh`` against pack_chunk (the pack
+    kernel) on the same card tensors: counts, dropped and done equal, the
+    records equal on the rows with q > 0. Returns the sharded buffer."""
+    import torch
+
+    from karpenter_tpu_torch.ops.pack import unpack_flat
+    from karpenter_tpu_torch.ops.pack_cuda import pack_chunk
+    from karpenter_tpu_torch.parallel.type_sharded import pack_chunk_type_sharded
+
+    kw = dict(prices=prices, cost_tiebreak=True) if cost else {}
+    got = pack_chunk_type_sharded(*args, num_iters=L, mesh=mesh, **kw).cpu().numpy()
+    want = pack_chunk(*args, L, **kw).cpu().numpy()
+    torch.cuda.synchronize()
+    S = args[0].shape[0]
+    g, w = unpack_flat(got, S, L), unpack_flat(want, S, L)
+    rows = g[4] > 0
+    check(all((a == b).all() for a, b in zip(g[:2], w[:2])) and g[2] == w[2]
+          and (rows == (w[4] > 0)).all()
+          and all((a[rows] == b[rows]).all() for a, b in zip(g[3:], w[3:])),
+          f"type-sharded != pack_chunk ({what})")
+    return got
+
+
+def profiled_fill_ms(fn, runs):
+    """The mean device time of the type_fill kernels a torch.profiler
+    session over ``runs`` calls saw, and how many it saw (a session can
+    miss some: profiled_kernel_ms); (None, 0) when it saw none. A first
+    session is made and dropped, as in device_launches."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        fn()
+        torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(runs):
+            fn()
+        torch.cuda.synchronize()
+    spans = [end - start for start, end, name in device_events(prof)
+             if "type_fill_kernel" in name]
+    return (sum(spans) / len(spans) / 1e3 if spans else None), len(spans)
+
+
+def phase_type_spmd(device):
+    """Type-axis SPMD (B12) at config_8's width on the card:
+
+    - fuzz: the fill walk's kernel (type_fill) against type_fill_plain bit
+      for bit at TYPE_FILL_FUZZ's (S, T_l), count-0 shapes among the live
+      ones and a problem with nothing live; pack_chunk_type_sharded over
+      virtual meshes of 1, 2, 4 and 8 shards on the card against
+      pack_chunk, cost tie-break off and on, with drops;
+    - config_8: pack_chunk, pack_chunk_type_sharded on type_mesh([card])
+      and on a virtual mesh of TYPE_SPMD_MESH shards on the card, one chunk
+      of L = 256 to done each: the meshes' buffers equal whole, the rows
+      with q > 0 equal to pack_chunk's; the main path, solve_ffd_device
+      with each mesh, between counts set to 0 and read: type_fill
+      launched, node counts equal to the native ring's and to the
+      chunk's; CUDA-event medians of the three chunk runs and of type_fill
+      alone on the first decision, at one shard of the 8-shard mesh (the
+      shape its launches ran at) and over the whole bucket (the 1-device
+      mesh's), each with its bound and the plain version's time once; the
+      launches, decisions and done reads a solve;
+    - with two or more cards, the mesh over every card, bit for bit with
+      the 1-device mesh; on one card, recorded as not run."""
+    import numpy as np
+    import torch
+
+    from karpenter_tpu_torch.models.ffd import device_args, solve_ffd_device
+    from karpenter_tpu_torch.ops import type_shard_cuda
+    from karpenter_tpu_torch.ops.pack import unpack_flat
+    from karpenter_tpu_torch.ops.pack_cuda import pack_chunk
+    from karpenter_tpu_torch.parallel import type_sharded
+    from karpenter_tpu_torch.parallel.mesh import type_mesh
+    from karpenter_tpu_torch.parallel.type_sharded import pack_chunk_type_sharded
+    from karpenter_tpu_torch.solver.native_ffd import solve_ffd_native_auto
+
+    rng = np.random.default_rng(SEED)
+    fuzz, errs = [], []
+    for S, T in TYPE_FILL_FUZZ:
+        args, _ = fuzz_problem(rng, S, T, False, device)
+        stats, err = type_fill_equal((*args[:2], *args[3:6], args[7]), f"S={S} T_l={T}")
+        fuzz.append({"S": S, "T_l": T, "type_steps": stats["type_steps"]})
+        errs.append(err)
+    args, _ = fuzz_problem(rng, 64, 40, False, device)
+    errs.append(type_fill_equal((args[0], torch.zeros_like(args[1]), *args[3:6], args[7]),
+                                "nothing live")[1])
+    mesh_fuzz = 0
+    for n in (1, 2, 4, 8):
+        for cost in (False, True):
+            for S, T, drops in ((32, 64, False), (512, 256, True), (64, 1024, False)):
+                args, prices = fuzz_problem(rng, S, T, drops, device)
+                sharded_vs_kernel(args, prices, cost, 64, type_mesh([device] * n),
+                                  f"mesh {n}, S={S}, T={T}, cost {cost}")
+                mesh_fuzz += 1
+
+    vecs, ids, packables, enc, padded = config8_problem()
+    args = device_args(padded, device)
+    L, S, T = TYPE_SPMD_L, args[0].shape[0], args[3].shape[0]
+    mesh1 = type_mesh([device])
+    mesh8 = type_mesh([device] * TYPE_SPMD_MESH)
+    std = pack_chunk(*args, L).cpu().numpy()
+    one = sharded_vs_kernel(args, None, False, L, mesh1, "config_8, 1-device mesh")
+    eight = sharded_vs_kernel(args, None, False, L, mesh8, "config_8, virtual mesh")
+    check((one == eight).all(), "config_8: the 1-device and virtual meshes' buffers differ")
+    _, dropped, done, _, q, _ = unpack_flat(one, S, L)
+    check(done and not dropped.any(), "config_8: one chunk of 256 did not reach done")
+    chunk_nodes = int(q[q > 0].sum())
+    native = solve_ffd_native_auto(vecs, ids, packables, enc=enc)
+
+    solves = {}
+    for name, mesh in (("mesh1", mesh1), (f"mesh{TYPE_SPMD_MESH}", mesh8)):
+        reset_counts()
+        type_sharded.DECISIONS = type_sharded.DONE_READS = 0
+        result = solve_ffd_device(vecs, ids, packables, enc=enc, device=device, mesh=mesh)
+        torch.cuda.synchronize()
+        launches = type_shard_cuda.LAUNCHES
+        check(launches > 0, f"config_8 {name}: type_fill was never launched")
+        check(result.node_count == native.node_count == chunk_nodes,
+              f"config_8 {name}: nodes {result.node_count}, native ring "
+              f"{native.node_count}, chunk {chunk_nodes}")
+        check(not result.unschedulable, f"config_8 {name}: pods left unschedulable")
+        solves[name] = {"launches": launches, "decisions": type_sharded.DECISIONS,
+                        "done_reads": type_sharded.DONE_READS,
+                        "type_fill_per_decision": launches / type_sharded.DECISIONS,
+                        "node_count": result.node_count}
+    main = solves[f"mesh{TYPE_SPMD_MESH}"]
+    # the kernels and copies a decision takes on the card, from the profiler
+    prof = device_launches(lambda: pack_chunk_type_sharded(*args, num_iters=L, mesh=mesh8))
+
+    times = {
+        "pack_chunk": median_event_ms(lambda: pack_chunk(*args, L), TYPE_SPMD_RUNS),
+        "mesh1": median_event_ms(lambda: pack_chunk_type_sharded(
+            *args, num_iters=L, mesh=mesh1), TYPE_SPMD_RUNS),
+        f"mesh{TYPE_SPMD_MESH}": median_event_ms(lambda: pack_chunk_type_sharded(
+            *args, num_iters=L, mesh=mesh8), TYPE_SPMD_RUNS),
+    }
+    # the first decision's fill walk: at one shard of the 8-shard mesh
+    # (T_l = T / 8, the shape the main path's launches counted above ran
+    # at) and over the whole bucket (the 1-device mesh's shape)
+    T_l = T // TYPE_SPMD_MESH
+    shard_args = (args[0], args[1], args[3][:T_l].contiguous(), args[4][:T_l].contiguous(),
+                  args[5][:T_l].contiguous(), args[7])
+    shard = type_fill_reading(shard_args, "config_8 first decision, one shard of 8")
+    whole = type_fill_reading((args[0], args[1], args[3], args[4], args[5], args[7]),
+                              "config_8 first decision, the whole bucket")
+    errs += [shard["max_abs_err"], whole["max_abs_err"]]
+
+    cards = torch.cuda.device_count()
+    real = {"run": False, "reason": f"{cards} card(s): no real mesh"}
+    if cards >= 2:
+        devs = type_mesh()
+        got = pack_chunk_type_sharded(*args, num_iters=L, mesh=devs).cpu().numpy()
+        check((got == one).all(), f"config_8: the mesh over {cards} cards differs")
+        real = {"run": True, "cards": cards, "ms": median_event_ms(
+            lambda: pack_chunk_type_sharded(*args, num_iters=L, mesh=devs), TYPE_SPMD_RUNS)}
+    rec = {"phase": "type_spmd", "pods": len(ids), "types": 2_000, "shape_bucket": S,
+           "type_bucket": T, "L": L, "node_count": chunk_nodes,
+           "native_node_count": native.node_count, "type_fill_fuzz": fuzz,
+           "mesh_fuzz_cases": mesh_fuzz, "solves": solves, "chunk_ms": times,
+           "type_fill": {**shard, "whole_bucket": whole},
+           # the largest |type_fill - type_fill_plain| over the fuzz and config_8
+           "launches": main["launches"], "max_abs_err": max(errs),
+           "profile_mesh8": prof and {**prof, "per_decision": {
+               k: prof[k] / main["decisions"] for k in ("kernels", "copies_and_sets")}},
+           "real_mesh": real}
+    emit(rec)
+    return rec
+
+
 def build_all():
     """Build every kernel library at once, one nvcc each, and load them."""
     import threading
 
-    from karpenter_tpu_torch.ops import pack_cuda, whatif_cuda
+    from karpenter_tpu_torch.ops import pack_cuda, type_shard_cuda, whatif_cuda
 
     errors = []
 
@@ -7806,7 +8302,7 @@ def build_all():
             errors.append(e)
 
     threads = [threading.Thread(target=run, args=(b,))
-               for b in (pack_cuda.build, whatif_cuda.build)]
+               for b in (pack_cuda.build, whatif_cuda.build, type_shard_cuda.build)]
     for t in threads:
         t.start()
     for t in threads:
@@ -7815,6 +8311,7 @@ def build_all():
         raise errors[0]
     pack_cuda._library()
     whatif_cuda._library()
+    type_shard_cuda._library()
 
 
 def ptxas_lines(log):
@@ -7845,7 +8342,7 @@ def main(argv) -> int:
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
               file=sys.stderr)
         return 2
-    from karpenter_tpu_torch.ops import pack_cuda, whatif_cuda
+    from karpenter_tpu_torch.ops import pack_cuda, type_shard_cuda, whatif_cuda
 
     device = torch.device("cuda")
     card = card_line()
@@ -7869,7 +8366,9 @@ def main(argv) -> int:
                                 "threads": pack_cuda.launch_threads(T, c)}
                      for T in (8, 512, 4096) for c in [pack_cuda.launch_shape(T)]},
           "whatif": {"seconds": whatif_cuda.BUILD_SECONDS,
-                     "ptxas": ptxas_lines(whatif_cuda.BUILD_LOG)}})
+                     "ptxas": ptxas_lines(whatif_cuda.BUILD_LOG)},
+          "type_shard": {"seconds": type_shard_cuda.BUILD_SECONDS,
+                         "ptxas": ptxas_lines(type_shard_cuda.BUILD_LOG)}})
 
     def timed(name, fn, *args):
         t0 = time.perf_counter()
@@ -7883,6 +8382,7 @@ def main(argv) -> int:
     batch_err = timed("batch_fuzz", phase_batch_fuzz, device)
     c4 = timed("config4", phase_config4, device)
     hc = timed("highcard", phase_highcard, device)
+    ts = timed("type_spmd", phase_type_spmd, device)
     timed("mask", phase_mask, device)
     win = timed("window_416", phase_window, device, 416, WARM_RUNS)   # 9,984 pods
     timed("window_2084", phase_window, device, 2084, WARM_RUNS)       # 50,016 pods
@@ -8056,6 +8556,24 @@ def main(argv) -> int:
         "config11": {k: gw10["config11"]["kernel"][k] for k in
                      ("ms", "device_ms", "queued_ms", "plain_ms", "bound_ms", "bound_by",
                       "shape")},
+    }, {
+        "name": "type_fill",
+        "route": "cuda",
+        "source": "karpenter_tpu_torch/csrc/type_shard.cu",
+        "replaces": "karpenter_tpu/parallel/type_sharded.py:66",
+        # config_8's solve_ffd_device over the virtual mesh of 8 shards; the
+        # times and the bound are at that mesh's shard shape, (S, T / 8)
+        "launches": ts["launches"], "max_abs_err": ts["max_abs_err"],
+        "ms": ts["type_fill"]["ms"], "device_ms": ts["type_fill"]["device_ms"],
+        "queued_ms": ts["type_fill"]["queued_ms"],
+        "plain_ms": ts["type_fill"]["plain_ms"],
+        "bound_ms": ts["type_fill"]["bound_ms"], "bound_by": ts["type_fill"]["bound_by"],
+        "shape": ts["type_fill"]["shape"], "library_ms": None,
+        "whole_bucket": {k: ts["type_fill"]["whole_bucket"][k] for k in
+                         ("ms", "device_ms", "queued_ms", "plain_ms", "bound_ms", "bound_by",
+                          "shape")},
+        "launches_per_decision": ts["solves"][f"mesh{TYPE_SPMD_MESH}"]["type_fill_per_decision"],
+        "chunk_ms": ts["chunk_ms"],
     }]})
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

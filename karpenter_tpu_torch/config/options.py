@@ -17,13 +17,17 @@ these differences:
   are built into and loaded from (solver/warmup.py);
 - ``--kube-backend in-cluster`` builds the API client
   (runtime/kubeclient.py) from the pod's service account, with
-  ``--kube-client-qps`` / ``--kube-client-burst`` as its budget.
+  ``--kube-client-qps`` / ``--kube-client-burst`` as its budget;
+- a boolean flag also takes ``=true`` / ``=false`` (``--leader-elect=false``),
+  as Go's flags do: the port's chart (charts/karpenter-tpu-torch) writes
+  its boolean flags from values that way.
 """
 
 from __future__ import annotations
 
 import argparse
 import os
+import sys
 from dataclasses import dataclass, field
 from typing import List, Optional
 
@@ -413,5 +417,30 @@ def parse(argv: Optional[List[str]] = None) -> Options:
                    action=argparse.BooleanOptionalAction,
                    default=_env("aws-eni-limited-pod-density",
                                 defaults.aws_eni_limited_pod_density))
-    ns = p.parse_args(argv)
+    ns = p.parse_args(_bool_values(p, sys.argv[1:] if argv is None else argv))
     return Options(**{k.replace("-", "_"): v for k, v in vars(ns).items()})
+
+
+_TRUE, _FALSE = ("1", "true", "yes"), ("0", "false", "no")
+
+
+def _bool_values(p: argparse.ArgumentParser, argv: List[str]) -> List[str]:
+    """``--flag=true`` / ``--flag=false`` of a boolean flag as ``--flag`` /
+    ``--no-flag``: the value form that Go's flag package takes and that a
+    chart writes from a value (``--leader-elect={{ .Values.leaderElect }}``);
+    argparse's boolean flags take no value. The words are the environment
+    fallback's (``_env``); any other value is an error."""
+    flags = {s for a in p._actions if isinstance(a, argparse.BooleanOptionalAction)
+             for s in a.option_strings if not s.startswith("--no-")}
+    out = []
+    for token in argv:
+        name, eq, value = token.partition("=")
+        if eq and name in flags:
+            if value.lower() in _TRUE:
+                token = name
+            elif value.lower() in _FALSE:
+                token = "--no-" + name[2:]
+            else:
+                p.error(f"argument {name}: expected true or false, got {value!r}")
+        out.append(token)
+    return out

@@ -24,8 +24,8 @@ Four series, all on the process-wide registry (exposed with the
 Device ring and adaptive depth:
 
 - ``karpenter_solver_device_bytes_in_use``     gauge — bytes the CUDA
-  caching allocator holds in tensors on the current device
-  (``torch.cuda.memory_allocated``); 0 without a card.
+  caching allocator holds in tensors, summed over the solver mesh's
+  devices (``parallel/mesh.device_bytes_in_use``); 0 without a card.
 - ``karpenter_pipeline_ring_allocations_total`` counter — fresh device
   buffer allocations made by the ring (slot creation, bucket change,
   compaction re-bucket). FLAT in steady state — the zero-allocation

@@ -63,6 +63,7 @@ def solve_ffd_device(
     enc: Optional[EncodedProblem] = None,  # precomputed (possibly unpadded)
     device: DeviceLike = None,
     donate: bool = True,
+    mesh=None,  # parallel/mesh.type_mesh: the type-axis SPMD route
 ) -> Optional[HostSolveResult]:
     """Solve on ``device`` (default: the CUDA device; raises without one);
     None only when the problem is not encodable, before anything reaches
@@ -76,7 +77,13 @@ def solve_ffd_device(
     ``DeviceRing`` (solver/pipeline.py): a repeat solve refills the last
     solve's tensors in place, and tensors whose content token matches (the
     catalog tensors by the encoder's catalog token, the shapes by a byte
-    digest) copy nothing."""
+    digest) copy nothing.
+
+    With a ``mesh`` whose size divides the padded type bucket
+    (:func:`routes_type_spmd`), every chunk and every resume runs
+    ``parallel/type_sharded.pack_chunk_type_sharded`` over it, off the
+    ring (:func:`solve_type_sharded`); a mesh that does not divide it
+    takes the standard kernel, a routing rule by shape."""
     dev = resolve_device(device)
     if not packables:
         return HostSolveResult(packings=[], unschedulable=list(pod_ids))
@@ -87,10 +94,71 @@ def solve_ffd_device(
     enc = pad_encoding(enc)
     if enc is None:
         return None
+    if routes_type_spmd(enc, mesh):
+        records, dropped = solve_type_sharded(
+            enc, prices if cost_tiebreak else None, chunk_iters, mesh)
+        return _decode(enc, records, dropped, packables)
     run = DeviceRun([enc], [prices if cost_tiebreak else None], chunk_iters, dev,
                     donate=donate, solo=True)
     records, dropped = run.finish()
     return _decode(enc, records[0], dropped[0], packables)
+
+
+def routes_type_spmd(enc: EncodedProblem, mesh) -> bool:
+    """Whether a solve of the padded ``enc`` over ``mesh`` takes the
+    type-axis SPMD route: a mesh whose size divides the type bucket."""
+    return mesh is not None and enc.totals.shape[0] % len(mesh) == 0
+
+
+def solve_type_sharded(enc: EncodedProblem, prices: Optional[Sequence[float]],
+                       chunk_iters: int, mesh):
+    """The chunk loop of the type-axis SPMD route over the padded ``enc``:
+    ``pack_chunk_type_sharded`` a chunk, one device→host copy of its flat
+    buffer, and between chunks the alive shapes compacted to the smallest
+    bucket that holds them (as the JAX route does; the chunk computes its
+    own bound, so nothing else is sliced). Returns the records and the
+    dropped counts in the original shape index space."""
+    from karpenter_tpu_torch.ops.compact import scatter_dropped, sparse_record
+    from karpenter_tpu_torch.ops.encode import SHAPE_BUCKETS, bucket
+    from karpenter_tpu_torch.ops.pack import unpack_flat
+    from karpenter_tpu_torch.parallel.type_sharded import pack_chunk_type_sharded
+
+    dev0, L = mesh[0], chunk_iters
+    shapes_d, counts_d, _, totals, reserved0, valid, last_valid, pods_unit = \
+        device_args(enc, dev0)
+    prices_d = None
+    if prices is not None:
+        prices_d = torch.from_numpy(encode_prices(prices, enc.totals.shape[0])).to(dev0)
+    S_cur = enc.shapes.shape[0]
+    records: list = []
+    dropped_full = np.zeros(S_cur, np.int64)
+    perm: Optional[np.ndarray] = None
+    for _ in range(MAX_CHUNKS):
+        flat = pack_chunk_type_sharded(
+            shapes_d, counts_d, torch.zeros_like(counts_d), totals, reserved0, valid,
+            last_valid, pods_unit, num_iters=L, mesh=mesh, prices=prices_d,
+            cost_tiebreak=prices_d is not None)
+        counts_f, dropped_f, done, chosen, q, packed = unpack_flat(flat.cpu().numpy(), S_cur, L)
+        for i in np.flatnonzero(q > 0):
+            rec = packed[i] if perm is None else sparse_record(packed[i], perm)
+            records.append((int(chosen[i]), int(q[i]), rec))
+        scatter_dropped(dropped_full, dropped_f, perm)
+        if done:
+            return records, dropped_full
+        alive = np.flatnonzero(counts_f > 0)
+        S_new = bucket(max(alive.size, 1), SHAPE_BUCKETS)
+        if S_new < S_cur:
+            perm = alive if perm is None else perm[alive]
+            shapes_c = np.zeros((S_new, enc.shapes.shape[1]), np.int32)
+            counts_c = np.zeros(S_new, np.int32)
+            shapes_c[:alive.size] = enc.shapes[perm]
+            counts_c[:alive.size] = counts_f[alive]
+            shapes_d, counts_d = to_device_int32([shapes_c, counts_c], dev0)
+            S_cur = S_new
+        else:
+            counts_d = torch.from_numpy(np.ascontiguousarray(counts_f)).to(dev0)
+    raise RuntimeError(f"device solve did not converge in {MAX_CHUNKS} chunks "
+                       f"of {L} node decisions")
 
 
 def _digest(arr: np.ndarray) -> tuple:

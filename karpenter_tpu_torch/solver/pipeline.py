@@ -260,9 +260,12 @@ def reset_ring() -> None:
 
 def observe_device_bytes() -> int:
     """Refresh the ``solver_device_bytes_in_use`` gauge with the bytes the
-    caching allocator holds in tensors on the current CUDA device
-    (``torch.cuda.memory_allocated``), 0 without one; returns it."""
-    total = torch.cuda.memory_allocated() if torch.cuda.is_available() else 0
+    caching allocator holds in tensors, summed over the solver mesh (every
+    CUDA device, ``parallel/mesh.device_bytes_in_use``), 0 without a card;
+    returns it."""
+    from karpenter_tpu_torch.parallel.mesh import device_bytes_in_use
+
+    total = sum(device_bytes_in_use().values())
     SOLVER_DEVICE_BYTES_IN_USE.set(float(total))
     return total
 

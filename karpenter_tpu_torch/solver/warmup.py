@@ -1,7 +1,7 @@
 """Boot warm-up and the kernel library directory.
 
-A cold process pays, inside its first window, the build of three
-libraries (the pack kernel and the what-if kernel with nvcc, the native
+A cold process pays, inside its first window, the build of four
+libraries (the pack, what-if and type-shard kernels with nvcc, the native
 host ring with the C++ compiler), their loads, the CUDA context and the
 first launch of each bucket. Two measures, both wired from
 config/options.py:
@@ -10,7 +10,7 @@ config/options.py:
   (``build_dir.PATH``) at a durable directory. The libraries are
   named by their sources' digests, so a restart loads them instead of
   building: the port's counterpart of JAX's persistent compilation cache.
-- :func:`warmup_pass` (``--solver-warmup``) builds and loads the three
+- :func:`warmup_pass` (``--solver-warmup``) builds and loads the four
   libraries, then walks the (shape bucket × type bucket) ladder with a
   throwaway one-pod problem per bucket, through the entries the serving
   path launches: ``pack_chunk`` with ``compute_maxfit`` (the solo solve),
@@ -77,13 +77,13 @@ def configure_compilation_cache(cache_dir: str) -> bool:
 def build_libraries(device: torch.device) -> None:
     """Build every library the serving path loads, each compiler started at
     once on a thread of its own, then load them: the native ring always,
-    the two CUDA kernels on a CUDA device. The first failure raises."""
+    the three CUDA kernels on a CUDA device. The first failure raises."""
     from karpenter_tpu_torch import native
-    from karpenter_tpu_torch.ops import pack_cuda, whatif_cuda
+    from karpenter_tpu_torch.ops import pack_cuda, type_shard_cuda, whatif_cuda
 
     builds = [native.build]
     if device.type == "cuda":
-        builds += [pack_cuda.build, whatif_cuda.build]
+        builds += [pack_cuda.build, whatif_cuda.build, type_shard_cuda.build]
     errors = []
 
     def run(build):
@@ -105,6 +105,7 @@ def build_libraries(device: torch.device) -> None:
         with torch.cuda.device(device):
             pack_cuda._library()
             whatif_cuda._library()
+            type_shard_cuda._library()
 
 
 def synthetic_encoding(S: int, T: int):

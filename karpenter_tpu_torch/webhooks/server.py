@@ -174,8 +174,9 @@ def serve(port: int = 8443,
     return server
 
 
-def main(argv: Optional[List[str]] = None) -> int:
-    """Serve until SIGTERM (or Ctrl-C); returns 0."""
+def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
+    """The server's flags (``main``'s): port, TLS, namespace, kube backend
+    and cloud provider."""
     parser = argparse.ArgumentParser(description="karpenter-tpu admission webhook")
     parser.add_argument("--port", type=int, default=8443)
     parser.add_argument("--tls", action=argparse.BooleanOptionalAction,
@@ -187,7 +188,12 @@ def main(argv: Optional[List[str]] = None) -> int:
     # provider Default/Validate hooks run in the webhook exactly as the
     # registry wires them in the reference (v1alpha5/register.go:27-29)
     parser.add_argument("--cloud-provider", default="")
-    args = parser.parse_args(argv)
+    return parser.parse_args(argv)
+
+
+def main(argv: Optional[List[str]] = None) -> int:
+    """Serve until SIGTERM (or Ctrl-C); returns 0."""
+    args = parse_args(argv)
     logging.basicConfig(level=logging.INFO)
     cloud_provider = None
     if args.cloud_provider:

@@ -131,3 +131,32 @@ def test_port_refuses_what_it_has_not_ported(fields, error):
     assert jax_options.Options(cluster_name="c", cluster_endpoint="e",
                                **{k: v for k, v in fields.items()
                                   if k != "device"}).validate() == []
+
+
+@pytest.mark.parametrize("value,want", [("true", True), ("TRUE", True), ("1", True),
+                                        ("yes", True), ("false", False), ("False", False),
+                                        ("0", False), ("no", False)])
+@pytest.mark.parametrize("flag", ["leader-elect", "solver-warmup", "trace-annotations",
+                                  "journal-fsync"])
+def test_boolean_flag_takes_a_value(flag, value, want):
+    """A chart writes a boolean flag from a value (``--leader-elect={{
+    .Values.leaderElect }}``, Go's flag form): the port takes it, and it
+    means what ``--flag`` / ``--no-flag`` means. The JAX package's argparse
+    refuses that form, so its own chart's ``--leader-elect=true`` fails
+    there."""
+    field = flag.replace("-", "_")
+    got = getattr(port_options.parse([f"--{flag}={value}"]), field)
+    assert got is want
+    spelled = [f"--{flag}"] if want else [f"--no-{flag}"]
+    assert getattr(port_options.parse(spelled), field) is want
+    assert getattr(jax_options.parse(spelled) if flag != "trace-annotations"
+                   else port_options.parse(spelled), field) is want
+    with pytest.raises(SystemExit):
+        jax_options.parse([f"--{flag.replace('trace-annotations', 'trace-jax')}={value}"])
+
+
+@pytest.mark.parametrize("argv", [["--leader-elect=maybe"], ["--no-leader-elect=true"],
+                                  ["--metrics-port=x"]])
+def test_boolean_flag_value_must_be_a_bool(argv):
+    with pytest.raises(SystemExit):
+        port_options.parse(argv)
