@@ -60,10 +60,12 @@ nvcc each, all at once). Phases, each printing one JSON record:
    one chunk of L = 256 by pack_chunk and by pack_chunk_type_sharded on a
    1-device mesh and on a virtual mesh of 8 shards on the card: the
    meshes' buffers equal, the rows with q > 0 equal to pack_chunk's, the
-   node count the native ring's and solve_ffd_device(mesh=)'s; the fill
-   walk's kernel against type_fill_plain bit for bit over a seeded fuzz,
-   and the sharded chunk over meshes of 1, 2, 4 and 8 against pack_chunk;
-   the times, launches, bound and plain time (phase_type_spmd);
+   node count the native ring's and solve_ffd_device(mesh=)'s; the
+   decision's kernel (shard_candidate: the fill walk, the max-pods probe,
+   the shard's tie key and column) against shard_candidate_plain bit for
+   bit over a seeded fuzz, and the sharded chunk over meshes of 1, 2, 4
+   and 8 against pack_chunk; the times, launches, bound, plain time and
+   the kernels and copies a decision (phase_type_spmd);
 5. batch fuzz (before phase 3): the batched launch (a cluster per problem)
    against pack_batch_plain bit for bit at B = 1, 2, 5 and 24, S <= 512,
    random valid subsets, an all-zero row and a row with no valid type,
@@ -185,24 +187,28 @@ nvcc each, all at once). Phases, each printing one JSON record:
 17. gang_fuzz (B10): gang windows through dispatch_gang_window on the
    card (a one-member gang, a 4,096-member gang, all-incompatible rows,
    runs of identical members, padded rows, slices with and without seed
-   bins, a gang that fails then places, BB = 8,192 on the global kernel)
-   against whatif_scan_plain bit for bit and host_gang, and padded gang
-   tensors through gang_scan (phase_gang_fuzz);
+   bins, a gang that fails then places, BB = 8,192) against
+   gang_scan_plain bit for bit and host_gang, and padded gang tensors
+   through gang_scan, one with its gang state in a global scratch
+   (phase_gang_fuzz);
 18. carve_fuzz (B11 and the member column): the carve program against
    host_carve on every cell up to 256 gangs × 1,024 bins, at 1,024 ×
    4,096 against a numpy evaluation per (slice class, bin) and 4,096
    cells of scalar_carve_cell, 0 heals; the program and the member
    column timed (phase_carve_fuzz);
 19. gang_window: config_11's window (256 gangs over 100 types) and the
-   full-width window (1,024 gangs × 16 members × 4,096 bins), the kernel
-   against its plain version and host_gang, the card-filtered plan equal
-   to the plain host plan, their times (phase_gang_window);
+   full-width window (1,024 gangs × 16 members × 4,096 bins), the gang
+   kernel against its plain version and host_gang, the card-filtered plan
+   equal to the plain host plan, their times, and the route before the
+   gang kernel (the what-if kernel on each compat row expanded to every
+   member) timed on the same tensors, its answer equal (phase_gang_window);
 20. carve_window: config_16's legs with their gates (phase_carve_window);
 21. controller_gang: 144 gangs (96 slice gangs of three shapes, 48 plain)
    and 4,096 pods through the controller on tpu_catalog(), a second wave
    on the carved nodes, high-band gangs preempting low-band ones, a
    carved node terminated; each gang window's answer against
-   whatif_scan_plain on the tensors it launched (phase_controller_gang);
+   gang_scan_plain on the tensors it launched, the gang kernel timed on
+   window 1's (phase_controller_gang);
 21b. gang_journal: controller_gang's scenario journaled, then 10 cold
    replays that rebuild the occupancy ledger bit for bit from the open
    carve intents (timed), and a crash at each of six gang, carve and
@@ -217,7 +223,7 @@ nvcc each, all at once). Phases, each printing one JSON record:
    alone on the ring; the per-pod ring's node counts on the 50,016-pod
    window's problems equal to the device's (phase_native_ring);
 21d. warmup: solver/warmup.warmup_pass twice into a library directory of
-   its own, cold (three builds) then warm (three loads), and a first solve
+   its own, cold (five builds) then warm (five loads), and a first solve
    at a warmed bucket that allocates no ring buffer (phase_warmup);
 21e. main: main.build_manager in process with the defaults, a journal and
    a flight directory: config_12's window at 104 pods a schedule (2,496
@@ -279,10 +285,10 @@ nvcc each, all at once). Phases, each printing one JSON record:
    device-programs line (B7, B8, B5, B6, B11, the member column, B13), the
    kernels line (pack_chunk, pack_batch with the price-row launch beside
    it, whatif_scan with its times from the deprovision window 0, the shape
-   the main path gives it, whatif_scan for gang co-pack with its times
-   from the full-width gang window and config_11's and the controller
-   window's shapes beside them, and type_fill with config_8's times), the
-   card line, and the final ok line.
+   the main path gives it, gang_scan with its times from the full-width
+   gang window and config_11's and the controller's window 1 beside them,
+   and shard_candidate with config_8's times), the card line, and the
+   final ok line.
 
 Any failed check exits non-zero.
 
@@ -329,6 +335,13 @@ builds the kernels and runs the aws phase alone.
     python3 chip_smoke.py --replay
 
 builds the kernels and runs the replay phase alone.
+
+    python3 chip_smoke.py --type-spmd
+
+builds the kernels and runs the type_spmd phase alone: the readings of a
+parent/change A/B, whose parent side is that tree's own phase_type_spmd
+(chip_smoke.build_all() then chip_smoke.phase_type_spmd(device), run in
+the parent's unpacked tree).
 
     python3 chip_smoke.py --manager-flood
 
@@ -1197,7 +1210,9 @@ def numpy_result(prob):
 
 
 def reset_counts():
-    from karpenter_tpu_torch.ops import device_filter, pack_cuda, type_shard_cuda, whatif_cuda
+    from karpenter_tpu_torch.ops import (
+        device_filter, gang_cuda, pack_cuda, type_shard_cuda, whatif_cuda,
+    )
     from karpenter_tpu_torch.ops import policy as ops_policy
     from karpenter_tpu_torch.solver import global_solve, topology
     from karpenter_tpu_torch.solver.solve import reset_executor_counts
@@ -1205,6 +1220,7 @@ def reset_counts():
     pack_cuda.LAUNCHES = 0
     pack_cuda.BATCH_LAUNCHES = 0
     whatif_cuda.LAUNCHES = 0
+    gang_cuda.LAUNCHES = 0
     type_shard_cuda.LAUNCHES = 0
     global_solve.RUNS = 0
     topology.RUNS = 0
@@ -4515,14 +4531,17 @@ def phase_controller_affinity(device):
 # -- gangs, torus carving and preemption (B10, B11, B4's rest) ----------------
 
 # gang fuzz windows encoded by encode_gang_window: (kind, gangs, members);
-# each is checked on the card against whatif_scan_plain bit for bit and
+# each is checked on the card against gang_scan_plain bit for bit and
 # against host_gang
 GANG_FUZZ = [("one", 1, 1), ("max", 1, 4096), ("mixed", 40, 6), ("incompat", 24, 5),
              ("replicas", 32, 12), ("padded", 5, 7), ("carve", 48, 8), ("seeded", 16, 4),
              ("fail_then_place", 8, 3), ("wide", 65, 64), ("mixed", 300, 3),
              ("carve", 200, 16)]
-# padded tensors in the gang ABI (GB, KB, BB): gang 0 fails then places
-GANG_TENSOR_FUZZ = [(8, 4, 16), (64, 16, 512), (16, 32, 4096), (32, 8, 8192)]
+# padded tensors in the gang ABI (GB, KB, BB): gang 0 fails then places;
+# the last, a long gang over a wide pool, puts the gang state in a global
+# scratch (gang_cuda.launch_geometry) and spills debit entries
+GANG_TENSOR_FUZZ = [(8, 4, 16), (64, 16, 512), (16, 32, 4096), (32, 8, 8192),
+                    (4, 1024, 2048)]
 # the fuzz's three member-sized types (cpu, memory Gi, pods, price)
 GANG_TYPES = [("gf-4", 4, 8, 16, 1.0), ("gf-16", 16, 32, 64, 3.0), ("gf-64", 64, 256, 110, 10.0)]
 # the full-width window: 1,024 gangs of 16 members, four to a node
@@ -4580,7 +4599,7 @@ def gang_fuzz_encoding(rng, kind, G, K):
     slices on TPU grids, ``seeded`` adds fragmented seed bins,
     ``fail_then_place`` seeds bins where a gang's first member fits nowhere
     and its second does (no fresh growth), ``wide`` needs 64 bins a gang
-    (BB = 8192, the global kernel)."""
+    (BB = 8192)."""
     from karpenter_tpu_torch.ops.gang import GangBin
     from karpenter_tpu_torch.ops.whatif import _reserve_vec
 
@@ -4723,21 +4742,22 @@ def gang_tensor_case(rng, GB, KB, BB, device):
 
 def phase_gang_fuzz(device):
     """B10 on the card: each GANG_FUZZ window through dispatch_gang_window
-    (executor "device-gang") against whatif_scan_plain on the tensors the
+    (executor "device-gang") against gang_scan_plain on the tensors the
     window launched (GangHandle.inputs) bit for bit, and against host_gang
     (feasible, and the slots of feasible rows); then GANG_TENSOR_FUZZ's
     padded tensors through gang_scan against the plain version, gang 0
-    failing then placing."""
+    failing then placing. The gang kernel's launches are counted."""
     import numpy as np
     import torch
 
-    from karpenter_tpu_torch.ops import whatif_cuda as wc
+    from karpenter_tpu_torch.ops import gang_cuda as gc
     from karpenter_tpu_torch.solver import topology as topo_solver
-    from karpenter_tpu_torch.solver.gang import dispatch_gang_window, gang_inputs
+    from karpenter_tpu_torch.solver.gang import dispatch_gang_window
 
     t_phase = time.perf_counter()
     rng = np.random.default_rng(SEED)
     heals0 = topo_solver.HEALS
+    launches0 = gc.LAUNCHES
     cases, worst = [], 0
     for kind, G, K in GANG_FUZZ:
         enc = gang_fuzz_encoding(rng, kind, G, K)
@@ -4746,9 +4766,8 @@ def phase_gang_fuzz(device):
         handle = dispatch_gang_window(enc, device)
         feas, slots, executor = handle.fetch()
         check(executor == "device-gang", f"{what}: executor {executor}")
-        args = gang_inputs(*handle.inputs)
-        card = wc.whatif_scan(*args)
-        plain = wc.whatif_scan_plain(*args)
+        card = gc.gang_scan(*handle.inputs)
+        plain = gc.gang_scan_plain(*handle.inputs)
         torch.cuda.synchronize()
         err = whatif_diff(card, plain)
         worst = max(worst, err)
@@ -4762,14 +4781,13 @@ def phase_gang_fuzz(device):
                   f"{what}: gang 0 gave {bool(feas[0])}, {slots[0, :2].tolist()}")
         shape = list(enc.d_pods.shape[:2]) + [enc.d_free0.shape[0]]
         cases.append({"kind": kind, "gangs": enc.g, "k": enc.k, "bins": enc.b, "shape": shape,
-                      "kernel": wc.launch_geometry(shape[2])["kernel"],
+                      "state": gc.launch_geometry(shape[1], shape[2])["state"],
                       "feasible": int(feas.sum()), "carve": enc.carve is not None,
                       "host_gang_s": host_s})
-        del handle, args, card, plain
+        del handle, card, plain
     for GB, KB, BB in GANG_TENSOR_FUZZ:
-        pods, valid, compat, free0 = gang_tensor_case(rng, GB, KB, BB, device)
-        args = gang_inputs(pods, valid, compat, free0)
-        card, plain = wc.whatif_scan(*args), wc.whatif_scan_plain(*args)
+        args = gang_tensor_case(rng, GB, KB, BB, device)
+        card, plain = gc.gang_scan(*args), gc.gang_scan_plain(*args)
         torch.cuda.synchronize()
         err = whatif_diff(card, plain)
         worst = max(worst, err)
@@ -4778,13 +4796,15 @@ def phase_gang_fuzz(device):
         check(not bool(plain[0][0]) and int(plain[1][0, 1]) == 1 and bool(plain[0][-1]),
               f"{what}: gang 0 or the padded gang wrong")
         cases.append({"kind": "tensors", "shape": [GB, KB, BB],
-                      "kernel": wc.launch_geometry(BB)["kernel"],
+                      "state": gc.launch_geometry(KB, BB)["state"],
                       "feasible": int(plain[0].sum())})
         del args, card, plain
         torch.cuda.empty_cache()
     check(topo_solver.HEALS == heals0, "gang fuzz: a carve probe healed")
+    launches = gc.LAUNCHES - launches0
+    check(device.type != "cuda" or launches > 0, "gang fuzz: the gang kernel was never launched")
     rec = {"phase": "gang_fuzz", "cases": cases, "max_abs_err": worst, "heals": 0,
-           "seconds": time.perf_counter() - t_phase}
+           "launches": launches, "seconds": time.perf_counter() - t_phase}
     emit(rec)
     return rec
 
@@ -4839,53 +4859,84 @@ def plan_nodes(plan):
             for pl in plan.placements]
 
 
-def gang_kernel_record(enc, handle, runs):
-    """One window's kernel on the tensors its dispatch launched
-    (``handle.inputs``): the card against the plain version (0 when bit for
+def old_route_inputs(pods, valid, compat, free0):
+    """The route gang windows took before the gang kernel: the what-if
+    kernel's arguments, each gang's (GB, BB) compat row expanded to a
+    contiguous (GB, KB, BB) and every own bin -1. Built here only, to time
+    that route beside the gang kernel on the same window."""
+    import torch
+
+    GB, KB = valid.shape
+    rows = compat.bool()[:, None, :].expand(GB, KB, compat.shape[1]).contiguous()
+    cand_bin = torch.full((GB,), -1, dtype=torch.int32, device=pods.device)
+    return pods, valid.bool(), rows, free0, cand_bin
+
+
+def gang_kernel_record(enc, handle, runs, old_route=True):
+    """One window's gang kernel on the tensors its dispatch launched
+    (``handle.inputs``): the card against gang_scan_plain (0 when bit for
     bit), the CUDA-event median of ``runs`` warm launches (the wrapper's
     host work between the events included), the mean device ms under
     torch.profiler (with the kernels its accepted or last session saw),
     the device ms of ``runs`` launches queued behind a spin kernel, the
-    plain version's event ms over 3 and the bound. Comparison launches:
-    the count is restored."""
+    plain version's event ms over 3 and the bound. With ``old_route`` the
+    same readings of the what-if kernel on old_route_inputs, its answer
+    held equal to the gang kernel's. Comparison launches: the counts are
+    restored."""
     import torch
 
+    from karpenter_tpu_torch.ops import gang_cuda as gc
     from karpenter_tpu_torch.ops import whatif_cuda as wc
-    from karpenter_tpu_torch.solver.gang import gang_inputs
 
-    launches = wc.LAUNCHES
-    args = gang_inputs(*handle.inputs)
-    plain = wc.whatif_scan_plain(*args)
-    err = whatif_diff(wc.whatif_scan(*args), plain)
+    launches, wlaunches = gc.LAUNCHES, wc.LAUNCHES
+    args = handle.inputs
+    plain = gc.gang_scan_plain(*args)
+    card = gc.gang_scan(*args)
+    err = whatif_diff(card, plain)
     torch.cuda.synchronize()
-    bound = gang_bound(enc, handle.inputs[2].cpu().numpy(), plain[1].cpu().numpy())
-    ms = median_event_ms(lambda: wc.whatif_scan(*args), runs)
-    device_ms, seen = profiled_kernel_ms(lambda: wc.whatif_scan(*args), runs, "whatif")
-    queued_ms = queued_event_ms(lambda: wc.whatif_scan(*args), runs)
-    plain_ms = median_event_ms(lambda: wc.whatif_scan_plain(*args), 3)
-    wc.LAUNCHES = launches
-    return {"max_abs_err": err, "ms": ms, "device_ms": device_ms, "profiled_launches": seen,
-            "queued_ms": queued_ms, "plain_ms": plain_ms,
-            "shape": list(args[2].shape), "gangs": enc.g, "bins": enc.b,
-            "geometry": wc.launch_geometry(args[2].shape[2]), **bound}
+    bound = gang_bound(enc, args[2].cpu().numpy(), plain[1].cpu().numpy())
+    ms = median_event_ms(lambda: gc.gang_scan(*args), runs)
+    device_ms, seen = profiled_kernel_ms(lambda: gc.gang_scan(*args), runs, "gang_kernel")
+    queued_ms = queued_event_ms(lambda: gc.gang_scan(*args), runs)
+    plain_ms = median_event_ms(lambda: gc.gang_scan_plain(*args), 3)
+    GB, KB = args[1].shape
+    rec = {"max_abs_err": err, "ms": ms, "device_ms": device_ms, "profiled_launches": seen,
+           "queued_ms": queued_ms, "plain_ms": plain_ms,
+           "shape": [GB, KB, args[3].shape[0]], "gangs": enc.g, "bins": enc.b,
+           "geometry": gc.launch_geometry(KB, args[3].shape[0]), **bound}
+    if old_route:
+        old = old_route_inputs(*args)
+        old_err = whatif_diff(wc.whatif_scan(*old), card)
+        torch.cuda.synchronize()
+        check(old_err == 0, "gang window: the what-if route's answer != the gang kernel's")
+        rec["old_route"] = {
+            "max_abs_err": old_err,
+            "ms": median_event_ms(lambda: wc.whatif_scan(*old), runs),
+            "device_ms": profiled_kernel_ms(lambda: wc.whatif_scan(*old), runs, "whatif")[0],
+            "queued_ms": queued_event_ms(lambda: wc.whatif_scan(*old), runs),
+            "compat_bytes": old[2].numel(), "geometry": wc.launch_geometry(old[2].shape[2])}
+        del old
+    gc.LAUNCHES, wc.LAUNCHES = launches, wlaunches
+    return rec
 
 
 def gang_window_record(enc, device, what, runs):
-    """A window through dispatch_gang_window on the card: executor, the
-    kernel equal to its plain version, feasible equal to host_gang's, the
-    card-filtered plan equal to plan_gang_window(enc, None) node for node;
-    the host seconds of host_gang and of both plans, and the kernel's
-    record."""
-    from karpenter_tpu_torch.ops import whatif_cuda as wc
+    """A window through dispatch_gang_window on the card: executor, one
+    gang kernel launch, the kernel equal to its plain version, feasible
+    equal to host_gang's, the card-filtered plan equal to
+    plan_gang_window(enc, None) node for node; the host seconds of
+    host_gang and of both plans, and the kernel's record with the old
+    route beside it."""
+    from karpenter_tpu_torch.ops import gang_cuda as gc
     from karpenter_tpu_torch.solver.gang import dispatch_gang_window, plan_gang_window
 
-    launches = wc.LAUNCHES
+    launches = gc.LAUNCHES
     t0 = time.perf_counter()
     handle = dispatch_gang_window(enc, device)
     feas, slots, executor = handle.fetch()
     window_s = time.perf_counter() - t0
-    check(executor == "device-gang" and wc.LAUNCHES == launches + (device.type == "cuda"),
-          f"{what}: executor {executor}, {wc.LAUNCHES - launches} launches")
+    check(executor == "device-gang" and gc.LAUNCHES == launches + (device.type == "cuda"),
+          f"{what}: executor {executor}, {gc.LAUNCHES - launches} launches")
     host_s = check_gang_host(enc, feas, slots, what)
     t0 = time.perf_counter()
     plan = plan_gang_window(enc, feas)
@@ -4902,7 +4953,7 @@ def gang_window_record(enc, device, what, runs):
             "placed": len(plan.placements), "unplaced": len(plan.unplaced),
             "window_s": window_s, "kernel_ms_in_window": handle.kernel_ms,
             "host_gang_s": host_s, "plan_s": plan_s, "plan_unfiltered_s": plain_plan_s,
-            "kernel": kern}
+            "launches": gc.LAUNCHES - launches, "kernel": kern}
 
 
 def phase_gang_window(device):
@@ -5348,21 +5399,20 @@ def gangs_whole(kube, gangs, what):
 
 def check_gang_handles(handles, what):
     """Each gang window the controller dispatched (its GangHandle): the
-    answer the controller fetched held against whatif_scan_plain on the
+    answer the controller fetched held against gang_scan_plain on the
     exact tensors the window launched, bit for bit. Returns the worst
     difference and each device window's (GB, KB, BB); the handles are
     released."""
     import torch
 
-    from karpenter_tpu_torch.ops.whatif_cuda import whatif_scan_plain
-    from karpenter_tpu_torch.solver.gang import gang_inputs
+    from karpenter_tpu_torch.ops.gang_cuda import gang_scan_plain
 
     worst, shapes = 0, []
     for h in handles:
         feas, slots, executor = h.fetch()
         check(executor == "device-gang" and h.inputs is not None,
               f"{what}: a gang window answered by {executor}")
-        pf, ps = whatif_scan_plain(*gang_inputs(*h.inputs))
+        pf, ps = gang_scan_plain(*h.inputs)
         g, k = h.enc.g, max(h.enc.k, 1)
         err = whatif_diff((torch.from_numpy(feas), torch.from_numpy(slots)),
                           (pf.cpu()[:g], ps.cpu()[:g, :k]))
@@ -5390,7 +5440,7 @@ def phase_controller_gang(device, journal=None, after=None, phase="controller_ga
     gangs and 4,096 plain pods over three zones (so the chunk launches
     pack_batch too). Checks: every gang bound whole, every pod once; every
     carve a contiguous sub-grid, disjoint on its node, the ledger equal to
-    the commits; the what-if kernel, the carve program, the member column
+    the commits; the gang kernel, the carve program, the member column
     and pack_batch launched in the window. Wave 2: 32 more v5e-2x4 gangs
     over the partly carved nodes: fewer tpu nodes created than gangs (a
     fresh node each). Then CG_PREEMPT_WINDOWS windows of one high-band
@@ -5398,7 +5448,7 @@ def phase_controller_gang(device, journal=None, after=None, phase="controller_ga
     within the budget (no more than a band's tokens a window), every victim
     requeued and bound again, never system-critical. Then a carved node is
     terminated and its carves leave the ledger. Every gang window the
-    controller dispatched is held against whatif_scan_plain on the tensors
+    controller dispatched is held against gang_scan_plain on the tensors
     it launched (check_gang_handles), its (GB, KB, BB) recorded. One record
     with each window's time split. With ``journal`` the controller and the
     termination controller journal every mutation, and ``after(run)`` runs
@@ -5410,8 +5460,8 @@ def phase_controller_gang(device, journal=None, after=None, phase="controller_ga
     from karpenter_tpu_torch.controllers.termination import TerminationController
     from karpenter_tpu_torch.ops import device_filter, pack_cuda
     from karpenter_tpu_torch.ops import feasibility
+    from karpenter_tpu_torch.ops import gang_cuda as gc
     from karpenter_tpu_torch.ops import topology as topo
-    from karpenter_tpu_torch.ops import whatif_cuda as wc
     from karpenter_tpu_torch.solver import topology as topo_solver
     from karpenter_tpu_torch.solver.pipeline import PipelineConfig
 
@@ -5456,7 +5506,7 @@ def phase_controller_gang(device, journal=None, after=None, phase="controller_ga
                         zone=f"test-zone-{1 + i % 3}") for i in range(CG_PLAIN_PODS)]
         pods = [p for _, ps in gangs for p in ps] + plain
         rec = run.window(pods)
-        launches = {"whatif": wc.LAUNCHES, "pack_batch": pack_cuda.BATCH_LAUNCHES,
+        launches = {"gang": gc.LAUNCHES, "pack_batch": pack_cuda.BATCH_LAUNCHES,
                     "carve": topo_solver.RUNS, "member_column": device_filter.GANG_COLUMN_RUNS}
         check(device.type != "cuda" or all(launches.values()),
               f"controller_gang: launches {launches}")
@@ -5466,10 +5516,15 @@ def phase_controller_gang(device, journal=None, after=None, phase="controller_ga
         gangs_whole(run.kube, gangs, "controller_gang window 1")
         carves = ledger_audit(run.kube, commits, "controller_gang window 1")
         check(carves == 3 * CG_PER_SHAPE, f"controller_gang: {carves} carves")
+        # the gang kernel at the main path's own shape: window 1's first launch
+        kernel = None
+        if phase == "controller_gang":
+            kernel = gang_kernel_record(handles[0].enc, handles[0], WARM_RUNS)
+            check(kernel["max_abs_err"] == 0, "controller_gang window 1: kernel != plain")
         err, shapes = check_gang_handles(handles, "controller_gang window 1")
         worst = max(worst, err)
         windows["window1"] = {**rec, "launches": launches, "carves": carves,
-                              "gang_shapes": shapes,
+                              "gang_shapes": shapes, "kernel": kernel,
                               "gang": [c["gang"] for c in run.chunks if c["gang"]]}
 
         # wave 2: the partly carved v5e-4x4 nodes come back as seeds
@@ -6270,8 +6325,8 @@ def library_files(path):
 def phase_warmup(device):
     """solver/warmup.warmup_pass on the card, twice, into a library
     directory of its own (configure_compilation_cache): the first pass
-    builds the pack, what-if, type-shard and native libraries cold, the
-    second finds all four (the same files, untouched). Each pass's
+    builds the pack, what-if, gang, type-shard and native libraries cold,
+    the second finds all five (the same files, untouched). Each pass's
     seconds, runs, pack
     launches and ring counters (the ring keeps DeviceRing.max_slots of the
     ladder's 54 buckets resident, the smallest shape buckets); then a
@@ -6306,9 +6361,9 @@ def phase_warmup(device):
                            "pack_batch_launches": pack_cuda.BATCH_LAUNCHES,
                            "ring": pipeline.get_ring().counters()})
         cold, warm = passes
-        check(len(cold["built"]) == 4 and not cold["found"],
+        check(len(cold["built"]) == 5 and not cold["found"],
               f"warmup: the cold pass built {cold['built']}")
-        check(not warm["built"] and len(warm["found"]) == 4,
+        check(not warm["built"] and len(warm["found"]) == 5,
               f"warmup: the warm pass built {warm['built']}")
         catalog = make_catalog(200)
         pods = make_pods(600, MIXED_SHAPES[:4])
@@ -7826,11 +7881,11 @@ REPLAY_CARVE = dict(pods_total=3_000, shards=1, tenants=1, seed=7, bound_cohort=
 def replay_counts():
     """The launches of each kernel and device program since reset_counts(),
     and the answers by executor."""
-    from karpenter_tpu_torch.ops import pack_cuda, whatif_cuda
+    from karpenter_tpu_torch.ops import gang_cuda, pack_cuda
     from karpenter_tpu_torch.solver import global_solve, topology
 
     return {"launches": {"pack_batch": pack_cuda.BATCH_LAUNCHES, "pack_chunk": pack_cuda.LAUNCHES,
-                         "whatif_gang": whatif_cuda.LAUNCHES, "carve_program": topology.RUNS,
+                         "gang": gang_cuda.LAUNCHES, "carve_program": topology.RUNS,
                          "relaxation": global_solve.RUNS},
             "executors": executor_counts()}
 
@@ -7839,7 +7894,7 @@ def replay_leg(name, cfg, device, packs, handles):
     """One run_replay on ``device`` with the counts set to 0 just before and
     read just after; every pack launch it made held against the plain
     version (``packs``, a PackLaunches) and every gang window against
-    whatif_scan_plain (``handles``, filled by the patched dispatch)."""
+    gang_scan_plain (``handles``, filled by the patched dispatch)."""
     from karpenter_tpu_torch import replay as rp
     from karpenter_tpu_torch.ops import feasibility
     from karpenter_tpu_torch.ops import topology as topo
@@ -7924,7 +7979,7 @@ def phase_replay(device):
             check(big["slo"]["bounded"] and big["slo"]["trips"] == 0,
                   f"replay: SLO engine {big['slo']['trips']} trips, bounded "
                   f"{big['slo']['bounded']}")
-            check(device.type != "cuda" or counts["launches"]["whatif_gang"] > 0,
+            check(device.type != "cuda" or counts["launches"]["gang"] > 0,
                   "replay: no gang window on the card")
             legs["million"] = {
                 "verdict": line, "offered_total": big["offered_total"],
@@ -8007,6 +8062,12 @@ def phase_replay(device):
     return {"million": legs["million"], **rec}
 
 
+def phase_type_spmd_alone(device):
+    """``--type-spmd``: the kernels built, then the type_spmd phase."""
+    build_all()
+    phase_type_spmd(device)
+
+
 def phase_aws_alone(device):
     """``--aws``: the kernels built, then the aws phase."""
     build_all()
@@ -8056,16 +8117,18 @@ def config8_problem():
     return vecs, ids, packables, enc, padded
 
 
-def type_fill_bound(args, stats):
-    """Least time of one type_fill call: the larger of its bytes (shapes,
-    counts, totals, reserved0, valid read once; npacked and the (S, T_l)
-    fills written once) over HBM bandwidth and its operations (the
-    type-steps this input needs, at work_bound's count a step) over the op
-    rate."""
-    shapes, counts, totals, reserved0, valid = args[:5]
-    S, T = shapes.shape[0], totals.shape[0]
-    nbytes = sum(t.numel() * t.element_size() for t in (shapes, counts, totals, reserved0, valid))
-    nbytes += T * 4 + S * T * 4
+def candidate_bound(args, stats):
+    """Least time of one shard_candidate call: the larger of its bytes (the
+    shapes, counts, the shard's totals, reserved0, valid and prices, and
+    the probe row read once; the candidate row written once) over HBM
+    bandwidth and its operations (the type-steps this input needs, the
+    probe's included, at work_bound's count a step) over the op rate."""
+    from karpenter_tpu_torch.ops.type_shard_cuda import out_words
+
+    shapes, counts, totals, reserved0, valid, prices, probe = args[:7]
+    nbytes = sum(t.numel() * t.element_size() for t in (shapes, counts, totals, reserved0, valid,
+                                                       probe))
+    nbytes += (prices.numel() * 4 if prices is not None else 0) + out_words(shapes.shape[0]) * 4
     resources = int((shapes > 0).any(dim=0).sum())
     ops = ops_per_type_step(resources) * stats["type_steps"]
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / OPS_PER_S
@@ -8075,46 +8138,66 @@ def type_fill_bound(args, stats):
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
-def type_fill_equal(args, what):
-    """type_fill (the kernel) against type_fill_plain on the same card
-    tensors, bit for bit; returns the plain version's stats and the largest
-    |kernel - plain| over both outputs (0 when bit for bit)."""
+def candidate_args(args, lo, hi, cost=False, prices=None):
+    """shard_candidate's arguments for types [lo, hi) of a problem in the
+    pack ABI (``args``: shapes, counts, dropped, totals, reserved0, valid,
+    last_valid, pods_unit): the shard's slices, its prices with the cost
+    tie-break, the probe row of last_valid and the shard's offset."""
+    from karpenter_tpu_torch.ops.type_shard_cuda import probe_row
+
+    shapes, counts, _, totals, reserved0, valid, last_valid, pods_unit = args
+    return (shapes, counts, totals[lo:hi].contiguous(), reserved0[lo:hi].contiguous(),
+            valid[lo:hi].contiguous(), prices[lo:hi].contiguous() if cost else None,
+            probe_row(totals, reserved0, valid, int(last_valid)), lo, int(pods_unit))
+
+
+def candidate_equal(args, what):
+    """shard_candidate (the kernel) against shard_candidate_plain on the
+    same card tensors, bit for bit; returns the plain version's stats and
+    the largest |kernel - plain| over the row (0 when bit for bit)."""
     import torch
 
-    from karpenter_tpu_torch.ops.type_shard_cuda import type_fill, type_fill_plain
+    from karpenter_tpu_torch.ops.type_shard_cuda import shard_candidate, shard_candidate_plain
 
-    got = type_fill(*args)
+    got = shard_candidate(*args)
     stats = {}
-    want = type_fill_plain(*args, stats=stats)
+    want = shard_candidate_plain(*args, stats=stats)
     torch.cuda.synchronize()
-    err = max(int((g.long() - w.long()).abs().max()) if g.numel() else 0
-              for g, w in zip(got, want))
-    check(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
-          f"type_fill != type_fill_plain ({what}): max abs err {err}")
+    err = int((got.long() - want.long()).abs().max())
+    check(torch.equal(got, want),
+          f"shard_candidate != shard_candidate_plain ({what}): max abs err {err}")
     return stats, err
 
 
-def type_fill_reading(fill_args, what):
-    """type_fill at one shape: held against type_fill_plain, then its
-    CUDA-event median, profiler device ms and queued ms over TYPE_SPMD_RUNS
-    calls, the plain version's event ms once, and its bound."""
+def candidate_reading(args, what):
+    """shard_candidate at one shape: held against shard_candidate_plain,
+    then its CUDA-event median, profiler device ms and queued ms over
+    TYPE_SPMD_RUNS calls (a workspace of its own, as the chunk keeps one a
+    shard), the plain version's event ms once, and its bound."""
     import torch
 
-    from karpenter_tpu_torch.ops.type_shard_cuda import type_fill, type_fill_plain
+    from karpenter_tpu_torch.ops.type_shard_cuda import (
+        new_workspace, shard_candidate, shard_candidate_plain,
+    )
 
-    stats, err = type_fill_equal(fill_args, what)
-    fill_ms = median_event_ms(lambda: type_fill(*fill_args), TYPE_SPMD_RUNS)
-    device_ms, seen = profiled_fill_ms(lambda: type_fill(*fill_args), TYPE_SPMD_RUNS)
-    queued_ms = queued_event_ms(lambda: type_fill(*fill_args), TYPE_SPMD_RUNS)
+    stats, err = candidate_equal(args, what)
+    work = new_workspace(args[0].device)
+
+    def run():
+        return shard_candidate(*args, workspace=work)
+
+    ms = median_event_ms(run, TYPE_SPMD_RUNS)
+    device_ms, seen = profiled_fill_ms(run, TYPE_SPMD_RUNS)
+    queued_ms = queued_event_ms(run, TYPE_SPMD_RUNS)
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
-    type_fill_plain(*fill_args)
+    shard_candidate_plain(*args)
     end.record()
     torch.cuda.synchronize()
-    return {"ms": fill_ms, "device_ms": device_ms, "device_kernels_seen": seen,
+    return {"ms": ms, "device_ms": device_ms, "device_kernels_seen": seen,
             "queued_ms": queued_ms, "plain_ms": start.elapsed_time(end),
-            "shape": [fill_args[0].shape[0], fill_args[2].shape[0]], "max_abs_err": err,
-            **type_fill_bound(fill_args, stats)}
+            "shape": [args[0].shape[0], args[2].shape[0]], "max_abs_err": err,
+            **candidate_bound(args, stats)}
 
 
 def sharded_vs_kernel(args, prices, cost, L, mesh, what):
@@ -8142,7 +8225,7 @@ def sharded_vs_kernel(args, prices, cost, L, mesh, what):
 
 
 def profiled_fill_ms(fn, runs):
-    """The mean device time of the type_fill kernels a torch.profiler
+    """The mean device time of the shard_candidate kernels a torch.profiler
     session over ``runs`` calls saw, and how many it saw (a session can
     miss some: profiled_kernel_ms); (None, 0) when it saw none. A first
     session is made and dropped, as in device_launches."""
@@ -8157,29 +8240,33 @@ def profiled_fill_ms(fn, runs):
             fn()
         torch.cuda.synchronize()
     spans = [end - start for start, end, name in device_events(prof)
-             if "type_fill_kernel" in name]
+             if "candidate_kernel" in name]
     return (sum(spans) / len(spans) / 1e3 if spans else None), len(spans)
 
 
 def phase_type_spmd(device):
     """Type-axis SPMD (B12) at config_8's width on the card:
 
-    - fuzz: the fill walk's kernel (type_fill) against type_fill_plain bit
-      for bit at TYPE_FILL_FUZZ's (S, T_l), count-0 shapes among the live
-      ones and a problem with nothing live; pack_chunk_type_sharded over
-      virtual meshes of 1, 2, 4 and 8 shards on the card against
-      pack_chunk, cost tie-break off and on, with drops;
+    - fuzz: the decision's kernel (shard_candidate) against
+      shard_candidate_plain bit for bit at TYPE_FILL_FUZZ's (S, T_l), shards
+      that start inside the type axis, cost tie-break off and on, count-0
+      shapes among the live ones, a problem with nothing live, one with no
+      valid type (no tie: the sentinel key) and one price for every type
+      (the index breaks the tie); pack_chunk_type_sharded over virtual
+      meshes of 1, 2, 4 and 8 shards on the card against pack_chunk, cost
+      tie-break off and on, with drops;
     - config_8: pack_chunk, pack_chunk_type_sharded on type_mesh([card])
       and on a virtual mesh of TYPE_SPMD_MESH shards on the card, one chunk
       of L = 256 to done each: the meshes' buffers equal whole, the rows
       with q > 0 equal to pack_chunk's; the main path, solve_ffd_device
-      with each mesh, between counts set to 0 and read: type_fill
+      with each mesh, between counts set to 0 and read: shard_candidate
       launched, node counts equal to the native ring's and to the
-      chunk's; CUDA-event medians of the three chunk runs and of type_fill
-      alone on the first decision, at one shard of the 8-shard mesh (the
-      shape its launches ran at) and over the whole bucket (the 1-device
-      mesh's), each with its bound and the plain version's time once; the
-      launches, decisions and done reads a solve;
+      chunk's; CUDA-event medians of the three chunk runs and of
+      shard_candidate alone on the first decision, at one shard of the
+      8-shard mesh (the shape its launches ran at) and over the whole
+      bucket (the 1-device mesh's), each with its bound and the plain
+      version's time once; the launches, decisions and done reads a solve,
+      and the kernels and copies a chunk takes on each mesh (profiler);
     - with two or more cards, the mesh over every card, bit for bit with
       the 1-device mesh; on one card, recorded as not run."""
     import numpy as np
@@ -8196,14 +8283,20 @@ def phase_type_spmd(device):
 
     rng = np.random.default_rng(SEED)
     fuzz, errs = [], []
-    for S, T in TYPE_FILL_FUZZ:
-        args, _ = fuzz_problem(rng, S, T, False, device)
-        stats, err = type_fill_equal((*args[:2], *args[3:6], args[7]), f"S={S} T_l={T}")
-        fuzz.append({"S": S, "T_l": T, "type_steps": stats["type_steps"]})
+    for i, (S, T) in enumerate(TYPE_FILL_FUZZ):
+        args, prices = fuzz_problem(rng, S, T, False, device)
+        cost, lo = i % 2 == 1, (T // 3 if i % 3 == 2 else 0)
+        stats, err = candidate_equal(candidate_args(args, lo, T, cost, prices),
+                                     f"S={S} T_l={T - lo} offset {lo} cost {cost}")
+        fuzz.append({"S": S, "T_l": T - lo, "offset": lo, "cost": cost,
+                     "type_steps": stats["type_steps"]})
         errs.append(err)
-    args, _ = fuzz_problem(rng, 64, 40, False, device)
-    errs.append(type_fill_equal((args[0], torch.zeros_like(args[1]), *args[3:6], args[7]),
-                                "nothing live")[1])
+    args, prices = fuzz_problem(rng, 64, 40, False, device)
+    edges = {"nothing live": (args[:1] + (torch.zeros_like(args[1]),) + args[2:], prices),
+             "no valid type": (args[:5] + (torch.zeros_like(args[5]),) + args[6:], prices),
+             "one price": (args, torch.full_like(prices, 7))}
+    for what, (edge, pr) in edges.items():
+        errs.append(candidate_equal(candidate_args(edge, 8, 40, True, pr), what)[1])
     mesh_fuzz = 0
     for n in (1, 2, 4, 8):
         for cost in (False, True):
@@ -8234,18 +8327,19 @@ def phase_type_spmd(device):
         result = solve_ffd_device(vecs, ids, packables, enc=enc, device=device, mesh=mesh)
         torch.cuda.synchronize()
         launches = type_shard_cuda.LAUNCHES
-        check(launches > 0, f"config_8 {name}: type_fill was never launched")
+        check(launches > 0, f"config_8 {name}: shard_candidate was never launched")
         check(result.node_count == native.node_count == chunk_nodes,
               f"config_8 {name}: nodes {result.node_count}, native ring "
               f"{native.node_count}, chunk {chunk_nodes}")
         check(not result.unschedulable, f"config_8 {name}: pods left unschedulable")
         solves[name] = {"launches": launches, "decisions": type_sharded.DECISIONS,
                         "done_reads": type_sharded.DONE_READS,
-                        "type_fill_per_decision": launches / type_sharded.DECISIONS,
+                        "launches_per_decision": launches / type_sharded.DECISIONS,
                         "node_count": result.node_count}
     main = solves[f"mesh{TYPE_SPMD_MESH}"]
     # the kernels and copies a decision takes on the card, from the profiler
     prof = device_launches(lambda: pack_chunk_type_sharded(*args, num_iters=L, mesh=mesh8))
+    prof1 = device_launches(lambda: pack_chunk_type_sharded(*args, num_iters=L, mesh=mesh1))
 
     times = {
         "pack_chunk": median_event_ms(lambda: pack_chunk(*args, L), TYPE_SPMD_RUNS),
@@ -8254,14 +8348,13 @@ def phase_type_spmd(device):
         f"mesh{TYPE_SPMD_MESH}": median_event_ms(lambda: pack_chunk_type_sharded(
             *args, num_iters=L, mesh=mesh8), TYPE_SPMD_RUNS),
     }
-    # the first decision's fill walk: at one shard of the 8-shard mesh
+    # the first decision's kernel: at one shard of the 8-shard mesh
     # (T_l = T / 8, the shape the main path's launches counted above ran
     # at) and over the whole bucket (the 1-device mesh's shape)
     T_l = T // TYPE_SPMD_MESH
-    shard_args = (args[0], args[1], args[3][:T_l].contiguous(), args[4][:T_l].contiguous(),
-                  args[5][:T_l].contiguous(), args[7])
-    shard = type_fill_reading(shard_args, "config_8 first decision, one shard of 8")
-    whole = type_fill_reading((args[0], args[1], args[3], args[4], args[5], args[7]),
+    shard = candidate_reading(candidate_args(args, 0, T_l),
+                              "config_8 first decision, one shard of 8")
+    whole = candidate_reading(candidate_args(args, 0, T),
                               "config_8 first decision, the whole bucket")
     errs += [shard["max_abs_err"], whole["max_abs_err"]]
 
@@ -8275,13 +8368,16 @@ def phase_type_spmd(device):
             lambda: pack_chunk_type_sharded(*args, num_iters=L, mesh=devs), TYPE_SPMD_RUNS)}
     rec = {"phase": "type_spmd", "pods": len(ids), "types": 2_000, "shape_bucket": S,
            "type_bucket": T, "L": L, "node_count": chunk_nodes,
-           "native_node_count": native.node_count, "type_fill_fuzz": fuzz,
+           "native_node_count": native.node_count, "candidate_fuzz": fuzz,
            "mesh_fuzz_cases": mesh_fuzz, "solves": solves, "chunk_ms": times,
-           "type_fill": {**shard, "whole_bucket": whole},
-           # the largest |type_fill - type_fill_plain| over the fuzz and config_8
+           "shard_candidate": {**shard, "whole_bucket": whole},
+           # the largest |kernel - shard_candidate_plain| over the fuzz and config_8
            "launches": main["launches"], "max_abs_err": max(errs),
            "profile_mesh8": prof and {**prof, "per_decision": {
                k: prof[k] / main["decisions"] for k in ("kernels", "copies_and_sets")}},
+           "profile_mesh1": prof1 and {**prof1, "per_decision": {
+               k: prof1[k] / solves["mesh1"]["decisions"]
+               for k in ("kernels", "copies_and_sets")}},
            "real_mesh": real}
     emit(rec)
     return rec
@@ -8291,7 +8387,7 @@ def build_all():
     """Build every kernel library at once, one nvcc each, and load them."""
     import threading
 
-    from karpenter_tpu_torch.ops import pack_cuda, type_shard_cuda, whatif_cuda
+    from karpenter_tpu_torch.ops import gang_cuda, pack_cuda, type_shard_cuda, whatif_cuda
 
     errors = []
 
@@ -8302,7 +8398,8 @@ def build_all():
             errors.append(e)
 
     threads = [threading.Thread(target=run, args=(b,))
-               for b in (pack_cuda.build, whatif_cuda.build, type_shard_cuda.build)]
+               for b in (pack_cuda.build, whatif_cuda.build, gang_cuda.build,
+                         type_shard_cuda.build)]
     for t in threads:
         t.start()
     for t in threads:
@@ -8311,6 +8408,7 @@ def build_all():
         raise errors[0]
     pack_cuda._library()
     whatif_cuda._library()
+    gang_cuda._library()
     type_shard_cuda._library()
 
 
@@ -8331,9 +8429,10 @@ def main(argv) -> int:
     t_start = time.perf_counter()
     if argv not in ([], ["--kernel-times"], ["--solve-times"], ["--controller-deployed"],
                     ["--whatif-times"], ["--manager-flood"], ["--wire"], ["--aws"],
-                    ["--replay"]):
+                    ["--replay"], ["--type-spmd"]):
         print("usage: chip_smoke.py [--kernel-times | --solve-times | --controller-deployed"
-              " | --whatif-times | --manager-flood | --wire | --aws | --replay]",
+              " | --whatif-times | --manager-flood | --wire | --aws | --replay"
+              " | --type-spmd]",
               file=sys.stderr)
         return 2
     import torch
@@ -8342,7 +8441,7 @@ def main(argv) -> int:
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
               file=sys.stderr)
         return 2
-    from karpenter_tpu_torch.ops import pack_cuda, type_shard_cuda, whatif_cuda
+    from karpenter_tpu_torch.ops import gang_cuda, pack_cuda, type_shard_cuda, whatif_cuda
 
     device = torch.device("cuda")
     card = card_line()
@@ -8353,7 +8452,7 @@ def main(argv) -> int:
          "--whatif-times": phase_whatif_times,
          "--manager-flood": phase_manager_flood,
          "--wire": phase_wire_alone, "--aws": phase_aws_alone,
-         "--replay": phase_replay_alone}[argv[0]](device)
+         "--replay": phase_replay_alone, "--type-spmd": phase_type_spmd_alone}[argv[0]](device)
         return 0
     emit({"phase": "card", "nvidia_smi": card,
           "name": torch.cuda.get_device_name(0),
@@ -8367,6 +8466,8 @@ def main(argv) -> int:
                      for T in (8, 512, 4096) for c in [pack_cuda.launch_shape(T)]},
           "whatif": {"seconds": whatif_cuda.BUILD_SECONDS,
                      "ptxas": ptxas_lines(whatif_cuda.BUILD_LOG)},
+          "gang": {"seconds": gang_cuda.BUILD_SECONDS,
+                   "ptxas": ptxas_lines(gang_cuda.BUILD_LOG)},
           "type_shard": {"seconds": type_shard_cuda.BUILD_SECONDS,
                          "ptxas": ptxas_lines(type_shard_cuda.BUILD_LOG)}})
 
@@ -8534,18 +8635,19 @@ def main(argv) -> int:
         "bound_ms": dp["kernel"]["bound_ms"], "bound_by": dp["kernel"]["bound_by"],
         "shape": dp["kernel"]["shape"], "library_ms": None,
     }, {
-        "name": "whatif_scan (gang co-pack, B10)",
+        "name": "gang_scan (B10)",
         "route": "cuda",
-        "source": "karpenter_tpu_torch/csrc/whatif.cu",
+        "source": "karpenter_tpu_torch/csrc/gang.cu",
         "replaces": "karpenter_tpu/solver/gang.py:56",
-        "launches": cg["window1"]["launches"]["whatif"],
+        "launches": cg["window1"]["launches"]["gang"],
         "max_abs_err": max(gf["max_abs_err"], gw10["config11"]["kernel"]["max_abs_err"],
                            gw10["full"]["kernel"]["max_abs_err"], cg["max_abs_err"],
                            gj["max_abs_err"], rp["gang_max_abs_err"]),
         # the million-pod replay's gang windows, on four shard workers
-        "replay_launches": rp["million"]["launches"]["whatif_gang"],
+        "replay_launches": rp["million"]["launches"]["gang"],
         # the times and the bound are the full-width window's; the main
-        # path's launches (controller_gang window 1) were at main_path_shapes
+        # path's launches (controller_gang window 1) were at main_path_shapes,
+        # and main_path holds the kernel's readings at the first of them
         "main_path_shapes": cg["window1"]["gang_shapes"],
         "ms": gw10["full"]["kernel"]["ms"], "device_ms": gw10["full"]["kernel"]["device_ms"],
         "queued_ms": gw10["full"]["kernel"]["queued_ms"],
@@ -8553,26 +8655,31 @@ def main(argv) -> int:
         "bound_ms": gw10["full"]["kernel"]["bound_ms"],
         "bound_by": gw10["full"]["kernel"]["bound_by"],
         "shape": gw10["full"]["kernel"]["shape"], "library_ms": None,
-        "config11": {k: gw10["config11"]["kernel"][k] for k in
-                     ("ms", "device_ms", "queued_ms", "plain_ms", "bound_ms", "bound_by",
-                      "shape")},
+        # the route before this kernel (the what-if kernel on every compat
+        # row expanded to each member) on the same full-width tensors
+        "old_route": gw10["full"]["kernel"]["old_route"],
+        **{what: {k: rec[k] for k in ("ms", "device_ms", "queued_ms", "plain_ms", "bound_ms",
+                                      "bound_by", "shape", "old_route")}
+           for what, rec in (("config11", gw10["config11"]["kernel"]),
+                             ("main_path", cg["window1"]["kernel"]))},
     }, {
-        "name": "type_fill",
+        "name": "shard_candidate (B12)",
         "route": "cuda",
         "source": "karpenter_tpu_torch/csrc/type_shard.cu",
         "replaces": "karpenter_tpu/parallel/type_sharded.py:66",
         # config_8's solve_ffd_device over the virtual mesh of 8 shards; the
         # times and the bound are at that mesh's shard shape, (S, T / 8)
         "launches": ts["launches"], "max_abs_err": ts["max_abs_err"],
-        "ms": ts["type_fill"]["ms"], "device_ms": ts["type_fill"]["device_ms"],
-        "queued_ms": ts["type_fill"]["queued_ms"],
-        "plain_ms": ts["type_fill"]["plain_ms"],
-        "bound_ms": ts["type_fill"]["bound_ms"], "bound_by": ts["type_fill"]["bound_by"],
-        "shape": ts["type_fill"]["shape"], "library_ms": None,
-        "whole_bucket": {k: ts["type_fill"]["whole_bucket"][k] for k in
+        "ms": ts["shard_candidate"]["ms"], "device_ms": ts["shard_candidate"]["device_ms"],
+        "queued_ms": ts["shard_candidate"]["queued_ms"],
+        "plain_ms": ts["shard_candidate"]["plain_ms"],
+        "bound_ms": ts["shard_candidate"]["bound_ms"],
+        "bound_by": ts["shard_candidate"]["bound_by"],
+        "shape": ts["shard_candidate"]["shape"], "library_ms": None,
+        "whole_bucket": {k: ts["shard_candidate"]["whole_bucket"][k] for k in
                          ("ms", "device_ms", "queued_ms", "plain_ms", "bound_ms", "bound_by",
                           "shape")},
-        "launches_per_decision": ts["solves"][f"mesh{TYPE_SPMD_MESH}"]["type_fill_per_decision"],
+        "launches_per_decision": ts["solves"][f"mesh{TYPE_SPMD_MESH}"]["launches_per_decision"],
         "chunk_ms": ts["chunk_ms"],
     }]})
     print(card, flush=True)

@@ -2,27 +2,29 @@
 over a mesh (B12).
 
 The port of karpenter_tpu/parallel/type_sharded.py. Each shard of the
-mesh (parallel/mesh.py) holds T / n of the instance types; every node
-decision walks each shard's types locally (the hand kernel
-``ops/type_shard_cuda.type_fill``, csrc/type_shard.cu) and reaches the
-decision through three collectives:
+mesh (parallel/mesh.py) holds T / n of the instance types. Every node
+decision is one launch a shard of the hand kernel
+(``ops/type_shard_cuda.shard_candidate``, csrc/type_shard.cu), which walks
+the shard's types and the globally last valid type (its row replicated
+once a chunk, so each shard knows max_pods, the packer's upper bound,
+packer.go:167-170, without a collective) and returns the shard's
+candidate: the least key price * 2^32 + global index over its ties (price
+0 unless the cost tie-break is on) with that type's fill column. Two
+collectives remain:
 
 - ``pmax`` of each shard's ``maxfit``: the fast-forward bound, once a
   chunk;
-- ``psum`` of the probe of the globally last valid type (its owner
-  contributes, every other shard zero): ``max_pods``, the packer's upper
-  bound (packer.go:167-170); and ``psum`` of the chosen type's fill column
-  from its owner: the decision's pack vector;
-- ``pmin`` of each shard's first tie's global index: the first type that
-  reaches the bound (packer.go:174-183); in cost mode first a ``pmin`` of
-  each shard's lowest price among its ties.
+- ``least_key`` of the shards' candidates, once a decision: the first
+  (cheapest, then lowest-index) type that reaches the bound
+  (packer.go:174-183) and its pack vector.
 
 The collectives are written once, over a list of per-shard tensors: each
-gathers the parts on the mesh's first device by device-to-device copies,
-reduces there and sends the result back to every shard. A repeated device
-makes those copies no-ops, so a virtual mesh on one card and a mesh over
-several cards run the same code. The decision's tail (q, the drop, the
-record) runs once on the first device, which broadcasts the new counts.
+gathers the parts on the mesh's first device by device-to-device copies
+and reduces there (``pmax`` sends the result back to every shard). A
+repeated device makes those copies no-ops, so a virtual mesh on one card
+and a mesh over several cards run the same code. The decision's tail (q,
+the drop, the record) runs once on the first device, which broadcasts the
+new counts.
 
 The decision loop stops at ``done`` (the JAX ``while_loop``), reading it
 back to the host once a decision (``DONE_READS``); rows past ``done`` keep
@@ -39,7 +41,9 @@ from typing import List, Optional, Sequence, Union
 import torch
 
 from karpenter_tpu_torch.ops.pack import INT32_MAX, compute_maxfit, flatten_chunk_outputs
-from karpenter_tpu_torch.ops.type_shard_cuda import type_fill
+from karpenter_tpu_torch.ops.type_shard_cuda import (
+    HEADER, new_workspace, probe_row, row_key, shard_candidate,
+)
 from karpenter_tpu_torch.parallel.mesh import Mesh
 
 # node decisions taken, and reads of ``done`` back to the host, since the
@@ -58,19 +62,16 @@ def _send_back(value: torch.Tensor, mesh: Mesh) -> List[torch.Tensor]:
     return [value.to(d) for d in mesh]
 
 
-def psum(parts: Sequence[torch.Tensor], mesh: Mesh) -> List[torch.Tensor]:
-    """The sum of the shards' parts, on every shard (int32 stays int32)."""
-    return _send_back(_gather(parts, mesh).sum(0, dtype=parts[0].dtype), mesh)
-
-
 def pmax(parts: Sequence[torch.Tensor], mesh: Mesh) -> List[torch.Tensor]:
     """The elementwise maximum of the shards' parts, on every shard."""
     return _send_back(_gather(parts, mesh).amax(0), mesh)
 
 
-def pmin(parts: Sequence[torch.Tensor], mesh: Mesh) -> List[torch.Tensor]:
-    """The elementwise minimum of the shards' parts, on every shard."""
-    return _send_back(_gather(parts, mesh).amin(0), mesh)
+def least_key(rows: Sequence[torch.Tensor], mesh: Mesh) -> torch.Tensor:
+    """The shards' candidate rows (``shard_candidate``) gathered on the
+    first device, and the one with the least key there."""
+    stacked = _gather(rows, mesh)
+    return stacked[row_key(stacked).argmin()]
 
 
 def pack_chunk_type_sharded(
@@ -107,11 +108,12 @@ def pack_chunk_type_sharded(
         return [t[j * T_l:(j + 1) * T_l].to(d).contiguous() for j, d in enumerate(mesh)]
 
     tot, res0, val = split(totals), split(reserved0), split(valid)
-    pri = split(prices) if cost_tiebreak else None
+    pri = split(prices) if cost_tiebreak else [None] * n
     shp = [shapes.to(d) for d in mesh]
-    offsets = [j * T_l for j in range(n)]
-    iota = [torch.arange(o, o + T_l, dtype=i32, device=d) for o, d in zip(offsets, mesh)]
-    owner, owner_local = divmod(last_valid, T_l)
+    # the globally last valid type's row, replicated: each shard walks it
+    probe = probe_row(totals, reserved0, valid, last_valid)
+    probes = [probe.to(d) for d in mesh]
+    work = [new_workspace(d) for d in mesh]
 
     # fast-forward bound: each shard's maxfit, pmax over the mesh, once a chunk
     maxfit = pmax([compute_maxfit(shp[j], tot[j], res0[j], val[j]) for j in range(n)],
@@ -128,31 +130,15 @@ def pack_chunk_type_sharded(
     i = 0
     while i < L and not done:
         cs = _send_back(counts_c, mesh)
-        fills = [type_fill(shp[j], cs[j], tot[j], res0[j], val[j], pods_unit)
-                 for j in range(n)]
-        # max_pods: the globally last valid type's pods, from its owner
-        probes = [npk[owner_local:owner_local + 1] if j == owner
-                  else torch.zeros(1, dtype=i32, device=mesh[j])
-                  for j, (npk, _) in enumerate(fills)]
-        max_pods = psum(probes, mesh)
-        ties = [val[j] & (fills[j][0] == max_pods[j]) for j in range(n)]
-        if cost_tiebreak:
-            best = pmin([torch.where(ties[j], pri[j], INT32_MAX).amin().reshape(1)
+        # the decision: the least (price, index) key over every shard's ties,
+        # its row holding max_pods, the chosen index and the pack vector
+        row = least_key([shard_candidate(shp[j], cs[j], tot[j], res0[j], val[j], pri[j],
+                                         probes[j], j * T_l, pods_unit, work[j])
                          for j in range(n)], mesh)
-            ties = [ties[j] & (pri[j] == best[j]) for j in range(n)]
-        # the first tie's global index, INT32_MAX where a shard has none
-        chosen = pmin([torch.where(ties[j], iota[j], INT32_MAX).amin().reshape(1)
-                       for j in range(n)], mesh)
-        cols = []
-        for j in range(n):
-            local = chosen[j] - offsets[j]
-            mine = (local >= 0) & (local < T_l)
-            col = fills[j][1].index_select(1, local.clamp(0, T_l - 1)).reshape(S)
-            cols.append(torch.where(mine, col, 0))
-        packedv = psum(cols, mesh)[0]
+        max_pods, chosen, packedv = row[2], row[3], row[HEADER:HEADER + S]
 
         # the decision's tail, once, on the first device
-        nothing = max_pods[0][0] == 0
+        nothing = max_pods == 0
         terms = torch.where(packedv > 0, torch.div(counts_c - maxfit - 1, packedv.clamp(min=1),
                                                    rounding_mode="floor"), INT32_MAX)
         q = torch.where(nothing, 0, (1 + terms.amin()).clamp(min=1)).to(i32)
@@ -160,7 +146,7 @@ def pack_chunk_type_sharded(
         drop_vec = torch.where((positions == largest) & nothing, counts_c, 0)
         counts_c = (counts_c - q * packedv - drop_vec).to(i32)
         dropped_c = (dropped_c + drop_vec).to(i32)
-        chosen_buf[i] = torch.where(q > 0, chosen[0][0], -1)
+        chosen_buf[i] = torch.where(q > 0, chosen, -1)
         q_buf[i] = q
         packed_buf[i] = packedv
         i += 1

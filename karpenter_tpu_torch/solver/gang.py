@@ -1,13 +1,11 @@
-"""Batched gang co-pack solves (B10) on the what-if kernel, and the planner.
+"""Batched gang co-pack solves (B10) on the gang kernel, and the planner.
 
 The JAX package's ``solver/gang.py`` jits ``_gang_jit``: a vmap over the
 gangs of a window of a first-fit scan over each gang's members into a
-private copy of the shared prospective-node pool. That is ``_whatif_jit``
-with no own bin and one compat row per gang, so a gang window here is one
-launch of the hand-written what-if kernel
-(``ops/whatif_cuda.whatif_scan``, ``csrc/whatif.cu``) with ``cand_bin =
--1`` for every gang and the gang's (GB, BB) compat row expanded to (GB,
-KB, BB) on the device. It computes what ``_gang_jit`` computes, slots
+private copy of the shared prospective-node pool. A gang window here is
+one launch of the hand-written gang kernel (``ops/gang_cuda.gang_scan``,
+``csrc/gang.cu``) on the window's (GB, BB) compat rows, one a gang, and
+the shared free0 rows. It computes what ``_gang_jit`` computes, slots
 included: the scan goes on past a member that fits nowhere.
 
 :func:`dispatch_gang_window` copies the window's gang and carve arrays to
@@ -52,8 +50,8 @@ from karpenter_tpu_torch.metrics.topology import PREEMPTION_DECLINED_TOTAL
 from karpenter_tpu_torch.obs import trace as obtrace
 from karpenter_tpu_torch.ops.gang import (
     EncodedGang, GangEncoding, host_gang, verify_and_commit_gang)
+from karpenter_tpu_torch.ops.gang_cuda import gang_scan
 from karpenter_tpu_torch.ops.topology import grid_cells, host_carve, scalar_carve
-from karpenter_tpu_torch.ops.whatif_cuda import whatif_scan
 from karpenter_tpu_torch.pressure.bands import RANK
 from karpenter_tpu_torch.solver import topology as topo_solver
 from karpenter_tpu_torch.solver.host_ffd import NUM_RESOURCES
@@ -69,25 +67,6 @@ def _decline(reason: str) -> None:
     PREEMPTION_DECLINED_TOTAL.inc(reason=reason)
     with _LOCK:
         DECLINES[reason] = DECLINES.get(reason, 0) + 1
-
-
-def gang_inputs(pods: torch.Tensor, valid: torch.Tensor, compat: torch.Tensor,
-                free0: torch.Tensor) -> tuple:
-    """The what-if kernel's arguments for a padded gang window: ``compat``
-    (GB, BB) rows expanded to a contiguous (GB, KB, BB), every gang's own
-    bin -1."""
-    GB, KB = valid.shape
-    rows = compat.bool()[:, None, :].expand(GB, KB, compat.shape[1]).contiguous()
-    cand_bin = torch.full((GB,), -1, dtype=torch.int32, device=pods.device)
-    return pods, valid.bool(), rows, free0, cand_bin
-
-
-def gang_scan(pods: torch.Tensor, valid: torch.Tensor, compat: torch.Tensor,
-              free0: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(feasible (GB,), slots (GB, KB)) of a padded gang window on the
-    device of its tensors: the what-if kernel on :func:`gang_inputs`. A
-    CPU tensor runs the kernel's plain version."""
-    return whatif_scan(*gang_inputs(pods, valid, compat, free0))
 
 
 @dataclass

@@ -77,13 +77,13 @@ def configure_compilation_cache(cache_dir: str) -> bool:
 def build_libraries(device: torch.device) -> None:
     """Build every library the serving path loads, each compiler started at
     once on a thread of its own, then load them: the native ring always,
-    the three CUDA kernels on a CUDA device. The first failure raises."""
+    the four CUDA kernels on a CUDA device. The first failure raises."""
     from karpenter_tpu_torch import native
-    from karpenter_tpu_torch.ops import pack_cuda, type_shard_cuda, whatif_cuda
+    from karpenter_tpu_torch.ops import gang_cuda, pack_cuda, type_shard_cuda, whatif_cuda
 
     builds = [native.build]
     if device.type == "cuda":
-        builds += [pack_cuda.build, whatif_cuda.build, type_shard_cuda.build]
+        builds += [pack_cuda.build, whatif_cuda.build, gang_cuda.build, type_shard_cuda.build]
     errors = []
 
     def run(build):
@@ -105,6 +105,7 @@ def build_libraries(device: torch.device) -> None:
         with torch.cuda.device(device):
             pack_cuda._library()
             whatif_cuda._library()
+            gang_cuda._library()
             type_shard_cuda._library()
 
 

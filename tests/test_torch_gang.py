@@ -14,12 +14,15 @@ or a bool, so every comparison is exact (tolerance 0):
   self-heal;
 - ``encode_gang_window``: ``d_pods``, ``d_valid``, ``d_compat``,
   ``d_free0``, ``scales``, the bins and the skipped gangs;
-- B10: ``solver/gang.gang_scan`` (``whatif_scan`` with every own bin -1,
-  on CPU tensors its plain version) against ``_gang_jit`` (XLA on the
-  CPU) on ``feasible`` and every slot, over seeded padded windows and
-  encoded ones; against ``host_gang`` on ``feasible`` and on the slots of
-  feasible rows only (``host_gang`` stops at a gang's first member that
-  fits nowhere; ``_gang_jit`` and the kernel go on, ROADMAP §C);
+- B10: ``solver/gang.gang_scan`` (``ops/gang_cuda.gang_scan``, on CPU
+  tensors its plain version ``gang_scan_plain``, on the (GB, BB) compat
+  ABI) against ``_gang_jit`` (XLA on the CPU) on ``feasible`` and every
+  slot, over seeded padded windows (a wide one, negative free rows, an
+  all-incompatible row, fail-then-place, padded gangs and bins) and
+  encoded ones; never a (GB, KB, BB) tensor on the way; against
+  ``host_gang`` on ``feasible`` and on the slots of feasible rows only
+  (``host_gang`` stops at a gang's first member that fits nowhere;
+  ``_gang_jit`` and the kernel go on, ROADMAP §C);
 - ``plan_gang_window`` with the device filter and without it, against the
   JAX package's, seeds 1, 7 and 42 and a small config_11: placements with
   their node sets by pod name, unplaced gangs with their reasons.
@@ -37,6 +40,8 @@ from karpenter_tpu.controllers.provisioning import universe_constraints as jax_u
 from karpenter_tpu.ops import feasibility as jax_feasibility
 from karpenter_tpu.solver.gang import GangConfig, _gang_jit
 from karpenter_tpu_torch.ops import feasibility as port_feasibility
+from karpenter_tpu_torch.ops import gang_cuda
+from karpenter_tpu_torch.ops.gang_cuda import gang_scan_plain
 from karpenter_tpu_torch.solver.gang import gang_scan
 from karpenter_tpu_torch.solver.solve import universe_constraints as port_universe
 
@@ -323,6 +328,78 @@ def test_fail_then_place_follows_gang_jit():
     got = port_gang_scan(pods, valid, compat, free0)
     assert np.array_equal(got[0], want[0]) and np.array_equal(got[1], want[1])
     assert not got[0][0] and got[1][0, :2].tolist() == [-1, 0]
+
+
+def edge_window(rng, GB, KB, BB):
+    """random_padded with the kernel's edges: negative free rows (one on a
+    resource no member asks for, which shuts its bin), gang 1 failing then
+    placing, padded bins at the end of the row."""
+    pods, valid, compat, free0 = random_padded(rng, GB, KB, BB)
+    free0[1, 0] = -3         # an overcommitted seed node
+    free0[2, 5] = -1         # negative on a resource no member asks for
+    compat[:, -2:] = False   # padded bins
+    free0[-2:] = 0
+    pods[1, 0, :2] = 10**6   # gang 1: the first member fits nowhere
+    pods[1, 1, :3] = (1, 1, 1)
+    valid[1, :2] = True
+    compat[1, :4] = (False, False, False, True)
+    free0[3, :3] = (5, 5, 5)
+    return pods, valid, compat, free0
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+@pytest.mark.parametrize("shape", [(8, 4, 16), (4, 16, 8), (8, 64, 512)])
+def test_gang_scan_plain_equals_gang_jit_on_the_edges(seed, shape):
+    """gang_scan_plain on the (GB, BB) compat ABI against _gang_jit, bit for
+    bit, at the existing shapes and a wide one (KB = 64, BB = 512)."""
+    pods, valid, compat, free0 = edge_window(np.random.RandomState(seed), *shape)
+    want = jax_gang_jit(pods, valid, compat, free0)
+    f, s = gang_scan_plain(*(torch.from_numpy(a) for a in (pods, valid, compat, free0)))
+    assert np.array_equal(f.numpy(), want[0]) and np.array_equal(s.numpy(), want[1])
+    assert not f[0] and (s[0][valid[0]] == -1).all()       # all-incompatible
+    assert not f[1] and s[1, 0] == -1 and s[1, 1] == 3     # fail, then place
+    assert f[-1] and (s[-1] == -1).all()                   # a padded gang
+    assert not np.isin([2, shape[2] - 2, shape[2] - 1], s.numpy()).any()  # shut and padded
+
+
+def test_gang_scan_builds_no_member_by_bin_tensor():
+    """No op on gang_scan's CPU path makes a tensor of GB * KB * BB elements
+    or more: the compat row is read once a gang, never expanded to every
+    member (KB = 64 > R, so the (GB, BB, R) pool copies stay below it)."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Largest(TorchDispatchMode):
+        numel = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            for t in (out if isinstance(out, (tuple, list)) else [out]):
+                if isinstance(t, torch.Tensor):
+                    Largest.numel = max(Largest.numel, t.numel())
+            return out
+
+    GB, KB, BB = 8, 64, 512
+    args = [torch.from_numpy(a) for a in edge_window(np.random.RandomState(3), GB, KB, BB)]
+    with Largest():
+        f, s = gang_scan(*args)
+    assert s.shape == (GB, KB) and 0 < Largest.numel < GB * KB * BB
+    assert Largest.numel == GB * BB * 8  # the gangs' own pools, no more
+
+
+def test_gang_launch_geometry_by_shape():
+    """The kernel's gang state: the column words (a word per 32 bins) and
+    the debit entries past the 32 the lanes hold; shared memory while four
+    gangs' state fits 48 KB, else a global scratch."""
+    assert gang_cuda.state_words(16, 4096) == 128   # full width: 512 B a gang
+    assert gang_cuda.state_words(64, 8192) == 256 + 32 * 9
+    assert gang_cuda.state_words(4096, 64) == 2 + 32 * 9
+    full = gang_cuda.launch_geometry(16, 4096)
+    assert full == {"state": "shared", "shared_bytes": 4 * 512, "scratch_words": 0,
+                    "warps_per_block": 4}
+    assert gang_cuda.launch_geometry(64, 8192)["state"] == "shared"
+    big = gang_cuda.launch_geometry(4096, 4096)
+    assert big["state"] == "global" and big["scratch_words"] == 128 + 4064 * 9
+    assert gang_cuda.launch_geometry(1, 1 << 20)["state"] == "global"
 
 
 @pytest.mark.parametrize("seed", SEEDS)

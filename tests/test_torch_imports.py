@@ -66,6 +66,8 @@ def test_port_imports_without_jax_or_the_jax_package():
                 "karpenter_tpu_torch.models.consolidate",
                 "karpenter_tpu_torch.ops.whatif",
                 "karpenter_tpu_torch.ops.whatif_cuda",
+                "karpenter_tpu_torch.ops.gang_cuda",
+                "karpenter_tpu_torch.ops.type_shard_cuda",
                 "karpenter_tpu_torch.solver.whatif",
                 "karpenter_tpu_torch.controllers.node",
                 "karpenter_tpu_torch.controllers.termination",

@@ -29,7 +29,10 @@ from karpenter_tpu_torch.cloudprovider.fake.provider import instance_types
 from karpenter_tpu_torch.models import ffd as port_ffd
 from karpenter_tpu_torch.ops.pack import unpack_flat
 from karpenter_tpu_torch.ops.pack_cuda import pack_chunk_plain
-from karpenter_tpu_torch.ops.type_shard_cuda import type_fill, type_fill_plain
+from karpenter_tpu_torch.ops.type_shard_cuda import (
+    HEADER, INT64_MAX, out_words, probe_row, row_key, shard_candidate, shard_candidate_plain,
+    type_fill_plain,
+)
 from karpenter_tpu_torch.parallel import mesh as port_mesh
 from karpenter_tpu_torch.parallel import type_sharded
 from karpenter_tpu_torch.solver import host_ffd
@@ -151,16 +154,28 @@ def test_mesh_size_must_divide_types():
 
 
 def test_collectives_reduce_over_shards():
+    """pmax reduces elementwise onto every shard; least_key gathers the
+    shards' candidate rows and takes the one with the least signed int64
+    key (a negative price's key sorts first, the sentinel last)."""
     mesh = port_mesh.type_mesh(["cpu"] * 3)
     parts = [torch.tensor([1, 5, -2], dtype=torch.int32),
              torch.tensor([4, 0, 7], dtype=torch.int32),
              torch.tensor([2, 2, 2], dtype=torch.int32)]
-    for fn, want in ((type_sharded.psum, [7, 7, 7]), (type_sharded.pmax, [4, 5, 7]),
-                     (type_sharded.pmin, [1, 0, -2])):
-        out = fn(parts, mesh)
-        assert len(out) == 3
-        for t in out:
-            assert t.dtype == torch.int32 and t.tolist() == want
+    out = type_sharded.pmax(parts, mesh)
+    assert len(out) == 3
+    for t in out:
+        assert t.dtype == torch.int32 and t.tolist() == [4, 5, 7]
+
+    def row(key, tag):
+        r = torch.full((out_words(3),), tag, dtype=torch.int32)
+        r[:2] = torch.tensor([key], dtype=torch.int64).view(torch.int32)
+        return r
+
+    for keys, want in (([7, 3, 5], 1), ([2**32 + 1, 2**33, -(2**32) + 9], 2),
+                       ([INT64_MAX, 4, INT64_MAX], 1), ([INT64_MAX] * 3, 0)):
+        rows = [row(k, tag) for tag, k in enumerate(keys)]
+        got = type_sharded.least_key(rows, mesh)
+        assert torch.equal(got, rows[want]) and int(row_key(got)) == keys[want]
 
 
 # -- the fill walk against the JAX walk ---------------------------------------
@@ -217,9 +232,13 @@ def test_type_fill_plain_matches_the_jax_walk(seed, S, T):
     np.testing.assert_array_equal(k.numpy(), want_k)
     np.testing.assert_array_equal(npacked.numpy(), want_np)
     assert stats["shape_steps"] >= 1 and stats["type_steps"] >= 1
-    # the wrapper takes the plain version for a CPU tensor
-    np_w, k_w = type_fill(*args)
-    assert torch.equal(np_w, npacked) and torch.equal(k_w, k)
+    # the wrapper takes the plain version for a CPU tensor, whose walk this is
+    last = int(np.flatnonzero(valid)[-1])
+    probe = probe_row(*args[2:5], last)
+    got = shard_candidate(*args[:5], None, probe, 0, pods_unit)
+    assert torch.equal(got, shard_candidate_plain(*args[:5], None, probe, 0, pods_unit))
+    assert int(got[2]) == int(npacked[last])
+    assert torch.equal(got[HEADER:HEADER + S], k[:, int(got[3])])
 
 
 def test_type_fill_with_nothing_live_is_zero():
@@ -231,12 +250,129 @@ def test_type_fill_with_nothing_live_is_zero():
 
 
 def test_type_fill_refuses_another_device():
+    meta = dict(dtype=torch.int32, device="meta")
     with pytest.raises(ValueError):
-        type_fill(torch.zeros((8, 8), dtype=torch.int32, device="meta"),
-                  torch.zeros(8, dtype=torch.int32, device="meta"),
-                  torch.zeros((8, 8), dtype=torch.int32, device="meta"),
-                  torch.zeros((8, 8), dtype=torch.int32, device="meta"),
-                  torch.zeros(8, dtype=torch.bool, device="meta"), 1)
+        shard_candidate(torch.zeros((8, 8), **meta), torch.zeros(8, **meta),
+                        torch.zeros((8, 8), **meta), torch.zeros((8, 8), **meta),
+                        torch.zeros(8, dtype=torch.bool, device="meta"), None,
+                        torch.zeros(17, **meta), 0, 1)
+
+
+# -- one shard's candidate against the JAX decision ---------------------------
+
+def jax_shard_reference(walk, valid, prices, last_valid, j, T_l, cost):
+    """What ``_local_pack`` computes on shard ``j`` of ``T_l`` types before
+    its cross-shard reductions, from the JAX walk of every type: max_pods
+    (the probe of last_valid), best_price (the least price over the
+    shard's ties; the shard's part of the cost pmin), local_first (its first
+    tie at that price) and that type's column."""
+    npacked, k = walk
+    max_pods = int(npacked[last_valid]) if 0 <= last_valid < len(npacked) else 0
+    lo = j * T_l
+    ties = [t for t in range(lo, lo + T_l) if valid[t] and npacked[t] == max_pods]
+    best_price = min((int(prices[t]) for t in ties), default=INT32_MAX) if cost else 0
+    firsts = [t for t in ties if not cost or int(prices[t]) == best_price]
+    local_first = firsts[0] if firsts else INT32_MAX
+    col = k[:, local_first] if firsts else np.zeros(k.shape[0], np.int64)
+    return max_pods, best_price, local_first, col
+
+
+@pytest.mark.parametrize("cost", [False, True])
+@pytest.mark.parametrize("owner", [0, 1, 2, 3])
+def test_shard_candidate_matches_local_pack(owner, cost):
+    """Four shards of 8 types; last_valid is put in each shard position in
+    turn (the types after it made invalid). Each shard's candidate row
+    holds the JAX walk's max_pods, the key (best_price, local_first) and
+    local_first's column; the least key over the shards is the JAX chunk's
+    first decision (chosen and pack vector, one decision on 4 devices)."""
+    n, T = 4, 32
+    T_l = T // n
+    shapes, counts, totals, reserved0, valid, pods_unit = walk_problem(11 + owner, 16, T)
+    last_valid = owner * T_l + 5
+    valid[last_valid] = True
+    valid[last_valid + 1:] = False
+    totals[last_valid] = totals.max(axis=0)  # the largest type, as encode sorts them
+    reserved0[last_valid] = 0
+    rng = np.random.default_rng(owner)
+    prices = rng.integers(-3, 4, T).astype(np.int32)  # many equal and negative prices
+    walk = jax_walk(shapes, counts, totals, reserved0, valid, pods_unit)
+    rows = []
+    for j in range(n):
+        sl = slice(j * T_l, (j + 1) * T_l)
+        probe = probe_row(torch.as_tensor(totals), torch.as_tensor(reserved0),
+                          torch.as_tensor(valid), last_valid)
+        row = shard_candidate(torch.as_tensor(shapes), torch.as_tensor(counts),
+                              torch.as_tensor(totals[sl]), torch.as_tensor(reserved0[sl]),
+                              torch.as_tensor(valid[sl]),
+                              torch.as_tensor(prices[sl]) if cost else None, probe, j * T_l,
+                              pods_unit)
+        max_pods, best_price, local_first, col = jax_shard_reference(
+            walk, valid, prices, last_valid, j, T_l, cost)
+        want_key = INT64_MAX if local_first == INT32_MAX else best_price * 2**32 + local_first
+        assert int(row[2]) == max_pods
+        assert int(row_key(row)) == want_key and int(row[3]) == local_first
+        np.testing.assert_array_equal(row[HEADER:HEADER + 16].numpy(), col)
+        rows.append(row)
+    best = type_sharded.least_key(rows, port_mesh.type_mesh(["cpu"] * n))
+    enc = SimpleNamespace(shapes=shapes, counts=counts, totals=totals, reserved0=reserved0,
+                          valid=valid, last_valid=last_valid, pods_unit=pods_unit)
+    buf = run_jax_arrays(enc, n, prices if cost else None, cost, 1)
+    _, _, _, chosen, q, packed = unpack_flat(buf, 16, 1)
+    assert q[0] > 0 and chosen[0] == int(best[3])
+    np.testing.assert_array_equal(packed[0], best[HEADER:HEADER + 16].numpy())
+
+
+def run_jax_arrays(enc, n, prices, cost, num_iters):
+    """The JAX chunk on raw encoded arrays over ``n`` virtual devices."""
+    mesh = jax_type_sharded.type_mesh(cpu_mesh_devices(n))
+    kw = dict(prices=prices, cost_tiebreak=True) if cost else {}
+    return np.asarray(jax_type_sharded.pack_chunk_type_sharded(
+        enc.shapes, enc.counts, np.zeros_like(enc.counts), enc.totals, enc.reserved0,
+        enc.valid, np.int32(enc.last_valid), np.int32(enc.pods_unit), num_iters=num_iters,
+        mesh=mesh, **kw))
+
+
+@pytest.mark.parametrize("n", [2, 4])
+def test_no_shard_has_a_tie_when_every_type_is_invalid(n):
+    """Every type invalid: the probe packs nothing, no shard has a tie, each
+    row holds the sentinel key, INT32_MAX and a zero column; the chunk
+    drops the largest shape each decision, as the JAX package's does."""
+    shapes, counts, totals, reserved0, valid, pods_unit = walk_problem(5, 16, 32)
+    valid[:] = False
+    counts[:] = 0
+    counts[[2, 9]] = (3, 4)
+    probe = probe_row(torch.as_tensor(totals), torch.as_tensor(reserved0),
+                      torch.as_tensor(valid), 31)
+    T_l = 32 // n
+    for j in range(n):
+        sl = slice(j * T_l, (j + 1) * T_l)
+        row = shard_candidate(torch.as_tensor(shapes), torch.as_tensor(counts),
+                              torch.as_tensor(totals[sl]), torch.as_tensor(reserved0[sl]),
+                              torch.as_tensor(valid[sl]), None, probe, j * T_l, pods_unit)
+        assert int(row_key(row)) == INT64_MAX and int(row[2]) == 0
+        assert int(row[3]) == INT32_MAX and not row[HEADER:].any()
+    enc = SimpleNamespace(shapes=shapes, counts=counts, totals=totals, reserved0=reserved0,
+                          valid=valid, last_valid=31, pods_unit=pods_unit)
+    want = run_jax_arrays(enc, n, None, False, 4)
+    got = type_sharded.pack_chunk_type_sharded(
+        *(torch.as_tensor(a) for a in (shapes, counts, np.zeros_like(counts), totals,
+                                       reserved0, valid)), 31, pods_unit, num_iters=4,
+        mesh=port_mesh.type_mesh(["cpu"] * n)).numpy()
+    np.testing.assert_array_equal(got, want)
+    _, dropped, done, chosen, q, _ = unpack_flat(got, 16, 4)
+    assert done and dropped.sum() == 7 and (q == 0).all() and (chosen == -1).all()
+
+
+@pytest.mark.parametrize("n", [2, 8])
+def test_a_price_tie_is_broken_by_index(n):
+    """Every type at one price with the cost tie-break on: the least index
+    among the ties wins across shards, as without prices, and the stream
+    is the JAX package's."""
+    enc, prices = jax_problem(16, suite_pods(250))
+    flat = np.full_like(prices, 7)
+    got = run_port(enc, n, flat, cost=True)
+    np.testing.assert_array_equal(got, run_jax(enc, n, flat, cost=True))
+    np.testing.assert_array_equal(got, run_port(enc, n))
 
 
 # -- the route through solve_ffd_device and the solver ---------------------------
