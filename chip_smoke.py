@@ -5,8 +5,9 @@ type-axis SPMD chunk over a device mesh, the provisioning controller, the
 global window backend, node removal (consolidation, termination,
 emptiness), pod-(anti-)affinity, the packing policies, gangs, torus
 carving and preemption, the delta-marshal window stream and the columnar
-controller at full size on one card, and observe a window through the
-port's metrics, traces, SLO engine and flight recorder; then the native
+controller at full size on one card, the windows over a solver mesh,
+and observe a window through the port's metrics, traces, SLO engine and
+flight recorder; then the native
 host ring and its gate, the boot warm-up, the controller process
 (main.build_manager under its Manager, and ``python -m
 karpenter_tpu_torch.main`` as a process of its own, booted from the
@@ -84,6 +85,16 @@ nvcc each, all at once). Phases, each printing one JSON record:
 8. mixed window: 23 of those schedules and one of 25,000 high-cardinality
    pods (the 8192 bucket, compaction across problems), every problem equal
    to solo solve(), the buckets walked and the launches;
+8'. mesh: the port's dryrun_multichip (__graft_entry__.py:58-): 50,000
+   pods over 400 types in 8·n schedules through solve_batch over a
+   virtual solver mesh of 4 shards on the first card (and the mesh of
+   every card on a host with several), each shard's tensors on its
+   device; node counts equal the one-device run's and the native
+   per-pod oracle's; repack_plan_multi, config_14's global window, a
+   deprovision-shaped what-if window and config_11's gang window over the
+   mesh bit for bit with one device, each window's time beside the
+   one-device time; all-padding rows through pack_batch bit for bit with
+   the plain version (phase_mesh);
 8a. marshal_delta: config_10 at full size (20,000 pods over
    MIXED_SHAPES, make_catalog(100), 12 windows of 10 % object churn, seed
    42) through marshal_pods_interned, build_packables_versioned and
@@ -1426,6 +1437,289 @@ def phase_mixed_window(device):
 # -- the provisioning controller: pods in, nodes and binds out ---------------
 
 MARSHAL_PODS, MARSHAL_WINDOWS, MARSHAL_CHURN, MARSHAL_TYPES = 20_000, 12, 0.10, 100
+MESH_VIRTUAL = 4          # shards of the virtual mesh on the first card
+MESH_PODS, MESH_TYPES = 50_000, 400
+MESH_SEED = 20260730
+MESH_MIN_DISTINCT = 8000  # distinct request vectors of the window, at least
+
+
+def mesh_problems(n):
+    """__graft_entry__.dryrun_multichip's production shape for a mesh of
+    n: B = 8·n schedules sharing 50,000 pods over the 400-type catalog,
+    each over 128 seeded cpu sizes × six memory sizes (over 8,000 distinct
+    request vectors in all)."""
+    from karpenter_tpu_torch.solver.batch_solve import Problem
+    from karpenter_tpu_torch.solver.solve import universe_constraints
+
+    catalog = make_catalog(MESH_TYPES)
+    constraints = universe_constraints(catalog)
+    rng = random.Random(MESH_SEED)
+    mems = (64, 128, 256, 512, 1024, 2048)
+    B = 8 * n
+    per = MESH_PODS // B
+    problems = []
+    for _ in range(B):
+        cpus = [rng.randint(50, 3999) for _ in range(128)]
+        problems.append(Problem(constraints=constraints, instance_types=catalog, pods=[
+            _pod(cpus[i % len(cpus)], mems[i % len(mems)]) for i in range(per)]))
+    return problems
+
+
+def mesh_fleets(n, catalog):
+    """dryrun_multichip's consolidation fleets: max(2, n // 2) fleets of six
+    nodes of the catalog's largest type, three pods a node."""
+    from karpenter_tpu_torch.api import wellknown as wk
+    from karpenter_tpu_torch.api.core import Node, NodeSpec, NodeStatus, ObjectMeta
+    from karpenter_tpu_torch.models.consolidate import Fleet
+    from karpenter_tpu_torch.solver.solve import universe_constraints
+    from karpenter_tpu_torch.utils.resources import parse_resource_list
+
+    big = max(catalog, key=lambda it: it.cpu.nano)
+    fleets = []
+    for f in range(max(2, n // 2)):
+        nodes, pods_by = [], {}
+        for i in range(6):
+            name = f"fleet{f}-frag-{i}"
+            nodes.append(Node(
+                metadata=ObjectMeta(name=name, namespace="", labels={
+                    wk.LABEL_INSTANCE_TYPE: big.name, wk.PROVISIONER_NAME_LABEL: f"fleet-{f}"}),
+                spec=NodeSpec(), status=NodeStatus(allocatable=parse_resource_list({
+                    "cpu": str(big.cpu), "memory": str(big.memory), "pods": str(big.pods)}))))
+            pods_by[name] = [_pod(250 + 50 * f, 256) for _ in range(3)]
+        fleets.append(Fleet(nodes, pods_by, universe_constraints(catalog), catalog))
+    return fleets
+
+
+def wall_ms(fn):
+    """``fn()`` and its wall ms, the card synchronised after it."""
+    import torch
+
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1000.0
+
+
+def in_turns(fn, one, mesh):
+    """``fn(device)``'s wall ms on the one-device mesh ``one`` and on
+    ``mesh`` in turns (one, mesh, mesh, one): two readings each."""
+    ms = {"one": [], "mesh": []}
+    for which in ("one", "mesh", "mesh", "one"):
+        ms[which].append(wall_ms(lambda: fn(one if which == "one" else mesh))[1])
+    return ms["one"], ms["mesh"]
+
+
+def mesh_windows(mesh, one, problems, fleets, gang_enc, whatif_enc):
+    """The provisioning window, repack_plan_multi, the global, what-if and
+    gang windows over ``mesh`` against the same over the one-device mesh
+    ``one``, bit for bit; then each window's wall ms over the mesh beside
+    the one device's, warm, in turns (in_turns), and, from a run after
+    those, the device ms of the global program and of the what-if and gang
+    kernels (CUDA events; the longest shard's, and the shards' sum for the
+    program)."""
+    import numpy as np
+    import torch
+
+    from karpenter_tpu_torch.models.consolidate import repack_plan_multi
+    from karpenter_tpu_torch.ops import gang_cuda, pack_cuda, whatif_cuda
+    from karpenter_tpu_torch.ops import global_solve as gops
+    from karpenter_tpu_torch.ops.gang_cuda import gang_scan_plain
+    from karpenter_tpu_torch.solver import global_solve as gs
+    from karpenter_tpu_torch.solver.batch_solve import dispatch_batch, solve_batch
+    from karpenter_tpu_torch.solver.gang import dispatch_gang_window
+    from karpenter_tpu_torch.solver.whatif import dispatch_window
+
+    n = len(mesh)
+    cfg = card_config()
+    rec = {"shards": n, "devices": [str(d) for d in mesh], "schedules": len(problems),
+           "pods": sum(len(p.pods) for p in problems), "ms": {}, "one_device_ms": {}}
+
+    def canon(results, probs):
+        return [canonical(r, p.pods) for r, p in zip(results, probs)]
+
+    # the provisioning window: the main path over the mesh, its launches
+    # counted from 0, every shard's tensors on its device
+    base, _ = wall_ms(lambda: solve_batch(problems, cfg, device=one))
+    reset_counts()
+    handle = dispatch_batch(problems, cfg, device=mesh)
+    run, fused = handle.device_run, handle.fused
+    check(run is not None and fused is not None and len(run.shards) == n,
+          f"mesh {n}: the window did not fuse and shard")
+    for k, sh in enumerate(run.shards):
+        names = ("shapes_d", "counts_d", "dropped_d", "totals_d", "reserved0_d", "valid_d",
+                 "last_valid_d", "pods_unit_d", "maxfit_d")
+        check(all(getattr(sh, t).device == mesh[k] for t in names)
+              and all(t.device == mesh[k] for t in fused.shards[k]),
+              f"mesh {n}: shard {k}'s tensors are not on {mesh[k]}")
+    got = handle.fetch()
+    torch.cuda.synchronize()
+    launches = pack_cuda.BATCH_LAUNCHES + pack_cuda.LAUNCHES
+    # (the wrappers count launches of their kernels, none on the CPU)
+    on_card = mesh[0].type == "cuda"
+    check(launches == run.launches * on_card and run.launches >= n
+          and all(sh.launches >= 1 for sh in run.shards),
+          f"mesh {n}: {launches} pack launches for a run of {run.launches}")
+    check(executor_counts() == {"device-batch": len(problems)},
+          f"mesh {n}: answered by {executor_counts()}")
+    check(canon(got, problems) == canon(base, problems),
+          f"mesh {n}: a problem differs from the one-device window")
+    rec.update(launches=launches, launches_per_shard=[sh.launches for sh in run.shards],
+               buckets_per_shard=[sh.buckets for sh in run.shards],
+               nodes=sum(r.node_count for r in got),
+               nodes_per_problem=[r.node_count for r in got],
+               unschedulable=sum(len(r.unschedulable) for r in got))
+    rec["one_device_ms"]["window"], rec["ms"]["window"] = in_turns(
+        lambda dev: solve_batch(problems, cfg, device=dev), one, mesh)
+
+    # repack_plan_multi through the same path
+    def plans(dev):
+        return [(p.current_nodes, [x.metadata.name for x in p.nodes_to_remove],
+                 p.planned_cost_per_hour, canonical(p.replacement, [
+                     q for ps in f.pods_by_node.values() for q in ps]))
+                for p, f in zip(repack_plan_multi(fleets, cfg, device=dev), fleets)]
+
+    check(plans(mesh) == plans(one), f"mesh {n}: repack_plan_multi differs from one device")
+    rec["one_device_ms"]["repack"], rec["ms"]["repack"] = in_turns(plans, one, mesh)
+
+    # config_14's global window (16 rows)
+    def global_plan(dev):
+        gops.SUPPORT.reset()
+        h = gs.dispatch_global_window(config14_problems(), cfg, device=dev)
+        plan = h.fetch()
+        return h, (verdicts(plan), [None if r is None else r.node_count
+                                    for r in plan.results])
+
+    gh1, want = global_plan(one)
+    gh, got_g = global_plan(mesh)
+    check(got_g == want, f"mesh {n}: the global window differs from one device")
+    check(len(gh.shards) == (n if gh.win.b % n == 0 else 1), f"mesh {n}: global shards")
+    check(all(sh[0].device == mesh[k] for k, sh in enumerate(gh.shards)),
+          f"mesh {n}: a global shard off its device")
+    check(np.array_equal(np.concatenate([sh[0].cpu().numpy() for sh in gh.shards]),
+                         gh1.shards[0][0].cpu().numpy()),
+          f"mesh {n}: the global node counts differ from one device's")
+    rec["global_shards"] = len(gh.shards)
+    rec["one_device_ms"]["global"], rec["ms"]["global"] = in_turns(global_plan, one, mesh)
+    if on_card:
+        # warm: the handles of a run after in_turns
+        gh1, gh = global_plan(one)[0], global_plan(mesh)[0]
+        rec["global_program_ms"] = {
+            "one": gh1.program_ms, "mesh_longest": gh.program_ms,
+            "mesh_sum": sum(s.elapsed_time(e) for _, s, e in gh.shards)}
+
+    # a deprovision-shaped what-if window
+    def whatif(dev):
+        h = dispatch_window(whatif_enc, dev)
+        f, s, ex = h.fetch()
+        return h, (f.tobytes(), s.tobytes(), ex)
+
+    _, want = whatif(one)
+    w0 = whatif_cuda.LAUNCHES
+    wh, got_w = whatif(mesh)
+    check(got_w == want and got_w[2] == "device-whatif",
+          f"mesh {n}: the what-if window differs from one device")
+    check(whatif_cuda.LAUNCHES - w0 == n * on_card, f"mesh {n}: what-if launches")
+    rec["one_device_ms"]["whatif"], rec["ms"]["whatif"] = in_turns(whatif, one, mesh)
+    rec["whatif_kernel_ms"] = {"one": whatif(one)[0].kernel_ms,
+                               "mesh_longest": whatif(mesh)[0].kernel_ms}
+
+    # config_11's gang window
+    def gang(dev):
+        h = dispatch_gang_window(gang_enc, dev)
+        f, s, ex = h.fetch()
+        return h, (f.tobytes(), s.tobytes(), ex)
+
+    _, want = gang(one)
+    g0 = gang_cuda.LAUNCHES
+    gh, got_gang = gang(mesh)
+    check(got_gang == want and got_gang[2] == "device-gang",
+          f"mesh {n}: the gang window differs from one device")
+    check(gang_cuda.LAUNCHES - g0 == len(gh.shards) * on_card and len(gh.shards) == n,
+          f"mesh {n}: gang launches")
+    check(all(t.device == sh.device == mesh[k] for k, sh in enumerate(gh.shards)
+              for t in sh.inputs), f"mesh {n}: a gang shard off its device")
+    pf, _ = gang_scan_plain(*gh.inputs)
+    check(pf.cpu().numpy()[:gang_enc.g].tobytes() == got_gang[0],
+          f"mesh {n}: the gathered gang inputs disagree with the plain version")
+    rec["one_device_ms"]["gang"], rec["ms"]["gang"] = in_turns(gang, one, mesh)
+    rec["gang_kernel_ms"] = {"one": gang(one)[0].kernel_ms,
+                             "mesh_longest": gang(mesh)[0].kernel_ms}
+    return rec
+
+
+def phase_mesh(device):
+    """The port's dryrun_multichip (__graft_entry__.py:58-): each window's
+    batch axis split over a solver mesh, a virtual mesh of MESH_VIRTUAL
+    shards on the first card and, on a host with more than one card, the
+    mesh of every card, at the production shape (mesh_problems: 50,000
+    pods over 400 types in B = 8·n schedules through solve_batch). Node
+    counts equal the one-device run's and the native per-pod oracle's;
+    repack_plan_multi, config_14's global window, a deprovision-shaped
+    what-if window and config_11's gang window over the mesh bit for bit
+    with the one-device run; every shard's tensors on its mesh device;
+    each window's time beside the one-device time. The batched kernel also
+    takes a batch with all-padding rows (pad_problems to a mesh of
+    MESH_VIRTUAL) bit for bit with its plain version, its error word 0."""
+    import torch
+
+    from karpenter_tpu_torch.ops.encode import encode, pad_encoding
+    from karpenter_tpu_torch.ops.pack import compute_maxfit
+    from karpenter_tpu_torch.parallel import batched_pack
+    from karpenter_tpu_torch.parallel.mesh import resolve_mesh, solver_mesh
+    from karpenter_tpu_torch.solver.adapter import build_packables_cached, pod_vectors
+    from karpenter_tpu_torch.solver.native_ffd import solve_ffd_per_pod_native
+
+    one = solver_mesh([device])
+    cards = torch.cuda.device_count()
+    default = resolve_mesh(None)
+    check(default == tuple(torch.device("cuda", i) for i in range(cards)),
+          f"mesh: the default mesh is {default}")
+    meshes = [("virtual", solver_mesh([device] * MESH_VIRTUAL))]
+    if cards > 1:
+        meshes.append(("cards", default))
+    emit({"phase": "mesh_plan", "meshes": [[what, [str(d) for d in m]] for what, m in meshes],
+          "default_mesh": [str(d) for d in default]})
+    catalog = make_catalog(MESH_TYPES)
+    fleets = mesh_fleets(MESH_VIRTUAL, catalog)
+    gang_enc = config11_gang_encoding(device)
+    whatif_enc = deprovision_shaped_window()
+    out = {"phase": "mesh", "default_mesh": [str(d) for d in default], "runs": []}
+    for what, mesh in meshes:
+        problems = mesh_problems(len(mesh))
+        distinct = len({tuple(v) for prob in problems for v in pod_vectors(prob.pods)})
+        check(distinct > MESH_MIN_DISTINCT, f"mesh: {distinct} distinct request vectors")
+        rec = mesh_windows(mesh, one, problems, fleets, gang_enc, whatif_enc)
+        # the native per-pod oracle (Go semantics), problem for problem
+        for b, prob in enumerate(problems):
+            packables, _ = build_packables_cached(prob.instance_types, prob.constraints,
+                                                  prob.pods, ())
+            oracle = solve_ffd_per_pod_native(pod_vectors(prob.pods),
+                                              list(range(len(prob.pods))), packables)
+            check(oracle is not None and not oracle.unschedulable
+                  and oracle.node_count == rec["nodes_per_problem"][b],
+                  f"mesh: problem {b} != the native oracle")
+        check(rec["unschedulable"] == 0, "mesh: unschedulable pods")
+        out["runs"].append({"mesh": what, "distinct_vectors": distinct, **rec})
+
+    # all-padding rows through the batched kernel: one schedule of the
+    # window padded to a mesh of MESH_VIRTUAL, a chunk of 8 decisions
+    prob = problems[0]
+    packables, _ = build_packables_cached(prob.instance_types, prob.constraints, prob.pods, ())
+    enc = pad_encoding(encode(pod_vectors(prob.pods), list(range(len(prob.pods))), packables,
+                              pad=False))
+    *host, _ = batched_pack.pad_problems([enc], MESH_VIRTUAL)
+    args = tuple(torch.from_numpy(a).to(device) for a in host)
+    maxfit = compute_maxfit(args[0], args[3], args[4], args[5])
+    ok, err, got, _ = compare_batch(args, 8, None, False, maxfit, [])
+    # unpack_batch_flat raises on a row's error word
+    _, _, done, _, q, _ = batched_pack.unpack_batch_flat(got.cpu().numpy(), args[0].shape[1], 8)
+    check(ok and err == 0 and done[1:].all() and not q[1:].any(),
+          "mesh: the all-padding rows through pack_batch")
+    out["padding_rows"] = {"rows": MESH_VIRTUAL - 1, "max_abs_err": err}
+    emit(out)
+    return out
+
+
 RING_PROBE_BYTES = 16 << 20
 
 
@@ -8443,7 +8737,10 @@ def main(argv) -> int:
         return 2
     from karpenter_tpu_torch.ops import gang_cuda, pack_cuda, type_shard_cuda, whatif_cuda
 
-    device = torch.device("cuda")
+    # the first card, named: a one-device mesh for every phase, so each
+    # holds its launch counts on a host with several cards; the mesh phase
+    # runs the meshes
+    device = torch.device("cuda", 0)
     card = card_line()
     if argv:
         emit({"phase": "card", "nvidia_smi": card})
@@ -8488,6 +8785,7 @@ def main(argv) -> int:
     win = timed("window_416", phase_window, device, 416, WARM_RUNS)   # 9,984 pods
     timed("window_2084", phase_window, device, 2084, WARM_RUNS)       # 50,016 pods
     timed("mixed_window", phase_mixed_window, device)
+    timed("mesh", phase_mesh, device)
     md = timed("marshal_delta", phase_marshal_delta, device)
     timed("controller", phase_controller, device)
     cc = timed("controller_columnar", phase_controller_columnar, device)

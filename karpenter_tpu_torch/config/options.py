@@ -8,7 +8,11 @@ The JAX package's flags, environment names, defaults and checks, with
 these differences:
 
 - ``--device`` (``cuda``, the default, or ``cpu``) names where the solver
-  and its kernels run; it takes the place of ``JAX_PLATFORMS``;
+  and its kernels run; it takes the place of ``JAX_PLATFORMS``: ``cuda``
+  is the solver mesh of every visible card (``CUDA_VISIBLE_DEVICES``
+  restricts it, as it restricts ``jax.devices()``), over which every
+  device window splits its rows (parallel/mesh.py), ``cpu`` one CPU
+  device;
 - ``--trace-annotations`` replaces ``--trace-jax``: every entered span is
   also a ``torch.profiler.record_function`` range;
 - ``--solver-use-device`` is gone: the port always solves a problem at or
@@ -281,7 +285,8 @@ def parse(argv: Optional[List[str]] = None) -> Options:
     p.add_argument("--device", choices=["cuda", "cpu"],
                    default=_env("device", defaults.device),
                    help="where the solver and its kernels run: cuda (the "
-                        "card) or cpu (the plain PyTorch versions)")
+                        "mesh of every visible card) or cpu (the plain "
+                        "PyTorch versions)")
     p.add_argument("--pipeline-depth", type=int,
                    default=_env("pipeline-depth", defaults.pipeline_depth),
                    help="provisioning pipeline depth: solve chunks in "

@@ -38,7 +38,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 from karpenter_tpu_torch.api import wellknown
 from karpenter_tpu_torch.api.core import Node, Pod
-from karpenter_tpu_torch.backend import DeviceLike, resolve_device
+from karpenter_tpu_torch.parallel.mesh import MeshLike, resolve_mesh
 from karpenter_tpu_torch.metrics.consolidation import (
     CONSOLIDATION_CANDIDATES_TOTAL, CONSOLIDATION_DRAINS_TOTAL, CONSOLIDATION_FILTERED_TOTAL,
     CONSOLIDATION_RECLAIMED_TOTAL, CONSOLIDATION_SOLVE_SECONDS, CONSOLIDATION_UNKNOWN_TYPE_TOTAL,
@@ -141,8 +141,9 @@ class _PdbHeadroom:
 
 
 class ConsolidationController:
-    """Watches Provisioners; one batched what-if window per reconcile on
-    ``device`` (default: the CUDA device; ``"cpu"`` runs the plain
+    """Watches Provisioners; one batched what-if window per reconcile over
+    the mesh ``device`` resolves to (parallel/mesh.resolve_mesh; default:
+    the solver mesh of every CUDA device; ``"cpu"`` runs the plain
     version)."""
 
     REQUEUE_SECONDS = 30.0
@@ -150,11 +151,12 @@ class ConsolidationController:
     def __init__(self, kube: KubeCore, provider=None,
                  max_actions_per_pass: int = 8,
                  repack_cost_per_hour: float = 0.0,
-                 device: DeviceLike = None, journal=None):
+                 device: MeshLike = None, journal=None):
         self.kube = kube
         self.journal = journal
         self.provider = provider
-        self.device = resolve_device(device)
+        self.mesh = resolve_mesh(device)
+        self.device = self.mesh[0]
         self.max_actions_per_pass = max_actions_per_pass
         # interruption-priced handoff: spot nodes' keep-cost carries their
         # reclaim tax, so savings rank risk as well as discount
@@ -271,7 +273,7 @@ class ConsolidationController:
         with obtrace.span("encode", candidates=len(cand_idx), bins=len(bins)):
             enc = encode_window(bins, cand_idx, cand_movable)
         t1 = time.perf_counter()
-        handle = dispatch_window(enc, self.device)
+        handle = dispatch_window(enc, self.mesh)
         t2 = time.perf_counter()
         feasible, slots, executor = handle.fetch()
         t3 = time.perf_counter()

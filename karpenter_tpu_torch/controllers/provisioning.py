@@ -16,18 +16,20 @@ Both deployment shapes of the reference come with it: ``shards=0`` (one
 worker per Provisioner) and ``shards=N`` (N long-lived shard workers, each
 Provisioner's engine on shard ``crc32(name) % N``). They share the code.
 
-The device is resolved once, when the controller or a worker is made, so a
-missing card raises there and not halfway through a window. Every window
-runs on it: ``dispatch_batch`` answers each schedule (``"device-batch"``,
-or ``"device"`` for a lone problem) and the global backend its relaxation
-(``"device-global"``). The window never drops to a host oracle: an error
+The solver mesh (parallel/mesh.py: every visible card by default, or the
+one device named) is resolved once, when the controller or a worker is
+made, so a missing card raises there and not halfway through a window.
+Every window splits its rows over it: ``dispatch_batch`` answers each
+schedule (``"device-batch"``, or ``"device"`` for a lone problem, on the
+mesh's first device), the global backend its relaxation
+(``"device-global"``) and the gang window its gangs. The window never drops to a host oracle: an error
 of ``dispatch_batch`` or of its fetch propagates through the pipeline's
 drain. The one error that is caught is the global leg's, as the reference
 catches it: the chunk keeps its FFD plans, which came from the same device
 path, and the worker counts it in ``global_errors``.
 
-The scheduler injects pod-(anti-)affinity (its match matrix on the same
-device). The packing policy and its context ride the worker's
+The scheduler injects pod-(anti-)affinity (its match matrix on the
+mesh's first device). The packing policy and its context ride the worker's
 ``solver_config``; under ``interruption-priced`` with no pinned repack
 price, each chunk prices its own (``_chunk_solver_config``), and a
 schedule with soft-affinity votes launches in the zone its row was priced
@@ -81,7 +83,7 @@ from karpenter_tpu_torch.api.constraints import Constraints
 from karpenter_tpu_torch.api.core import Node, NodeSelectorRequirement, Pod, Taint
 from karpenter_tpu_torch.api.gang import gang_of
 from karpenter_tpu_torch.api.provisioner import Provisioner, set_condition
-from karpenter_tpu_torch.backend import DeviceLike, resolve_device
+from karpenter_tpu_torch.parallel.mesh import MeshLike, resolve_mesh
 from karpenter_tpu_torch.cloudprovider.spi import CloudProvider
 from karpenter_tpu_torch import pressure
 from karpenter_tpu_torch.metrics.gang import (
@@ -175,7 +177,7 @@ class ProvisionerEngine:
 
     def __init__(self, provisioner: Provisioner, kube: KubeCore,
                  pipeline_config: Optional[PipelineConfig] = None,
-                 device: DeviceLike = None, shard: str = ""):
+                 device=None, shard: str = ""):
         self.provisioner = provisioner
         self.pipeline_config = pipeline_config or PipelineConfig()
         self.pipeline = SolvePipeline(self.pipeline_config, shard=shard)
@@ -186,8 +188,9 @@ class ProvisionerWorker:
     """One intake shard: a thread + bounded priority batcher hosting the
     engine(s) of the Provisioner(s) assigned to it (provisioner.go:41-76).
 
-    ``device`` (default: the CUDA device; ``"cpu"`` runs the plain
-    versions) is resolved here, once. After each window ``last_window``
+    ``device`` (default: the solver mesh of every CUDA device; ``"cpu"``
+    runs the plain versions; a sequence of devices is a mesh over them)
+    is resolved to a mesh here, once. After each window ``last_window``
     holds its readings: the intake wait, and per chunk the schedule,
     dispatch, in-flight, fetch and launch/bind seconds (a chunk with gangs
     adds its gang window's, ``gang``). ``journal`` (an
@@ -202,10 +205,13 @@ class ProvisionerWorker:
         batcher: Optional[Batcher] = None,
         pipeline_config: Optional[PipelineConfig] = None,
         shard: str = "",
-        device: DeviceLike = None,
+        device: MeshLike = None,
         journal: Optional["jr.IntentJournal"] = None,
     ):
-        self.device = resolve_device(device)
+        # the device windows split over the mesh; the scheduler's programs
+        # run on its first device
+        self.mesh = resolve_mesh(device)
+        self.device = self.mesh[0]
         self.journal = journal
         self.kube = kube
         self.cloud_provider = cloud_provider
@@ -535,19 +541,19 @@ class ProvisionerWorker:
         in-flight BatchHandle for the pipeline to fetch."""
         t0 = time.perf_counter()
         cfg = prep.solver_config or self.solver_config
-        handle = dispatch_batch(prep.problems, config=cfg, device=self.device)
+        handle = dispatch_batch(prep.problems, config=cfg, device=self.mesh)
         if (cfg.window_backend == "global" and prep.problems and global_solve.enabled()
                 and int(self.batcher._monitor().level()) < 1):
             # at pressure L1+ the window collapses to the FFD backend
             # (chunked solves must stay p99-bounded)
             try:
                 prep.global_handle = global_solve.dispatch_global_window(
-                    prep.problems, cfg, device=self.device)
+                    prep.problems, cfg, device=self.mesh)
             except Exception:
                 self._global_failed("dispatch", len(prep.problems))
         if prep.gang_enc is not None and prep.gang_enc.g > 0:
             # the gang window rides the same stage; its fetch comes at launch
-            prep.gang_handle = dispatch_gang_window(prep.gang_enc, self.device)
+            prep.gang_handle = dispatch_gang_window(prep.gang_enc, self.mesh)
         prep.dispatch_s = time.perf_counter() - t0
         return handle
 
@@ -1254,8 +1260,8 @@ class ProvisioningController:
     ``shards=0`` (default): one worker per Provisioner, the reference's
     shape. ``shards=N``: N long-lived shard workers; each Provisioner's
     engine attaches to shard ``crc32(name) % N``. ``device`` (default: the
-    CUDA device; ``"cpu"`` runs the plain versions) is resolved here, once,
-    and every worker runs on it. ``journal`` is handed to every worker."""
+    solver mesh of every CUDA device; ``"cpu"`` runs the plain versions)
+    is resolved to a mesh here, once, and every worker runs on it. ``journal`` is handed to every worker."""
 
     REQUEUE_SECONDS = 5 * 60  # catch zone/type drift (controller.go:82-83)
 
@@ -1263,9 +1269,10 @@ class ProvisioningController:
                  solver_config: Optional[SolverConfig] = None,
                  batcher_factory: Optional[Callable[[], Batcher]] = None,
                  pipeline_config: Optional[PipelineConfig] = None,
-                 shards: int = 0, device: DeviceLike = None,
+                 shards: int = 0, device: MeshLike = None,
                  journal: Optional["jr.IntentJournal"] = None):
-        self.device = resolve_device(device)
+        self.mesh = resolve_mesh(device)
+        self.device = self.mesh[0]
         self.journal = journal
         self.kube = kube
         self.cloud_provider = cloud_provider
@@ -1294,7 +1301,7 @@ class ProvisioningController:
         worker = ProvisionerWorker(
             provisioner, self.kube, self.cloud_provider, solver_config=self.solver_config,
             batcher=self.batcher_factory(), pipeline_config=self.pipeline_config,
-            shard=shard, device=self.device, journal=self.journal)
+            shard=shard, device=self.mesh, journal=self.journal)
         worker.start()
         return worker
 

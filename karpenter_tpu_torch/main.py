@@ -13,8 +13,8 @@ lost leadership. ``--kube-backend memory`` (the default) runs against the
 in-memory store; ``in-cluster`` against the API server named by
 ``KUBERNETES_SERVICE_HOST`` / ``KUBERNETES_SERVICE_PORT``, with the service
 account's token and CA (runtime/kubeclient.py): without that environment
-the boot fails. Differences: the solver runs on ``--device`` (the card by
-default); ``--solver-warmup`` runs before any controller starts and a
+the boot fails. Differences: the solver runs on ``--device`` (by default
+the mesh of every visible card, parallel/mesh.py); ``--solver-warmup`` runs before any controller starts and a
 warm-up failure fails the boot; the jax.profiler server is not part of
 this process. ``--cloud-provider aws`` builds the EC2 and SSM clients from
 the ambient environment (cloudprovider/aws/awsclient.py: region from

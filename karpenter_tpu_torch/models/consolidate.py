@@ -24,6 +24,7 @@ from karpenter_tpu_torch.api.requirements import pod_requirements
 from karpenter_tpu_torch.backend import DeviceLike
 from karpenter_tpu_torch.cloudprovider.spi import InstanceType
 from karpenter_tpu_torch.models.cost import node_price, plan_cost
+from karpenter_tpu_torch.parallel.mesh import MeshLike
 from karpenter_tpu_torch.solver.adapter import pod_vector, resource_list_vector
 from karpenter_tpu_torch.solver.host_ffd import NUM_RESOURCES, R_PODS
 from karpenter_tpu_torch.solver.solve import SolveResult, SolverConfig, solve
@@ -180,12 +181,17 @@ def repack_plan_multi(
     fleets: Sequence[Fleet],
     solver_config: Optional[SolverConfig] = None,
     backend: str = "ffd",
-    device: DeviceLike = None,
+    device: MeshLike = None,
 ) -> List[ConsolidationPlan]:
     """Whole-fleet re-packs for MANY provisioners in one batched launch:
-    the per-fleet forward solves ride solver/batch_solve.solve_batch, as
-    the provisioning window does."""
+    the per-fleet forward solves ride solver/batch_solve.solve_batch over
+    the mesh ``device`` resolves to (parallel/mesh.resolve_mesh), as the
+    provisioning window does; a solo fleet and the relaxation run on the
+    mesh's first device."""
+    from karpenter_tpu_torch.parallel.mesh import resolve_mesh
     from karpenter_tpu_torch.solver.batch_solve import Problem, solve_batch
+
+    mesh = resolve_mesh(device)
 
     prepared = []
     for fleet in fleets:
@@ -208,20 +214,20 @@ def repack_plan_multi(
         for idx, (fleet, _, movable) in enumerate(prepared):
             replacement, info = relax_solve(
                 fleet.constraints, movable, fleet.catalog,
-                daemons=fleet.daemons, config=solver_config, device=device)
+                daemons=fleet.daemons, config=solver_config, device=mesh[0])
             replacements.append(replacement)
             relax_infos[idx] = info
     elif len(prepared) == 1:  # solo fleet: no batch machinery
         fleet, candidates, movable = prepared[0]
         replacements = [solve(fleet.constraints, movable, fleet.catalog,
                               daemons=fleet.daemons, config=solver_config,
-                              device=device)]
+                              device=mesh[0])]
     else:
         replacements = solve_batch(
             [Problem(constraints=fleet.constraints, pods=movable,
                      instance_types=fleet.catalog, daemons=fleet.daemons)
              for fleet, _, movable in prepared],
-            config=solver_config, device=device)
+            config=solver_config, device=mesh)
 
     return [
         ConsolidationPlan(

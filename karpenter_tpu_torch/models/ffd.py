@@ -1,5 +1,5 @@
 """Device FFD: encode → chunk loop (:class:`DeviceRun`, one problem or a
-window's batch) → decode.
+window's batch over a mesh, one :class:`ShardRun` a shard) → decode.
 
 Exact parity with the reference Go packer. Produces the same
 HostSolveResult structure as the host oracle, so callers and tests are
@@ -168,12 +168,12 @@ def _digest(arr: np.ndarray) -> tuple:
 
 
 def _device_tensor(name: str):
-    """A device tensor of the run, which raises once the run's ring slot is
+    """A device tensor of a shard, which raises once the run's ring slot is
     released: a later window refills those tensors in place, so a read
     would see its bytes (the JAX package's read of a donated buffer
     raises the same way)."""
     def get(self):
-        if self._released:
+        if self._run._released:
             raise RuntimeError(
                 f"DeviceRun.{name} was read after the run's fetch released its ring "
                 "slot; the slot's tensors now hold a later window's inputs")
@@ -185,36 +185,220 @@ def _device_tensor(name: str):
     return property(get, put)
 
 
+def _one_shard(name: str):
+    """A tensor of a run over one shard (every run over a one-device mesh):
+    the shard's own. A run over several shards keeps it per shard."""
+    def get(self):
+        if len(self.shards) != 1:
+            raise AttributeError(
+                f"DeviceRun.{name}: a run over {len(self.shards)} shards keeps it per "
+                f"shard (DeviceRun.shards[k].{name})")
+        return getattr(self.shards[0], name)
+
+    return property(get)
+
+
 class DeviceRun:
-    """The device side of one solve of B >= 1 encoded problems: the batch
-    tensors on the device and the chunk loop.
+    """The device side of one solve of B >= 1 encoded problems over a mesh
+    of devices (parallel/mesh.py): the batch's rows cut into one
+    :class:`ShardRun` a shard, each with its tensors on its device and its
+    own chunk loop.
 
-    Every problem is padded to the largest (S, T) bucket of the batch
-    (parallel/batched_pack.pad_problems). ``maxfit`` is computed once on the
-    device; the kernel's log bound and walked-resource mask once on the
-    host from the encodings (neither reads the feasibility mask). Each
-    chunk is one launch (parallel/batched_pack.pack_batch_ring: a batch of
-    one through ``pack_chunk``, more through ``pack_batch``) and one
-    device→host copy. ``mask``, when given, is the device feasibility
-    mask's ``(valid, last_valid)`` tensors (ops/device_filter.py), used in
-    place of the encodings' without touching the host. ``prices_list``
-    holds each problem's per-packable $/h, an int32 ndarray row already
-    encoded in micro-$ on the padded type axis (the policy scoring
-    program's, ops/policy.py), or None; a row without prices gets
-    INT32_MAX, which leaves the tie-break to the lowest index, as for an
-    unpriced catalog.
+    Every problem is padded to the largest (S, T) bucket of the batch and
+    the batch to a multiple of the mesh size
+    (parallel/batched_pack.pad_problems); the padding problems finish in
+    their first chunk and are dropped at the gather. The kernel's log bound
+    and walked-resource mask are computed once on the host from the
+    encodings (neither reads the feasibility mask). :meth:`launch` enqueues
+    every shard's chunk before anything waits; :meth:`finish` walks each
+    shard's chunk loop in turn and gathers the rows in batch order. A
+    one-device mesh is one shard of every row: one launch and one
+    device→host copy a chunk. ``device`` is a device (a one-device mesh) or
+    a mesh.
 
-    With ``donate`` the tensors come from a slot of the process
-    ``DeviceRing`` (solver/pipeline.py) under the names and content tokens
-    the JAX package's runs give them: the solo solve's (``solo`` = True,
+    ``mask``, when given, is the device feasibility mask's ``(valid,
+    last_valid)`` tensors a shard (ops/device_filter.py), used in place of
+    the encodings' without touching the host. ``prices_list`` holds each
+    problem's per-packable $/h, an int32 ndarray row already encoded in
+    micro-$ on the padded type axis (the policy scoring program's,
+    ops/policy.py), or None; a row without prices gets INT32_MAX, which
+    leaves the tie-break to the lowest index, as for an unpriced catalog.
+
+    With ``donate`` the tensors come from ONE slot of the process
+    ``DeviceRing`` (solver/pipeline.py), which holds a tensor a shard under
+    the names and content tokens the JAX package's runs give them (shard
+    k > 0 adds ``@k``): the solo solve's (``solo`` = True,
     ``models/ffd.py:205-260`` there: its counts refill from the host at
     every resume, its prices are copied off the ring) or the batched
     window's (``solver/batch_solve.py:474-536``: the kernel's resume
     counts and dropped rows are handed back to the slot, so a resume that
     compacts nothing copies nothing to the device). The slot is released
-    once :meth:`finish` has its last chunk on the host; the run's device
-    tensors raise ``RuntimeError`` after that. Without ``donate`` the
-    invariants and first counts go to the device in one copy."""
+    once :meth:`finish` has every shard's last chunk on the host; the run's
+    device tensors raise ``RuntimeError`` after that. Without ``donate``
+    each shard's invariants and first counts go to its device in one
+    copy."""
+
+    shapes_d = _one_shard("shapes_d")
+    counts_d = _one_shard("counts_d")
+    dropped_d = _one_shard("dropped_d")
+    totals_d = _one_shard("totals_d")
+    reserved0_d = _one_shard("reserved0_d")
+    valid_d = _one_shard("valid_d")
+    last_valid_d = _one_shard("last_valid_d")
+    pods_unit_d = _one_shard("pods_unit_d")
+    prices_d = _one_shard("prices_d")
+    maxfit_d = _one_shard("maxfit_d")
+
+    def __init__(self, encs, prices_list, chunk_iters: int, device,
+                 mask=None, donate: bool = True, solo: bool = False):
+        from karpenter_tpu_torch.ops.pack_cuda import batch_log_bound, requested_mask
+        from karpenter_tpu_torch.parallel.batched_pack import pad_problems
+        from karpenter_tpu_torch.parallel.mesh import batch_sharding, solver_mesh
+
+        self._released = False
+        self.encs = encs
+        self.mesh = solver_mesh([device] if isinstance(device, (str, torch.device))
+                                else device)
+        self.device = self.mesh[0]
+        self.L = chunk_iters
+        self.solo = solo
+        (shapes, counts, dropped, totals, reserved0, valid, last_valid, pods_unit,
+         self.B) = pad_problems(encs, len(self.mesh))
+        shards = batch_sharding(shapes.shape[0], self.mesh)
+        if mask is not None:
+            got = (sum(int(m[0].shape[0]) for m in mask), int(mask[0][0].shape[1]))
+            if len(mask) != len(shards) or got != valid.shape:
+                raise ValueError(f"mask shape {got} over {len(mask)} shards != batch valid "
+                                 f"shape {valid.shape} over {len(shards)}")
+        self.use_cost = any(p is not None for p in prices_list)
+        # an explicit INT32_MAX row per unpriced problem; the batched ring
+        # carries the row (zeros) even when nothing is priced, as the JAX
+        # package's does
+        prices = np.full((shapes.shape[0], totals.shape[1]),
+                         _INT32_MAX if self.use_cost else 0, np.int32)
+        for b, pr in enumerate(prices_list):
+            if isinstance(pr, np.ndarray) and pr.dtype == np.int32:
+                prices[b, :pr.shape[0]] = pr  # pre-encoded micro-$ row
+            elif pr is not None:
+                prices[b] = encode_prices(pr, totals.shape[1])
+        self.log_bound = batch_log_bound(totals, reserved0, pods_unit)
+        self.resource_mask = requested_mask(shapes.reshape(-1, shapes.shape[2]))
+        self.S0 = shapes.shape[1]
+        host = {"shapes": shapes, "counts": counts, "dropped": dropped, "totals": totals,
+                "reserved0": reserved0, "valid": valid, "last_valid": last_valid,
+                "pods_unit": pods_unit, "prices": prices}
+        self._ring = self._slot = None
+        if donate:
+            self._acquire(host, mask is not None)
+        self.shards: List[ShardRun] = []
+        try:
+            for sh in shards:
+                self.shards.append(ShardRun(self, sh, host, None if mask is None
+                                            else mask[sh.index]))
+        except BaseException:
+            self.close()
+            raise
+
+    def _acquire(self, host: dict, fused: bool) -> None:
+        """Take the run's ring slot, keyed by the padded batch's signature
+        (and the mesh, when it has several shards)."""
+        from karpenter_tpu_torch.solver.pipeline import DeviceRing, get_ring
+
+        self._ring = get_ring()
+        if self.solo:
+            names = ("shapes", "counts", "dropped", "totals", "reserved0", "valid",
+                     "last_valid", "pods_unit")
+            sig_host = {"solo_" + n: host[n] for n in names}
+        else:
+            sig_host = dict(host)
+            if fused:
+                # the fused mask's tensors never come from the host, and the
+                # distinct signature keeps fused and classic windows apart
+                del sig_host["valid"], sig_host["last_valid"]
+        sig = DeviceRing.signature(sig_host)
+        if len(self.mesh) > 1:
+            sig += (("mesh", tuple(str(d) for d in self.mesh)),)
+        self._slot = self._ring.acquire(sig)
+
+    def cat_token(self, field: str) -> Optional[tuple]:
+        """The content token of a catalog-side tensor: the encoder's
+        catalog tokens of the batch (None when one is missing)."""
+        cats = tuple(e.catalog_token for e in self.encs)
+        if not all(t is not None for t in cats):
+            return None
+        return ("solo", field, cats[0]) if self.solo else ("cat-batch", field, cats)
+
+    @property
+    def launches(self) -> int:
+        """Kernel launches of the run, summed over its shards."""
+        return sum(sh.launches for sh in self.shards)
+
+    @property
+    def buckets(self) -> List[int]:
+        """The shape buckets the run's chunks walked, largest first (a
+        shard's own walk, for a run of one shard)."""
+        return sorted({s for sh in self.shards for s in sh.buckets}, reverse=True)
+
+    def close(self) -> None:
+        """Release the ring slot (idempotent). Its tensors stay on their
+        devices for a later window to refill in place; this run's device
+        tensors raise from here on."""
+        slot, self._slot = self._slot, None
+        if slot is not None:
+            self._ring.release(slot)
+            self._released = True
+
+    def launch(self) -> None:
+        """Enqueue every shard's next chunk before anything waits; a no-op
+        for a shard with a chunk pending or all its rows done."""
+        for sh in self.shards:
+            sh.launch()
+
+    def finish(self):
+        """Walk each shard's chunk loop until every problem is done
+        (:meth:`ShardRun.step`), and return per problem its records
+        ``(chosen, q, packed row or sparse [(shape, n), ...])`` and its
+        dropped counts, in the original shape index space, in batch order.
+        The shards are stepped in turn: each waits for its own chunk and
+        enqueues its next one before the next shard waits. The ring slot is
+        released at the end, once every last chunk is on the host, or on an
+        error."""
+        try:
+            return self._finish()
+        finally:
+            self.close()
+
+    def _finish(self):
+        self.launch()
+        running = list(self.shards)
+        for _ in range(MAX_CHUNKS):
+            running = [sh for sh in running if not sh.step()]
+            if not running:
+                break
+        else:
+            # impossible by construction (every decision commits or drops);
+            # reached only with a chunk_iters too small for the problem
+            raise RuntimeError(f"device solve did not converge in {MAX_CHUNKS} chunks "
+                               f"of {self.L} node decisions")
+        records = [r for sh in self.shards for r in sh.records][:self.B]
+        dropped = [d for sh in self.shards for d in sh.dropped_full][:self.B]
+        return records, dropped
+
+
+class ShardRun:
+    """One shard of a :class:`DeviceRun`: rows ``[start, stop)`` of the
+    padded batch on the shard's device, and their chunk loop.
+
+    ``maxfit`` is computed once on the device. Each chunk is one launch
+    (parallel/batched_pack.pack_batch_ring: a shard of one row through
+    ``pack_chunk``, more through ``pack_batch``) and one device→host copy.
+    Between chunks the shard keeps ONE S: when the largest alive set of
+    its rows fits a smaller bucket, every row is compacted to it
+    (ops/compact.compact_rows); otherwise the next chunk resumes from the
+    kernel's own ``counts_next`` and zeroed ``dropped_next`` (the solo ring
+    refills its counts from the host copy instead). Shards finish at
+    different chunks; each row's dropped deltas accumulate on the host
+    through its permutation."""
 
     shapes_d = _device_tensor("shapes_d")
     counts_d = _device_tensor("counts_d")
@@ -227,228 +411,160 @@ class DeviceRun:
     prices_d = _device_tensor("prices_d")
     maxfit_d = _device_tensor("maxfit_d")
 
-    def __init__(self, encs, prices_list, chunk_iters: int, device: torch.device,
-                 mask=None, donate: bool = True, solo: bool = False):
+    def __init__(self, run: DeviceRun, shard, host: dict, mask):
         from karpenter_tpu_torch.ops.pack import compute_maxfit
-        from karpenter_tpu_torch.ops.pack_cuda import batch_log_bound, requested_mask
-        from karpenter_tpu_torch.parallel.batched_pack import pad_problems
 
+        self._run = run
         self._t = {}
-        self._released = False
-        self.encs = encs
-        self.device = device
-        self.L = chunk_iters
-        self.solo = solo
-        (shapes, counts, dropped, totals, reserved0, valid, last_valid, pods_unit,
-         B) = pad_problems(encs)
-        if mask is not None and tuple(mask[0].shape) != valid.shape:
-            raise ValueError(f"mask shape {tuple(mask[0].shape)} != batch valid shape "
-                             f"{valid.shape}")
-        self.use_cost = any(p is not None for p in prices_list)
-        # an explicit INT32_MAX row per unpriced problem; the batched ring
-        # carries the row (zeros) even when nothing is priced, as the JAX
-        # package's does
-        prices = np.full((B, totals.shape[1]), _INT32_MAX if self.use_cost else 0, np.int32)
-        for b, pr in enumerate(prices_list):
-            if isinstance(pr, np.ndarray) and pr.dtype == np.int32:
-                prices[b, :pr.shape[0]] = pr  # pre-encoded micro-$ row
-            elif pr is not None:
-                prices[b] = encode_prices(pr, totals.shape[1])
-        self._ring = self._slot = None
-        if donate:
-            self._fill_from_ring(shapes, counts, dropped, totals, reserved0, valid,
-                                 last_valid, pods_unit, prices, mask)
+        self.shard = shard
+        self.device = shard.device
+        rows = {name: arr[shard.rows] for name, arr in host.items()}
+        self.rows = shard.stop - shard.start
+        if run._slot is not None:
+            self._fill_from_ring(rows, mask is not None)
         else:
-            host = [shapes, counts, totals, reserved0, pods_unit]
+            names = ["shapes", "counts", "totals", "reserved0", "pods_unit"]
             if mask is None:
-                host += [valid, last_valid]
-            if self.use_cost:
-                host.append(prices)
+                names += ["valid", "last_valid"]
+            if run.use_cost:
+                names.append("prices")
             # the invariants and the first counts in one host→device copy
             (self.shapes_d, self.counts_d, self.totals_d, self.reserved0_d,
-             self.pods_unit_d, *rest) = to_device_int32(host, device)
+             self.pods_unit_d, *rest) = to_device_int32([rows[n] for n in names], self.device)
             if mask is None:
                 valid_i, self.last_valid_d, *rest = rest
                 self.valid_d = valid_i != 0
-            self.prices_d = rest[0] if self.use_cost else None
+            self.prices_d = rest[0] if run.use_cost else None
             self.dropped_d = torch.zeros_like(self.counts_d)
         if mask is not None:
             self.valid_d, self.last_valid_d = mask
-        self.shapes_host = shapes
+        self.shapes_host = rows["shapes"]
         self.maxfit_full_d = compute_maxfit(self.shapes_d, self.totals_d, self.reserved0_d,
                                             self.valid_d)
         self.maxfit_d = self.maxfit_full_d
         self._maxfit_host: Optional[np.ndarray] = None
-        self.log_bound = batch_log_bound(totals, reserved0, pods_unit)
-        self.resource_mask = requested_mask(shapes.reshape(-1, shapes.shape[2]))
-        self.S0 = shapes.shape[1]
+        self.S0 = self.S_cur = self.shapes_host.shape[1]
         self.buckets = [self.S0]   # the shape bucket of each chunk
         self.launches = 0
         self._pending = None
+        self.records: List[list] = [[] for _ in range(self.rows)]
+        self.dropped_full = [np.zeros(self.S0, np.int64) for _ in range(self.rows)]
+        self._perms: List[Optional[np.ndarray]] = [None] * self.rows
+        self.done = False
 
-    def _fill_from_ring(self, shapes, counts, dropped, totals, reserved0, valid,
-                        last_valid, pods_unit, prices, mask) -> None:
-        from karpenter_tpu_torch.solver.pipeline import DeviceRing, get_ring
+    def _name(self, name: str) -> str:
+        """The shard's ring name for ``name``: the solo solve's prefix, and
+        ``@k`` for shard k > 0."""
+        k = self.shard.index
+        return ("solo_" if self._run.solo else "") + name + (f"@{k}" if k else "")
 
-        self._ring = ring = get_ring()
-        cats = tuple(e.catalog_token for e in self.encs)
-        have_cat = all(t is not None for t in cats)
-        if self.solo:
-            prefix = "solo_"
-            host = {"solo_shapes": shapes, "solo_counts": counts, "solo_dropped": dropped,
-                    "solo_totals": totals, "solo_reserved0": reserved0, "solo_valid": valid,
-                    "solo_last_valid": last_valid, "solo_pods_unit": pods_unit}
-            cat = lambda field: ("solo", field, cats[0]) if have_cat else None  # noqa: E731
-            dropped_tok = ("zeros", dropped.shape)
+    def _put(self, name: str, arr: np.ndarray, token=None) -> torch.Tensor:
+        run = self._run
+        return run._ring.fill(run._slot, self._name(name), arr, self.device, token=token)
+
+    def _fill_from_ring(self, rows: dict, fused: bool) -> None:
+        run = self._run
+        cat = run.cat_token
+        self.shapes_d = self._put("shapes", rows["shapes"], _digest(rows["shapes"]))
+        self.counts_d = self._put("counts", rows["counts"])
+        self.dropped_d = self._put("dropped", rows["dropped"],
+                                   ("zeros", rows["dropped"].shape) if run.solo else None)
+        self.totals_d = self._put("totals", rows["totals"], cat("totals"))
+        self.reserved0_d = self._put("reserved0", rows["reserved0"], cat("reserved0"))
+        if not fused:
+            self.valid_d = self._put("valid", rows["valid"], cat("valid"))
+            self.last_valid_d = self._put("last_valid", rows["last_valid"], cat("last_valid"))
+        self.pods_unit_d = self._put("pods_unit", rows["pods_unit"], cat("pods_unit"))
+        if run.solo:
+            # the solo solve's prices are copied off the ring
+            self.prices_d = (torch.from_numpy(rows["prices"]).to(self.device)
+                             if run.use_cost else None)
         else:
-            prefix = ""
-            host = {"shapes": shapes, "counts": counts, "dropped": dropped,
-                    "totals": totals, "reserved0": reserved0, "valid": valid,
-                    "last_valid": last_valid, "pods_unit": pods_unit, "prices": prices}
-            if mask is not None:
-                # the fused mask's tensors never come from the host, and the
-                # distinct signature keeps fused and classic windows apart
-                del host["valid"], host["last_valid"]
-            cat = lambda field: ("cat-batch", field, cats) if have_cat else None  # noqa: E731
-            dropped_tok = None
-        self._slot = ring.acquire(DeviceRing.signature(host))
-        try:
-            def put(name, arr, token=None):
-                return ring.fill(self._slot, prefix + name, arr, self.device, token=token)
-
-            self.shapes_d = put("shapes", shapes, _digest(shapes))
-            self.counts_d = put("counts", counts)
-            self.dropped_d = put("dropped", dropped, dropped_tok)
-            self.totals_d = put("totals", totals, cat("totals"))
-            self.reserved0_d = put("reserved0", reserved0, cat("reserved0"))
-            if mask is None:
-                self.valid_d = put("valid", valid, cat("valid"))
-                self.last_valid_d = put("last_valid", last_valid, cat("last_valid"))
-            self.pods_unit_d = put("pods_unit", pods_unit, cat("pods_unit"))
-            if self.solo:
-                # the solo solve's prices are copied off the ring
-                self.prices_d = (torch.from_numpy(prices).to(self.device)
-                                 if self.use_cost else None)
-            else:
-                prices_d = put("prices", prices, _digest(prices))
-                self.prices_d = prices_d if self.use_cost else None
-        except BaseException:
-            self.close()
-            raise
-
-    def close(self) -> None:
-        """Release the ring slot (idempotent). Its tensors stay on the
-        device for a later window to refill in place; this run's device
-        tensors raise from here on."""
-        slot, self._slot = self._slot, None
-        if slot is not None:
-            self._ring.release(slot)
-            self._released = True
+            prices_d = self._put("prices", rows["prices"], _digest(rows["prices"]))
+            self.prices_d = prices_d if run.use_cost else None
 
     def launch(self) -> None:
-        """Enqueue the next chunk; a no-op while one is pending."""
+        """Enqueue the shard's next chunk on its device's current stream; a
+        no-op while one is pending or once every row is done."""
         from karpenter_tpu_torch.parallel.batched_pack import pack_batch_ring
 
-        if self._pending is not None:
+        if self._pending is not None or self.done:
             return
+        run = self._run
         self._pending = pack_batch_ring(
             self.shapes_d, self.counts_d, self.dropped_d, self.totals_d,
             self.reserved0_d, self.valid_d, self.last_valid_d, self.pods_unit_d,
-            self.L, prices=self.prices_d, cost_tiebreak=self.use_cost,
-            maxfit=self.maxfit_d, log_bound=self.log_bound,
-            resource_mask=self.resource_mask)
-        if self._slot is not None and not self.solo:
+            run.L, prices=self.prices_d, cost_tiebreak=run.use_cost,
+            maxfit=self.maxfit_d, log_bound=run.log_bound,
+            resource_mask=run.resource_mask)
+        if run._slot is not None and not run.solo:
             # the resume tensors belong to the slot from here on
             _, counts_next, dropped_next = self._pending
-            self._ring.hand_back(self._slot, counts=counts_next, dropped=dropped_next)
+            run._ring.hand_back(run._slot, **{self._name("counts"): counts_next,
+                                              self._name("dropped"): dropped_next})
         self.launches += 1
 
-    def finish(self):
-        """Copy each chunk to the host, resume until every problem is done,
-        and return per problem its records ``(chosen, q, packed row or
-        sparse [(shape, n), ...])`` and its dropped counts, in the original
-        shape index space. Between chunks the batch keeps ONE S: when the
-        largest alive set of any problem fits a smaller bucket, every row is
-        compacted to it (ops/compact.compact_rows); otherwise the next chunk
-        resumes from the kernel's own ``counts_next`` and zeroed
-        ``dropped_next`` (the solo ring refills its counts from the host
-        copy instead). Each problem's dropped deltas accumulate on the host
-        through its permutation. The ring slot is released at the end,
-        once the last chunk is on the host, or on an error."""
-        try:
-            return self._finish()
-        finally:
-            self.close()
-
-    def _finish(self):
+    def step(self) -> bool:
+        """Copy the shard's pending chunk to the host (its one device→host
+        copy), take in its rows, and, while a row is still running, prepare
+        the next chunk's tensors and enqueue it. True once every row of the
+        shard is done."""
         from karpenter_tpu_torch.ops.compact import (
             compact_rows, scatter_dropped, sparse_record,
         )
         from karpenter_tpu_torch.ops.encode import SHAPE_BUCKETS, bucket
         from karpenter_tpu_torch.parallel.batched_pack import unpack_batch_flat
 
-        B, L = len(self.encs), self.L
-        records: List[list] = [[] for _ in range(B)]
-        dropped_full = [np.zeros(self.S0, np.int64) for _ in range(B)]
-        perms: List[Optional[np.ndarray]] = [None] * B
-        S_cur = self.S0
-        prefix = "solo_" if self.solo else ""
-        for _ in range(MAX_CHUNKS):
-            self.launch()  # a no-op for a chunk already enqueued
-            (flat, counts_next, dropped_next), self._pending = self._pending, None
-            buf = flat.cpu().numpy()  # the chunk's one device→host copy
-            counts_f, dropped_f, done, chosen, q, packed = unpack_batch_flat(buf, S_cur, L)
-            for b in range(B):
-                perm = perms[b]
-                for i in np.flatnonzero(q[b] > 0):
-                    rec = packed[b, i] if perm is None else sparse_record(packed[b, i], perm)
-                    records[b].append((int(chosen[b, i]), int(q[b, i]), rec))
-                scatter_dropped(dropped_full[b], dropped_f[b], perm)
-            if done.all():
-                break
-            alive_max = int((counts_f > 0).sum(axis=1).max(initial=0))
-            S_new = bucket(max(alive_max, 1), SHAPE_BUCKETS)
-            if S_new is not None and S_new < S_cur:
-                if self._maxfit_host is None:
-                    self._maxfit_host = self.maxfit_full_d.cpu().numpy()
-                perms, shapes_c, counts_c, maxfit_c = compact_rows(
-                    counts_f, perms, self.shapes_host, self._maxfit_host, S_new)
-                S_cur = S_new
-                self.buckets.append(S_new)
-                zeros_c = np.zeros_like(counts_c)
-                if self._slot is None:
-                    self.shapes_d, self.counts_d, self.maxfit_d = to_device_int32(
-                        [shapes_c, counts_c, maxfit_c], self.device)
-                    self.dropped_d = torch.zeros_like(self.counts_d)
-                    continue
-                # smaller rows: the fills see the new shape and make counted
-                # fresh allocations (a compaction is an event, not the steady
-                # state); maxfit is copied off the ring
-                ring, slot = self._ring, self._slot
-                self.shapes_d = ring.fill(slot, prefix + "shapes", shapes_c, self.device)
-                self.counts_d = ring.fill(slot, prefix + "counts", counts_c, self.device)
-                self.dropped_d = ring.fill(
-                    slot, prefix + "dropped", zeros_c, self.device,
-                    token=("zeros", zeros_c.shape) if self.solo else None)
-                self.maxfit_d = torch.from_numpy(maxfit_c).to(self.device)
-                if self.solo:
-                    ring.note_allocation(1)
-            elif self._slot is not None and self.solo:
-                # the solo resume: the counts row refills the slot's tensor
-                # in place; the zeros row matches its token and copies nothing
-                zeros = np.zeros_like(counts_f)
-                self.counts_d = self._ring.fill(self._slot, "solo_counts", counts_f,
-                                                self.device)
-                self.dropped_d = self._ring.fill(self._slot, "solo_dropped", zeros,
-                                                 self.device, token=("zeros", zeros.shape))
+        run = self._run
+        self.launch()  # a no-op for a chunk already enqueued
+        (flat, counts_next, dropped_next), self._pending = self._pending, None
+        buf = flat.cpu().numpy()  # the chunk's one device→host copy
+        counts_f, dropped_f, done, chosen, q, packed = unpack_batch_flat(
+            buf, self.S_cur, run.L)
+        for b in range(self.rows):
+            perm = self._perms[b]
+            for i in np.flatnonzero(q[b] > 0):
+                rec = packed[b, i] if perm is None else sparse_record(packed[b, i], perm)
+                self.records[b].append((int(chosen[b, i]), int(q[b, i]), rec))
+            scatter_dropped(self.dropped_full[b], dropped_f[b], perm)
+        if done.all():
+            self.done = True
+            return True
+        alive_max = int((counts_f > 0).sum(axis=1).max(initial=0))
+        S_new = bucket(max(alive_max, 1), SHAPE_BUCKETS)
+        if S_new is not None and S_new < self.S_cur:
+            if self._maxfit_host is None:
+                self._maxfit_host = self.maxfit_full_d.cpu().numpy()
+            self._perms, shapes_c, counts_c, maxfit_c = compact_rows(
+                counts_f, self._perms, self.shapes_host, self._maxfit_host, S_new)
+            self.S_cur = S_new
+            self.buckets.append(S_new)
+            zeros_c = np.zeros_like(counts_c)
+            if run._slot is None:
+                self.shapes_d, self.counts_d, self.maxfit_d = to_device_int32(
+                    [shapes_c, counts_c, maxfit_c], self.device)
+                self.dropped_d = torch.zeros_like(self.counts_d)
             else:
-                self.counts_d, self.dropped_d = counts_next, dropped_next
+                # smaller rows: the fills see the new shape and make counted
+                # fresh allocations (a compaction is an event, not the
+                # steady state); maxfit is copied off the ring
+                self.shapes_d = self._put("shapes", shapes_c)
+                self.counts_d = self._put("counts", counts_c)
+                self.dropped_d = self._put(
+                    "dropped", zeros_c, ("zeros", zeros_c.shape) if run.solo else None)
+                self.maxfit_d = torch.from_numpy(maxfit_c).to(self.device)
+                if run.solo:
+                    run._ring.note_allocation(1)
+        elif run._slot is not None and run.solo:
+            # the solo resume: the counts row refills the slot's tensor in
+            # place; the zeros row matches its token and copies nothing
+            zeros = np.zeros_like(counts_f)
+            self.counts_d = self._put("counts", counts_f)
+            self.dropped_d = self._put("dropped", zeros, ("zeros", zeros.shape))
         else:
-            # impossible by construction (every decision commits or drops);
-            # reached only with a chunk_iters too small for the problem
-            raise RuntimeError(f"device solve did not converge in {MAX_CHUNKS} chunks "
-                               f"of {L} node decisions")
-        return records, dropped_full
+            self.counts_d, self.dropped_d = counts_next, dropped_next
+        self.launch()
+        return False
 
 
 def solve_ffd_numpy(

@@ -80,7 +80,7 @@ _FAILED = object()
 _ROW_CACHE: dict = {}              # (planes key, allowed, required) -> row
 _ROW_CACHE_CAP = 1024
 _RESIDENT: dict = {}               # (planes key, device) -> plane tensors
-_RESIDENT_CAP = 8
+_RESIDENT_CAP = 8                  # catalogs a device
 _window_counter = itertools.count(1)
 _FALLBACKS: Dict[str, int] = {}
 
@@ -217,8 +217,10 @@ def _window_planes(planes: Planes, device: torch.device) -> tuple:
 
 def resident_planes(planes: Planes, device: torch.device) -> tuple:
     """The planes as int32 tensors on ``device``, copied there once per
-    catalog identity and kept across windows (a window whose catalog the
-    device already holds copies no plane bytes)."""
+    catalog identity and device and kept across windows (a window whose
+    catalog the device already holds copies no plane bytes): a mesh holds
+    one copy of the planes per distinct device, the JAX package's
+    replicated planes."""
     key = (planes.key, str(device))
     with _LOCK:
         hit = _RESIDENT.get(key)
@@ -226,8 +228,11 @@ def resident_planes(planes: Planes, device: torch.device) -> tuple:
         return hit
     planes_d = tuple(to_device_int32(list(planes.host_arrays().values()), device))
     with _LOCK:
-        if len(_RESIDENT) >= _RESIDENT_CAP:
-            _RESIDENT.pop(next(iter(_RESIDENT)))
+        # the cap holds per device: one card's catalogs never evict
+        # another's
+        held = [k for k in _RESIDENT if k[1] == key[1]]
+        if len(held) >= _RESIDENT_CAP:
+            _RESIDENT.pop(held[0])
         _RESIDENT[key] = planes_d
     return planes_d
 
@@ -388,27 +393,34 @@ class FusedMismatch(Exception):
 
 
 class FusedBatch:
-    """What the batched run needs to consume the device mask: the mask and
-    last_valid tensors (the pack kernel's ``valid`` and ``last_valid``),
-    the shared universe packables and type axis, and per problem the
-    verification state (probe columns, a memo of scalar verdicts) and its
-    soft-affinity votes (``soft``, one entry per member, None for no
-    preference: the policy scoring program prices them, ops/policy.py)."""
+    """What the batched run needs to consume the device mask: per shard of
+    the solver mesh its rows' mask and last_valid tensors (the pack
+    kernel's ``valid`` and ``last_valid`` there, :attr:`masks`), the shared
+    universe packables and type axis, and per problem the verification
+    state (probe columns, a memo of scalar verdicts) and its soft-affinity
+    votes (``soft``, one entry per member, None for no preference: the
+    policy scoring program prices them, ops/policy.py). ``shards`` holds a
+    ``(mask, last_valid, any_feasible, probe)`` tuple a shard, in mesh
+    order, over the members padded to a multiple of the mesh size."""
 
-    def __init__(self, batch_idx, encs, packables, uni_types, verify,
-                 mask_d, last_valid_d, any_d, probe_d, probe_idx, soft=None):
+    def __init__(self, batch_idx, encs, packables, uni_types, verify, mesh, shards,
+                 probe_idx, soft=None):
         self.batch_idx = list(batch_idx)
         self.soft = list(soft) if soft is not None else [None] * len(self.batch_idx)
         self.encs = list(encs)
         self.packables = packables
         self.uni_types = uni_types
         self.verify = list(verify)         # [(allowed, required)] per member
-        self.mask_d = mask_d
-        self.last_valid_d = last_valid_d
-        self.any_d = any_d
-        self.probe_d = probe_d
+        self.mesh = mesh
+        self.device = mesh[0]
+        self.shards = list(shards)
         self.probe_idx = probe_idx         # host (K,) int32
         self._ok_memos: List[Optional[dict]] = [None] * len(self.batch_idx)
+
+    @property
+    def masks(self) -> List[tuple]:
+        """The ``(valid, last_valid)`` tensors of each shard, on its device."""
+        return [(m, lv) for m, lv, _, _ in self.shards]
 
     def _ok(self, b: int, t: int) -> bool:
         """The scalar validator for (member b, universe type t), memoized."""
@@ -454,7 +466,9 @@ class FusedBatch:
         member that diverges gets None (the handle solves it on the host
         path) and is counted under ``device-mask-mismatch``."""
         t0 = time.perf_counter()
-        checks = torch.cat([self.probe_d, self.any_d[:, None]], dim=1).cpu().numpy()
+        # one device→host copy a shard, gathered in batch order
+        checks = np.concatenate([torch.cat([probe_d, any_d[:, None]], dim=1).cpu().numpy()
+                                 for _, _, any_d, probe_d in self.shards])
         probe, any_feas = checks[:, :-1], checks[:, -1]
         out: List[Optional[object]] = []
         for b, enc in enumerate(self.encs):
@@ -494,11 +508,13 @@ def _probe_indices(n: int) -> np.ndarray:
     return idx
 
 
-def prepare_fused(problems, marshaled,
-                  device: DeviceLike = None) -> Optional[FusedBatch]:
-    """Dispatch-side fused preparation of one window: universe packables,
-    the planes on the device, the rows, the universe encodings and the mask
-    program, enqueued without a synchronisation. Returns a
+def prepare_fused(problems, marshaled, device=None) -> Optional[FusedBatch]:
+    """Dispatch-side fused preparation of one window over the solver mesh
+    ``device`` resolves to (parallel/mesh.resolve_mesh): universe
+    packables, the planes on each distinct device of the mesh, the rows
+    padded to a multiple of the mesh size and cut into one range a shard,
+    the universe encodings and the mask program on each shard's rows on
+    its device, enqueued without a synchronisation. Returns a
     :class:`FusedBatch` of at least two members, or None when the window
     cannot be fused (kill switch, mixed catalogs, no packables, planes
     refused, fewer than two eligible members); the caller then takes the
@@ -510,9 +526,10 @@ def prepare_fused(problems, marshaled,
         return None
     t0 = time.perf_counter()
     from karpenter_tpu_torch.ops.encode import encode, pad_encoding
+    from karpenter_tpu_torch.parallel.mesh import batch_sharding, resolve_mesh
     from karpenter_tpu_torch.solver import adapter
 
-    dev = resolve_device(device)
+    mesh = resolve_mesh(device)
     # one universe per fused batch: every member shares the catalog
     # identity and the daemon overhead (the shared type axis and planes)
     key0 = None
@@ -564,13 +581,17 @@ def prepare_fused(problems, marshaled,
         return None
 
     rows = [schedule_row(planes, allowed, required) for allowed, required in verify]
-    stacked = _stack_rows(planes, rows, len(encs))
+    # the padding rows are all zero: they reject every type
+    stacked = _stack_rows(planes, rows, -(-len(encs) // len(mesh)) * len(mesh))
     probe_idx = _probe_indices(planes.n)
-    *rows_d, probe_d = to_device_int32([*stacked, probe_idx], dev)
-    mask_d, lv_d, any_d, probe_out = window_mask(
-        _window_planes(planes, dev), tuple(rows_d), probe_d.long())
-    fused = FusedBatch(batch_idx, encs, packables, uni_types, verify,
-                       mask_d, lv_d, any_d, probe_out, probe_idx, soft=soft)
+    shards = []
+    for sh in batch_sharding(stacked[0].shape[0], mesh):
+        *rows_d, probe_d = to_device_int32([*(a[sh.rows] for a in stacked), probe_idx],
+                                           sh.device)
+        shards.append(window_mask(_window_planes(planes, sh.device), tuple(rows_d),
+                                  probe_d.long()))
+    fused = FusedBatch(batch_idx, encs, packables, uni_types, verify, mesh, shards,
+                       probe_idx, soft=soft)
     FILTER_DEVICE_SECONDS.observe(time.perf_counter() - t0, stage="dispatch")
     return fused
 

@@ -321,12 +321,14 @@ def device_inputs(planes, tables: _Tables, zone_words, ct_allowed, zone_allowed,
 
 def score_fused_window(fused, policy, cost_config, ctx
                        ) -> Optional[Tuple[List[np.ndarray], int]]:
-    """Score every member of a fused batch in one program on the device the
-    window's mask lives on, probe-verified per member. Returns ``(rows,
-    viable cells)``: one pre-encoded (TB,) int32 micro-$ row per member
-    (aligned with ``fused.batch_idx``, gathered to the member's packable
-    order), or None when the policy does not factor into tables (the
-    caller runs the per-cell host loop)."""
+    """Score every member of a fused batch in one program on the first
+    device of the window's mesh, probe-verified per member. Returns
+    ``(rows, viable cells)``: one pre-encoded (TB,) int32 micro-$ row per
+    member (aligned with ``fused.batch_idx``, gathered to the member's
+    packable order), or None when the policy does not factor into tables
+    (the caller runs the per-cell host loop). The rows come back to the
+    host for their verification; the batched run copies each to its
+    shard's device with the shard's other rows (models/ffd.DeviceRun)."""
     global RUNS, MISMATCHES
     planes = planes_for(fused.uni_types)
     if planes is None:
@@ -339,7 +341,7 @@ def score_fused_window(fused, policy, cost_config, ctx
     zone_words, ct_allowed, zone_allowed = _rows_host(planes, fused.verify)
     soft_bz = _soft_rows(planes, fused.soft, ctx)
     inputs = device_inputs(planes, tables, zone_words, ct_allowed, zone_allowed, soft_bz,
-                           fused.mask_d.device)
+                           fused.device)
     best_d, ncells_d = _cells_expr(**inputs)
     best = best_d.cpu().numpy()
     ncells = int(ncells_d)

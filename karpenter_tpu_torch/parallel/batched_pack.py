@@ -1,19 +1,23 @@
-"""Batched packing: many schedules solved in one launch on one card.
+"""Batched packing: many schedules solved in one launch a shard.
 
 The provisioning window yields a batch of independent packing problems (one
 per isomorphic-constraint schedule). The JAX package solves them as the
 Pallas kernel under ``jax.vmap`` within a chip and ``shard_map`` across a
-mesh (karpenter_tpu/parallel/sharded_pack.py). Here there is one device,
-so there is no mesh and no sharding: the batch is the CUDA grid, a
-cluster of CTAs per problem (``ops/pack_cuda.pack_batch``), and its
-output is one (B, 2S+1+2L+L·S) int32 buffer, so a chunk costs one
-device→host copy.
+mesh (karpenter_tpu/parallel/sharded_pack.py). Here the batch is padded to
+a multiple of the solver mesh's size (parallel/mesh.py) and cut into one
+contiguous range of rows a shard; within a shard the rows are the CUDA
+grid, a cluster of CTAs per problem (``ops/pack_cuda.pack_batch``), and
+the shard's output is one (rows, 2S+1+2L+L·S) int32 buffer, so a chunk
+costs one device→host copy a shard. The problems are independent: no
+collective joins the shards.
 
-- :func:`pad_problems` stacks encoded problems into one (S, T) bucket;
+- :func:`pad_problems` stacks encoded problems into one (S, T) bucket and
+  pads the batch to a multiple of the mesh size;
 - :func:`karpenter_tpu_torch.ops.pack_cuda.pack_batch` is the plain flat
   call (the JAX package's ``pack_batch_sharded_flat`` on one device);
 - :func:`pack_batch_ring` is the chunk-resume call of every device solve
-  (models/ffd.DeviceRun), one problem or many: it returns ``(flat,
+  (models/ffd.DeviceRun), one problem or many, one call a shard on the
+  shard's device and its current stream: it returns ``(flat,
   counts_next, dropped_next)``, the next chunk's counts already on the
   device and zeroed dropped rows, so a resume that compacts nothing copies
   nothing from host to device. torch has no buffer donation; the two are
@@ -41,8 +45,9 @@ def pack_batch_ring(shapes, counts, dropped, totals, reserved0, valid,
     package's donating ring call: ``counts_next`` is ``flat[:, :S]`` made
     contiguous on the device and ``dropped_next`` is zeros (the host
     accumulates each chunk's dropped delta from ``flat``). A batch of one,
-    solve()'s, launches through ``pack_chunk``, the one-problem entry: the
-    same kernel and the same row."""
+    solve()'s or a shard's of one row, launches through ``pack_chunk``, the
+    one-problem entry: the same kernel and the same row. The launch runs
+    on the tensors' device and its current stream."""
     if shapes.shape[0] == 1:
         one = lambda t: None if t is None else t[0]  # noqa: E731
         flat = pack_cuda.pack_chunk(
@@ -68,23 +73,27 @@ def unpack_batch_flat(buf: np.ndarray, S: int, L: int):
     return counts_f, dropped_f, done.astype(bool), chosen, q, packed
 
 
-def pad_problems(problems: Sequence):
+def pad_problems(problems: Sequence, mesh_size: int = 1):
     """Stack encoded problems (``ops.encode.EncodedProblem``, padded) into
     numpy batch arrays, every problem padded to the largest S and T bucket
-    of the batch: ``(shapes, counts, dropped, totals, reserved0, valid,
-    last_valid, pods_unit, B)``. Padding rows have count 0 (a no-op) and
-    padding types are not valid."""
+    of the batch and the batch to a multiple of ``mesh_size``: ``(shapes,
+    counts, dropped, totals, reserved0, valid, last_valid, pods_unit, B)``
+    with B the number of real problems. Padding shapes have count 0 (a
+    no-op) and padding types are not valid; a padding problem has count 0
+    everywhere, no valid type and ``pods_unit`` 1 (the JAX package's
+    ``sharded_pack.pad_problems``), which the kernel finishes at once."""
     S = max(p.shapes.shape[0] for p in problems)
     T = max(p.totals.shape[0] for p in problems)
     R = problems[0].shapes.shape[1]
     B = len(problems)
-    shapes = np.zeros((B, S, R), np.int32)
-    counts = np.zeros((B, S), np.int32)
-    totals = np.zeros((B, T, R), np.int32)
-    reserved0 = np.zeros((B, T, R), np.int32)
-    valid = np.zeros((B, T), bool)
-    last_valid = np.zeros((B,), np.int32)
-    pods_unit = np.ones((B,), np.int32)
+    Bpad = -(-B // mesh_size) * mesh_size
+    shapes = np.zeros((Bpad, S, R), np.int32)
+    counts = np.zeros((Bpad, S), np.int32)
+    totals = np.zeros((Bpad, T, R), np.int32)
+    reserved0 = np.zeros((Bpad, T, R), np.int32)
+    valid = np.zeros((Bpad, T), bool)
+    last_valid = np.zeros((Bpad,), np.int32)
+    pods_unit = np.ones((Bpad,), np.int32)
     for b, p in enumerate(problems):
         s, t = p.shapes.shape[0], p.totals.shape[0]
         shapes[b, :s] = p.shapes

@@ -4,10 +4,13 @@ per chunk, split into a dispatch half and a fetch half.
 The scheduler emits one independent packing problem per isomorphic
 constraint group; the reference packs them one after the other. This
 module packs every problem that can join the batch in ONE launch of the
-pack kernel per chunk, a cluster of CTAs per problem
+pack kernel per chunk and shard, a cluster of CTAs per problem
 (parallel/batched_pack.py), with the window's feasibility mask computed on
 the device (ops/device_filter.py) and fed to the kernel as its ``valid``
-input. Each chunk costs one device→host copy. Pods are marshaled through
+input. The batch is padded to a multiple of the solver mesh's size and
+its rows split over the mesh (parallel/mesh.py), as the JAX package shards
+it over every chip; a one-device mesh is one shard of every row. Each
+chunk costs one device→host copy a shard. Pods are marshaled through
 the delta-marshal arena (``adapter.marshal_pods_interned``), packables are
 versioned (``adapter.build_packables_versioned``), and with
 ``SolverConfig.device_donate`` (the default) the batch's tensors come from
@@ -17,10 +20,11 @@ package's host mirrors for its hedged fetch are left out: the port has no
 hedge.
 
 :func:`dispatch_batch` marshals, encodes, computes the mask and enqueues the
-first chunk on the current CUDA stream without synchronising, and returns a
-:class:`BatchHandle`; ``fetch()`` copies each chunk to the host, resumes
-the chunks that outlive ``chunk_iters`` (compacting the shapes of the whole
-batch to a smaller bucket when they allow it) and decodes.
+first chunk of every shard on its device's current CUDA stream without
+synchronising, and returns a :class:`BatchHandle`; ``fetch()`` copies each
+chunk to the host, resumes the chunks that outlive ``chunk_iters``
+(compacting a shard's shapes to a smaller bucket when they allow it),
+gathers the shards' rows in batch order and decodes.
 :func:`solve_batch` is the two back to back. Results are those of solving
 each problem alone, problem for problem.
 
@@ -52,7 +56,6 @@ from typing import List, Mapping, Optional, Sequence
 
 from karpenter_tpu_torch.api.constraints import Constraints
 from karpenter_tpu_torch.api.core import Pod
-from karpenter_tpu_torch.backend import DeviceLike, resolve_device
 from karpenter_tpu_torch.cloudprovider.spi import InstanceType
 from karpenter_tpu_torch.metrics.policy import POLICY_SCORE_SECONDS
 from karpenter_tpu_torch.models.ffd import DeviceRun, _decode
@@ -60,6 +63,7 @@ from karpenter_tpu_torch.obs import slo as obslo
 from karpenter_tpu_torch.obs import trace as obtrace
 from karpenter_tpu_torch.ops import device_filter
 from karpenter_tpu_torch.ops.encode import encode, pad_encoding
+from karpenter_tpu_torch.parallel.mesh import MeshLike, resolve_mesh
 from karpenter_tpu_torch.solver.adapter import (
     build_packables_versioned, marshal_pods_interned,
 )
@@ -86,27 +90,29 @@ class Problem:
 
 
 def solve_batch(problems: Sequence[Problem], config: Optional[SolverConfig] = None,
-                device: DeviceLike = None) -> List[SolveResult]:
-    """Solve each problem on ``device`` (default: the CUDA device; ``"cpu"``
-    runs the plain versions), the eligible ones in one batch."""
+                device: MeshLike = None) -> List[SolveResult]:
+    """Solve each problem over the mesh ``device`` resolves to
+    (parallel/mesh.resolve_mesh; default: the solver mesh of every CUDA
+    device; ``"cpu"`` runs the plain versions on one CPU device, ``["cpu"]
+    * n`` on a virtual mesh of n), the eligible ones in one batch."""
     return dispatch_batch(problems, config, device).fetch()
 
 
 def dispatch_batch(problems: Sequence[Problem], config: Optional[SolverConfig] = None,
-                   device: DeviceLike = None) -> "BatchHandle":
+                   device: MeshLike = None) -> "BatchHandle":
     """Prepare and encode every problem, compute the window's mask and
-    enqueue the first chunk of the batch; on a CUDA device nothing here
-    waits for the device. Problems that cannot join the batch are carried
-    on the handle and solved alone at fetch, so ``dispatch_batch(p).fetch()``
-    is ``solve_batch(p)``."""
+    enqueue the first chunk of every shard of the batch; on CUDA devices
+    nothing here waits for a device. Problems that cannot join the batch
+    are carried on the handle and solved alone at fetch, on the mesh's
+    first device, so ``dispatch_batch(p).fetch()`` is ``solve_batch(p)``."""
     config = config or SolverConfig()
-    dev = resolve_device(device)
+    mesh = resolve_mesh(device)
     with gc_deferred():
-        return _dispatch_batch(problems, config, dev)
+        return _dispatch_batch(problems, config, mesh)
 
 
 def _dispatch_batch(problems: Sequence[Problem], config: SolverConfig,
-                    dev) -> "BatchHandle":
+                    mesh) -> "BatchHandle":
     marshaled = [marshal_pods_interned(prob.pods) for prob in problems]
     # a window of few pods is faster problem by problem on the native ring
     # than in a device launch
@@ -118,7 +124,7 @@ def _dispatch_batch(problems: Sequence[Problem], config: SolverConfig,
     # type axis, and their valid/last_valid rows stay on the device
     fused = None
     if device_gate and config.device_filter:
-        fused = device_filter.prepare_fused(problems, marshaled, dev)
+        fused = device_filter.prepare_fused(problems, marshaled, mesh)
     fused_set = frozenset(fused.batch_idx) if fused is not None else frozenset()
 
     prepared: List[Optional[tuple]] = [None] * len(problems)
@@ -189,11 +195,11 @@ def _dispatch_batch(problems: Sequence[Problem], config: SolverConfig,
                     if any(p is not None for p in prices_list):
                         POLICY_SCORE_SECONDS.observe(
                             time.perf_counter() - t_score, stage="host")
-            mask = (fused.mask_d, fused.last_valid_d) if fused is not None else None
-            run = DeviceRun(encs, prices_list, config.chunk_iters, dev, mask=mask,
+            mask = fused.masks if fused is not None else None
+            run = DeviceRun(encs, prices_list, config.chunk_iters, mesh, mask=mask,
                             donate=config.device_donate)
             run.launch()
-    return BatchHandle(problems, config, dev, prepared, raw_encs, marshaled,
+    return BatchHandle(problems, config, mesh, prepared, raw_encs, marshaled,
                        batch_idx, run, fused if run is not None else None)
 
 
@@ -217,11 +223,13 @@ class BatchHandle:
     device tensors raise ``RuntimeError`` after that (its counts, such as
     ``launches`` and ``buckets``, stay readable)."""
 
-    def __init__(self, problems, config, device, prepared, raw_encs, marshaled,
+    def __init__(self, problems, config, mesh, prepared, raw_encs, marshaled,
                  batch_idx, run, fused):
         self._problems = list(problems)
         self._config = config
-        self._device = device
+        self.mesh = mesh
+        # the solo route's device
+        self._device = mesh[0]
         self._prepared = prepared
         self._raw_encs = raw_encs
         self._marshaled = marshaled

@@ -30,9 +30,10 @@ The planner's declined preemptions feed the JAX package's
 ``karpenter_preemption_declined_total`` (and :data:`DECLINES`, the same
 counts as an attribute); dispatch is the retroactive ``gang-dispatch``
 span and the fetch a ``gang-fetch`` span under the dispatching window's
-context. Left out of the reference: ``GangConfig`` (its
-``device_min_cells`` gate, the watchdog, the breaker), the DeviceRing and
-mesh, and the host-mirror fallback on a device error.
+context. The gangs split over the solver mesh as the JAX package's do
+(parallel/mesh.py). Left out of the reference: ``GangConfig`` (its
+``device_min_cells`` gate, the watchdog, the breaker), the DeviceRing,
+and the host-mirror fallback on a device error.
 """
 
 from __future__ import annotations
@@ -45,13 +46,14 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from karpenter_tpu_torch.backend import DeviceLike, resolve_device, to_device_int32
+from karpenter_tpu_torch.backend import to_device_int32
 from karpenter_tpu_torch.metrics.topology import PREEMPTION_DECLINED_TOTAL
 from karpenter_tpu_torch.obs import trace as obtrace
 from karpenter_tpu_torch.ops.gang import (
     EncodedGang, GangEncoding, host_gang, verify_and_commit_gang)
 from karpenter_tpu_torch.ops.gang_cuda import gang_scan
 from karpenter_tpu_torch.ops.topology import grid_cells, host_carve, scalar_carve
+from karpenter_tpu_torch.parallel.mesh import MeshLike, resolve_mesh, row_sharding
 from karpenter_tpu_torch.pressure.bands import RANK
 from karpenter_tpu_torch.solver import topology as topo_solver
 from karpenter_tpu_torch.solver.host_ffd import NUM_RESOURCES
@@ -70,29 +72,56 @@ def _decline(reason: str) -> None:
 
 
 @dataclass
+class GangShard:
+    """One shard of a gang window: its rows of the padded gangs, its
+    device, the kernel's tensors as launched there (pods, valid, compat
+    with the carve verdict ANDed in, free0), compat before the carve AND,
+    the kernel's (feasible, slots) until fetched, and its CUDA events
+    (before the carve, before the kernel, after it; None on the CPU)."""
+
+    rows: slice
+    device: torch.device
+    inputs: tuple
+    compat0: torch.Tensor
+    out: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+    events: Optional[tuple] = None
+
+
+@dataclass
 class GangHandle:
     """In-flight half of a gang window solve; ``fetch()`` blocks until the
     device has answered and is idempotent."""
 
     enc: GangEncoding
     device: torch.device
-    # the kernel's padded gang tensors as launched: (pods, valid, compat
-    # with the carve verdict ANDed in, free0) on the device; None for a
-    # host answer. Kept past fetch for checks that hold the answer against
+    # the window's shards in gang order; empty for a host answer. Kept
+    # past fetch (their inputs) for checks that hold the answer against
     # the plain version.
-    inputs: Optional[tuple] = None
-    _out: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
-    _compat0: Optional[torch.Tensor] = None  # (GB, BB) compat before the carve AND
-    _carve: Optional[torch.Tensor] = None    # (GB, BB) carve verdict on the device
-    _events: Optional[tuple] = None
+    shards: List[GangShard] = field(default_factory=list)
+    _carve: Optional[torch.Tensor] = None    # (GB, BB) carve verdict on the first device
     _result: Optional[Tuple[np.ndarray, np.ndarray, str]] = None
-    # CUDA-event ms of the carve program and of the kernel launch, once
-    # fetched (None on the CPU or for a host answer)
+    # CUDA-event ms of the carve program and of the kernel launch (the
+    # longest over the shards), once fetched (None on the CPU or for a
+    # host answer)
     carve_ms: Optional[float] = None
     kernel_ms: Optional[float] = None
     healed: bool = False
     # the dispatching window's span context, re-entered at fetch
     _trace_ctx: Optional[object] = None
+
+    @property
+    def inputs(self) -> Optional[tuple]:
+        """The kernel's padded gang tensors as launched (pods, valid,
+        compat with the carve verdict ANDed in, free0): a one-shard
+        window's own, a sharded window's gathered on its first device in
+        gang order; None for a host answer."""
+        if not self.shards:
+            return None
+        if len(self.shards) == 1:
+            return self.shards[0].inputs
+        dev = self.device
+        rows = [torch.cat([sh.inputs[i].to(dev) for sh in self.shards]) for i in range(3)]
+        return (*rows, self.shards[0].inputs[3].to(dev))
 
     def fetch(self) -> Tuple[np.ndarray, np.ndarray, str]:
         """(feasible (G,), slots (G, K) bin index or -1, executor)."""
@@ -105,7 +134,7 @@ class GangHandle:
 
     def _fetch(self) -> Tuple[np.ndarray, np.ndarray, str]:
         enc = self.enc
-        if self._out is None:
+        if not self.shards:
             carve_ok = host_carve(enc.carve) if enc.carve is not None else None
             feas, slots = host_gang(enc, carve_ok)
             executor = "host-gang"
@@ -116,72 +145,91 @@ class GangHandle:
                 values = self._carve[idx[:, 0], idx[:, 1]].cpu().numpy()
                 if not topo_solver.probes_hold(enc, pairs, values):
                     self._relaunch(scalar_carve(enc))
-            f, s = self._out
-            feas = f.cpu().numpy()[:enc.g]
-            slots = s.cpu().numpy()[:enc.g, :max(enc.k, 1)]
-            if self._events is not None:
-                start, mid, end = self._events
+            # one device→host copy of each output a shard, gathered in
+            # gang order
+            feas = np.concatenate([sh.out[0].cpu().numpy() for sh in self.shards])[:enc.g]
+            slots = np.concatenate([sh.out[1].cpu().numpy() for sh in self.shards]
+                                   )[:enc.g, :max(enc.k, 1)]
+            if self.shards[0].events is not None:
+                start, mid, _ = self.shards[0].events
                 self.carve_ms = start.elapsed_time(mid) if self._carve is not None else None
-                self.kernel_ms = mid.elapsed_time(end)
+                self.kernel_ms = max(m.elapsed_time(e) for _, m, e in
+                                     (sh.events for sh in self.shards))
             executor = "device-gang"
-            self._out = self._compat0 = self._carve = self._events = None
+            self._carve = None
+            for sh in self.shards:
+                sh.out = sh.events = None
         record_executor(executor, count=max(enc.g, 1))
         return feas, slots, executor
 
     def _relaunch(self, trusted: np.ndarray) -> None:
         """A failed probe condemned the carve verdict: launch the kernel
-        again on compat AND the scalar verdict (padded rows and bins
-        unchanged)."""
+        again on every shard, on compat AND the scalar verdict (padded
+        rows and bins unchanged)."""
         self.healed = True
-        pods, valid, _, free0 = self.inputs
-        padded = np.ones(tuple(self._compat0.shape), bool)
+        GB = sum(sh.compat0.shape[0] for sh in self.shards)
+        padded = np.ones((GB, self.shards[0].compat0.shape[1]), bool)
         padded[:trusted.shape[0], :trusted.shape[1]] = trusted
-        carve, = to_device_int32([padded], self.device)
-        self.inputs = (pods, valid, self._compat0 & (carve != 0), free0)
-        self._out = gang_scan(*self.inputs)
-        self._events = None
+        for sh in self.shards:
+            pods, valid, _, free0 = sh.inputs
+            carve, = to_device_int32([padded[sh.rows]], sh.device)
+            sh.inputs = (pods, valid, sh.compat0 & (carve != 0), free0)
+            sh.out = gang_scan(*sh.inputs)
+            sh.events = None
 
 
-def dispatch_gang_window(enc: GangEncoding, device: DeviceLike = None) -> GangHandle:
-    """Copy the window to ``device`` (default: the CUDA device; raises
-    without one; ``"cpu"`` runs the plain versions) and launch without
-    waiting. A window the encoding could not give the device is answered by
-    ``host_gang`` at fetch."""
-    dev = resolve_device(device)
-    handle = GangHandle(enc=enc, device=dev, _trace_ctx=obtrace.current_context())
+def dispatch_gang_window(enc: GangEncoding, device: MeshLike = None) -> GangHandle:
+    """Launch the window over the mesh ``device`` resolves to
+    (parallel/mesh.resolve_mesh; default: the solver mesh of every CUDA
+    device; raises without one; ``"cpu"`` runs the plain versions) without
+    waiting: the gangs split into one range a shard when their padded
+    count divides by the mesh size, else all on the mesh's first device,
+    ``free0`` copied to each shard's device. The carve program runs once,
+    on the first shard's device (the JAX package replicates it), and each
+    shard ANDs its rows of the verdict into its compat. Each shard's
+    launch and its events run on its device's current stream. A window the
+    encoding could not give the device is answered by ``host_gang`` at
+    fetch."""
+    mesh = resolve_mesh(device)
+    handle = GangHandle(enc=enc, device=mesh[0], _trace_ctx=obtrace.current_context())
     if not enc.device_ready:
         return handle
     t0 = time.perf_counter()
     cv = enc.carve
-    arrays = [enc.d_pods, enc.d_valid, enc.d_compat, enc.d_free0]
-    if cv is not None:
-        arrays += topo_solver.carve_arrays(cv)
-    tensors = to_device_int32(arrays, dev)
-    pods, valid, compat0, free0 = tensors[:4]
-    valid, compat0 = valid != 0, compat0 != 0
-    handle._compat0 = compat0
-    events = None
-    if dev.type == "cuda":
-        events = tuple(torch.cuda.Event(enable_timing=True) for _ in range(3))
-        events[0].record()
-    compat = compat0
-    if cv is not None:
-        # the carve verdict feeds the first fit in the same stream: the
-        # scan only ever sees carve-feasible bins
-        handle._carve = topo_solver.carve_program(*tensors[4:])
-        compat = compat0 & handle._carve
-    if events is not None:
-        events[1].record()
-    handle.inputs = (pods, valid, compat, free0)
-    handle._out = gang_scan(*handle.inputs)
-    if events is not None:
-        events[2].record()
-        handle._events = events
+    for sh in row_sharding(enc.d_pods.shape[0], mesh):
+        dev = sh.device
+        arrays = [enc.d_pods[sh.rows], enc.d_valid[sh.rows], enc.d_compat[sh.rows],
+                  enc.d_free0]
+        if cv is not None and sh.index == 0:
+            # the first shard's rows and the carve arrays in one copy
+            arrays += topo_solver.carve_arrays(cv)
+        tensors = to_device_int32(arrays, dev)
+        pods, valid, compat0, free0 = tensors[:4]
+        valid, compat0 = valid != 0, compat0 != 0
+        events = None
+        if dev.type == "cuda":
+            stream = torch.cuda.current_stream(dev)
+            events = tuple(torch.cuda.Event(enable_timing=True) for _ in range(3))
+            events[0].record(stream)
+        compat = compat0
+        if cv is not None:
+            if sh.index == 0:
+                # the carve verdict feeds the first fit in the same stream:
+                # the scan only ever sees carve-feasible bins
+                handle._carve = topo_solver.carve_program(*tensors[4:])
+            compat = compat0 & handle._carve[sh.rows].to(dev)
+        if events is not None:
+            events[1].record(stream)
+        inputs = (pods, valid, compat, free0)
+        out = gang_scan(*inputs)
+        if events is not None:
+            events[2].record(stream)
+        handle.shards.append(GangShard(sh.rows, dev, inputs, compat0, out, events))
     obtrace.add_span("gang-dispatch", t0, time.perf_counter(), gangs=enc.g)
     return handle
 
 
-def solve_gang_window(enc: GangEncoding, device: DeviceLike = None
+def solve_gang_window(enc: GangEncoding, device: MeshLike = None
                       ) -> Tuple[np.ndarray, np.ndarray, str]:
     """dispatch + fetch in one call."""
     return dispatch_gang_window(enc, device).fetch()

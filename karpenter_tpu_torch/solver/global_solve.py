@@ -11,11 +11,15 @@ jointly as one batched projected-gradient program on the device
    rounded plan is not strictly cheaper in exact int micro-$, the caller
    keeps its FFD result object untouched.
 
-:func:`dispatch_global_window` encodes the window, copies its float32
-inputs to the device in one host→device copy, enqueues the program on the
-current stream and records an event; ``GlobalHandle.fetch()`` waits on the
-event, copies the node counts back once and rounds every schedule on the
-host (:func:`_round_window`). The device answer is only a filter: every
+:func:`dispatch_global_window` encodes the window and, for each shard of
+the solver mesh (the rows split over it when their count divides by the
+mesh size, parallel/mesh.row_sharding), copies the shard's float32 inputs
+to its device in one host→device copy, enqueues the program on that
+device's current stream and records an event; ``GlobalHandle.fetch()``
+waits on each shard's event, copies its node counts back once, gathers
+the rows and rounds every schedule on the host (:func:`_round_window`).
+The rows are independent, so a shard's answer is the one-device run's
+rows to the bit. The device answer is only a filter: every
 accepted plan is re-verified on host nano ints
 (ops/global_solve.verify_plan). A device error raises out of dispatch or
 fetch; no path answers the window another way.
@@ -51,7 +55,7 @@ from typing import List, Optional, Sequence
 import numpy as np
 import torch
 
-from karpenter_tpu_torch.backend import DeviceLike, resolve_device, to_device_float32
+from karpenter_tpu_torch.backend import to_device_float32
 from karpenter_tpu_torch.metrics.global_solve import (
     GLOBAL_FALLBACK_TOTAL, GLOBAL_ITERATIONS, GLOBAL_SOLVE_SECONDS, GLOBAL_SUPPORT_THRESHOLD,
     GLOBAL_USED_TOTAL, GLOBAL_WIDENED_ACCEPT_TOTAL, GLOBAL_WINDOWS_TOTAL,
@@ -61,6 +65,7 @@ from karpenter_tpu_torch.ops.global_solve import (
     SUPPORT, GlobalWindowEncoding, encode_window, plan_cost_micro, support_positions,
     verify_plan, widened_support_positions,
 )
+from karpenter_tpu_torch.parallel.mesh import MeshLike, resolve_mesh, row_sharding
 from karpenter_tpu_torch.solver import host_ffd
 from karpenter_tpu_torch.solver.solve import (
     SolveResult, SolverConfig, materialize, record_executor,
@@ -103,13 +108,18 @@ def used_resources(win: GlobalWindowEncoding) -> np.ndarray:
     return np.flatnonzero(win.d_shapes.any(axis=(0, 1)) | (win.d_caps < 0).any(axis=(0, 1)))
 
 
-def program_inputs(win: GlobalWindowEncoding, device: torch.device) -> List[torch.Tensor]:
-    """A window's program inputs on ``device`` in one host→device copy:
-    (shapes, counts, caps, prices, tmask, n0, types per row), shapes and
-    caps cut to :func:`used_resources`."""
+def program_arrays(win: GlobalWindowEncoding) -> List[np.ndarray]:
+    """A window's program inputs on the host, each leading with the row
+    axis: (shapes, counts, caps, prices, tmask, n0, types per row), shapes
+    and caps cut to :func:`used_resources`."""
     used = used_resources(win)
-    return to_device_float32([win.d_shapes[:, :, used], win.d_counts, win.d_caps[:, :, used],
-                              win.d_prices, win.d_tmask, win.d_n0, win.d_types], device)
+    return [win.d_shapes[:, :, used], win.d_counts, win.d_caps[:, :, used],
+            win.d_prices, win.d_tmask, win.d_n0, win.d_types]
+
+
+def program_inputs(win: GlobalWindowEncoding, device: torch.device) -> List[torch.Tensor]:
+    """:func:`program_arrays` on ``device`` in one host→device copy."""
+    return to_device_float32(program_arrays(win), device)
 
 
 def run_program(inputs: Sequence[torch.Tensor], tb: int) -> torch.Tensor:
@@ -204,9 +214,9 @@ class GlobalHandle:
     def __init__(self, win: GlobalWindowEncoding, solver_config: SolverConfig, t0: float):
         self.win = win
         self.solver_config = solver_config
-        self.n_device: Optional[torch.Tensor] = None   # (B, TB) node counts
-        self.start_event = None                        # CUDA events around the program
-        self.event = None
+        # per shard of the mesh, in row order: its (rows, TB) node counts
+        # and the CUDA events around its program (None on the CPU)
+        self.shards: List[list] = []
         self.encode_seconds = 0.0
         self.dispatch_seconds = 0.0                    # encode + copy + enqueue
         self.fetch_seconds = 0.0                       # wait + copy back
@@ -220,10 +230,10 @@ class GlobalHandle:
     @property
     def program_ms(self) -> Optional[float]:
         """The program's device time (CUDA events: warm start and steps),
-        once fetched; None on the CPU."""
-        if self._result is None or self.start_event is None:
+        the longest over the shards, once fetched; None on the CPU."""
+        if self._result is None or not self.shards or self.shards[0][1] is None:
             return None
-        return self.start_event.elapsed_time(self.event)
+        return max(start.elapsed_time(end) for _, start, end in self.shards)
 
     def fetch(self) -> GlobalPlan:
         if self._result is not None:
@@ -242,10 +252,14 @@ class GlobalHandle:
     def _fetch(self) -> GlobalPlan:
         t0 = time.perf_counter()
         n_rows, executor = None, "none"
-        if self.n_device is not None:
-            if self.event is not None:
-                self.event.synchronize()
-            n_rows = self.n_device.cpu().numpy()
+        if self.shards:
+            # one device→host copy a shard, gathered in row order
+            parts = []
+            for n_d, _, end in self.shards:
+                if end is not None:
+                    end.synchronize()
+                parts.append(n_d.cpu().numpy())
+            n_rows = np.concatenate(parts)
             executor = "device-global"
         t1 = time.perf_counter()
         plan = _round_window(self.win, n_rows, self.solver_config, executor)
@@ -332,12 +346,17 @@ def _round_window(win: GlobalWindowEncoding, n_rows: Optional[np.ndarray],
 
 
 def dispatch_global_window(problems: Sequence, solver_config: Optional[SolverConfig] = None,
-                           device: DeviceLike = None) -> GlobalHandle:
-    """Encode the window, copy its inputs to ``device`` (default: the CUDA
-    device; ``"cpu"`` runs the program on the CPU) in one copy, and enqueue
-    the program; on a CUDA device nothing here waits for the device."""
+                           device: MeshLike = None) -> GlobalHandle:
+    """Encode the window and enqueue the program over the mesh ``device``
+    resolves to (parallel/mesh.resolve_mesh; default: the solver mesh of
+    every CUDA device; ``"cpu"`` runs the program on the CPU): the rows
+    split into one range a shard when their count divides by the mesh
+    size, else every row on the mesh's first device (the JAX package's
+    ``batch_sharding if b % n == 0 else replicated``). Each shard's inputs
+    go to its device in one copy and its program runs on that device's
+    current stream; on CUDA devices nothing here waits for a device."""
     solver_config = solver_config or SolverConfig()
-    dev = resolve_device(device)
+    mesh = resolve_mesh(device)
     t0 = time.perf_counter()
     GLOBAL_WINDOWS_TOTAL.inc()
     GLOBAL_ITERATIONS.set(float(ITERS))
@@ -345,22 +364,27 @@ def dispatch_global_window(problems: Sequence, solver_config: Optional[SolverCon
     handle = GlobalHandle(win, solver_config, t0)
     handle.encode_seconds = time.perf_counter() - t0
     if win.device_ready:
-        cuda = dev.type == "cuda"
-        with torch.cuda.device(dev) if cuda else nullcontext():
-            inputs = program_inputs(win, dev)
-            if cuda:
-                handle.start_event = torch.cuda.Event(enable_timing=True)
-                handle.event = torch.cuda.Event(enable_timing=True)
-                handle.start_event.record()
-            handle.n_device = run_program(inputs, win.tb)
-            if cuda:
-                handle.event.record()
+        host = program_arrays(win)
+        for sh in row_sharding(win.b, mesh):
+            dev = sh.device
+            cuda = dev.type == "cuda"
+            with torch.cuda.device(dev) if cuda else nullcontext():
+                inputs = to_device_float32([a[sh.rows] for a in host], dev)
+                start = end = None
+                if cuda:
+                    start = torch.cuda.Event(enable_timing=True)
+                    end = torch.cuda.Event(enable_timing=True)
+                    start.record(torch.cuda.current_stream(dev))
+                n_d = run_program(inputs, win.tb)
+                if cuda:
+                    end.record(torch.cuda.current_stream(dev))
+            handle.shards.append([n_d, start, end])
     handle.dispatch_seconds = time.perf_counter() - t0
     obtrace.add_span("global-dispatch", t0, time.perf_counter(), schedules=len(win.scheds))
     return handle
 
 
 def solve_window_global(problems: Sequence, solver_config: Optional[SolverConfig] = None,
-                        device: DeviceLike = None) -> GlobalPlan:
+                        device: MeshLike = None) -> GlobalPlan:
     """dispatch + fetch in one call."""
     return dispatch_global_window(problems, solver_config, device).fetch()

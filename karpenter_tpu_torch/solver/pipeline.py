@@ -75,11 +75,13 @@ log = logging.getLogger("karpenter.solver.pipeline")
 
 class _RingSlot:
     """One set of named device-resident batch tensors (one in-flight chunk's
-    working set). ``arrays`` is mutated by :meth:`DeviceRing.fill` (refill /
-    allocate) and :meth:`DeviceRing.hand_back` (the kernel's resume tensors
-    handed to the slot). On a CUDA device every refill copies from the
-    slot's pinned ``staging`` tensor of that name, and ``events`` marks when
-    that copy has left the staging tensor."""
+    working set), a tensor a shard of the solver mesh: shard k > 0 of a
+    window fills its own names (``counts@k``) on its own device.
+    ``arrays`` is mutated by :meth:`DeviceRing.fill` (refill / allocate)
+    and :meth:`DeviceRing.hand_back` (the kernel's resume tensors handed
+    to the slot). On a CUDA device every refill copies from the slot's
+    pinned ``staging`` tensor of that name, and ``events`` marks when that
+    copy has left the staging tensor."""
 
     __slots__ = ("sig", "arrays", "tokens", "in_use", "last_used", "staging", "events")
 
@@ -168,6 +170,8 @@ class DeviceRing:
         host = np.ascontiguousarray(host_array)
         src = torch.from_numpy(host)
         if device.type == "cuda" and device.index is None:
+            # a bare "cuda" is the caller's current card; a shard of the
+            # solver mesh always names its own (parallel/mesh.py)
             device = torch.device("cuda", torch.cuda.current_device())
         old = slot.arrays.get(name)
         reusable = (old is not None and tuple(old.shape) == host.shape
@@ -198,9 +202,10 @@ class DeviceRing:
     @staticmethod
     def _copy(slot: _RingSlot, name: str, dst: torch.Tensor, src: torch.Tensor) -> None:
         """Host bytes into ``dst``. On a CUDA device: through the slot's
-        pinned staging tensor, asynchronously on the current stream. The
-        staging tensor is written only after the copy out of it that the
-        last fill enqueued has finished (its event)."""
+        pinned staging tensor, asynchronously on ``dst``'s device's current
+        stream, whichever device is current. The staging tensor is written
+        only after the copy out of it that the last fill enqueued has
+        finished (its event, recorded on that same stream)."""
         if dst.device.type != "cuda":
             dst.copy_(src)
             return
@@ -213,9 +218,10 @@ class DeviceRing:
             if event is not None:
                 event.synchronize()
         staging.copy_(src)
-        dst.copy_(staging, non_blocking=True)
-        event = torch.cuda.Event()
-        event.record()
+        with torch.cuda.device(dst.device):
+            dst.copy_(staging, non_blocking=True)
+            event = torch.cuda.Event()
+            event.record(torch.cuda.current_stream(dst.device))
         slot.events[name] = event
 
     def hand_back(self, slot: _RingSlot, **arrays) -> None:
@@ -260,9 +266,9 @@ def reset_ring() -> None:
 
 def observe_device_bytes() -> int:
     """Refresh the ``solver_device_bytes_in_use`` gauge with the bytes the
-    caching allocator holds in tensors, summed over the solver mesh (every
-    CUDA device, ``parallel/mesh.device_bytes_in_use``), 0 without a card;
-    returns it."""
+    caching allocator holds in tensors, summed over the distinct devices of
+    the solver mesh (``parallel/mesh.device_bytes_in_use``), 0 without a
+    card; returns it."""
     from karpenter_tpu_torch.parallel.mesh import device_bytes_in_use
 
     total = sum(device_bytes_in_use().values())

@@ -42,11 +42,12 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
-from karpenter_tpu_torch.backend import DeviceLike, resolve_device, to_device_int32
+from karpenter_tpu_torch.backend import to_device_int32
 from karpenter_tpu_torch.metrics.filter import FILTER_FALLBACK_TOTAL
 from karpenter_tpu_torch.obs import trace as obtrace
 from karpenter_tpu_torch.ops.topology import (
     CarveEncoding, host_carve, scalar_carve, scalar_carve_cell)
+from karpenter_tpu_torch.parallel.mesh import MeshLike, resolve_mesh
 from karpenter_tpu_torch.solver.solve import record_executor
 
 _ENV = "KARPENTER_TOPOLOGY_CARVE"
@@ -184,21 +185,23 @@ class CarveHandle:
         return verdict, executor
 
 
-def dispatch_carve_window(enc, device: DeviceLike = None) -> CarveHandle:
-    """Copy the window's carve arrays to ``device`` (default: the CUDA
-    device; ``"cpu"`` runs the same torch ops on the CPU) in one copy and
-    run the program without waiting for it."""
+def dispatch_carve_window(enc, device: MeshLike = None) -> CarveHandle:
+    """Copy the window's carve arrays to the first device of the mesh
+    ``device`` resolves to (parallel/mesh.resolve_mesh; default: the
+    solver mesh of every CUDA device; ``"cpu"`` runs the same torch ops on
+    the CPU) in one copy and run the program there without waiting for it:
+    the JAX package replicates the program, so one device answers."""
     cv = enc.carve
     if cv is None:
         raise ValueError("gang window carries no carve encoding")
     handle = CarveHandle(enc=enc, cv=cv, _trace_ctx=obtrace.current_context())
     if cv.device_ready:
         t0 = time.perf_counter()
-        handle._out = carve_program(*to_device_int32(carve_arrays(cv), resolve_device(device)))
+        handle._out = carve_program(*to_device_int32(carve_arrays(cv), resolve_mesh(device)[0]))
         obtrace.add_span("carve-dispatch", t0, time.perf_counter(), gangs=cv.g)
     return handle
 
 
-def solve_carve_window(enc, device: DeviceLike = None) -> Tuple[np.ndarray, str]:
+def solve_carve_window(enc, device: MeshLike = None) -> Tuple[np.ndarray, str]:
     """dispatch + fetch in one call."""
     return dispatch_carve_window(enc, device).fetch()

@@ -12,11 +12,13 @@ config/options.py:
   building: the port's counterpart of JAX's persistent compilation cache.
 - :func:`warmup_pass` (``--solver-warmup``) builds and loads the four
   libraries, then walks the (shape bucket × type bucket) ladder with a
-  throwaway one-pod problem per bucket, through the entries the serving
-  path launches: ``pack_chunk`` with ``compute_maxfit`` (the solo solve),
-  ``pack_batch`` (a batched window) and, with ``include_ring``, a solo
-  ``models.ffd.DeviceRun`` whose ``DeviceRing`` slot stays resident, so a
-  first solve at that bucket refills it instead of allocating.
+  throwaway one-pod problem per bucket, on every distinct device of the
+  solver mesh, through the entries the serving path launches:
+  ``pack_chunk`` with ``compute_maxfit`` (the solo solve, and a shard of
+  one row), ``pack_batch`` at B = the mesh size (at least 2: a batched
+  window) and, with ``include_ring``, a solo ``models.ffd.DeviceRun``
+  whose ``DeviceRing`` slot stays resident, so a first solve at that
+  bucket refills it instead of allocating.
 
 The ladder defaults to the buckets real windows land in first (shapes ≤
 ``DEFAULT_WARM_MAX_SHAPES``, types ≤ ``DEFAULT_WARM_MAX_TYPES``), shape
@@ -44,7 +46,7 @@ import numpy as np
 import torch
 
 from karpenter_tpu_torch import build_dir
-from karpenter_tpu_torch.backend import DeviceLike, resolve_device
+from karpenter_tpu_torch.parallel.mesh import MeshLike
 from karpenter_tpu_torch.solver.solve import SolverConfig
 
 log = logging.getLogger("karpenter.solver.warmup")
@@ -133,43 +135,50 @@ def warmup_pass(config: Optional[SolverConfig] = None,
                 shape_buckets: Optional[Sequence[int]] = None,
                 type_buckets: Optional[Sequence[int]] = None,
                 include_ring: bool = True,
-                device: DeviceLike = None) -> int:
-    """Build and load the libraries, then drive the ladder on ``device``
-    (default: the CUDA device); returns the number of (bucket pair × entry)
-    runs. Raises on the first failure."""
+                device: MeshLike = None) -> int:
+    """Build and load the libraries, then drive the ladder on every
+    distinct device of the mesh ``device`` resolves to (default: the
+    solver mesh of every CUDA device); returns the number of (bucket pair
+    × entry) runs, each entry counted once whatever the number of devices
+    (as the JAX package counts its sharded entries). Raises on the first
+    failure."""
     from karpenter_tpu_torch.models.ffd import DeviceRun
     from karpenter_tpu_torch.ops import pack_cuda
     from karpenter_tpu_torch.ops.pack import compute_maxfit
+    from karpenter_tpu_torch.parallel.mesh import distinct, resolve_mesh
 
     config = config or SolverConfig()
-    dev = resolve_device(device)
+    mesh = resolve_mesh(device)
     t0 = time.perf_counter()
-    build_libraries(dev)
+    build_libraries(mesh[0])
     default_shapes, default_types = default_ladder()
     shape_buckets = default_shapes if shape_buckets is None else shape_buckets
     type_buckets = default_types if type_buckets is None else type_buckets
     L = config.chunk_iters
+    # the batched pack at B = mesh size, and at least the two problems of
+    # the smallest window that joins a batch
+    B = max(2, len(mesh))
     runs = 0
     for S in shape_buckets:
         for T in type_buckets:
             enc = synthetic_encoding(S, T)
-            shapes, counts, totals, reserved0 = (
-                torch.from_numpy(a).to(dev) for a in
-                (enc.shapes, enc.counts, enc.totals, enc.reserved0))
-            valid = torch.from_numpy(enc.valid).to(dev)
-            dropped = torch.zeros_like(counts)
-            maxfit = compute_maxfit(shapes, totals, reserved0, valid)
-            pack_cuda.pack_chunk(shapes, counts, dropped, totals, reserved0, valid,
-                                 0, 1, L, maxfit=maxfit).cpu()
-            # two problems: the smallest window that joins a batch
-            two = lambda t: t[None].expand(2, *t.shape).contiguous()  # noqa: E731
-            ones = torch.ones(2, dtype=torch.int32, device=dev)
-            pack_cuda.pack_batch(two(shapes), two(counts), two(dropped), two(totals),
-                                 two(reserved0), two(valid), ones - 1, ones, L).cpu()
-            runs += 2
-            if include_ring:
-                DeviceRun([enc], [None], L, dev, donate=True, solo=True).finish()
-                runs += 1
-    log.info("solver warmup: %d runs over %d×%d buckets in %.3fs", runs,
-             len(shape_buckets), len(type_buckets), time.perf_counter() - t0)
+            for dev in distinct(mesh):
+                shapes, counts, totals, reserved0 = (
+                    torch.from_numpy(a).to(dev) for a in
+                    (enc.shapes, enc.counts, enc.totals, enc.reserved0))
+                valid = torch.from_numpy(enc.valid).to(dev)
+                dropped = torch.zeros_like(counts)
+                maxfit = compute_maxfit(shapes, totals, reserved0, valid)
+                pack_cuda.pack_chunk(shapes, counts, dropped, totals, reserved0, valid,
+                                     0, 1, L, maxfit=maxfit).cpu()
+                many = lambda t: t[None].expand(B, *t.shape).contiguous()  # noqa: E731
+                ones = torch.ones(B, dtype=torch.int32, device=dev)
+                pack_cuda.pack_batch(many(shapes), many(counts), many(dropped), many(totals),
+                                     many(reserved0), many(valid), ones - 1, ones, L).cpu()
+                if include_ring:
+                    DeviceRun([enc], [None], L, dev, donate=True, solo=True).finish()
+            runs += 2 + include_ring
+    log.info("solver warmup: %d runs over %d×%d buckets on %d devices in %.3fs", runs,
+             len(shape_buckets), len(type_buckets), len(distinct(mesh)),
+             time.perf_counter() - t0)
     return runs

@@ -3,10 +3,11 @@
 A copy of the JAX package's ``solver/whatif.py`` on the port's kernel. A
 non-blocking dispatch half copies the window's padded tensors to the device
 in one host→device copy and launches ``ops/whatif_cuda.whatif_scan`` (one
-thread block per candidate); a fetch half reads the answer back and
-translates the receiver-pruned bin positions to bin indices. A window of
-candidates therefore costs ONE launch instead of N incremental host
-re-packs.
+thread block per candidate), one copy and one launch a shard of the
+solver mesh when the candidates split over it (parallel/mesh.py); a fetch
+half reads the answer back and translates the receiver-pruned bin
+positions to bin indices. A window of candidates therefore costs ONE
+launch a shard instead of N incremental host re-packs.
 
 The device answer is a *filter*, never an authority: plan selection
 (``plan_window``) walks the feasible candidates in savings order and
@@ -22,7 +23,7 @@ receive): the exact host mirror ``host_whatif`` answers it, with executor
 ``dispatch`` span and the fetch a ``fetch`` span under the dispatching
 window's context, as in the JAX package. Left out of the reference: the
 ``use_device`` and ``device_min_cells`` gates, the watchdog and breaker, the
-DeviceRing, the mesh and the host-mirror fallbacks on a device error.
+DeviceRing and the host-mirror fallbacks on a device error.
 """
 
 from __future__ import annotations
@@ -34,11 +35,11 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from karpenter_tpu_torch.backend import DeviceLike, resolve_device
 from karpenter_tpu_torch.obs import trace as obtrace
 from karpenter_tpu_torch.ops.whatif import (
     WhatIfEncoding, host_whatif, verify_and_commit)
 from karpenter_tpu_torch.ops.whatif_cuda import whatif_scan
+from karpenter_tpu_torch.parallel.mesh import MeshLike, resolve_mesh, row_sharding
 from karpenter_tpu_torch.solver.solve import record_executor
 
 
@@ -49,8 +50,9 @@ class WhatIfHandle:
 
     enc: WhatIfEncoding
     device: torch.device
-    _out: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
-    _events: Optional[Tuple[torch.cuda.Event, torch.cuda.Event]] = None
+    # per shard of the mesh, in candidate order: the kernel's (feasible,
+    # slots) and the CUDA events around its launch (None on the CPU)
+    _shards: List[tuple] = field(default_factory=list)
     _result: Optional[Tuple[np.ndarray, np.ndarray, str]] = None
     dispatch_seconds: float = 0.0
     # the kernel's CUDA-event time, once fetched (None on the CPU or when
@@ -70,33 +72,39 @@ class WhatIfHandle:
 
     def _fetch(self) -> Tuple[np.ndarray, np.ndarray, str]:
         enc = self.enc
-        if self._out is None:
+        if not self._shards:
             feas, slots = host_whatif(enc)
             executor = "host-whatif"
         else:
-            f, s = self._out
-            feas = f.cpu().numpy()[:enc.n]
-            slots = s.cpu().numpy()[:enc.n, :max(enc.k, 1)]
-            if self._events is not None:
-                self.kernel_ms = self._events[0].elapsed_time(self._events[1])
+            # one device→host copy of each output a shard, gathered in
+            # candidate order
+            feas = np.concatenate([f.cpu().numpy() for (f, _), _ in self._shards])[:enc.n]
+            slots = np.concatenate([s.cpu().numpy() for (_, s), _ in self._shards]
+                                   )[:enc.n, :max(enc.k, 1)]
+            if self._shards[0][1] is not None:
+                self.kernel_ms = max(start.elapsed_time(end)
+                                     for _, (start, end) in self._shards)
             # device bins are receiver-pruned positions; translate back to
             # bin indices (the host contract)
             kept = np.asarray(enc.kept, dtype=np.int32)
             slots = np.where(slots >= 0, kept[np.clip(slots, 0, len(kept) - 1)],
                              np.int32(-1)).astype(np.int32)
             executor = "device-whatif"
-            self._out = self._events = None
+            self._shards = []
         record_executor(executor, count=max(enc.n, 1))
         return feas, slots, executor
 
 
-def _to_device(enc: WhatIfEncoding, device: torch.device) -> List[torch.Tensor]:
-    """The window's five tensors on ``device`` in one host→device copy: the
-    int32 arrays, then the bool ones, laid end to end in one byte buffer
-    (every int32 part is a whole number of words, so its view is aligned)."""
+def _to_device(enc: WhatIfEncoding, device: torch.device,
+               rows: slice = slice(None)) -> List[torch.Tensor]:
+    """The window's five tensors on ``device`` in one host→device copy, the
+    candidate arrays cut to ``rows`` (``free0`` whole): the int32 arrays,
+    then the bool ones, laid end to end in one byte buffer (every int32
+    part is a whole number of words, so its view is aligned)."""
     ints = [np.ascontiguousarray(a, dtype=np.int32)
-            for a in (enc.d_pods, enc.d_free0, enc.d_cand_bin)]
-    bools = [np.ascontiguousarray(a, dtype=np.bool_) for a in (enc.d_valid, enc.d_compat)]
+            for a in (enc.d_pods[rows], enc.d_free0, enc.d_cand_bin[rows])]
+    bools = [np.ascontiguousarray(a, dtype=np.bool_)
+             for a in (enc.d_valid[rows], enc.d_compat[rows])]
     flat = torch.from_numpy(np.concatenate(
         [a.view(np.uint8).ravel() for a in ints] + [a.view(np.uint8).ravel() for a in bools]))
     flat = flat.to(device)
@@ -111,32 +119,40 @@ def _to_device(enc: WhatIfEncoding, device: torch.device) -> List[torch.Tensor]:
     return [pods, valid, compat, free0, cand_bin]
 
 
-def dispatch_window(enc: WhatIfEncoding, device: DeviceLike = None) -> WhatIfHandle:
-    """Copy the window to ``device`` (default: the CUDA device; raises
-    without one; ``"cpu"`` runs the plain version) and launch the scan
-    without waiting for it. A window the encoding could not give the device
-    is answered by ``host_whatif`` at fetch."""
-    dev = resolve_device(device)
-    handle = WhatIfHandle(enc=enc, device=dev, _trace_ctx=obtrace.current_context())
+def dispatch_window(enc: WhatIfEncoding, device: MeshLike = None) -> WhatIfHandle:
+    """Launch the scan over the mesh ``device`` resolves to
+    (parallel/mesh.resolve_mesh; default: the solver mesh of every CUDA
+    device; raises without one; ``"cpu"`` runs the plain version) without
+    waiting for it: the candidates split into one range a shard when
+    their padded count divides by the mesh size, else all on the mesh's
+    first device, ``free0`` copied to each shard's device. Each shard's
+    launch and its events run on its device's current stream. A window
+    the encoding could not give the device is answered by
+    ``host_whatif`` at fetch."""
+    mesh = resolve_mesh(device)
+    handle = WhatIfHandle(enc=enc, device=mesh[0], _trace_ctx=obtrace.current_context())
     if not enc.device_ready:
         return handle
     t0 = time.perf_counter()
-    tensors = _to_device(enc, dev)
-    if dev.type == "cuda":
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        handle._out = whatif_scan(*tensors)
-        end.record()
-        handle._events = (start, end)
-    else:
-        handle._out = whatif_scan(*tensors)
+    for sh in row_sharding(enc.d_pods.shape[0], mesh):
+        dev = sh.device
+        tensors = _to_device(enc, dev, sh.rows)
+        if dev.type == "cuda":
+            stream = torch.cuda.current_stream(dev)
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record(stream)
+            out = whatif_scan(*tensors)
+            end.record(stream)
+            handle._shards.append((out, (start, end)))
+        else:
+            handle._shards.append((whatif_scan(*tensors), None))
     handle.dispatch_seconds = time.perf_counter() - t0
     obtrace.add_span("dispatch", t0, time.perf_counter(), candidates=enc.n)
     return handle
 
 
-def solve_window(enc: WhatIfEncoding, device: DeviceLike = None
+def solve_window(enc: WhatIfEncoding, device: MeshLike = None
                  ) -> Tuple[np.ndarray, np.ndarray, str]:
     """dispatch + fetch in one call."""
     return dispatch_window(enc, device).fetch()

@@ -247,7 +247,8 @@ def test_fused_mask_reaches_the_kernel_as_valid():
     handle = batch_solve.dispatch_batch(probs, port_solve_mod.SolverConfig(device_min_pods=0),
                                         device="cpu")
     run = handle.device_run
-    assert run.valid_d is handle.fused.mask_d and run.last_valid_d is handle.fused.last_valid_d
+    (mask_d, last_valid_d), = handle.fused.masks  # one device: one shard
+    assert run.valid_d is mask_d and run.last_valid_d is last_valid_d
     assert run.valid_d.shape == (4, 32) and run.launches == 1
     lv = run.last_valid_d.numpy()
     mask = run.valid_d.numpy()

@@ -557,7 +557,7 @@ def test_copy_error_raises_out_of_every_fetch():
 
     _, pprobs = both_windows("random", 7)
     handle = port_gs.dispatch_global_window(pprobs, device="cpu")
-    handle.n_device = Lost()
+    handle.shards[0][0] = Lost()  # the node counts of the one shard
     with pytest.raises(RuntimeError, match="injected"):
         handle.fetch()
     with pytest.raises(RuntimeError, match="earlier fetch"):
