@@ -8562,7 +8562,9 @@ def phase_type_spmd(device):
       version's time once; the launches, decisions and done reads a solve,
       and the kernels and copies a chunk takes on each mesh (profiler);
     - with two or more cards, the mesh over every card, bit for bit with
-      the 1-device mesh; on one card, recorded as not run."""
+      the 1-device mesh; on one card, recorded as not run;
+    - the route through solve() and a window's lone problem
+      (:func:`type_spmd_route`, the ``route`` leg)."""
     import numpy as np
     import torch
 
@@ -8672,8 +8674,143 @@ def phase_type_spmd(device):
            "profile_mesh1": prof1 and {**prof1, "per_decision": {
                k: prof1[k] / solves["mesh1"]["decisions"]
                for k in ("kernels", "copies_and_sets")}},
-           "real_mesh": real}
+           "real_mesh": real, "route": type_spmd_route(device)}
     emit(rec)
+    return rec
+
+
+# the route leg: config_8's generator at the three largest type buckets
+TYPE_SPMD_ROUTE_TYPES = {1024: 1_000, 2048: 2_000, 4096: 4_000}
+TYPE_SPMD_ROUTE_SHARDS = 4      # the virtual mesh's shards on one card
+TYPE_SPMD_ROUTE_RUNS = 5        # timed solve() calls of each route, in turns
+
+
+def type_spmd_route(device):
+    """The type-SPMD route through the public entry points (the ``route``
+    leg of the type_spmd phase):
+
+    a. the kernel is the config's: at the 2,048 bucket the default config
+       over the virtual mesh of 4 and device_kernel="type-spmd" over a
+       virtual mesh of 3 (which does not divide the bucket) both answer
+       "device" through the pack kernel, shard_candidate never launched,
+       node sets equal to the pack kernel's on [card];
+    b. public solve() with device_kernel="type-spmd" on config_8 (2,000
+       types) and on config_8's generator at 4,000 types (the 4,096
+       bucket), over [card] and a virtual mesh of 4, between counts set to
+       0 and read: shard_candidate launched, answered "device-type-spmd",
+       node sets equal to the default route's (the pack kernel) and the
+       native ring's, pod for pod;
+    c. a solve_batch window of config_8's one problem over the virtual mesh
+       with device_kernel="type-spmd": the lone problem through the route,
+       equal to the default config's window;
+    d. the wall medians of solve() by the default route and by the route
+       over [card], the virtual mesh and, with several cards, the mesh of
+       every card, in turns, at the three buckets (each call's node count
+       held to the default's)."""
+    import torch
+
+    from karpenter_tpu_torch.cloudprovider.fake.provider import instance_types
+    from karpenter_tpu_torch.ops import pack_cuda, type_shard_cuda
+    from karpenter_tpu_torch.ops.encode import TYPE_BUCKETS, bucket
+    from karpenter_tpu_torch.parallel.mesh import solver_mesh
+    from karpenter_tpu_torch.solver.batch_solve import Problem, solve_batch
+    from karpenter_tpu_torch.solver.solve import SolverConfig, solve, universe_constraints
+
+    t0 = time.perf_counter()
+    cards = torch.cuda.device_count()
+    every = solver_mesh()
+    pods = make_pods(50_000, MIXED_SHAPES)
+    problems = {}
+    for b, n_types in TYPE_SPMD_ROUTE_TYPES.items():
+        catalog = instance_types(n_types)
+        check(bucket(n_types, TYPE_BUCKETS) == b, f"type_spmd route: {n_types} types")
+        problems[b] = (universe_constraints(catalog), catalog)
+    spmd = SolverConfig(device_kernel="type-spmd")
+    meshes = {"mesh1": [device], f"virtual{TYPE_SPMD_ROUTE_SHARDS}":
+              [device] * TYPE_SPMD_ROUTE_SHARDS}
+
+    constraints, catalog = problems[2048]
+    want = canonical(solve(constraints, pods, catalog, device=device), pods)
+    kernel = {}
+    for name, mesh, cfg in (
+            (f"default@virtual{TYPE_SPMD_ROUTE_SHARDS}",
+             [device] * TYPE_SPMD_ROUTE_SHARDS, SolverConfig()),
+            ("type-spmd@virtual3", [device] * 3, spmd)):
+        reset_counts()
+        got = solve(constraints, pods, catalog, device=mesh, config=cfg)
+        torch.cuda.synchronize()
+        row = kernel[name] = {"executors": executor_counts(), "pack": pack_cuda.LAUNCHES,
+                              "shard_candidate": type_shard_cuda.LAUNCHES}
+        check(row["executors"] == {"device": 1} and row["pack"] > 0
+              and row["shard_candidate"] == 0,
+              f"type_spmd route: 2048 bucket, {name}: not the pack kernel ({row})")
+        check(canonical(got, pods) == want,
+              f"type_spmd route: 2048 bucket, {name}: nodes {got.node_count} != the "
+              f"pack kernel's {want[0]} on [card]")
+
+    parity = {}
+    for b in (2048, 4096):
+        constraints, catalog = problems[b]
+        reset_counts()
+        want = canonical(solve(constraints, pods, catalog, device=device), pods)
+        check(executor_counts() == {"device": 1},
+              f"type_spmd route: {b} bucket, the default route answered by {executor_counts()}")
+        native = canonical(solve(constraints, pods, catalog, device=device,
+                                 config=ring_config()), pods)
+        check(native == want, f"type_spmd route: {b} bucket, the pack kernel != the native ring")
+        row = {"node_count": want[0]}
+        for name, mesh in meshes.items():
+            reset_counts()
+            got = solve(constraints, pods, catalog, device=mesh, config=spmd)
+            torch.cuda.synchronize()
+            launches = type_shard_cuda.LAUNCHES
+            check(launches > 0, f"type_spmd route: {b} bucket, {name}: shard_candidate "
+                                "was never launched")
+            check(executor_counts() == {"device-type-spmd": 1},
+                  f"type_spmd route: {b} bucket, {name}: answered by {executor_counts()}")
+            check(pack_cuda.LAUNCHES == 0, f"type_spmd route: {b} bucket, {name}: "
+                                           "the pack kernel launched")
+            check(canonical(got, pods) == want,
+                  f"type_spmd route: {b} bucket, {name}: nodes {got.node_count} != the "
+                  f"default route's and the native ring's {want[0]}")
+            row[f"{name}_launches"] = launches
+        parity[b] = row
+
+    constraints, catalog = problems[2048]
+    window = [Problem(constraints=constraints, pods=pods, instance_types=catalog)]
+    vmesh = meshes[f"virtual{TYPE_SPMD_ROUTE_SHARDS}"]
+    want = solve_batch(window, SolverConfig(), device=vmesh)
+    reset_counts()
+    got = solve_batch(window, spmd, device=vmesh)
+    torch.cuda.synchronize()
+    window_rec = {"launches": type_shard_cuda.LAUNCHES, "executors": executor_counts()}
+    check(window_rec["launches"] > 0 and window_rec["executors"] == {"device-type-spmd": 1},
+          f"type_spmd route: the window's lone problem was not routed ({window_rec})")
+    check(canonical(got[0], pods) == canonical(want[0], pods),
+          "type_spmd route: the routed window != the default config's window")
+
+    timed = {"default": (device, SolverConfig()),
+             **{name: (mesh, spmd) for name, mesh in meshes.items()}}
+    if cards > 1:
+        timed[f"cards{cards}"] = (list(every), spmd)
+    times = {}
+    for b, (constraints, catalog) in problems.items():
+        nodes = solve(constraints, pods, catalog, device=device).node_count
+        walls = {name: [] for name in timed}
+        for _ in range(TYPE_SPMD_ROUTE_RUNS + 1):   # the first of each is warm-up
+            for name, (mesh, cfg) in timed.items():
+                start = time.perf_counter()
+                got = solve(constraints, pods, catalog, device=mesh, config=cfg)
+                torch.cuda.synchronize()
+                walls[name].append((time.perf_counter() - start) * 1000.0)
+                check(got.node_count == nodes, f"type_spmd route: {b} bucket, {name}: "
+                                               f"nodes {got.node_count} != {nodes}")
+        times[b] = {name: {"p50_ms": p50(w[1:]), "ms": w[1:]} for name, w in walls.items()}
+        times[b]["node_count"] = nodes
+    rec = {"leg": "route", "cards": cards, "kernel": kernel, "parity": parity,
+           "window": window_rec, "solve_ms": times,
+           "seconds": time.perf_counter() - t0}
+    emit({"phase": "type_spmd", **rec})
     return rec
 
 

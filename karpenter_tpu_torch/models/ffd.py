@@ -63,7 +63,7 @@ def solve_ffd_device(
     enc: Optional[EncodedProblem] = None,  # precomputed (possibly unpadded)
     device: DeviceLike = None,
     donate: bool = True,
-    mesh=None,  # parallel/mesh.type_mesh: the type-axis SPMD route
+    mesh=None,  # a solver mesh (parallel/mesh.py): the type-axis SPMD route
 ) -> Optional[HostSolveResult]:
     """Solve on ``device`` (default: the CUDA device; raises without one);
     None only when the problem is not encodable, before anything reaches
@@ -97,7 +97,9 @@ def solve_ffd_device(
     if routes_type_spmd(enc, mesh):
         records, dropped = solve_type_sharded(
             enc, prices if cost_tiebreak else None, chunk_iters, mesh)
-        return _decode(enc, records, dropped, packables)
+        result = _decode(enc, records, dropped, packables)
+        result.type_spmd = True
+        return result
     run = DeviceRun([enc], [prices if cost_tiebreak else None], chunk_iters, dev,
                     donate=donate, solo=True)
     records, dropped = run.finish()

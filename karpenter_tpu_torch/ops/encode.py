@@ -23,6 +23,7 @@ as attributes.
 
 from __future__ import annotations
 
+import itertools
 import logging
 import math
 import os
@@ -127,7 +128,10 @@ def _dedupe_interned(sids: np.ndarray, gen: int, pod_ids: Sequence[int]):
 # whenever (a) the adapter's shape intern table rebinds (cached sids would
 # dangle), (b) the feasibility vocab rebinds, or (c) the row capacity
 # overflows. A bump voids every cached per-pod row at once (the mismatch
-# makes them misses), so a stale row is never gathered.
+# makes them misses), so a stale row is never gathered. Generations come
+# from one process-wide counter (:func:`_next_generation`), so a fresh
+# arena starts past every generation an earlier arena handed out: a row
+# cached under a dropped arena never matches the arena that replaced it.
 
 
 def _arena_max_from_env() -> int:
@@ -150,7 +154,7 @@ class MarshalArena:
 
     def __init__(self, cap: Optional[int] = None):
         self.cap = cap if cap is not None else _arena_max_from_env()
-        self.generation = 0
+        self.generation = _next_generation()
         self._lock = threading.Lock()
         size = max(min(4096, self.cap), 1)
         self._sids = np.empty(size, np.int64)
@@ -168,7 +172,7 @@ class MarshalArena:
         self.evictions += self._n
         self._rows.clear()
         self._n = 0
-        self.generation += 1
+        self.generation = _next_generation()
         self._adapter_gen = adapter_gen
         self._vocab_gen = vocab_gen
 
@@ -244,6 +248,14 @@ class MarshalArena:
 
 _ARENA: Optional[MarshalArena] = None
 _ARENA_LOCK = threading.Lock()
+# arena generations, unique across every arena of the process
+_GENERATIONS = itertools.count(1)
+_GENERATION_LOCK = threading.Lock()
+
+
+def _next_generation() -> int:
+    with _GENERATION_LOCK:
+        return next(_GENERATIONS)
 
 
 def marshal_arena() -> MarshalArena:
@@ -257,7 +269,9 @@ def marshal_arena() -> MarshalArena:
 
 
 def reset_marshal_arena() -> None:
-    """Drop the process arena (a fresh arena counts from zero)."""
+    """Drop the process arena. The next arena's generations start past
+    every generation this one handed out, so every pod row cached under it
+    misses."""
     global _ARENA
     with _ARENA_LOCK:
         _ARENA = None

@@ -24,7 +24,8 @@ whether its devices are distinct or not.
   :func:`resolve_mesh` maps an entry point's ``device`` argument onto a
   mesh.
 - **The type mesh** (:func:`type_mesh`, axis ``AXIS``): the type-axis SPMD
-  chunk (parallel/type_sharded.py) splits one problem's types over it.
+  chunk (parallel/type_sharded.py) splits one problem's types over it. It
+  is a solver mesh: ``solve()`` hands its own mesh to the route.
 """
 
 from __future__ import annotations
@@ -142,18 +143,8 @@ def replicated(tensor: torch.Tensor, mesh: Mesh) -> Dict[torch.device, torch.Ten
     return {d: tensor if tensor.device == d else tensor.to(d) for d in distinct(mesh)}
 
 
-def type_mesh(devices: Optional[Sequence[Union[str, torch.device]]] = None) -> Mesh:
-    """The mesh over ``devices`` in order (repeats allowed), or over every
-    CUDA device; raises ``RuntimeError`` when there is none and none were
-    named."""
-    if devices is None:
-        if not torch.cuda.is_available():
-            raise _no_card("type_mesh")
-        devices = [f"cuda:{i}" for i in range(torch.cuda.device_count())]
-    mesh = tuple(torch.device(d) for d in devices)
-    if not mesh:
-        raise ValueError("type_mesh: a mesh needs at least one device")
-    return mesh
+# the type-axis SPMD route's mesh is a solver mesh, under its old name
+type_mesh = solver_mesh
 
 
 def device_count() -> int:

@@ -50,6 +50,7 @@ whichever thread it runs.
 
 from __future__ import annotations
 
+import logging
 import time
 from dataclasses import dataclass
 from typing import List, Mapping, Optional, Sequence
@@ -71,10 +72,13 @@ from karpenter_tpu_torch.ops import policy as ops_policy
 from karpenter_tpu_torch.solver import policy as policy_registry
 from karpenter_tpu_torch.solver.policy import soft_zone_adjust, soft_zone_votes
 from karpenter_tpu_torch.solver.solve import (
-    SolveResult, SolverConfig, materialize, record_executor, solve_with_packables,
+    SolveResult, SolverConfig, check_device_kernel, materialize, record_executor,
+    solve_with_packables,
 )
 from karpenter_tpu_torch.utils.gcguard import gc_deferred
 from karpenter_tpu_torch.utils.profiling import trace
+
+log = logging.getLogger("karpenter.solver.batch")
 
 
 @dataclass
@@ -103,9 +107,18 @@ def dispatch_batch(problems: Sequence[Problem], config: Optional[SolverConfig] =
     """Prepare and encode every problem, compute the window's mask and
     enqueue the first chunk of every shard of the batch; on CUDA devices
     nothing here waits for a device. Problems that cannot join the batch
-    are carried on the handle and solved alone at fetch, on the mesh's
-    first device, so ``dispatch_batch(p).fetch()`` is ``solve_batch(p)``."""
+    are carried on the handle and solved alone at fetch over the mesh, as
+    a solo ``solve()`` would be (the pack kernel on the mesh's first
+    device, or the type-SPMD route), so ``dispatch_batch(p).fetch()`` is
+    ``solve_batch(p)``. The batch itself always runs the pack kernel:
+    ``device_kernel="type-spmd"`` applies to solo solves, and says so in
+    the log."""
     config = config or SolverConfig()
+    check_device_kernel(config)
+    if config.device_kernel == "type-spmd":
+        # the batch already fills the mesh on its batch axis
+        log.info("device_kernel='type-spmd' applies to solo solves; batched "
+                 "schedules use the pack kernel")
     mesh = resolve_mesh(device)
     with gc_deferred():
         return _dispatch_batch(problems, config, mesh)
@@ -227,9 +240,8 @@ class BatchHandle:
                  batch_idx, run, fused):
         self._problems = list(problems)
         self._config = config
+        # the batch's mesh; a problem solved alone at fetch is solved over it
         self.mesh = mesh
-        # the solo route's device
-        self._device = mesh[0]
         self._prepared = prepared
         self._raw_encs = raw_encs
         self._marshaled = marshaled
@@ -301,6 +313,6 @@ class BatchHandle:
             packables, sorted_types, vecs, sids, cat_version = prepared[i]
             results[i] = solve_with_packables(
                 prob.constraints, prob.pods, packables, sorted_types, vecs, config,
-                device=self._device, enc=self._raw_encs[i], sids=sids,
+                device=self.mesh, enc=self._raw_encs[i], sids=sids,
                 catalog_version=cat_version)
         return results

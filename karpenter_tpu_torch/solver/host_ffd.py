@@ -30,7 +30,7 @@ Quirks preserved (with reference cites):
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import List, Optional, Sequence, Tuple
 
 # Fixed resource vector layout. EXOTIC is a synthetic dimension: 1 if the pod
@@ -124,6 +124,8 @@ class HostPacking:
 class HostSolveResult:
     packings: List[HostPacking]
     unschedulable: List[int]  # pod ids that fit no instance type
+    # solved by the type-axis SPMD route (models/ffd.solve_ffd_device)
+    type_spmd: bool = field(default=False, compare=False)
 
     @property
     def node_count(self) -> int:

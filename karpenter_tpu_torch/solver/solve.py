@@ -1,9 +1,10 @@
 """Public solver entry: constraints + pods + catalog → node packings.
 
 A problem of ``SolverConfig.device_min_pods`` pods or more goes to the
-device path (models/ffd.py, the CUDA pack kernel); a smaller one goes to
-the native host ring (solver/native_ffd.py, native/ffd.cc), as in the JAX
-package, where a device round trip costs more than the solve. A problem
+device path (models/ffd.py: the CUDA pack kernel, or, with
+``SolverConfig.device_kernel="type-spmd"``, the type-axis SPMD route over
+the mesh, B12); a smaller one goes to the native host ring (solver/native_ffd.py, native/ffd.cc), as in the JAX package,
+where a device round trip costs more than the solve. A problem
 past the largest shape bucket goes to the ring too; one with no exact
 encoding (exotic quantities), or that overflows the ring's record buffer,
 goes to the host oracle (host_ffd.py). The ring is never a failure
@@ -22,12 +23,13 @@ from karpenter_tpu_torch.api import wellknown
 from karpenter_tpu_torch.api.constraints import Constraints
 from karpenter_tpu_torch.api.core import NodeSelectorRequirement, Pod
 from karpenter_tpu_torch.api.requirements import Requirements
-from karpenter_tpu_torch.backend import DeviceLike, resolve_device
+from karpenter_tpu_torch.backend import resolve_device  # noqa: F401  (kept on this module's surface)
 from karpenter_tpu_torch.cloudprovider.spi import InstanceType
 from karpenter_tpu_torch.metrics.policy import POLICY_SPOT_SELECTED_TOTAL
 from karpenter_tpu_torch.models.cost import CostConfig
 from karpenter_tpu_torch.models.ffd import solve_ffd_device
 from karpenter_tpu_torch.ops.encode import encode
+from karpenter_tpu_torch.parallel.mesh import MeshLike, resolve_mesh
 from karpenter_tpu_torch.solver import host_ffd
 from karpenter_tpu_torch.solver.adapter import (
     build_packables_versioned, marshal_pods_interned,
@@ -40,7 +42,8 @@ from karpenter_tpu_torch.utils.profiling import trace
 
 # -- solver health: which executor answered, and how often -------------------
 _HEALTH_LOCK = threading.Lock()
-_LAST_EXECUTOR: Optional[str] = None   # "device" | "device-batch" | "native" | "host"
+# "device" | "device-type-spmd" | "device-batch" | "native" | "host"
+_LAST_EXECUTOR: Optional[str] = None
 _EXECUTOR_COUNTS: Dict[str, int] = {}
 
 
@@ -105,6 +108,26 @@ class SolverConfig:
     # device batch only when its problems hold this many pods together
     # (0 sends everything to the device)
     device_min_pods: int = 512
+    # a solo solve's device kernel: None is the hand pack kernel
+    # (csrc/pack.cu); "type-spmd" splits the problem's type axis over the
+    # mesh (parallel/type_sharded.py, csrc/type_shard.cu), or takes the
+    # pack kernel where the mesh's size does not divide the type bucket.
+    # Any other name raises ValueError; a batched window runs the pack
+    # kernel and logs that "type-spmd" applies to solo solves. Nothing
+    # picks the route on its own: it lost to one H100's pack kernel at
+    # every type bucket measured (PERF.md, B12 row)
+    device_kernel: Optional[str] = None
+
+
+DEVICE_KERNELS = (None, "type-spmd")
+
+
+def check_device_kernel(config: SolverConfig) -> None:
+    """Raise ``ValueError`` unless ``config.device_kernel`` is one the port
+    has (the JAX package's TPU names ``"xla"`` and ``"pallas"`` are not)."""
+    if config.device_kernel not in DEVICE_KERNELS:
+        raise ValueError(f"unknown device kernel {config.device_kernel!r}: "
+                         "expected None or 'type-spmd'")
 
 
 @dataclass
@@ -160,13 +183,15 @@ def solve(
     instance_types: Sequence[InstanceType],
     daemons: Sequence[Pod] = (),
     config: Optional[SolverConfig] = None,
-    device: DeviceLike = None,
+    device: MeshLike = None,
 ) -> SolveResult:
-    """Pods + catalog → node set, on ``device`` (default: the CUDA device;
-    raises ``RuntimeError`` without one; ``"cpu"`` runs the plain
-    versions)."""
+    """Pods + catalog → node set, over the mesh ``device`` resolves to
+    (parallel/mesh.resolve_mesh; default: the solver mesh of every CUDA
+    device, and raises ``RuntimeError`` without one; ``"cpu"`` runs the
+    plain versions on one CPU device, ``["cpu"] * n`` on a virtual mesh).
+    The pack kernel runs on the mesh's first device; the type-SPMD route
+    (``config.device_kernel``) over the whole mesh."""
     config = config or SolverConfig()
-    dev = resolve_device(device)
     # collection deferred across the public path: a generational collection
     # landing mid-solve adds to the tail (utils/gcguard.py)
     with gc_deferred():
@@ -174,7 +199,7 @@ def solve(
         packables, sorted_types, catalog_version = build_packables_versioned(
             instance_types, constraints, pods, daemons, required=required)
         return solve_with_packables(constraints, pods, packables, sorted_types,
-                                    pod_vecs, config, device=dev, sids=sids,
+                                    pod_vecs, config, device=device, sids=sids,
                                     catalog_version=catalog_version)
 
 
@@ -185,7 +210,7 @@ def solve_with_packables(
     sorted_types,
     pod_vecs,
     config: SolverConfig,
-    device: DeviceLike = None,
+    device: MeshLike = None,
     enc=None,
     sids=None,
     catalog_version: Optional[int] = None,
@@ -195,7 +220,10 @@ def solve_with_packables(
     ``sids`` (``adapter.marshal_pods_interned``) and ``catalog_version``
     (``adapter.build_packables_versioned``) go to the encoder: the
     vectorized dedupe and the versioned catalog arrays, whose token lets
-    the device ring skip their copy."""
+    the device ring skip their copy. ``device`` is resolved as in
+    :func:`solve`; the kernel is ``config.device_kernel``."""
+    check_device_kernel(config)
+    mesh = resolve_mesh(device)
     if not packables:
         # same contract as host_ffd.pack: no viable types → every pod is
         # reported unschedulable
@@ -223,12 +251,15 @@ def solve_with_packables(
     result = None
     executor = None
     if enc is not None and len(pods) >= config.device_min_pods:
+        # the type-SPMD route runs over the whole mesh, off the ring
+        type_mesh = mesh if config.device_kernel == "type-spmd" else None
         with trace("karpenter.solve.device"):
             result = solve_ffd_device(
                 pod_vecs, pod_ids, packables, chunk_iters=config.chunk_iters,
                 prices=prices, cost_tiebreak=prices is not None, enc=enc,
-                device=device, donate=config.device_donate)
-        executor = "device"
+                device=mesh[0], donate=config.device_donate, mesh=type_mesh)
+        executor = ("device-type-spmd" if result is not None and result.type_spmd
+                    else "device")
     if result is None and enc is not None:
         # under the gate, or past the device's largest shape bucket
         result = solve_ffd_native_auto(pod_vecs, pod_ids, packables, prices=prices,

@@ -40,6 +40,7 @@ from karpenter_tpu_torch.ops import encode as enc_mod
 from karpenter_tpu_torch.ops import feasibility
 from karpenter_tpu_torch.solver import adapter
 from karpenter_tpu_torch.solver import batch_solve
+from karpenter_tpu_torch.solver import host_ffd
 from karpenter_tpu_torch.solver import pipeline
 from karpenter_tpu_torch.solver import solve as solve_mod
 from tests.test_torch_solve import canonical
@@ -308,6 +309,37 @@ class TestChaos:
         oracle = [adapter.pod_vector(p) for p in pods]
         assert list(vecs) == oracle and hits["n"] == 2
         assert adapter.interned_vecs_snapshot(sids[0], sids[1]) == oracle
+
+    def test_rows_of_a_dropped_arena_never_hit(self):
+        """Three windows with the arena dropped between them: the first
+        pods, twelve pods of two other shapes, the first pod objects
+        again. Their rows were minted in a dropped arena, so the third
+        window re-marshals them: the interned ids read back their own
+        vectors, and the solve equals a cold solve of fresh pods and the
+        host oracle's node count (2; a row read as a hit gives 1)."""
+        cat = port_fake.instance_types(20)
+        cons = PORT.universe(cat)
+
+        def first_pods():
+            return [PORT.pod(4000, 4096) for _ in range(6)] + \
+                [PORT.pod(2000, 1024) for _ in range(6)]
+
+        pods = first_pods()
+        assert PORT.solve(cons, pods, cat).node_count == 2
+        enc_mod.reset_marshal_arena()
+        PORT.solve(cons, [PORT.pod(100, 64) for _ in range(6)] +
+                   [PORT.pod(250, 128) for _ in range(6)], cat)
+        enc_mod.reset_marshal_arena()
+        vecs, _, sids = adapter.marshal_pods_interned(pods)
+        oracle = [adapter.pod_vector(p) for p in pods]
+        assert list(vecs) == oracle
+        assert adapter.interned_vecs_snapshot(sids[0], sids[1]) == oracle
+        got = PORT.solve(cons, pods, cat)
+        fresh = first_pods()
+        assert canonical(got, pods) == canonical(PORT.solve(cons, fresh, cat), fresh)
+        packables, _ = adapter.build_packables(cat, cons, pods, [])
+        want = host_ffd.pack(oracle, list(range(len(pods))), packables)
+        assert got.node_count == want.node_count == 2
 
     @pytest.mark.parametrize("seed", SEEDS)
     def test_threaded_marshal_with_concurrent_resets(self, seed):
